@@ -1,0 +1,283 @@
+"""CLIP dual encoder (counterpart of `clip_event_tpu/models/clip.py`, ViT
+towers; the ResNet towers are not ported yet).
+
+The functional core mirrors the JAX package: `encode_image(params, cfg,
+images)`, `encode_text`, `forward`, on a nested dict of tensors with the
+JAX pytree's names and layouts. `VisionTower`, `TextTower` and `CLIP` are
+`nn.Module`s holding those tensors as registered parameters and calling the
+same functions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from clip_event_tpu_torch.data.transform import CLIP_MEAN, CLIP_STD
+from clip_event_tpu_torch.models import layers as L
+from clip_event_tpu_torch.models.vit import init_vit, vit_encode
+from clip_event_tpu_torch.platform import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    embed_dim: int
+    image_resolution: int
+    vision_layers: Union[int, Tuple[int, int, int, int]]
+    vision_width: int
+    vision_patch_size: Optional[int]
+    context_length: int
+    vocab_size: int
+    transformer_width: int
+    transformer_heads: int
+    transformer_layers: int
+
+    @property
+    def is_vit(self) -> bool:
+        return isinstance(self.vision_layers, int)
+
+    @property
+    def vision_heads(self) -> int:
+        if self.is_vit:
+            return self.vision_width // 64
+        return self.vision_width * 32 // 64
+
+    @property
+    def grid_size(self) -> int:
+        if not self.is_vit:
+            raise ValueError("grid_size is defined for the ViT tower only")
+        return self.image_resolution // self.vision_patch_size
+
+
+VIT_B32 = CLIPConfig(512, 224, 12, 768, 32, 77, 49408, 512, 8, 12)
+VIT_B16 = CLIPConfig(512, 224, 12, 768, 16, 77, 49408, 512, 8, 12)
+VIT_L14 = CLIPConfig(768, 224, 24, 1024, 14, 77, 49408, 768, 12, 12)
+
+TEXT_KEYS = (
+    "token_embedding", "positional_embedding", "text_transformer", "ln_final",
+    "text_projection",
+)
+
+
+def _require_vit(cfg: CLIPConfig) -> None:
+    if not cfg.is_vit:
+        raise NotImplementedError("the ResNet towers are not ported yet")
+
+
+def tree_to(tree: dict, device=None, dtype=None) -> dict:
+    """Move (and optionally cast) every tensor of a nested param dict."""
+    return {
+        k: tree_to(v, device, dtype) if isinstance(v, dict) else v.to(device=device, dtype=dtype)
+        for k, v in tree.items()
+    }
+
+
+def init_params(gen: torch.Generator, cfg: CLIPConfig, device="cuda") -> dict:
+    """Random init following the JAX package's scheme (reference
+    `model_clip.py:348-375`), drawn on the CPU from `gen`, then moved to
+    `device`. The numbers differ from JAX's for the same seed."""
+    _require_vit(cfg)
+    dev = resolve_device(device)
+    W, E = cfg.transformer_width, cfg.embed_dim
+    params = {
+        "visual": init_vit(
+            gen, cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
+            cfg.vision_layers, E,
+        ),
+        "token_embedding": 0.02 * torch.randn((cfg.vocab_size, W), generator=gen),
+        "positional_embedding": 0.01 * torch.randn((cfg.context_length, W), generator=gen),
+        "text_transformer": L.init_transformer(gen, cfg.transformer_layers, W),
+        "ln_final": L.init_layer_norm(W),
+        "text_projection": W**-0.5 * torch.randn((W, E), generator=gen),
+        "logit_scale": torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32),
+    }
+    return tree_to(params, dev)
+
+
+def cast_params(params: dict, dtype=torch.bfloat16) -> dict:
+    """Cast the matmul weights to `dtype`, keeping the LayerNorm/BatchNorm
+    params and logit_scale in float32 (reference `convert_weights`, with
+    bf16 instead of fp16)."""
+
+    def cast(tree, in_norm):
+        out = {}
+        for k, v in tree.items():
+            norm = in_norm or k.startswith("ln") or k.startswith("bn")
+            if isinstance(v, dict):
+                out[k] = cast(v, norm)
+            elif norm or k == "logit_scale" or "mean" in k or "var" in k:
+                out[k] = v
+            else:
+                out[k] = v.to(dtype)
+        return out
+
+    return cast(params, False)
+
+
+def encode_image(
+    params: dict,
+    cfg: CLIPConfig,
+    images: torch.Tensor,
+    use_grid: bool = False,
+    compute_dtype=torch.float32,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """[B, H, W, 3] → [B, E], or [B, grid²+1, E] when use_grid.
+
+    uint8 inputs are CLIP-normalized on the device, `(x/255 - mean)/std` in
+    fp32, the exact ops of `data.transform.normalize`."""
+    _require_vit(cfg)
+    if images.dtype == torch.uint8:
+        mean = torch.as_tensor(CLIP_MEAN, device=images.device)
+        std = torch.as_tensor(CLIP_STD, device=images.device)
+        images = (images.float() / 255.0 - mean) / std
+    return vit_encode(
+        params["visual"], images, cfg.vision_patch_size, cfg.vision_heads,
+        use_grid=use_grid, compute_dtype=compute_dtype, impl=impl,
+    )
+
+
+def encode_text(
+    params: dict,
+    cfg: CLIPConfig,
+    tokens: torch.Tensor,
+    compute_dtype=torch.float32,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """[B, S] int tokens → [B, E]; EOT pooling via argmax token id.
+
+    S may be any width up to cfg.context_length: the text tower is causal
+    and the padding after EOT is zeros, so a caption that fits in S pools
+    to the same feature as in the full 77-token layout."""
+    tokens = tokens.long()
+    seq = tokens.shape[-1]
+    x = params["token_embedding"][tokens].to(compute_dtype)
+    x = x + params["positional_embedding"][:seq].to(compute_dtype)
+    bias = L.causal_mask(seq, device=x.device)
+    x = L.transformer(x, params["text_transformer"], cfg.transformer_heads, bias, impl)
+    x = L.layer_norm(x, params["ln_final"])
+    eot_idx = tokens.argmax(dim=-1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx]
+    return L.linear(pooled, params["text_projection"])
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + eps)
+
+
+def contrastive_logits(
+    params: dict,
+    image_features: torch.Tensor,
+    text_features: torch.Tensor,
+    overbatch: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scaled cosine-sim logits from normalized features, in fp32 (the JAX
+    dots ask for fp32 results)."""
+    scale = params["logit_scale"].exp().to(image_features.dtype).float()
+    img, txt = image_features.float(), text_features.float()
+    logits_per_text = scale * (txt @ img.T)
+    if overbatch:
+        logits_per_image = scale * (img @ txt.T)
+    else:
+        per_inst = txt.reshape(img.shape[0], -1, txt.shape[-1])
+        logits_per_image = scale * torch.einsum("be,bde->bd", img, per_inst)
+    return logits_per_image, logits_per_text
+
+
+def forward(
+    params: dict,
+    cfg: CLIPConfig,
+    images: torch.Tensor,
+    tokens: torch.Tensor,
+    overbatch: bool = True,
+    compute_dtype=torch.float32,
+    impl: str = "kernel",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contrastive logits (reference `CLIP.forward`).
+
+    images: [B, H, W, 3]; tokens: [B*D, context] (D descriptions per image).
+    Returns (logits_per_image, logits_per_text):
+      overbatch:  [B, B*D] and [B*D, B]
+      instance:   [B, D]   and [B*D, B]
+    """
+    image_features = l2_normalize(
+        encode_image(params, cfg, images, compute_dtype=compute_dtype, impl=impl)
+    )
+    text_features = l2_normalize(
+        encode_text(params, cfg, tokens, compute_dtype=compute_dtype, impl=impl)
+    )
+    return contrastive_logits(params, image_features, text_features, overbatch)
+
+
+# ------------------------------------------------------------------ modules
+
+
+class _ParamTree(nn.Module):
+    """A nested param dict held as frozen registered parameters whose names
+    mirror the JAX pytree (`visual.transformer.attn.qkv_w`, ...)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> dict:
+        out = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        return out
+
+
+class VisionTower(_ParamTree):
+    def __init__(self, cfg: CLIPConfig, tree: dict):
+        super().__init__(tree)
+        self.cfg = cfg
+
+    def forward(self, images, use_grid=False, compute_dtype=torch.float32, impl="kernel"):
+        return encode_image(
+            {"visual": self.tree()}, self.cfg, images, use_grid, compute_dtype, impl
+        )
+
+
+class TextTower(_ParamTree):
+    def __init__(self, cfg: CLIPConfig, tree: dict):
+        super().__init__(tree)
+        self.cfg = cfg
+
+    def forward(self, tokens, compute_dtype=torch.float32, impl="kernel"):
+        return encode_text(self.tree(), self.cfg, tokens, compute_dtype, impl)
+
+
+class CLIP(nn.Module):
+    """The dual encoder over one param dict (see `params`)."""
+
+    def __init__(self, cfg: CLIPConfig, params: dict):
+        super().__init__()
+        _require_vit(cfg)
+        self.cfg = cfg
+        self.visual = VisionTower(cfg, params["visual"])
+        self.text = TextTower(cfg, {k: params[k] for k in TEXT_KEYS})
+        self.logit_scale = nn.Parameter(params["logit_scale"], requires_grad=False)
+
+    def params(self) -> dict:
+        """The JAX-layout param dict (the module's own tensors, not copies)."""
+        return {"visual": self.visual.tree(), **self.text.tree(), "logit_scale": self.logit_scale}
+
+    @property
+    def device(self) -> torch.device:
+        return self.logit_scale.device
+
+    def encode_image(self, images, use_grid=False, compute_dtype=torch.float32, impl="kernel"):
+        return self.visual(images, use_grid, compute_dtype, impl)
+
+    def encode_text(self, tokens, compute_dtype=torch.float32, impl="kernel"):
+        return self.text(tokens, compute_dtype, impl)
+
+    def forward(self, images, tokens, overbatch=True, compute_dtype=torch.float32, impl="kernel"):
+        return forward(self.params(), self.cfg, images, tokens, overbatch, compute_dtype, impl)

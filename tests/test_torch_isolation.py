@@ -1,0 +1,59 @@
+"""The port stands alone: no file of clip_event_tpu_torch, nor chip_smoke.py,
+imports JAX or the JAX package, and importing every module of the port
+leaves JAX out of sys.modules."""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "clip_event_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "clip_event_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10 and os.path.exists(files[0])
+    bad = {
+        os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & FORBIDDEN)
+        for f in files
+    }
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_importing_the_port_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import clip_event_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    ) % (sorted(FORBIDDEN),)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15

@@ -1,24 +1,215 @@
-"""Model presets for the port's CLIs (counterpart of
-`clip_event_tpu/config.py::model_config`; the ResNet presets are not ported
-yet)."""
+"""Config-JSON contract of the port's CLIs (counterpart of
+`clip_event_tpu/config.py`; reference README.md:151-197).
+
+The same keys, defaults and checks as the JAX package's `validate_config`
+(including the original `constrastive_*` spellings), for the keys this
+port carries. A key of a part not ported yet raises `ConfigError` naming
+its ROADMAP item when it is set to anything but its default: the model,
+tensor, pipeline and data parallelism keys, the OT and multiattention
+branches, the LayerNorm kernels, the image cache, the object/IE/SR data
+channels, K-step fused dispatch and the selective remat policies. The
+ResNet presets are not ported either.
+"""
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict
 
 from clip_event_tpu_torch.models.clip import VIT_B16, VIT_B32, VIT_L14, CLIPConfig
 
 PRESETS = {"ViT-B/32": VIT_B32, "ViT-B/16": VIT_B16, "ViT-L/14": VIT_L14}
 
+_CHOICES = {
+    "constrastive_loss": ("ce", "bce", "kl"),
+    "optimizer": ("adam", "sgd"),
+    "lr_scheduler": ("cosineannealinglr", "multisteplr", "warmup", "warmupmultisteplr", "none"),
+    "log_level": ("info", "debug"),
+    "compute_dtype": ("float32", "bfloat16"),
+    "moment_dtype": ("float32", "bfloat16"),
+}
+
+_REQUIRED = ("task", "constrastive_loss", "batch_size", "lr", "optimizer", "max_epoch")
+
+# the JAX package's defaults table (`clip_event_tpu/config.py:40-211`); see
+# there for what each key does
+_DEFAULTS: Dict[str, Any] = {
+    "constrastive_overbatch": True,
+    "alignment": False,
+    "alignment_chunks": 4,
+    "multiattention": False,
+    "posneg_descriptions_json": None,
+    "image_caption_json": [],
+    "image_dir": [],
+    "load_object": False,
+    "object_pickle": [],
+    "object_ontology_file": None,
+    "object_detection_threshold": 0.2,
+    "object_topk": 50,
+    "load_ie": False,
+    "ie_ontology_json": None,
+    "input_entities": [],
+    "input_events": [],
+    "ltf_dir": None,
+    "load_sr": False,
+    "sync_bn": False,
+    "ckpt_dir": "checkpoints",
+    "tb_log_dir": "logs",
+    "print_freq": 1,
+    "log_level": "info",
+    "is_train": True,
+    "begin_ckpt": None,
+    "jit": False,
+    "begin_epoch": 0,
+    "max_epoch": 30,
+    "weight_decay": 0.0,
+    "momentum": 0.9,
+    "lr_scheduler": "none",
+    "lr_steps": [],
+    "lr_gamma": 0.1,
+    "warmup_epoch": 5,
+    "seed": 999,
+    "grad_clip_norm": 1.0,
+    "model": "ViT-B/32",
+    "compute_dtype": "bfloat16",
+    "remat": True,
+    "use_pallas_ot": "auto",
+    # true: the hand-written attention kernels (forward and backward) on the
+    # card; false: their plain PyTorch versions
+    "use_pallas_attention": True,
+    "use_pallas_ln": False,
+    "tp": 1,
+    "pp": 1,
+    "sp": False,
+    "pp_microbatches": 4,
+    "dcn_dp": 1,
+    "zero": False,
+    "fsdp": False,
+    "context_cap": 0,
+    "length_buckets": [],
+    "dedupe_texts": 0,
+    "dedupe_sr_texts": 0,
+    "moment_dtype": None,
+    "num_workers": 8,
+    "prefetch": 2,
+    "image_cache": None,
+    "device_normalize": True,
+    "max_objects": None,
+    "max_entities": 16,
+    "max_events": 8,
+    "max_bboxes": 8,
+    "multiattention_pooling": "mean",
+    "steps_per_epoch_schedule": True,
+    "steps_per_dispatch": 1,
+    "grad_accum_steps": 1,
+    # the port writes every checkpoint synchronously (the same file)
+    "async_save": False,
+    "save_steps": 0,
+    "max_steps": 0,
+    "validate_every": 0,
+    "val_image_caption_json": [],
+    "val_image_dir": [],
+}
+
+# keys of parts not ported yet: the ROADMAP item that brings each
+_UNPORTED = {
+    "tp": "A11", "pp": "A11", "sp": "A11", "dcn_dp": "A11", "zero": "A11", "fsdp": "A11",
+    "alignment": "A7", "load_object": "A7", "load_ie": "A4", "load_sr": "A8",
+    "multiattention": "A8", "dedupe_sr_texts": "A8", "use_pallas_ln": "A12",
+    "image_cache": "A9",
+}
+
 
 class ConfigError(ValueError):
     pass
 
 
+def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Fill defaults and enforce the schema. Returns a new dict."""
+    out = dict(_DEFAULTS)
+    out.update(cfg)
+
+    missing = [k for k in _REQUIRED if k not in out or out[k] is None]
+    if missing:
+        raise ConfigError(f"missing required config keys: {missing}")
+
+    for key, item in _UNPORTED.items():
+        if out[key] not in (_DEFAULTS[key], None, False, 0):
+            raise ConfigError(f"{key}={out[key]!r} is not ported yet (ROADMAP {item})")
+    if int(out["steps_per_dispatch"]) > 1:
+        raise ConfigError(
+            "steps_per_dispatch>1 (K-step fused dispatch, make_multi_step) is not "
+            "ported yet (ROADMAP A2)"
+        )
+    if out["remat"] not in (True, False, "full"):
+        raise ConfigError(
+            f"remat={out['remat']!r}: only true/'full' and false are ported "
+            "(the selective policies: ROADMAP A2)"
+        )
+
+    for key, choices in _CHOICES.items():
+        if out.get(key) is not None and out[key] not in choices:
+            raise ConfigError(f"{key}={out[key]!r} not in {choices}")
+
+    if not isinstance(out["batch_size"], int) or out["batch_size"] <= 0:
+        raise ConfigError("batch_size must be a positive int")
+    cap = out["context_cap"]
+    if not isinstance(cap, int) or cap < 0:
+        raise ConfigError("context_cap must be an int ≥ 0 (0 = full context)")
+    mspec = out.get("model")
+    ctx = mspec.get("context_length", 77) if isinstance(mspec, dict) else 77
+    if cap and not 2 <= cap <= ctx:
+        raise ConfigError(
+            f"context_cap must be in [2, context_length={ctx}] (SOT + EOT need two slots)"
+        )
+    buckets = out["length_buckets"]
+    if not isinstance(buckets, (list, tuple)) or not all(
+        isinstance(w, int) and not isinstance(w, bool) for w in buckets
+    ):
+        raise ConfigError("length_buckets must be a list of ints (widths)")
+    if buckets:
+        eff = cap or ctx
+        if not all(2 <= w < eff for w in buckets):
+            raise ConfigError(
+                f"length_buckets widths must be in [2, {eff}) — the "
+                "effective full width is an implicit final bucket"
+            )
+        if out["grad_accum_steps"] > 1:
+            raise ConfigError(
+                "length_buckets needs one static width per dispatch: "
+                "incompatible with grad_accum_steps>1 (stacked batches must share a shape)"
+            )
+    v = out["dedupe_texts"]
+    if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+        raise ConfigError("dedupe_texts must be an int ≥ 0 (0 = off, else the unique-row cap)")
+    if out["begin_epoch"] > out["max_epoch"]:
+        raise ConfigError("begin_epoch must be ≤ max_epoch")
+    if not isinstance(out["grad_accum_steps"], int) or out["grad_accum_steps"] < 1:
+        raise ConfigError("grad_accum_steps must be a positive int")
+
+    loss = out["constrastive_loss"]
+    if loss == "bce" and out["constrastive_overbatch"]:
+        raise ConfigError("set constrastive_overbatch=false for constrastive_loss='bce'")
+    if loss == "kl" and not out["constrastive_overbatch"]:
+        raise ConfigError("set constrastive_overbatch=true for constrastive_loss='kl'")
+    out["multiattention"] = None
+    if out["multiattention_pooling"] not in ("mean", "attention"):
+        raise ConfigError("multiattention_pooling must be 'mean' or 'attention'")
+    return out
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    with open(path) as fh:
+        return validate_config(json.load(fh))
+
+
 def model_config(cfg: Dict[str, Any]) -> CLIPConfig:
-    """Resolve the model spec: a preset name or an explicit dict."""
+    """Resolve the model spec: a preset name or an explicit dict (ViT only;
+    the ResNet towers are ROADMAP A6)."""
     spec = cfg.get("model", "ViT-B/32")
     if isinstance(spec, str):
+        if spec in ("RN50", "RN101", "RN50x4"):
+            raise ConfigError(f"model {spec!r}: the ResNet towers are not ported yet (ROADMAP A6)")
         if spec not in PRESETS:
             raise ConfigError(f"unknown model preset {spec!r}; options: {list(PRESETS)}")
         return PRESETS[spec]
@@ -26,5 +217,8 @@ def model_config(cfg: Dict[str, Any]) -> CLIPConfig:
         vl = spec.get("vision_layers")
         if isinstance(vl, list):
             spec = dict(spec, vision_layers=tuple(vl))
-        return CLIPConfig(**spec)
+        mcfg = CLIPConfig(**spec)
+        if not mcfg.is_vit:
+            raise ConfigError("the ResNet towers are not ported yet (ROADMAP A6)")
+        return mcfg
     raise ConfigError("model must be a preset name or a CLIPConfig dict")

@@ -1,9 +1,18 @@
-"""VOA news image–caption pairs for zero-shot matching (the caption half of
-`clip_event_tpu/data/voa.py`; reference `dataset_voa.py:61-159`).
+"""VOA news image–caption datasets (counterpart of
+`clip_event_tpu/data/voa.py`; reference `dataset_voa.py`).
 
-Consumes `image_caption_mapping.json`: {doc_id: {idx: {url, cap}}}. The
-contrastive fine-tuning dataset (`VOADescriptionDataset`) belongs to the
-training slice and is not ported yet.
+`VOACaptionDataset` — plain image–caption pairs for zero-shot matching
+(reference `VOADataset`, `dataset_voa.py:61-159`).
+
+`VOADescriptionDataset` — the contrastive fine-tuning workload
+(`dataset_voa.py:371-688`): one positive and G hard-negative event/argument
+descriptions per image, static label layouts, length buckets and
+dedupe-encode fields. The object-crop, text-IE and SR/bbox channels are not
+ported yet (ROADMAP A7, A4, A8).
+
+Data artifacts consumed (same contracts as the reference):
+  * image_caption_mapping.json: {doc_id: {idx: {url, cap}}}
+  * descriptions_<pos>_<neg>.json: {image_id: {pos, neg_event, neg_argument}}
 """
 
 from __future__ import annotations
@@ -16,7 +25,9 @@ from typing import List, Sequence
 import numpy as np
 
 from clip_event_tpu_torch.data.common import ExampleDataset, load_image_file, shorten_context
-from clip_event_tpu_torch.tokenizer import tokenize
+from clip_event_tpu_torch.data.dedupe import dedupe_rows, identity_layout
+from clip_event_tpu_torch.data.labels import build_label_layout
+from clip_event_tpu_torch.tokenizer import CONTEXT_LENGTH, tokenize
 
 log = logging.getLogger(__name__)
 
@@ -80,3 +91,200 @@ class VOACaptionDataset(ExampleDataset):
             "labels_per_text": eye,
             "index_pos": eye,
         }
+
+
+# channels of the JAX dataset this port does not carry yet → ROADMAP item
+_UNPORTED_CHANNELS = {"load_object": "A7", "load_ie": "A4", "load_sr": "A8"}
+
+
+class VOADescriptionDataset(ExampleDataset):
+    """Contrastive fine-tune batches with hard negatives.
+
+    Each example is one image (float32, or uint8 with `uint8_images` for
+    the on-device normalize) and its D = 1 + G description token rows at
+    the static width `context_cap` (0 = 77). `batch_extras` adds the label
+    layout of `build_label_layout`; `finalize_batch` flattens the
+    descriptions to [B·D, S] and, with `dedupe_texts`, replaces them by the
+    batch's unique rows (padded to the cap) plus the inverse index."""
+
+    def __init__(
+        self,
+        posneg_descriptions_json: str,
+        image_caption_jsons: Sequence[str],
+        image_dirs: Sequence[str],
+        contrastive_loss: str = "ce",
+        overbatch: bool = True,
+        image_size: int = 224,
+        context_cap: int = 0,
+        dedupe_texts: int = 0,
+        dedupe_strict: bool = False,
+        uint8_images: bool = False,
+        load_object: bool = False,
+        load_ie: bool = False,
+        load_sr: bool = False,
+    ):
+        for key, on in (("load_object", load_object), ("load_ie", load_ie), ("load_sr", load_sr)):
+            if on:
+                raise NotImplementedError(
+                    f"{key} is not ported yet (ROADMAP {_UNPORTED_CHANNELS[key]})"
+                )
+        self.image_size = image_size
+        self.uint8_images = bool(uint8_images)
+        self.contrastive_loss = contrastive_loss
+        self.overbatch = overbatch
+        self.context = int(context_cap) or CONTEXT_LENGTH
+        self.dedupe_texts = int(dedupe_texts)
+        self.dedupe_strict = bool(dedupe_strict)
+
+        self._descriptions_json = posneg_descriptions_json
+        with open(posneg_descriptions_json) as fh:
+            descriptions = json.load(fh)
+
+        self.data = []
+        for rec in load_image_caption_pairs(image_caption_jsons, image_dirs):
+            desc = descriptions.get(rec["image_id"])
+            if desc is None:
+                continue
+            rec["pos"] = desc["pos"]
+            rec["neg_event"] = desc["neg_event"]
+            rec["neg_argument"] = desc.get("neg_argument", desc["neg_event"])
+            self.data.append(rec)
+        if not self.data:
+            raise ValueError("no images matched the descriptions json")
+
+        first = self.data[0]
+        self.num_pos = len(first["pos"])
+        self.num_neg = len(first["neg_event"]) + len(first["neg_argument"])
+        self.num_desc = self.num_pos + self.num_neg
+        log.info(
+            "Loaded %d instances (%d descriptions each) from %s",
+            len(self.data), self.num_desc, image_caption_jsons,
+        )
+        if self.context < CONTEXT_LENGTH:
+            # the truncation cost of the cap, on a uniform sample
+            pick = np.random.default_rng(0).choice(
+                len(self.data), size=min(512, len(self.data)), replace=False
+            )
+            sample = [t for i in pick for t in self._texts(self.data[i])]
+            eot = np.argmax(tokenize(sample), axis=-1)
+            frac = float(np.mean(eot >= self.context))
+            (log.warning if frac > 0.05 else log.info)(
+                "context_cap=%d: %.1f%% of %d uniformly sampled descriptions "
+                "exceed the cap (truncate-keep-EOT applies to those)",
+                self.context, 100.0 * frac, len(sample),
+            )
+
+    @staticmethod
+    def _texts(rec) -> List[str]:
+        return list(rec["pos"]) + list(rec["neg_event"]) + list(rec["neg_argument"])
+
+    def __len__(self):
+        return len(self.data)
+
+    def _widths_sidecar(self) -> str:
+        return f"{self._descriptions_json}.widths{self.context}.npz"
+
+    def instance_widths(self, num_workers: int = 0) -> np.ndarray:
+        """Per-instance minimal text width: max EOT index + 1 over the
+        instance's descriptions (config "length_buckets"). The BPE pass is
+        O(corpus), so it persists to a sidecar
+        `<descriptions_json>.widths<context>.npz` keyed on the json's
+        mtime+size, memoizes per unique string, and splits across
+        `num_workers` threads."""
+        cached = getattr(self, "_instance_widths", None)
+        if cached is not None:
+            return cached
+        try:
+            stat = os.stat(self._descriptions_json)
+            key = (int(stat.st_mtime_ns), int(stat.st_size), self.context)
+        except OSError:
+            key = None
+        sidecar = self._widths_sidecar()
+        if key is not None and os.path.exists(sidecar):
+            try:
+                with np.load(sidecar, allow_pickle=False) as blob:
+                    if tuple(int(x) for x in blob["key"]) == key:
+                        by_id = dict(zip(blob["image_ids"].tolist(), blob["widths"].tolist()))
+                        widths = [by_id.get(rec["image_id"]) for rec in self.data]
+                        if all(w is not None for w in widths):
+                            self._instance_widths = np.asarray(widths, np.int32)
+                            return self._instance_widths
+            except (OSError, KeyError, ValueError):
+                log.warning("unreadable widths sidecar %s: recomputing", sidecar)
+
+        memo: dict = {}  # unique description string → token width
+
+        def width_of(texts):
+            missing = [t for t in texts if t not in memo]
+            if missing:
+                tok = tokenize(missing, self.context)
+                for t, w in zip(missing, np.argmax(tok, axis=-1) + 1):
+                    memo[t] = int(w)
+            return max(memo[t] for t in texts)
+
+        def compute(indices):
+            return np.asarray([width_of(self._texts(self.data[i])) for i in indices], np.int32)
+
+        cached = np.empty(len(self.data), np.int32)
+        if num_workers and num_workers > 1 and len(self.data) > 2 * num_workers:
+            from concurrent.futures import ThreadPoolExecutor
+
+            strides = [list(range(w, len(self.data), num_workers)) for w in range(num_workers)]
+            with ThreadPoolExecutor(num_workers) as pool:
+                for idxs, out in zip(strides, pool.map(compute, strides)):
+                    cached[idxs] = out
+        else:
+            cached = compute(range(len(self.data)))
+        self._instance_widths = cached
+        if key is not None:
+            try:
+                np.savez(
+                    sidecar, key=np.asarray(key, np.int64),
+                    image_ids=np.asarray([rec["image_id"] for rec in self.data]),
+                    widths=cached,
+                )
+            except OSError:
+                log.info("widths sidecar not writable (%s): skipping", sidecar)
+        return cached
+
+    def apply_bucket(self, tensors: dict, width: int) -> dict:
+        """Slice the description channel to the batch's bucket width. Every
+        instance in the batch has EOT < width (loader invariant), so the
+        narrower layout encodes identically; the unique rows of dedupe slice
+        the same way."""
+        for key in ("text", "text_unique"):
+            if key in tensors:
+                tensors[key] = np.ascontiguousarray(tensors[key][..., :width])
+        return tensors
+
+    def __getitem__(self, idx: int):
+        inst = self.data[idx]
+        image_id = inst["image_id"]
+        path = os.path.join(inst["image_dir"], image_id + ".jpg")
+        texts = self._texts(inst)
+        tensors = {
+            "text": tokenize(texts, self.context),
+            "image": load_image_file(path, self.image_size, raw=self.uint8_images),
+        }
+        return tensors, {"image_id": image_id, "descriptions": texts}
+
+    def batch_extras(self, batch_size: int):
+        layout = build_label_layout(
+            batch_size, self.num_pos, self.num_neg, self.contrastive_loss, self.overbatch
+        )
+        return {
+            "labels_per_image": layout.labels_per_image,
+            "labels_per_text": layout.labels_per_text,
+            "index_pos": layout.index_pos,
+        }
+
+    def finalize_batch(self, tensors):
+        # flatten descriptions: [B, D, S] → [B·D, S] (dataset_voa.py:605-612)
+        tensors["text"] = tensors["text"].reshape(-1, tensors["text"].shape[-1])
+        if self.dedupe_texts:
+            rows = tensors.pop("text")
+            out = dedupe_rows(rows, self.dedupe_texts, strict=self.dedupe_strict, tag="text")
+            tensors["text_unique"], tensors["text_inverse"] = (
+                identity_layout(rows) if out is None else out
+            )
+        return tensors

@@ -76,7 +76,10 @@ def embed_stream(dataset, enc, field: str, kind: str, out_dir: str,
     Constant host memory: at most one shard of features is resident.
     Returns the manifest entry for this stream."""
     os.makedirs(out_dir, exist_ok=True)
-    loader = DataLoader(dataset, batch_size=min(batch_size, len(dataset)), num_workers=num_workers)
+    loader = DataLoader(
+        dataset, batch_size=min(batch_size, len(dataset)), shuffle=False, drop_last=False,
+        num_workers=num_workers,
+    )
     encode = enc.images if kind == "image" else enc.texts
     ids: List[str] = []
     feats: List[np.ndarray] = []

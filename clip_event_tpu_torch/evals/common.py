@@ -29,7 +29,10 @@ def eval_loader(dataset, batch_size: int, num_workers: int = 8):
     """The canonical eval DataLoader: dataset order, no dropped tail."""
     from clip_event_tpu_torch.data.common import DataLoader
 
-    return DataLoader(dataset, batch_size=min(batch_size, len(dataset)), num_workers=num_workers)
+    return DataLoader(
+        dataset, batch_size=min(batch_size, len(dataset)), shuffle=False, drop_last=False,
+        num_workers=num_workers,
+    )
 
 
 class Encoders:

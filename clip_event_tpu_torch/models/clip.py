@@ -125,6 +125,7 @@ def encode_image(
     use_grid: bool = False,
     compute_dtype=torch.float32,
     impl: str = "kernel",
+    remat=False,
 ) -> torch.Tensor:
     """[B, H, W, 3] → [B, E], or [B, grid²+1, E] when use_grid.
 
@@ -137,7 +138,7 @@ def encode_image(
         images = (images.float() / 255.0 - mean) / std
     return vit_encode(
         params["visual"], images, cfg.vision_patch_size, cfg.vision_heads,
-        use_grid=use_grid, compute_dtype=compute_dtype, impl=impl,
+        use_grid=use_grid, compute_dtype=compute_dtype, impl=impl, remat=remat,
     )
 
 
@@ -147,6 +148,7 @@ def encode_text(
     tokens: torch.Tensor,
     compute_dtype=torch.float32,
     impl: str = "kernel",
+    remat=False,
 ) -> torch.Tensor:
     """[B, S] int tokens → [B, E]; EOT pooling via argmax token id.
 
@@ -158,7 +160,7 @@ def encode_text(
     x = params["token_embedding"][tokens].to(compute_dtype)
     x = x + params["positional_embedding"][:seq].to(compute_dtype)
     bias = L.causal_mask(seq, device=x.device)
-    x = L.transformer(x, params["text_transformer"], cfg.transformer_heads, bias, impl)
+    x = L.transformer(x, params["text_transformer"], cfg.transformer_heads, bias, impl, remat)
     x = L.layer_norm(x, params["ln_final"])
     eot_idx = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx]
@@ -196,6 +198,7 @@ def forward(
     overbatch: bool = True,
     compute_dtype=torch.float32,
     impl: str = "kernel",
+    remat=False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Contrastive logits (reference `CLIP.forward`).
 
@@ -205,10 +208,10 @@ def forward(
       instance:   [B, D]   and [B*D, B]
     """
     image_features = l2_normalize(
-        encode_image(params, cfg, images, compute_dtype=compute_dtype, impl=impl)
+        encode_image(params, cfg, images, compute_dtype=compute_dtype, impl=impl, remat=remat)
     )
     text_features = l2_normalize(
-        encode_text(params, cfg, tokens, compute_dtype=compute_dtype, impl=impl)
+        encode_text(params, cfg, tokens, compute_dtype=compute_dtype, impl=impl, remat=remat)
     )
     return contrastive_logits(params, image_features, text_features, overbatch)
 

@@ -7,12 +7,17 @@ along a leading `[L, ...]` axis. LayerNorm always runs in float32 (the fp32
 island); matmuls run in the activations' dtype.
 
 `impl` selects the attention core: "kernel" (the default) calls
-`ops.attention.fused_attention_qkv`, which launches the hand-written kernel
-on a CUDA tensor and runs its plain version on a CPU tensor; "plain" runs
-that plain version on any device, the reference a run on the card is held
-against. In fp32 both equal the JAX package's einsum path; in bf16 they
-keep the probabilities in fp32 as its kernel path does, where its einsum
-path rounds them to bf16 before P·V.
+`ops.attention.fused_attention_qkv`, which launches the hand-written
+kernels (forward and backward) on a CUDA tensor and runs their plain
+versions on a CPU tensor; "plain" runs those plain versions on any device,
+the reference a run on the card is held against. In fp32 both equal the
+JAX package's einsum path; in bf16 they keep the probabilities in fp32 as
+its kernel path does, where its einsum path rounds them to bf16 before P·V.
+
+`remat` (the JAX package's `transformer(..., remat=)`): True or "full"
+recomputes each block in the backward pass (`torch.utils.checkpoint`, the
+counterpart of `jax.checkpoint(..., nothing_saveable)`); False saves every
+activation. The selective policies of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,10 +25,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from clip_event_tpu_torch.ops.attention import fused_attention_qkv, fused_attention_qkv_plain
+from clip_event_tpu_torch.ops.attention import IMPLS, attend
 
-IMPLS = ("kernel", "plain")
+# the JAX package's selective remat policies (`layers.py:470-475`)
+_UNPORTED_REMAT = ("attn", "dots", "dots_nobatch")
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -61,12 +68,9 @@ def multi_head_attention(
     x: [B, S, W]; params: qkv_w [W, 3W], qkv_b [3W], out_w [W, W], out_b [W].
     attn_bias: optional additive [S, S] mask (e.g. causal -inf upper triangle).
     """
-    if impl not in IMPLS:
-        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
     scale = (x.shape[-1] // num_heads) ** -0.5
     qkv = linear(x, params["qkv_w"], params["qkv_b"])  # [B, S, 3W]
-    attend = fused_attention_qkv if impl == "kernel" else fused_attention_qkv_plain
-    out = attend(qkv, attn_bias, num_heads, scale)
+    out = attend(qkv, attn_bias, num_heads, scale, impl)
     return linear(out, params["out_w"], params["out_b"])
 
 
@@ -90,17 +94,36 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _remat_enabled(remat) -> bool:
+    """False for no remat, True for full per-block recompute; raises for the
+    JAX package's selective policies, which are not ported yet."""
+    if remat in (False, None, 0):
+        return False
+    if remat is True or remat == "full":
+        return True
+    if remat in _UNPORTED_REMAT:
+        raise NotImplementedError(
+            f"remat policy {remat!r} is not ported yet (ROADMAP A2): use true/'full' or false"
+        )
+    raise ValueError(f"remat mode {remat!r}; options: True, 'full', False")
+
+
 def transformer(
     x: torch.Tensor,
     stacked_params: dict,
     num_heads: int,
     attn_bias: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    remat=False,
 ) -> torch.Tensor:
-    """Run the stack of residual blocks over the leading L axis of the params."""
+    """Run the stack of residual blocks over the leading L axis of the params,
+    each block recomputed in the backward pass when `remat` is on and
+    autograd is recording."""
+    recompute = _remat_enabled(remat) and torch.is_grad_enabled()
     n_layers = stacked_params["attn"]["qkv_w"].shape[0]
     for i in range(n_layers):
-        x = residual_block(x, _layer(stacked_params, i), num_heads, attn_bias, impl)
+        args = (x, _layer(stacked_params, i), num_heads, attn_bias, impl)
+        x = checkpoint(residual_block, *args, use_reentrant=False) if recompute else residual_block(*args)
     return x
 
 

@@ -30,6 +30,7 @@ def vit_encode(
     use_grid: bool = False,
     compute_dtype=torch.float32,
     impl: str = "kernel",
+    remat=False,
 ) -> torch.Tensor:
     """ViT forward. Returns [B, E] (CLS-pooled) or [B, grid²+1, E] if use_grid."""
     x = patch_embed(images.to(compute_dtype), params["patch_embed_w"], patch_size)
@@ -38,7 +39,7 @@ def vit_encode(
     x = torch.cat([cls, x], dim=1)  # [B, G²+1, W]
     x = x + params["positional_embedding"].to(x.dtype)
     x = L.layer_norm(x, params["ln_pre"])
-    x = L.transformer(x, params["transformer"], num_heads, impl=impl)
+    x = L.transformer(x, params["transformer"], num_heads, impl=impl, remat=remat)
     if use_grid:
         x = L.layer_norm(x, params["ln_post"])  # all tokens (grid path)
     else:

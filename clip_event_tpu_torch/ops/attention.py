@@ -1,15 +1,22 @@
-"""Multi-head attention over the packed QKV projection (the K1 forward).
+"""Multi-head attention over the packed QKV projection (K1, forward and
+backward).
 
-Counterpart of `clip_event_tpu/ops/attention_pallas.py::fused_attention_qkv`:
-the attention core reads the raw [B, S, 3W] output of the fused QKV matmul
-(torch/CLIP lane layout: q in [0, W), k in [W, 2W), v in [2W, 3W), head h at
-h·D in each) and returns the head outputs concatenated as [B, S, W], ready
-for the out-projection.
+Counterpart of `clip_event_tpu/ops/attention_pallas.py::fused_attention_qkv`
+and its custom VJP: the attention core reads the raw [B, S, 3W] output of
+the fused QKV matmul (torch/CLIP lane layout: q in [0, W), k in [W, 2W), v
+in [2W, 3W), head h at h·D in each) and returns the head outputs
+concatenated as [B, S, W], ready for the out-projection. Its gradient is
+written packed as [B, S, 3W] from qkv and the output's cotangent alone (P
+is recomputed, never saved); the bias gets none.
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-`csrc/attention_fwd.cu`, or raises if the kernel cannot take the input. On
-a CPU tensor it runs `fused_attention_qkv_plain`, the same function in plain
-PyTorch. Nothing falls back from the kernel to the plain version.
+`fused_attention_qkv` is a `torch.autograd.Function`. On a CUDA tensor its
+forward launches the hand-written kernel of `csrc/attention_fwd.cu` and
+its backward the one of `csrc/attention_bwd.cu`, or they raise if the
+kernel cannot take the input. On a CPU tensor they run
+`fused_attention_qkv_plain` and `fused_attention_qkv_bwd_plain`, the same
+functions in plain PyTorch. Nothing falls back from a kernel to its plain
+version. `attend(..., impl="plain")` runs the plain pair on any device: the
+reference a run on the card is held against.
 """
 
 from __future__ import annotations
@@ -24,7 +31,30 @@ from clip_event_tpu_torch.ops import _build
 MAX_SEQ = 128
 MAX_HEAD_DIM = 128
 KERNEL = "attention_fwd"
+BWD_KERNEL = "attention_bwd"
+# the backward's C entry point launches two kernels (dq pass, dk/dv pass)
+BWD_LAUNCHES_PER_CALL = 2
+IMPLS = ("kernel", "plain")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """fp32 for fp32 and narrower types; float64 stays float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _split_probs(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float):
+    """q, k, v as [B, H, S, D] fp32 views and P = softmax(q·scale·kᵀ + bias)
+    in fp32 (`_split_heads` / `_probs`)."""
+    B, S, W3 = qkv.shape
+    x = _wide(qkv).view(B, S, 3, num_heads, W3 // 3 // num_heads)
+    q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+    logits = torch.matmul(q * scale, k.transpose(-1, -2))
+    if bias is not None:
+        logits = logits + _wide(bias)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    return q, k, v, p / p.sum(dim=-1, keepdim=True)
 
 
 def fused_attention_qkv_plain(
@@ -33,21 +63,35 @@ def fused_attention_qkv_plain(
     """softmax(q·scale·kᵀ + bias)·v per head in fp32, output in qkv.dtype
     (the math of `_fwd_kernel` / `_probs`)."""
     B, S, W3 = qkv.shape
-    W = W3 // 3
-    D = W // num_heads
-    x = qkv.float().view(B, S, 3, num_heads, D)
-    q, k, v = (t.transpose(1, 2) for t in x.unbind(2))  # [B, H, S, D] each
-    logits = torch.matmul(q * scale, k.transpose(-1, -2))
-    if bias is not None:
-        logits = logits + bias.float()
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    p = p / p.sum(dim=-1, keepdim=True)
+    _, _, v, p = _split_probs(qkv, bias, num_heads, scale)
     out = torch.matmul(p, v)
-    return out.transpose(1, 2).reshape(B, S, W).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(B, S, W3 // 3).to(qkv.dtype)
 
 
-def _check_kernel_input(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int):
+def fused_attention_qkv_bwd_plain(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """dqkv [B, S, 3W] in qkv.dtype from qkv and the output's cotangent `do`
+    [B, S, W], in fp32 ops (the formulas of `_bwd_kernel`): recompute P,
+    dv = Pᵀ·do, dp = do·vᵀ, ds = P∘(dp − rowsum(dp∘P)), dq = ds·k·scale,
+    dk = dsᵀ·q·scale."""
+    B, S, W3 = qkv.shape
+    q, k, v, p = _split_probs(qkv, bias, num_heads, scale)
+    g = _wide(do).view(B, S, num_heads, -1).transpose(1, 2)
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dqkv = torch.stack([t.transpose(1, 2) for t in (dq, dk, dv)], dim=2)  # [B, S, 3, H, D]
+    return dqkv.reshape(B, S, W3).to(qkv.dtype)
+
+
+def _check_kernel_input(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
+    do: Optional[torch.Tensor] = None,
+):
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, S, 3W], got {tuple(qkv.shape)}")
     B, S, W3 = qkv.shape
@@ -70,42 +114,57 @@ def _check_kernel_input(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_hea
             raise ValueError(f"bias must be [S, S] = [{S}, {S}], got {tuple(bias.shape)}")
         if bias.device != qkv.device:
             raise ValueError("bias must be on qkv's device")
+    if do is not None and (
+        tuple(do.shape) != (B, S, W) or do.dtype != qkv.dtype or do.device != qkv.device
+    ):
+        raise ValueError(
+            f"do must be [B, S, W] = {(B, S, W)} in {qkv.dtype} on {qkv.device}, "
+            f"got {tuple(do.shape)} in {do.dtype} on {do.device}"
+        )
     if qkv.device.type != "cuda":
         raise ValueError(f"attention kernel needs a CUDA tensor, got {qkv.device}")
 
 
-def _load():
-    lib = _build.load(KERNEL)
-    fn = lib.clip_attention_fwd
+def _load(name: str, symbol: str, argtypes):
+    lib = _build.load(name)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def fused_attention_qkv(
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+
+
+def _kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    # the JAX wrapper casts the bias to fp32 too
+    return None if bias is None else bias.to(torch.float32).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _attention_fwd(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
 ) -> torch.Tensor:
-    """Multi-head softmax attention over a packed QKV projection.
-
-    qkv: [B, S, 3W]; bias: additive [S, S] float mask or None. Returns
-    [B, S, W] in qkv.dtype. CPU tensors take the plain version; any other
-    device must be a CUDA tensor the kernel takes (fp32 or bf16, contiguous,
-    S <= 128, head_dim <= 128), else this raises."""
+    """The forward: the plain version on a CPU tensor, the kernel on a CUDA
+    tensor it takes, else raise."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
     _check_kernel_input(qkv, bias, num_heads)
     B, S, W3 = qkv.shape
     W = W3 // 3
-    if bias is not None:
-        bias = bias.to(torch.float32).contiguous()  # the JAX wrapper casts too
-    lib, fn = _load()
+    bias = _kernel_bias(bias)
+    lib, fn = _load(KERNEL, "clip_attention_fwd", _FWD_ARGS)
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = fn(
-            qkv.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            qkv.data_ptr(), _ptr(bias), out.data_ptr(),
             B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
         )
     _build.check(lib, code, "attention_fwd launch")
@@ -113,5 +172,80 @@ def fused_attention_qkv(
     return out
 
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+def fused_attention_qkv_bwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """dqkv [B, S, 3W] in qkv.dtype from qkv [B, S, 3W] and the output's
+    cotangent do [B, S, W]. CPU tensors take the plain version; any other
+    device must be a CUDA tensor the kernel takes (the forward's domain, with
+    do of qkv's dtype), else this raises."""
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
+    _check_kernel_input(qkv, bias, num_heads, do)
+    B, S, W3 = qkv.shape
+    W = W3 // 3
+    do = do.contiguous()
+    bias = _kernel_bias(bias)
+    lib, fn = _load(BWD_KERNEL, "clip_attention_bwd", _BWD_ARGS)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = fn(
+            qkv.data_ptr(), _ptr(bias), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
+        )
+    _build.check(lib, code, "attention_bwd launch")
+    fused_attention_qkv_bwd.launches += BWD_LAUNCHES_PER_CALL
+    return dqkv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K1 with its gradient: saves qkv and bias (the residuals of
+    `_fused_qkv_fwd`), not the probabilities; no gradient for the bias,
+    num_heads, scale or the impl flag (`_fused_qkv_bwd` returns None)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, scale, kernel):
+        ctx.save_for_backward(qkv, bias)
+        ctx.num_heads, ctx.scale, ctx.kernel = num_heads, scale, kernel
+        if kernel:
+            return _attention_fwd(qkv, bias, num_heads, scale)
+        return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias = ctx.saved_tensors
+        bwd = fused_attention_qkv_bwd if ctx.kernel else fused_attention_qkv_bwd_plain
+        return bwd(qkv, bias, do, ctx.num_heads, ctx.scale), None, None, None, None
+
+
+def fused_attention_qkv(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
+) -> torch.Tensor:
+    """Multi-head softmax attention over a packed QKV projection, with its
+    gradient.
+
+    qkv: [B, S, 3W]; bias: additive [S, S] float mask or None. Returns
+    [B, S, W] in qkv.dtype. CPU tensors take the plain versions; any other
+    device must be a CUDA tensor the kernels take (fp32 or bf16, contiguous,
+    S <= 128, head_dim <= 128), else this raises."""
+    return _FusedAttention.apply(qkv, bias, num_heads, float(scale), True)
+
+
+def attend(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """`fused_attention_qkv` ("kernel") or its plain forward and backward on
+    any device ("plain")."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    return _FusedAttention.apply(qkv, bias, num_heads, float(scale), impl == "kernel")
+
+
+# kernel launches since the last reset (chip_smoke.py reads and resets them):
+# one per forward call, BWD_LAUNCHES_PER_CALL per backward call
 fused_attention_qkv.launches = 0
+fused_attention_qkv_bwd.launches = 0

@@ -1,0 +1,348 @@
+"""CLIP-Event training entry point of the port (counterpart of `train.py`),
+single device:
+
+    python -m clip_event_tpu_torch.train --cfg config.json [--device cpu]
+
+The config is the JAX CLI's (`config.py`). It trains from a random init
+(`seed`), from an OpenAI / reference `.pth` (`jit: true` + `begin_ckpt`), or
+resumes a checkpoint of this port (`begin_ckpt`), mid-epoch resumes
+included. Length buckets, dedupe-encode, gradient accumulation,
+`max_steps`, `save_steps`, the SIGTERM checkpoint, the NaN abort with its
+`nan_debug_step*.json` artifact and per-epoch zero-shot matching
+validation work as in the JAX CLI; `config.json` and `scalars.jsonl` are
+written beside the logs. The default device is the card; with no card and
+no `--device cpu` the CLI raises.
+
+`train(...)` is the epoch loop (loader → prefetch → step → metrics) over
+any `ExampleDataset`; `main` builds the VOA dataset and calls it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import logging
+import os
+import pprint
+import signal
+import sys
+import time
+from typing import Callable, Optional
+
+import torch
+
+from clip_event_tpu_torch.config import load_config, model_config
+from clip_event_tpu_torch.data.common import DataLoader
+from clip_event_tpu_torch.data.prefetch import device_prefetch
+from clip_event_tpu_torch.engine.checkpoint import save_checkpoint
+from clip_event_tpu_torch.engine.metrics import MetricLogger, ScalarWriter, create_logger
+from clip_event_tpu_torch.engine.optim import build_optimizer, build_schedule
+from clip_event_tpu_torch.engine.train_step import (
+    TrainState,
+    create_train_state,
+    make_accum_step,
+    make_train_step,
+)
+from clip_event_tpu_torch.models.clip import CLIPConfig
+from clip_event_tpu_torch.platform import resolve_device
+
+log = logging.getLogger(__name__)
+
+
+def train(
+    cfg: dict,
+    mcfg: CLIPConfig,
+    dataset,
+    params: dict,
+    device="cuda",
+    opt_state: Optional[dict] = None,
+    resume_step: int = 0,
+    begin_epoch: Optional[int] = None,
+    mid_epoch_resume: bool = False,
+    best_perf: float = 0.0,
+    writer: Optional[ScalarWriter] = None,
+    on_step: Optional[Callable[[int, dict], None]] = None,
+) -> TrainState:
+    """Run the epochs `begin_epoch .. max_epoch` of a validated config over
+    `dataset`, from `params` (and a restored `opt_state` at `resume_step`).
+    `on_step(global_step, metrics)` is called after each optimizer step is
+    dispatched, with the metrics still on the device. Returns the final
+    state."""
+    device = resolve_device(device)
+    task, ckpt_dir = cfg["task"], cfg["ckpt_dir"]
+    begin_epoch = cfg["begin_epoch"] if begin_epoch is None else begin_epoch
+    loader = DataLoader(
+        dataset, batch_size=cfg["batch_size"], shuffle=cfg["is_train"], seed=cfg["seed"],
+        drop_last=cfg["is_train"], num_workers=cfg["num_workers"], prefetch=cfg["prefetch"],
+        bucket_widths=(list(cfg["length_buckets"]) if cfg["is_train"] else None) or None,
+    )
+    grad_accum = max(int(cfg["grad_accum_steps"]), 1)
+    if cfg["is_train"] and len(loader) < grad_accum:
+        raise SystemExit(
+            f"grad_accum_steps={grad_accum} > batches per epoch ({len(loader)}): "
+            "every epoch would run ZERO optimizer steps"
+        )
+    steps_per_epoch = max(len(loader) // grad_accum, 1)
+
+    schedule = build_schedule(
+        cfg["lr_scheduler"], cfg["lr"], cfg["max_epoch"], begin_epoch=begin_epoch,
+        steps_per_epoch=1 if cfg["steps_per_epoch_schedule"] else steps_per_epoch,
+        lr_steps=cfg["lr_steps"], lr_gamma=cfg["lr_gamma"], warmup_epochs=cfg["warmup_epoch"],
+    )
+    optimizer = build_optimizer(
+        cfg["optimizer"], schedule, weight_decay=cfg["weight_decay"],
+        momentum=cfg["momentum"], grad_clip_norm=cfg["grad_clip_norm"],
+        moment_dtype=cfg["moment_dtype"],
+    )
+    step_kwargs = dict(
+        loss_type=cfg["constrastive_loss"], overbatch=cfg["constrastive_overbatch"],
+        compute_dtype=torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else torch.float32,
+        remat=cfg["remat"], impl="kernel" if cfg["use_pallas_attention"] else "plain",
+    )
+    state = create_train_state(params, optimizer)
+    if opt_state is not None:
+        state = state._replace(opt_state=opt_state, step=resume_step)
+    if grad_accum > 1:
+        accum_step = make_accum_step(mcfg, optimizer, grad_accum, **step_kwargs)
+    else:
+        train_step = make_train_step(mcfg, optimizer, **step_kwargs)
+
+    global_step = resume_step
+    resume_in_epoch = 0
+    if mid_epoch_resume and cfg["is_train"]:
+        # optimizer steps per epoch are uniform (drop_last), so the in-epoch
+        # offset follows from the global step; the loader skips grad_accum
+        # microbatches per optimizer step
+        resume_in_epoch = min(max(resume_step - begin_epoch * steps_per_epoch, 0), steps_per_epoch)
+        if resume_in_epoch:
+            log.info("=> mid-epoch resume: epoch %d restarts at batch %d/%d",
+                     begin_epoch, resume_in_epoch, steps_per_epoch)
+    save_steps = max(int(cfg["save_steps"]), 0)
+    max_steps = max(int(cfg["max_steps"]), 0)
+    next_save = ((global_step // save_steps) + 1) * save_steps if save_steps else None
+    stop_training = False
+
+    # preemption: the handler only sets a flag; the checkpoint is written at
+    # the next optimizer-step boundary, then the run stops
+    preempted = {"flag": False}
+
+    def on_sigterm(signum, frame):
+        preempted["flag"] = True
+        log.warning("=> SIGTERM: checkpointing at the next step boundary, then exiting")
+
+    old_handler = signal.signal(signal.SIGTERM, on_sigterm) if cfg["is_train"] else None
+    try:
+        for epoch in range(begin_epoch, cfg["max_epoch"]):
+            log.info("=> Epoch[%d]: train start", epoch)
+            loader.set_epoch(
+                epoch, start_batch=resume_in_epoch * grad_accum if epoch == begin_epoch else 0
+            )
+            metric_logger = MetricLogger()
+            start = time.time()
+            # metrics stay on the device between prints: reading them every
+            # step would sync the host with the card every step
+            pending = []
+            # the image ids in flight per recent step: enough to re-assemble
+            # a batch offline (the loader is deterministic) on a NaN abort
+            recent_meta = collections.deque(maxlen=max(cfg["print_freq"], 1) + 2)
+
+            def drain():
+                nonlocal pending
+                for step_idx, m in pending:
+                    if not bool(m["finite"]):
+                        values = {k: float(v) for k, v in m.items()}
+                        log.error("Loss is not finite, stopping training")
+                        log.error(values)
+                        debug = {
+                            "epoch": epoch, "global_step": step_idx, "metrics": values,
+                            "recent_batches": [
+                                {"global_step": s, "image_ids": ids} for s, ids in recent_meta
+                            ],
+                        }
+                        path = os.path.join(ckpt_dir, task, f"nan_debug_step{step_idx}_rank0.json")
+                        os.makedirs(os.path.dirname(path), exist_ok=True)
+                        with open(path, "w") as fh:
+                            json.dump(debug, fh, indent=1)
+                        log.error("NaN debug artifact written to %s", path)
+                        sys.exit(1)
+                    scalars = {k: float(v) for k, v in m.items() if k != "finite"}
+                    scalars["lr"] = float(schedule(step_idx))
+                    metric_logger.update(**scalars)
+                pending = []
+
+            def step_hooks() -> bool:
+                """save_steps / max_steps / preemption checks; True = stop."""
+                nonlocal next_save, stop_training
+                hit_max = bool(max_steps) and global_step >= max_steps
+                hit_term = preempted["flag"]
+                if (next_save is not None and global_step >= next_save) or hit_max or hit_term:
+                    drain()
+                    save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
+                                    best_perf, step=global_step, mid_epoch=True)
+                    log.info("=> step checkpoint at global step %d", global_step)
+                    if next_save is not None:
+                        while next_save <= global_step:
+                            next_save += save_steps
+                if hit_max:
+                    log.info("=> max_steps=%d reached, stopping", max_steps)
+                    stop_training = True
+                if hit_term:
+                    log.warning("=> preemption checkpoint written, stopping")
+                    stop_training = True
+                return stop_training
+
+            buffer = []
+            for batch, meta in metric_logger.log_every(
+                device_prefetch(loader, device, depth=cfg["prefetch"]),
+                cfg["print_freq"], header=f"Epoch: [{epoch}]",
+            ):
+                recent_meta.append(
+                    (global_step + len(buffer), [mm.get("image_id") for mm in meta])
+                )
+                if grad_accum > 1:
+                    buffer.append(batch)
+                    if len(buffer) < grad_accum:
+                        continue
+                    stacked = {k: torch.stack([b[k] for b in buffer]) for k in buffer[0]}
+                    buffer = []
+                    state, metrics = accum_step(state, stacked)
+                else:
+                    state, metrics = train_step(state, batch)
+                pending.append((global_step, metrics))
+                if on_step is not None:
+                    on_step(global_step, metrics)
+                global_step += 1
+                if len(pending) >= max(cfg["print_freq"], 1):
+                    drain()
+                if step_hooks():
+                    break
+            drain()
+            log.info("=> Epoch[%d]: train end, duration: %.2fs", epoch, time.time() - start)
+            if stop_training:
+                break  # the step checkpoint is written; no end-of-epoch save
+
+            if writer is not None:
+                writer.add_scalar("train_loss", metric_logger.loss.global_avg, epoch)
+                for name, meter in metric_logger.meters.items():
+                    if name.startswith("loss_"):
+                        writer.add_scalar(name, meter.global_avg, epoch)
+
+            if (
+                cfg["validate_every"]
+                and (epoch + 1) % cfg["validate_every"] == 0
+                and cfg["val_image_caption_json"]
+            ):
+                from clip_event_tpu_torch.data.voa import VOACaptionDataset
+                from clip_event_tpu_torch.evals.matching import evaluate_matching
+
+                val_ds = VOACaptionDataset(
+                    cfg["val_image_caption_json"], cfg["val_image_dir"],
+                    image_size=mcfg.image_resolution,
+                )
+                val = evaluate_matching(state.params, mcfg, val_ds,
+                                        batch_size=cfg["batch_size"], device=device)
+                best_perf = max(best_perf, val["i2t_top1"])
+                log.info("=> Epoch[%d] validation: %s (best %.4f)", epoch, val, best_perf)
+                if writer is not None:
+                    writer.add_scalar("val_i2t_top1", val["i2t_top1"], epoch)
+
+            save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
+                            best_perf, step=state.step)
+    finally:
+        if old_handler is not None:
+            signal.signal(signal.SIGTERM, old_handler)
+    return state
+
+
+def initial_state(cfg: dict, device="cuda"):
+    """Where a run starts, from a validated config: (params, CLIPConfig,
+    the resume keywords of `train`). A random init from `seed`, an OpenAI /
+    reference `.pth` (`jit` + `begin_ckpt`), or a checkpoint of this port
+    (`begin_ckpt`), whose params, optimizer state, step and epoch it
+    restores."""
+    from clip_event_tpu_torch.engine.checkpoint import import_initial_checkpoint, restore_checkpoint
+    from clip_event_tpu_torch.models.clip import init_params
+    from clip_event_tpu_torch.models.convert import params_from_jax
+
+    device = resolve_device(device)
+    resume = {"begin_epoch": cfg["begin_epoch"]}
+    if cfg["jit"]:
+        np_params, mcfg = import_initial_checkpoint(cfg["begin_ckpt"])
+        log.info("=> imported torch checkpoint %s (%s)", cfg["begin_ckpt"], mcfg)
+        return params_from_jax(np_params, mcfg, device), mcfg, resume
+    if cfg["begin_ckpt"] and os.path.exists(str(cfg["begin_ckpt"])):
+        path = str(cfg["begin_ckpt"])
+        params, opt_state, meta, mcfg = restore_checkpoint(path, device)
+        # a mid-epoch checkpoint re-enters its own epoch at the saved batch
+        # offset; an end-of-epoch one starts the next epoch
+        mid_epoch = bool(meta.get("mid_epoch", False))
+        resume = {
+            "opt_state": opt_state,
+            "resume_step": int(meta.get("step", 0)),
+            "begin_epoch": int(meta.get("epoch", cfg["begin_epoch"]))
+            + (1 if cfg["is_train"] and not mid_epoch else 0),
+            "mid_epoch_resume": mid_epoch,
+            "best_perf": meta.get("perf", 0.0),
+        }
+        log.info("=> resuming %s (%s)", path,
+                 {k: v for k, v in resume.items() if k != "opt_state"})
+        return params, mcfg, resume
+    if cfg["begin_ckpt"]:
+        log.error("=> cannot find checkpoint: %s", cfg["begin_ckpt"])
+        sys.exit(1)
+    mcfg = model_config(cfg)
+    log.info("=> random init (%s)", mcfg)
+    return init_params(torch.Generator().manual_seed(int(cfg["seed"])), mcfg, device), mcfg, resume
+
+
+def build_dataset(cfg: dict, mcfg: CLIPConfig):
+    """The VOA fine-tuning dataset a config describes."""
+    from clip_event_tpu_torch.data.voa import VOADescriptionDataset
+
+    return VOADescriptionDataset(
+        posneg_descriptions_json=cfg["posneg_descriptions_json"],
+        image_caption_jsons=cfg["image_caption_json"],
+        image_dirs=cfg["image_dir"],
+        contrastive_loss=cfg["constrastive_loss"],
+        overbatch=cfg["constrastive_overbatch"],
+        image_size=mcfg.image_resolution,
+        uint8_images=cfg["device_normalize"],
+        context_cap=cfg["context_cap"],
+        dedupe_texts=cfg["dedupe_texts"],
+        # an overflow falls back to a differently shaped batch, which a
+        # stack of accumulated microbatches cannot take: raise there instead
+        dedupe_strict=int(cfg["grad_accum_steps"]) > 1,
+    )
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train CLIP-Event (PyTorch port)")
+    parser.add_argument("--cfg", type=str, required=True, help="config JSON path")
+    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = load_config(args.cfg)
+
+    task = cfg["task"]
+    tb_log_dir = os.path.join(cfg["tb_log_dir"], task, "tensorboard")
+    log_dir = os.path.join(cfg["tb_log_dir"], task, "log")
+    for d in (tb_log_dir, log_dir, os.path.join(cfg["ckpt_dir"], task)):
+        os.makedirs(d, exist_ok=True)
+    create_logger(task, log_dir, cfg["log_level"])
+    log.info("config:\n%s", pprint.pformat(cfg))
+    log.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda" else device)
+    with open(os.path.join(tb_log_dir, "config.json"), "w") as fh:
+        json.dump(cfg, fh, indent=2)
+
+    params, mcfg, resume = initial_state(cfg, device)
+    dataset = build_dataset(cfg, mcfg)
+    writer = ScalarWriter(tb_log_dir)
+    try:
+        train(cfg, mcfg, dataset, params, device, writer=writer, **resume)
+    finally:
+        writer.close()
+
+
+if __name__ == "__main__":
+    main()

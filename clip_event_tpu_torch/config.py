@@ -5,10 +5,10 @@ The same keys, defaults and checks as the JAX package's `validate_config`
 (including the original `constrastive_*` spellings), for the keys this
 port carries. A key of a part not ported yet raises `ConfigError` naming
 its ROADMAP item when it is set to anything but its default: the model,
-tensor, pipeline and data parallelism keys, the OT and multiattention
-branches, the LayerNorm kernels, the image cache, the object/IE/SR data
-channels, K-step fused dispatch and the selective remat policies. The
-ResNet presets are not ported either.
+tensor, pipeline and data parallelism keys, the multiattention branch and
+its SR data channel, the LayerNorm kernels, the image cache, K-step fused
+dispatch and the selective remat policies. The ResNet presets are not
+ported either.
 """
 
 from __future__ import annotations
@@ -114,8 +114,7 @@ _DEFAULTS: Dict[str, Any] = {
 # keys of parts not ported yet: the ROADMAP item that brings each
 _UNPORTED = {
     "tp": "A11", "pp": "A11", "sp": "A11", "dcn_dp": "A11", "zero": "A11", "fsdp": "A11",
-    "alignment": "A7", "load_object": "A7", "load_ie": "A4", "load_sr": "A8",
-    "multiattention": "A8", "dedupe_sr_texts": "A8", "use_pallas_ln": "A12",
+    "load_sr": "A8", "multiattention": "A8", "dedupe_sr_texts": "A8", "use_pallas_ln": "A12",
     "image_cache": "A9",
 }
 
@@ -192,6 +191,13 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         raise ConfigError("set constrastive_overbatch=false for constrastive_loss='bce'")
     if loss == "kl" and not out["constrastive_overbatch"]:
         raise ConfigError("set constrastive_overbatch=true for constrastive_loss='kl'")
+    if out["alignment"] and not (out["load_object"] and out["load_ie"]):
+        raise ConfigError(
+            "alignment=true requires load_object=true and load_ie=true "
+            "(OT aligns detected objects with text entities)"
+        )
+    if out["load_object"] and not out["object_ontology_file"]:
+        raise ConfigError("load_object=true requires object_ontology_file")
     out["multiattention"] = None
     if out["multiattention_pooling"] not in ("mean", "attention"):
         raise ConfigError("multiattention_pooling must be 'mean' or 'attention'")

@@ -9,8 +9,11 @@ next batches while the card runs the current one.
 from __future__ import annotations
 
 import collections
+import csv
+import pickle
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List
+from operator import itemgetter
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
@@ -29,6 +32,70 @@ def load_image_file(path: str, size: int = 224, raw: bool = False) -> np.ndarray
     Image.MAX_IMAGE_PIXELS = 933120000
     with Image.open(path) as img:
         return preprocess_image_u8(img, size) if raw else preprocess_image(img, size)
+
+
+def load_object_crops(
+    path: str,
+    detections: Sequence[dict],
+    allowed_labels: Dict[str, str],
+    threshold: float = 0.2,
+    topk: int = 50,
+    size: int = 224,
+):
+    """Whole image at slot 0 + CLIP-preprocessed float32 crops of its
+    detections (reference `load_img_object`, `dataset_voa.py:181-248`):
+    detections score-sorted ascending, filtered to the allowed-label
+    ontology and the score threshold, capped at `topk`. Returns (crops
+    [n, size, size, 3], ids, label names) with n <= topk + 1."""
+    from PIL import Image, ImageFile
+
+    ImageFile.LOAD_TRUNCATED_IMAGES = True
+    Image.MAX_IMAGE_PIXELS = 933120000
+
+    with Image.open(path) as img:
+        img = img.convert("RGB")
+        crops = [preprocess_image(img, size)]
+        ids = ["0_0_0_0"]
+        labels = ["UNKNOWN"]
+        count = 1
+        for det in sorted(detections, key=itemgetter("score")):
+            if count > topk:
+                break
+            if det["label"] not in allowed_labels or det["score"] < threshold:
+                continue
+            bbox = det["bbox"]
+            try:
+                patch = img.crop(bbox)
+                crops.append(preprocess_image(patch, size))
+            # a box PIL refuses (right < left), an empty crop, a truncated
+            # file: the detection is skipped, as in the reference
+            except (ValueError, ZeroDivisionError, OSError):
+                continue
+            ids.append("%d_%d_%d_%d" % tuple(int(v) for v in bbox))
+            labels.append(allowed_labels[det["label"]])
+            count += 1
+    return np.stack(crops), ids, labels
+
+
+def load_object_label_map(class_map_csv: str) -> Dict[str, str]:
+    """Open-Images class map: rows `label_id,name,is_arg_type`; keep rows
+    flagged '1' (reference `get_object_labels`, `dataset_voa.py:168-179`)."""
+    out = {}
+    with open(class_map_csv, newline="") as fh:
+        for row in csv.reader(fh):
+            if len(row) >= 3 and row[2] == "1":
+                out[row[0]] = row[1]
+    return out
+
+
+def load_detection_pickles(paths: Sequence[str]) -> dict:
+    """Merge the object-detection pickles {image_id: [{label, bbox, score}]}
+    (files this project's detection step wrote)."""
+    results: dict = {}
+    for p in paths:
+        with open(p, "rb") as fh:
+            results.update(pickle.load(fh))
+    return results
 
 
 def pad_stack(

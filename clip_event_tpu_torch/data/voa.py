@@ -7,12 +7,15 @@
 `VOADescriptionDataset` — the contrastive fine-tuning workload
 (`dataset_voa.py:371-688`): one positive and G hard-negative event/argument
 descriptions per image, static label layouts, length buckets and
-dedupe-encode fields. The object-crop, text-IE and SR/bbox channels are not
-ported yet (ROADMAP A7, A4, A8).
+dedupe-encode fields, plus the object-crop channel and the text-IE channel
+of the OT alignment loss, ragged axes padded to static caps with masks. The
+SR/bbox channel is not ported yet (ROADMAP A8).
 
 Data artifacts consumed (same contracts as the reference):
   * image_caption_mapping.json: {doc_id: {idx: {url, cap}}}
   * descriptions_<pos>_<neg>.json: {image_id: {pos, neg_event, neg_argument}}
+  * object detection .pkl: {image_id: [{label, bbox, score}, ...]}
+  * class-descriptions-boxable.csv ontology, merged.cs / event_rewrite.cs
 """
 
 from __future__ import annotations
@@ -20,11 +23,25 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
-from clip_event_tpu_torch.data.common import ExampleDataset, load_image_file, shorten_context
+from clip_event_tpu_torch.data.coldstart import (
+    IEIndex,
+    doc_entity_names,
+    doc_event_names,
+    load_ie_index,
+)
+from clip_event_tpu_torch.data.common import (
+    ExampleDataset,
+    load_detection_pickles,
+    load_image_file,
+    load_object_crops,
+    load_object_label_map,
+    pad_stack,
+    shorten_context,
+)
 from clip_event_tpu_torch.data.dedupe import dedupe_rows, identity_layout
 from clip_event_tpu_torch.data.labels import build_label_layout
 from clip_event_tpu_torch.tokenizer import CONTEXT_LENGTH, tokenize
@@ -93,10 +110,6 @@ class VOACaptionDataset(ExampleDataset):
         }
 
 
-# channels of the JAX dataset this port does not carry yet → ROADMAP item
-_UNPORTED_CHANNELS = {"load_object": "A7", "load_ie": "A4", "load_sr": "A8"}
-
-
 class VOADescriptionDataset(ExampleDataset):
     """Contrastive fine-tune batches with hard negatives.
 
@@ -105,7 +118,14 @@ class VOADescriptionDataset(ExampleDataset):
     the static width `context_cap` (0 = 77). `batch_extras` adds the label
     layout of `build_label_layout`; `finalize_batch` flattens the
     descriptions to [B·D, S] and, with `dedupe_texts`, replaces them by the
-    batch's unique rows (padded to the cap) plus the inverse index."""
+    batch's unique rows (padded to the cap) plus the inverse index.
+
+    `load_object` adds `object_image` (float32 crops, the whole image at
+    slot 0, padded to `max_objects`, default `object_topk + 1`) and
+    `object_mask`, and makes `image` the float32 slot-0 crop whatever
+    `uint8_images` says. `load_ie` adds `entity_text` / `event_text` (token
+    rows padded to `max_entities` / `max_events`) and their masks. Only the
+    description channel is bucketed or deduped."""
 
     def __init__(
         self,
@@ -120,14 +140,20 @@ class VOADescriptionDataset(ExampleDataset):
         dedupe_strict: bool = False,
         uint8_images: bool = False,
         load_object: bool = False,
+        object_pickles: Optional[Sequence[str]] = None,
+        object_ontology_file: Optional[str] = None,
+        object_detection_threshold: float = 0.2,
+        object_topk: int = 50,
+        max_objects: Optional[int] = None,  # cap incl. the whole-image slot 0
         load_ie: bool = False,
+        input_entities: Optional[Sequence[str]] = None,
+        input_events: Optional[Sequence[str]] = None,
+        max_entities: int = 16,
+        max_events: int = 8,
         load_sr: bool = False,
     ):
-        for key, on in (("load_object", load_object), ("load_ie", load_ie), ("load_sr", load_sr)):
-            if on:
-                raise NotImplementedError(
-                    f"{key} is not ported yet (ROADMAP {_UNPORTED_CHANNELS[key]})"
-                )
+        if load_sr:
+            raise NotImplementedError("load_sr is not ported yet (ROADMAP A8)")
         self.image_size = image_size
         self.uint8_images = bool(uint8_images)
         self.contrastive_loss = contrastive_loss
@@ -173,6 +199,20 @@ class VOADescriptionDataset(ExampleDataset):
                 "exceed the cap (truncate-keep-EOT applies to those)",
                 self.context, 100.0 * frac, len(sample),
             )
+
+        self.load_object = bool(load_object)
+        if self.load_object:
+            self.object_threshold = object_detection_threshold
+            self.object_topk = object_topk
+            self.max_objects = max_objects or (object_topk + 1)
+            self.object_labels = load_object_label_map(object_ontology_file)
+            self.object_results = load_detection_pickles(object_pickles or [])
+
+        self.load_ie = bool(load_ie)
+        if self.load_ie:
+            self.max_entities = max_entities
+            self.max_events = max_events
+            self.ie: IEIndex = load_ie_index(input_entities, input_events)
 
     @staticmethod
     def _texts(rec) -> List[str]:
@@ -262,11 +302,40 @@ class VOADescriptionDataset(ExampleDataset):
         image_id = inst["image_id"]
         path = os.path.join(inst["image_dir"], image_id + ".jpg")
         texts = self._texts(inst)
-        tensors = {
-            "text": tokenize(texts, self.context),
-            "image": load_image_file(path, self.image_size, raw=self.uint8_images),
-        }
-        return tensors, {"image_id": image_id, "descriptions": texts}
+        tensors = {"text": tokenize(texts, self.context)}
+        meta = {"image_id": image_id, "descriptions": texts}
+
+        if self.load_object:
+            crops, obj_ids, obj_labels = load_object_crops(
+                path, self.object_results.get(image_id, []), self.object_labels,
+                threshold=self.object_threshold,
+                topk=min(self.object_topk, self.max_objects - 1), size=self.image_size,
+            )
+            tensors["image"] = crops[0]
+            n = min(len(crops), self.max_objects)
+            tensors["object_image"] = pad_stack(list(crops), self.max_objects)
+            mask = np.zeros(self.max_objects, np.int32)
+            mask[:n] = 1
+            tensors["object_mask"] = mask
+            meta["object_ids"] = obj_ids[: self.max_objects]
+            meta["object_labels"] = obj_labels[: self.max_objects]
+        else:
+            tensors["image"] = load_image_file(path, self.image_size, raw=self.uint8_images)
+
+        if self.load_ie:
+            ent_names = doc_entity_names(self.ie, image_id)[: self.max_entities]
+            evt_names = doc_event_names(self.ie, image_id)[: self.max_events]
+            C = self.context
+            for field, names, cap in (("entity", ent_names, self.max_entities),
+                                      ("event", evt_names, self.max_events)):
+                tok = tokenize(names, C) if names else np.zeros((0, C), np.int32)
+                tensors[f"{field}_text"] = pad_stack(list(tok), cap, pad_shape=(C,)).astype(np.int32)
+                mask = np.zeros(cap, np.int32)
+                mask[: len(names)] = 1
+                tensors[f"{field}_mask"] = mask
+            meta["entity_names"] = ent_names
+            meta["event_names"] = evt_names
+        return tensors, meta
 
     def batch_extras(self, batch_size: int):
         layout = build_label_layout(

@@ -2,12 +2,13 @@
 reference hot loop, `engine.py:16-112`).
 
 One step: forward (image + text towers, each block recomputed in the
-backward pass under `remat`), contrastive loss, backward, global-norm clip,
-optimizer update, single device. The NaN abort (`engine.py:79-82`) becomes
-a `finite` flag in the returned metrics, and a non-finite loss keeps the
-old params and optimizer state (`torch.where` on the device), so the host
-loop can read the flag whenever it next syncs and abort from an intact
-state; no step forces a host sync.
+backward pass under `remat`), contrastive loss, the optional OT alignment
+branch (object crops and entity mentions re-encoded, IPOT), backward,
+global-norm clip, optimizer update, single device. The NaN abort
+(`engine.py:79-82`) becomes a `finite` flag in the returned metrics, and a
+non-finite loss keeps the old params and optimizer state (`torch.where` on
+the device), so the host loop can read the flag whenever it next syncs and
+abort from an intact state; no step forces a host sync.
 
 The step updates `state.params` in place (the same leaf tensors stay the
 model's parameters from step to step) and returns the new state.
@@ -23,6 +24,7 @@ from clip_event_tpu_torch.engine.losses import contrastive_loss
 from clip_event_tpu_torch.engine.optim import Optimizer, global_norm, tree_leaves, tree_unflatten
 from clip_event_tpu_torch.models import clip as clip_model
 from clip_event_tpu_torch.models.clip import CLIPConfig
+from clip_event_tpu_torch.ops.ot import alignment_loss
 
 
 class TrainState(NamedTuple):
@@ -50,8 +52,13 @@ def loss_fn(
     compute_dtype=torch.float32,
     remat=False,
     impl: str = "kernel",
+    alignment: bool = False,
+    use_pallas_ot="auto",
+    alignment_chunks: int = 1,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {loss_i, loss_t}) of one batch, in fp32."""
+    """(total loss, {loss_i, loss_t[, loss_ot]}) of one batch, in fp32.
+    With `alignment` the batch carries `object_image`, `object_mask`,
+    `entity_text` and `entity_mask`, and `loss_ot` joins the total."""
     kw = dict(compute_dtype=compute_dtype, impl=impl, remat=remat)
     if "text_unique" in batch:
         # dedupe-encode: encode each unique token row once and gather the
@@ -74,6 +81,15 @@ def loss_fn(
         logits_per_image, logits_per_text, batch["labels_per_image"],
         batch["labels_per_text"], batch["index_pos"], loss_type=loss_type,
     )
+    if alignment:
+        object_feats, entity_feats = clip_model.sim_entity(
+            params, cfg, batch["object_image"], batch["entity_text"],
+            chunks=alignment_chunks, **kw,
+        )
+        loss_dict["loss_ot"] = alignment_loss(
+            entity_feats, object_feats, batch["entity_mask"], batch["object_mask"],
+            use_pallas=use_pallas_ot,
+        )
     return sum(loss_dict.values()), loss_dict
 
 
@@ -124,13 +140,17 @@ def make_train_step(
     compute_dtype=torch.float32,
     remat=True,
     impl: str = "kernel",
+    alignment: bool = False,
+    use_pallas_ot="auto",
+    alignment_chunks: int = 1,
 ):
     """Returns `train_step(state, batch) -> (state, metrics)`; metrics are
-    device tensors (loss, finite, grad_norm, loss_i, loss_t)."""
+    device tensors (loss, finite, grad_norm, loss_i, loss_t[, loss_ot])."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         total, loss_dict = loss_fn(
-            state.params, batch, cfg, loss_type, overbatch, compute_dtype, remat, impl
+            state.params, batch, cfg, loss_type, overbatch, compute_dtype, remat, impl,
+            alignment, use_pallas_ot, alignment_chunks,
         )
         return _apply_update(state, _grads(total, state.params), total, loss_dict, optimizer)
 
@@ -146,6 +166,9 @@ def make_accum_step(
     compute_dtype=torch.float32,
     remat=True,
     impl: str = "kernel",
+    alignment: bool = False,
+    use_pallas_ot="auto",
+    alignment_chunks: int = 1,
 ):
     """ONE optimizer step from K microbatches (gradient accumulation).
 
@@ -167,7 +190,8 @@ def make_accum_step(
         for k in range(accum_steps):
             micro = {key: v[k] for key, v in batches.items()}
             total, loss_dict = loss_fn(
-                state.params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl
+                state.params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl,
+                alignment, use_pallas_ot, alignment_chunks,
             )
             grads = _grads(total, state.params)
             metrics = {"loss": total.detach(), **{n: v.detach() for n, v in loss_dict.items()}}

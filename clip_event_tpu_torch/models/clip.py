@@ -16,6 +16,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from clip_event_tpu_torch.data.transform import CLIP_MEAN, CLIP_STD
 from clip_event_tpu_torch.models import layers as L
@@ -214,6 +215,57 @@ def forward(
         encode_text(params, cfg, tokens, compute_dtype=compute_dtype, impl=impl, remat=remat)
     )
     return contrastive_logits(params, image_features, text_features, overbatch)
+
+
+def sim_entity(
+    params: dict,
+    cfg: CLIPConfig,
+    object_images: torch.Tensor,
+    entity_tokens: torch.Tensor,
+    compute_dtype=torch.float32,
+    impl: str = "kernel",
+    remat=False,
+    chunks: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode object crops and entity mentions for the OT alignment loss
+    (JAX `clip.py:258-325`; reference `model_clip.py:531-552`).
+
+    object_images: [B, N, H, W, 3]; entity_tokens: [B, M, context]. Returns
+    the unnormalized ([B, N, E], [B, M, E]); the OT cost normalizes.
+
+    `chunks > 1` encodes the node axis (not the flat B·K batch) in that many
+    sequential slices, the effective count being the smallest divisor of the
+    node axis ≥ `chunks` (e.g. 11 slots with chunks=4 → 11 slices). When
+    autograd records, each slice runs under `torch.utils.checkpoint` (JAX's
+    `jax.checkpoint(one)`), so only the slice inputs are kept for the
+    backward and each slice's forward re-runs during its own backward; the
+    per-block recompute of `remat` stays inside."""
+    B, N = object_images.shape[:2]
+    M = entity_tokens.shape[1]
+    recompute = torch.is_grad_enabled()
+
+    def encode_chunked(encode_fn, x, node_axis_len):
+        c = 1
+        if chunks > 1:
+            c = next(
+                d for d in range(min(chunks, node_axis_len), node_axis_len + 1)
+                if node_axis_len % d == 0
+            )
+        k = node_axis_len // c
+        if c == 1:
+            flat = x.reshape((B * node_axis_len,) + tuple(x.shape[2:]))
+            return encode_fn(flat).reshape(B, node_axis_len, -1)
+        outs = []
+        for i in range(c):
+            xc = x[:, i * k : (i + 1) * k].reshape((B * k,) + tuple(x.shape[2:]))
+            outs.append(checkpoint(encode_fn, xc, use_reentrant=False) if recompute else encode_fn(xc))
+        out = torch.stack(outs).reshape(c, B, k, -1)  # [c, B, k, E]
+        return out.transpose(0, 1).reshape(B, node_axis_len, -1)
+
+    kw = dict(compute_dtype=compute_dtype, impl=impl, remat=remat)
+    img = encode_chunked(lambda x: encode_image(params, cfg, x, **kw), object_images, N)
+    txt = encode_chunked(lambda t: encode_text(params, cfg, t, **kw), entity_tokens, M)
+    return img, txt
 
 
 # ------------------------------------------------------------------ modules

@@ -7,12 +7,14 @@ along a leading `[L, ...]` axis. LayerNorm always runs in float32 (the fp32
 island); matmuls run in the activations' dtype.
 
 `impl` selects the attention core: "kernel" (the default) calls
-`ops.attention.fused_attention_qkv`, which launches the hand-written
-kernels (forward and backward) on a CUDA tensor and runs their plain
-versions on a CPU tensor; "plain" runs those plain versions on any device,
-the reference a run on the card is held against. In fp32 both equal the
-JAX package's einsum path; in bf16 they keep the probabilities in fp32 as
-its kernel path does, where its einsum path rounds them to bf16 before P·V.
+`ops.attention.fused_attention_qkv` (K1) where S <= 128, else
+`fused_attention_qkv_headgrid` (K2) where `head_grid_supported`, else
+raises; each launches its hand-written kernels (forward and backward) on a
+CUDA tensor and runs their plain versions on a CPU tensor. "plain" runs
+those plain versions on any device, the reference a run on the card is
+held against. In fp32 both equal the JAX package's einsum path; in bf16
+they keep the probabilities in fp32 as its kernel path does, where its
+einsum path rounds them to bf16 before P·V.
 
 `remat` (the JAX package's `transformer(..., remat=)`): True or "full"
 recomputes each block in the backward pass (`torch.utils.checkpoint`, the
@@ -27,7 +29,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from clip_event_tpu_torch.ops.attention import IMPLS, attend
+from clip_event_tpu_torch.ops import attention as A
+from clip_event_tpu_torch.ops.attention import IMPLS
 
 # the JAX package's selective remat policies (`layers.py:470-475`)
 _UNPORTED_REMAT = ("attn", "dots", "dots_nobatch")
@@ -70,8 +73,39 @@ def multi_head_attention(
     """
     scale = (x.shape[-1] // num_heads) ** -0.5
     qkv = linear(x, params["qkv_w"], params["qkv_b"])  # [B, S, 3W]
-    out = attend(qkv, attn_bias, num_heads, scale, impl)
+    out = attention_core(qkv, attn_bias, num_heads, scale, impl)
     return linear(out, params["out_w"], params["out_b"])
+
+
+def attention_core(
+    qkv: torch.Tensor,
+    attn_bias: Optional[torch.Tensor],
+    num_heads: int,
+    scale: float,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """The attention core over the packed projection, chosen by shape alone
+    before anything launches (JAX `layers.py:285-311`): K1 where S <= 128
+    and head_dim <= 128, else K2 where `head_grid_supported`, else a
+    ValueError naming the shape. The JAX package sends that last case to its
+    einsum path; here it raises on every device, so a CPU run shows what a
+    card run would do. No CLIP preset reaches it. `impl="plain"` runs the
+    plain versions at any shape."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    if impl == "plain":
+        return A.attend(qkv, attn_bias, num_heads, scale, "plain")
+    B, S, W3 = qkv.shape
+    W = W3 // 3
+    if S <= A.MAX_SEQ and W // num_heads <= A.MAX_HEAD_DIM:
+        return A.fused_attention_qkv(qkv, attn_bias, num_heads, scale)
+    if A.head_grid_supported(S, W, num_heads):
+        return A.fused_attention_qkv_headgrid(qkv, attn_bias, num_heads, scale)
+    raise ValueError(
+        f"no attention kernel takes S={S}, W={W}, H={num_heads}: K1 needs S <= {A.MAX_SEQ} "
+        f"and head_dim <= {A.MAX_HEAD_DIM}; K2 needs W % {A.HG_LANES} == 0 and head_dim "
+        f"dividing {A.HG_LANES} (impl='plain' runs any shape)"
+    )
 
 
 def residual_block(

@@ -1,8 +1,9 @@
-"""Multi-head attention over the packed QKV projection (K1, forward and
-backward).
+"""Multi-head attention over the packed QKV projection: K1 and K2, each
+forward and backward.
 
 Counterpart of `clip_event_tpu/ops/attention_pallas.py::fused_attention_qkv`
-and its custom VJP: the attention core reads the raw [B, S, 3W] output of
+(K1) and `fused_attention_qkv_headgrid` (K2) with their custom VJPs. Both
+have one contract: the attention core reads the raw [B, S, 3W] output of
 the fused QKV matmul (torch/CLIP lane layout: q in [0, W), k in [W, 2W), v
 in [2W, 3W), head h at h·D in each) and returns the head outputs
 concatenated as [B, S, W], ready for the out-projection. Its gradient is
@@ -12,9 +13,15 @@ is recomputed, never saved); the bias gets none.
 `fused_attention_qkv` is a `torch.autograd.Function`. On a CUDA tensor its
 forward launches the hand-written kernel of `csrc/attention_fwd.cu` and
 its backward the one of `csrc/attention_bwd.cu`, or they raise if the
-kernel cannot take the input. On a CPU tensor they run
+kernel cannot take the input. Those kernels stage a whole head's K and V
+in shared memory, so they take S <= 128. `fused_attention_qkv_headgrid`
+is the same function for the longer sequences of the ViT-B/16 and ViT-L/14
+vision towers (S = 197, 257): its kernels, `csrc/attention_hg_fwd.cu` and
+`csrc/attention_hg_bwd.cu`, walk K and V in tiles with an online softmax,
+so any S runs; they take the head-grid shapes of the JAX kernel
+(`head_grid_supported`). On a CPU tensor both run
 `fused_attention_qkv_plain` and `fused_attention_qkv_bwd_plain`, the same
-functions in plain PyTorch. Nothing falls back from a kernel to its plain
+function in plain PyTorch. Nothing falls back from a kernel to its plain
 version. `attend(..., impl="plain")` runs the plain pair on any device: the
 reference a run on the card is held against.
 """
@@ -32,8 +39,12 @@ MAX_SEQ = 128
 MAX_HEAD_DIM = 128
 KERNEL = "attention_fwd"
 BWD_KERNEL = "attention_bwd"
-# the backward's C entry point launches two kernels (dq pass, dk/dv pass)
+HG_KERNEL = "attention_hg_fwd"
+HG_BWD_KERNEL = "attention_hg_bwd"
+# each backward's C entry point launches two kernels (dq pass, dk/dv pass)
 BWD_LAUNCHES_PER_CALL = 2
+# K2 takes heads in 128-lane groups, as the TPU kernel's lane blocks do
+HG_LANES = 128
 IMPLS = ("kernel", "plain")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,9 +99,18 @@ def fused_attention_qkv_bwd_plain(
     return dqkv.reshape(B, S, W3).to(qkv.dtype)
 
 
+def head_grid_supported(seq_len: int, width: int, num_heads: int) -> bool:
+    """The shapes K2 takes (the JAX `head_grid_supported` without its TPU
+    VMEM byte model): W a multiple of 128 and head_dim dividing 128. Any
+    sequence length runs."""
+    if seq_len < 1 or width % num_heads or width % HG_LANES:
+        return False
+    return HG_LANES % (width // num_heads) == 0
+
+
 def _check_kernel_input(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
-    do: Optional[torch.Tensor] = None,
+    do: Optional[torch.Tensor] = None, head_grid: bool = False,
 ):
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, S, 3W], got {tuple(qkv.shape)}")
@@ -103,10 +123,17 @@ def _check_kernel_input(
         raise ValueError(f"attention kernel takes float32 or bfloat16, got {qkv.dtype}")
     if not qkv.is_contiguous():
         raise ValueError("attention kernel needs a contiguous qkv")
-    if not 1 <= S <= MAX_SEQ:
-        raise ValueError(f"attention kernel takes 1 <= S <= {MAX_SEQ}, got S={S}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
+    if head_grid:
+        if not head_grid_supported(S, W, num_heads):
+            raise ValueError(
+                f"head-grid attention kernel takes W % {HG_LANES} == 0 and head_dim "
+                f"dividing {HG_LANES}, got S={S} W={W} H={num_heads}"
+            )
+    else:
+        if not 1 <= S <= MAX_SEQ:
+            raise ValueError(f"attention kernel takes 1 <= S <= {MAX_SEQ}, got S={S}")
+        if not 1 <= D <= MAX_HEAD_DIM:
+            raise ValueError(f"attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
     if B < 1:
         raise ValueError("attention kernel needs B >= 1")
     if bias is not None:
@@ -148,18 +175,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _attention_fwd(
-    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
-) -> torch.Tensor:
-    """The forward: the plain version on a CPU tensor, the kernel on a CUDA
-    tensor it takes, else raise."""
-    if qkv.device.type == "cpu":
-        return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
-    _check_kernel_input(qkv, bias, num_heads)
+def _launch_fwd(qkv, bias, num_heads, scale, head_grid: bool) -> torch.Tensor:
+    """Check and launch the forward kernel of K1 or K2 on a CUDA tensor."""
+    _check_kernel_input(qkv, bias, num_heads, head_grid=head_grid)
     B, S, W3 = qkv.shape
     W = W3 // 3
     bias = _kernel_bias(bias)
-    lib, fn = _load(KERNEL, "clip_attention_fwd", _FWD_ARGS)
+    name, symbol = (HG_KERNEL, "clip_attention_hg_fwd") if head_grid else (KERNEL, "clip_attention_fwd")
+    lib, fn = _load(name, symbol, _FWD_ARGS)
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -167,7 +190,42 @@ def _attention_fwd(
             qkv.data_ptr(), _ptr(bias), out.data_ptr(),
             B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
         )
-    _build.check(lib, code, "attention_fwd launch")
+    _build.check(lib, code, f"{name} launch")
+    return out
+
+
+def _launch_bwd(qkv, bias, do, num_heads, scale, head_grid: bool) -> torch.Tensor:
+    """Check and launch the two backward kernels of K1 or K2 on a CUDA
+    tensor; the softmax row stats go to a [3, B, H, S] fp32 scratch."""
+    _check_kernel_input(qkv, bias, num_heads, do, head_grid=head_grid)
+    B, S, W3 = qkv.shape
+    W = W3 // 3
+    do = do.contiguous()
+    bias = _kernel_bias(bias)
+    name, symbol = (
+        (HG_BWD_KERNEL, "clip_attention_hg_bwd") if head_grid else (BWD_KERNEL, "clip_attention_bwd")
+    )
+    lib, fn = _load(name, symbol, _BWD_ARGS)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = fn(
+            qkv.data_ptr(), _ptr(bias), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
+        )
+    _build.check(lib, code, f"{name} launch")
+    return dqkv
+
+
+def _attention_fwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
+) -> torch.Tensor:
+    """K1's forward: the plain version on a CPU tensor, the kernel on a CUDA
+    tensor it takes, else raise."""
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
+    out = _launch_fwd(qkv, bias, num_heads, scale, head_grid=False)
     fused_attention_qkv.launches += 1
     return out
 
@@ -182,22 +240,34 @@ def fused_attention_qkv_bwd(
     do of qkv's dtype), else this raises."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
-    _check_kernel_input(qkv, bias, num_heads, do)
-    B, S, W3 = qkv.shape
-    W = W3 // 3
-    do = do.contiguous()
-    bias = _kernel_bias(bias)
-    lib, fn = _load(BWD_KERNEL, "clip_attention_bwd", _BWD_ARGS)
-    dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = fn(
-            qkv.data_ptr(), _ptr(bias), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
-        )
-    _build.check(lib, code, "attention_bwd launch")
+    dqkv = _launch_bwd(qkv, bias, do, num_heads, scale, head_grid=False)
     fused_attention_qkv_bwd.launches += BWD_LAUNCHES_PER_CALL
+    return dqkv
+
+
+def _headgrid_fwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
+) -> torch.Tensor:
+    """K2's forward: the plain version on a CPU tensor, the kernel on a CUDA
+    tensor it takes, else raise."""
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
+    out = _launch_fwd(qkv, bias, num_heads, scale, head_grid=True)
+    fused_attention_qkv_headgrid.launches += 1
+    return out
+
+
+def fused_attention_qkv_headgrid_bwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """K2's backward: dqkv [B, S, 3W] packed as JAX's
+    `concatenate([dq, dk, dv], -1)` lays it out. CPU tensors take the plain
+    version; any other device must be a CUDA tensor K2 takes, else raise."""
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
+    dqkv = _launch_bwd(qkv, bias, do, num_heads, scale, head_grid=True)
+    fused_attention_qkv_headgrid_bwd.launches += BWD_LAUNCHES_PER_CALL
     return dqkv
 
 
@@ -221,17 +291,46 @@ class _FusedAttention(torch.autograd.Function):
         return bwd(qkv, bias, do, ctx.num_heads, ctx.scale), None, None, None, None
 
 
+class _HeadGridAttention(torch.autograd.Function):
+    """K2 with its gradient, the counterpart of `_hg_fwd` / `_hg_bwd`: saves
+    qkv and bias, not the probabilities, so it composes with
+    `torch.utils.checkpoint`; no gradient for the bias."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, scale):
+        ctx.save_for_backward(qkv, bias)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _headgrid_fwd(qkv, bias, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias = ctx.saved_tensors
+        dqkv = fused_attention_qkv_headgrid_bwd(qkv, bias, do, ctx.num_heads, ctx.scale)
+        return dqkv, None, None, None
+
+
 def fused_attention_qkv(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
 ) -> torch.Tensor:
     """Multi-head softmax attention over a packed QKV projection, with its
-    gradient.
+    gradient (K1).
 
     qkv: [B, S, 3W]; bias: additive [S, S] float mask or None. Returns
     [B, S, W] in qkv.dtype. CPU tensors take the plain versions; any other
     device must be a CUDA tensor the kernels take (fp32 or bf16, contiguous,
     S <= 128, head_dim <= 128), else this raises."""
     return _FusedAttention.apply(qkv, bias, num_heads, float(scale), True)
+
+
+def fused_attention_qkv_headgrid(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
+) -> torch.Tensor:
+    """`fused_attention_qkv`'s function and contract for any sequence length
+    (K2, JAX `attention_pallas.py:490-496`): packed [B, S, 3W] in, [B, S, W]
+    out, the gradient as packed dqkv, none for the bias. CPU tensors take
+    the plain versions; any other device must be a CUDA tensor K2 takes
+    (fp32 or bf16, contiguous, `head_grid_supported`), else this raises."""
+    return _HeadGridAttention.apply(qkv, bias, num_heads, float(scale))
 
 
 def attend(
@@ -249,3 +348,5 @@ def attend(
 # one per forward call, BWD_LAUNCHES_PER_CALL per backward call
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0
+fused_attention_qkv_headgrid.launches = 0
+fused_attention_qkv_headgrid_bwd.launches = 0

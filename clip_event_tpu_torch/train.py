@@ -99,6 +99,8 @@ def train(
         loss_type=cfg["constrastive_loss"], overbatch=cfg["constrastive_overbatch"],
         compute_dtype=torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else torch.float32,
         remat=cfg["remat"], impl="kernel" if cfg["use_pallas_attention"] else "plain",
+        alignment=cfg["alignment"], alignment_chunks=cfg["alignment_chunks"],
+        use_pallas_ot=cfg["use_pallas_ot"],
     )
     state = create_train_state(params, optimizer)
     if opt_state is not None:
@@ -304,6 +306,17 @@ def build_dataset(cfg: dict, mcfg: CLIPConfig):
         posneg_descriptions_json=cfg["posneg_descriptions_json"],
         image_caption_jsons=cfg["image_caption_json"],
         image_dirs=cfg["image_dir"],
+        load_object=cfg["load_object"],
+        object_pickles=cfg["object_pickle"],
+        object_ontology_file=cfg["object_ontology_file"],
+        object_detection_threshold=cfg["object_detection_threshold"],
+        object_topk=cfg["object_topk"],
+        max_objects=cfg["max_objects"],
+        load_ie=cfg["load_ie"],
+        input_entities=cfg["input_entities"],
+        input_events=cfg["input_events"],
+        max_entities=cfg["max_entities"],
+        max_events=cfg["max_events"],
         contrastive_loss=cfg["constrastive_loss"],
         overbatch=cfg["constrastive_overbatch"],
         image_size=mcfg.image_resolution,

@@ -52,6 +52,33 @@ Phases, each printing JSON lines:
               checkpoints, pairs/s, step ms, peak memory, a profile of one
               step, and kernel-vs-plain steps (plain attention and plain
               IPOT; bf16 at B=64 and fp32 at B=16)
+  9. serving_int8  ViT-L/14, then ViT-B/32, from seed 0 through
+              `evals.cli.load_model_from_cfg` in three modes: "int8",
+              "int8_static" (synthetic calibration, 2 batches) and
+              "int8_static" with quantize_towers ["visual"]; each embeds 128
+              images and 128 token rows at batch 64 in fp32 through
+              embed_stream (the visual-only mode also in bf16): exact K5
+              launch counts (98 dense layers per L/14 image batch, 49 per
+              text batch, 50 and 49 at B/32; none in a float tower), images/s
+              and texts/s beside the float phases', weight bytes on the card,
+              the int8 kernel path against plain K5 under the same attention
+              kernels at fp32 max abs error 1e-4, and against the int8 plain
+              path (plain attention, plain K5) at 1e-4 where the attention
+              kernel is K1, min cosine 0.999 where it is K2 (its ~1e-6 flips
+              dynamic int8 roundings), and the cosine of int8 against float
+              features (gated at >= 0.99 at ViT-B/32)
+ 10. evals    the M2E2, VCR, VisualCOMET and retrieval CLIs through
+              `evals.cli.run` on synthetic annotation files (tests/fixtures.py):
+              VCR, VisualCOMET and retrieval at ViT-B/32 fp32, M2E2 at
+              ViT-L/14 with argument grounding in int8_static (grid features
+              through K2, every dense layer through K5); metrics finite and
+              in [0, 1], the expected keys, exact launch counts
+
+K5, the int8 GEMM, is held in phase 3 against its plain version at the
+paths' shapes (batch 64) and at edge shapes (M = 1, K = 588, K = 3, odd N,
+an all-zero row, a row with one large value), dynamic and static, fp32
+and bf16: max|kernel − plain| / max|plain| ≤ 1e-6 (fp32) / 8e-3 (bf16),
+and the int8 payload and row scales of its first launch exactly equal.
 
 then the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi prints them, and a last line `{"ok": true, "device": {...}}`.
@@ -96,6 +123,7 @@ from clip_event_tpu_torch.models.clip import (
 from clip_event_tpu_torch.models.layers import causal_mask
 from clip_event_tpu_torch.ops import _build
 from clip_event_tpu_torch.ops import ot
+from clip_event_tpu_torch.ops import quant
 from clip_event_tpu_torch.ops.attention import (
     BWD_KERNEL,
     BWD_LAUNCHES_PER_CALL,
@@ -117,9 +145,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # the CUDA cores, bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_INT8_OPS = 1979e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # forward: max abs error
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # backward: error relative to max|plain|
 OT_TOL = {"float32": 1e-5}  # IPOT plan: error relative to max|plain|
+# K5: error relative to max|plain|; fp32 is exact by design, bf16 two ulps
+QUANT_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
 
 SERVING_SHAPES = [  # (tag, B, S, W, H, causal)
     ("text", 64, 77, 512, 8, True),
@@ -173,6 +204,26 @@ OT_SHAPES = [
     ("ot_256x32x32", 256, 32, 32, 1, False),
     ("ot_256x128x128", 256, 128, 128, 1, False),
 ]
+# K5: the dense layers of the int8 paths at batch 64, (tag, M, K, N): per
+# tower the QKV, out, MLP fc and MLP proj projections over B·S tokens; the
+# patch embeds over B·grid² patches (L/14's K = 588 = 14·14·3); the final
+# projections over B rows
+QUANT_SHAPES = [
+    (f"{tower}_{name}", 64 * S, k * W, n * W)
+    for tower, S, W in (("b32_vision", 50, 768), ("l14_vision", 257, 1024),
+                        ("b32_text", 77, 512), ("l14_text", 77, 768))
+    for name, k, n in (("qkv", 1, 3), ("out", 1, 1), ("fc", 1, 4), ("mlp_proj", 4, 1))
+] + [
+    ("b32_patch_embed", 64 * 49, 3072, 768), ("l14_patch_embed", 64 * 256, 588, 1024),
+    ("b32_vision_proj", 64, 768, 512), ("b32_text_proj", 64, 512, 512),
+    ("l14_vision_proj", 64, 1024, 768), ("l14_text_proj", 64, 768, 768),
+]
+# edge shapes, each with an all-zero first row and one large value in its
+# last row: M = 1, M = 1 with K = 588, K = 3 with odd N, odd N, ragged M/K/N
+QUANT_EDGE_SHAPES = [
+    ("q_edge_m1", 1, 768, 2304), ("q_edge_m1_k588", 1, 588, 1024), ("q_edge_k3", 37, 3, 7),
+    ("q_edge_n_odd", 130, 100, 131), ("q_edge_ragged", 129, 200, 257),
+]
 N_ITEMS = 256  # images and token rows served at ViT-B/32
 BATCH = 64
 SOT, EOT = 49406, 49407
@@ -180,6 +231,7 @@ SOT, EOT = 49406, 49407
 KERNEL_FAMILIES = (
     ("attention (hand-written)", ("attention_fwd_kernel", "attention_bwd_", "attention_hg_")),
     ("ipot (hand-written)", ("ipot_kernel",)),
+    ("int8 gemm (hand-written)", ("int8_gemm_kernel", "quant_rows_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax / loss", ("softmax",)),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -206,7 +258,7 @@ OT_FP32_CHECK_BATCH = 16
 COUNTERS = {
     KERNEL: fused_attention_qkv, BWD_KERNEL: fused_attention_qkv_bwd,
     HG_KERNEL: fused_attention_qkv_headgrid, HG_BWD_KERNEL: fused_attention_qkv_headgrid_bwd,
-    ot.KERNEL: ot.ipot_kernel,
+    ot.KERNEL: ot.ipot_kernel, quant.KERNEL: quant.quantized_matmul,
 }
 
 
@@ -405,6 +457,75 @@ def check_ipot(rows, errs, gen, tag, B, M, N, k, empty_row):
     emit({"phase": "kernel_check", "kernel": ot.KERNEL, **row})
 
 
+def quant_bound_ms(M, K, N, dtype_name, static):
+    """Least time for one K5 call: x read once, q read once, the output
+    written once, the column scales and bias (and the static scale) read
+    once, over the memory rate; 2·M·N·K int8 operations over the int8 peak.
+    The larger wins."""
+    elt = 4 if dtype_name == "float32" else 2
+    nbytes = M * K * elt + K * N + M * N * elt + 2 * N * 4 + (4 if static else 0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * M * N * K / PEAK_INT8_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_quant(rows, errs, gen, tag, M, K, N, dtype, static, timed, edge):
+    """K5 against its plain version at one shape, dtype and mode: the output
+    (QUANT_TOL, relative to max|plain|), and the row pass's int8 payload and
+    row scales exactly. Times, the bound and two yardsticks when `timed`:
+    torch._int_mm on the pre-quantised operands (the GEMM alone, where its
+    shape rules allow: M > 16, K and N multiples of 8) and the bf16
+    torch.matmul of the same shape (the float path int8 is meant to beat)."""
+    name = str(dtype).split(".")[-1]
+    x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
+    if edge:
+        if M > 1:
+            x[0] = 0.0
+        x[-1, K // 2] = 1e3
+    w32 = torch.randn((K, N), device="cuda", generator=gen)
+    # a static scale clips the largest activations, as one calibrated on
+    # other batches may
+    w = quant.quantize_weight(w32, 0.9 * x.float().abs().max() if static else None)
+    bias = torch.randn((N,), device="cuda", generator=gen)
+    args = (x, w.q, w.scale, bias, w.act_scale)
+    y = quant.quantized_matmul(*args)
+    ref = quant.quantized_matmul_plain(*args)
+    xq, rs = quant.quantize_rows(x, w.act_scale)
+    pxq, prs = quant.quantize_rows_plain(x, w.act_scale)
+    torch.cuda.synchronize()
+    mode = "static" if static else "dynamic"
+    what = f"{quant.KERNEL} {tag} {name} {mode}"
+    check(y.dtype == dtype and y.shape == (M, N), f"{what} shape/dtype")
+    check(bool(torch.isfinite(y).all()), f"{what} output finite")
+    check(torch.equal(xq[:, :K], pxq) and not bool(xq[:, K:].any()), f"{what}: int8 payload differs")
+    check(torch.equal(rs, prs), f"{what}: row scales differ")
+    err = (y.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    check(rel <= QUANT_TOL[name], f"{what}: rel err {rel} > {QUANT_TOL[name]}")
+    if edge and M > 1:
+        check(torch.equal(y[0], bias.to(dtype)), f"{what}: the all-zero row yields the bias")
+    errs[quant.KERNEL][name] = max(errs[quant.KERNEL].get(name, 0.0), err)
+    row = {"shape": tag, "M": M, "K": K, "N": N, "dtype": name, "mode": mode, "max_abs_err": err,
+           "max_rel_err": rel, "tol_rel": QUANT_TOL[name]}
+    if timed:
+        iters = 10 if M * N * K > 1e10 else 30
+        row["ms"] = cuda_ms(lambda: quant.quantized_matmul(*args), iters)
+        row["plain_ms"] = cuda_ms(lambda: quant.quantized_matmul_plain(*args), 5, warmup=1)
+        row["bound_ms"], row["bound_by"] = quant_bound_ms(M, K, N, name, static)
+        row["library_ms"] = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            a = xq[:, :K].contiguous()
+            lib = torch._int_mm(a, w.q)
+            check(torch.equal(lib.double(), torch.matmul(a.double(), w.q.double())),
+                  f"{what}: the _int_mm yardstick disagrees")
+            row["library_ms"] = cuda_ms(lambda: torch._int_mm(a, w.q), iters)
+        row["library"] = "torch._int_mm on the pre-quantised operands (the GEMM alone)"
+        xb, wb = x.to(torch.bfloat16), w32.to(torch.bfloat16)
+        row["bf16_matmul_ms"] = cuda_ms(lambda: torch.matmul(xb, wb), iters)
+    rows[quant.KERNEL].append(row)
+    emit({"phase": "kernel_check", "kernel": quant.KERNEL, **row})
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {name: [] for name in COUNTERS}
@@ -419,6 +540,11 @@ def phase_kernels():
                 check_attention(rows, errs, *kernels, gen, tag, B, S, W, H, causal, dtype, tag in timed)
     for shape in OT_SHAPES:
         check_ipot(rows, errs, gen, *shape)
+    for shapes, edge in ((QUANT_SHAPES, False), (QUANT_EDGE_SHAPES, True)):
+        for tag, M, K, N in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                for static in (False, True):
+                    check_quant(rows, errs, gen, tag, M, K, N, dtype, static, not edge, edge)
     torch.cuda.synchronize()
     return rows, errs
 
@@ -463,6 +589,38 @@ def serving_launches(mcfg, image_batches, text_batches):
     return out
 
 
+def serving_inputs(mcfg, n_items):
+    """uint8 images and token rows (SOT, random ids, EOT at a random width)
+    from seed 0."""
+    rng = np.random.default_rng(0)
+    res = mcfg.image_resolution
+    images = rng.integers(0, 256, size=(n_items, res, res, 3), dtype=np.uint8)
+    tokens = np.zeros((n_items, mcfg.context_length), np.int32)
+    for i, n in enumerate(rng.integers(3, mcfg.context_length - 1, n_items)):
+        tokens[i, 0] = SOT
+        tokens[i, 1:n] = rng.integers(1, SOT, n - 1)
+        tokens[i, n] = EOT
+    return images, tokens
+
+
+def check_shards(out_dir, manifest, n_items, dim, norm_tol, tag):
+    """The shards and manifest of an embed_stream run: the manifest round
+    trip, ids in order, [n_items, dim], finite, rows of unit norm within
+    `norm_tol`. Returns the features and the worst norm error by kind."""
+    with open(os.path.join(out_dir, "manifest.json")) as fh:
+        check(json.load(fh) == manifest, f"{tag} manifest round trip")
+    feats_by, norm_errs = {}, {}
+    for kind in ("images", "texts"):
+        ids, feats = _read_shards(out_dir, manifest[kind])
+        check(ids == [f"{i:05d}" for i in range(n_items)], f"{tag} {kind} ids in order")
+        check(feats.shape == (n_items, dim), f"{tag} {kind} shape {feats.shape}")
+        check(bool(np.isfinite(feats).all()), f"{tag} {kind} finite")
+        norm_errs[kind] = float(np.abs(np.linalg.norm(feats, axis=1) - 1.0).max())
+        check(norm_errs[kind] <= norm_tol, f"{tag} {kind} unit norm ({norm_errs[kind]})")
+        feats_by[kind] = feats
+    return feats_by, norm_errs
+
+
 def phase_serving(out_root, model="ViT-B/32", n_items=N_ITEMS, matching=True, tag="serving"):
     """Serve `model` from seed 0: embed_stream over `n_items` images and
     token rows at batch 64 in fp32 and bf16 (and evaluate_matching when
@@ -473,14 +631,7 @@ def phase_serving(out_root, model="ViT-B/32", n_items=N_ITEMS, matching=True, ta
     init_s = time.perf_counter() - t0
     check(model_obj.device.type == "cuda", "model on the card")
 
-    rng = np.random.default_rng(0)
-    res = mcfg.image_resolution
-    images = rng.integers(0, 256, size=(n_items, res, res, 3), dtype=np.uint8)
-    tokens = np.zeros((n_items, mcfg.context_length), np.int32)
-    for i, n in enumerate(rng.integers(3, mcfg.context_length - 1, n_items)):
-        tokens[i, 0] = SOT
-        tokens[i, 1:n] = rng.integers(1, SOT, n - 1)
-        tokens[i, n] = EOT
+    images, tokens = serving_inputs(mcfg, n_items)
     image_ds, text_ds = _Arrays(image=images), _Arrays(text=tokens)
     pair_ds = _Arrays(image=images, text=tokens)
 
@@ -517,18 +668,11 @@ def phase_serving(out_root, model="ViT-B/32", n_items=N_ITEMS, matching=True, ta
     summary = {}
     feats_by = {}
     for name in encoders:
-        out_dir = os.path.join(out_root, tag, name)
-        with open(os.path.join(out_dir, "manifest.json")) as fh:
-            check(json.load(fh) == manifests[name], f"{name} manifest round trip")
+        feats, norm_errs = check_shards(os.path.join(out_root, tag, name), manifests[name], n_items,
+                                        mcfg.embed_dim, 1e-4 if name == "float32" else 1e-2, name)
         for kind in ("images", "texts"):
-            ids, feats = _read_shards(out_dir, manifests[name][kind])
-            check(ids == [f"{i:05d}" for i in range(n_items)], f"{name} {kind} ids in order")
-            check(feats.shape == (n_items, mcfg.embed_dim), f"{name} {kind} shape {feats.shape}")
-            check(bool(np.isfinite(feats).all()), f"{name} {kind} finite")
-            norm_err = float(np.abs(np.linalg.norm(feats, axis=1) - 1.0).max())
-            check(norm_err <= (1e-4 if name == "float32" else 1e-2), f"{name} {kind} unit norm ({norm_err})")
-            feats_by[name, kind] = feats
-            summary[f"{name}_{kind}_norm_err"] = norm_err
+            feats_by[name, kind] = feats[kind]
+            summary[f"{name}_{kind}_norm_err"] = norm_errs[kind]
     if matching:
         check(matching_metrics(feats_by["float32", "images"], feats_by["float32", "texts"]) == metrics,
               "evaluate_matching agrees with the metrics of the embedded features")
@@ -586,7 +730,286 @@ def phase_serving(out_root, model="ViT-B/32", n_items=N_ITEMS, matching=True, ta
                       **profile_one(lambda: fn(x), batch_ms, kernels=(("attention", needles[kind]),))})
     del encoders, model_obj, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, rates
+
+
+INT8_MODES = (  # (tag, the CLI's keys, float towers)
+    ("int8", {"quantize": "int8"}, ()),
+    ("int8_static", {"quantize": "int8_static", "calibration_batches": 2}, ()),
+    ("int8_static_visual", {"quantize": "int8_static", "calibration_batches": 2,
+                            "quantize_towers": ["visual"]}, ("text",)),
+)
+
+
+def int8_launches(mcfg, image_batches, text_batches, float_towers=()):
+    """Launches per kernel for encoding that many image and text batches
+    with int8 dense layers: the attention forwards of `serving_launches`,
+    and K5 once per dense layer of a quantized tower (4 a block, then the
+    patch embed and the projection in the vision tower, the projection in
+    the text tower), LAUNCHES_PER_CALL launches each."""
+    out = serving_launches(mcfg, image_batches, text_batches)
+    dense = {"image": 4 * mcfg.vision_layers + 2, "text": 4 * mcfg.transformer_layers + 1}
+    calls = dense["image"] * image_batches
+    if "text" not in float_towers:
+        calls += dense["text"] * text_batches
+    out[quant.KERNEL] = quant.LAUNCHES_PER_CALL * calls
+    return out
+
+
+def weight_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(weight_bytes(v) for v in params.values())
+    if isinstance(params, quant.QuantWeight):
+        return sum(t.numel() * t.element_size() for t in (params.q, params.scale, params.act_scale)
+                   if t is not None)
+    return params.numel() * params.element_size()
+
+
+def phase_serving_int8(out_root, model, n_items, tag, float_rates, cos_gate=None):
+    """Serve `model` from seed 0 in the three INT8_MODES through the CLI's
+    `load_model_from_cfg`: embed_stream over `n_items` images and token rows
+    at batch 64 in fp32 (and bf16 in the visual-only mode), counted; then the
+    kernel path against the plain path (plain attention and plain K5), the
+    cosine against the float model's features (gated at `cos_gate` in the
+    modes that quantize both towers), throughput and one profiled batch."""
+    float_model, mcfg = load_model_from_cfg({"model": model, "seed": 0})
+    images, tokens = serving_inputs(mcfg, n_items)
+    image_ds, text_ds = _Arrays(image=images), _Arrays(text=tokens)
+    x_img = torch.from_numpy(images[:BATCH]).cuda()
+    x_tok = torch.from_numpy(tokens[:BATCH]).cuda()
+    float_enc = Encoders(float_model, mcfg, batch_size=BATCH)
+    with torch.inference_mode():
+        ref = {"images": float_enc.encode_images(x_img).float(), "texts": float_enc.encode_texts(x_tok).float()}
+    float_bytes = weight_bytes(float_model.params())
+    del float_enc, float_model
+    torch.cuda.empty_cache()
+    batches = -(-n_items // BATCH)
+    all_launches = dict.fromkeys(COUNTERS, 0)
+    for mode, qcfg, float_towers in INT8_MODES:
+        t0 = time.perf_counter()
+        model_obj, _ = load_model_from_cfg({"model": model, "seed": 0, **qcfg})
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = model_obj.params()
+        check(isinstance(params["visual"]["transformer"]["attn"]["qkv_w"], quant.QuantWeight)
+              and isinstance(params["text_projection"], quant.QuantWeight) == (not float_towers),
+              f"{tag} {mode}: the towers quantized as asked")
+        encoders = {"float32": Encoders(model_obj, mcfg, batch_size=BATCH)}
+        if float_towers:
+            encoders["bfloat16"] = Encoders(model_obj, mcfg, batch_size=BATCH, compute_dtype=torch.bfloat16)
+
+        # ---- the main path, counted
+        reset_launches()
+        manifests, wall = {}, {}
+        for name, enc in encoders.items():
+            out_dir = os.path.join(out_root, tag, mode, name)
+            t0 = time.perf_counter()
+            manifests[name] = {
+                "images": embed_stream(image_ds, enc, "image", "image", out_dir, 100, BATCH, num_workers=4),
+                "texts": embed_stream(text_ds, enc, "text", "text", out_dir, 100, BATCH, num_workers=4),
+            }
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "manifest.json"), "w") as fh:
+                json.dump(manifests[name], fh, indent=2)
+        launches = read_launches()
+        passes = len(encoders)
+        expected = int8_launches(mcfg, batches * passes, batches * passes, float_towers)
+        check(launches == expected, f"{tag} {mode} launches {launches} != {expected}")
+        all_launches = {k: all_launches[k] + launches[k] for k in COUNTERS}
+
+        # ---- what came out
+        summary = {"weight_bytes": weight_bytes(params), "float_weight_bytes": float_bytes}
+        for name in encoders:
+            feats, norm_errs = check_shards(os.path.join(out_root, tag, mode, name), manifests[name], n_items,
+                                            mcfg.embed_dim, 1e-4 if name == "float32" else 1e-2,
+                                            f"{tag} {mode} {name}")
+            summary[f"{name}_norm_err"] = max(norm_errs.values())
+            for kind in ("images", "texts"):
+                # information (and the B/32 gate below): int8 against float
+                cos = F.cosine_similarity(torch.from_numpy(feats[kind][:BATCH]).cuda(), ref[kind], dim=-1)
+                summary[f"{name}_{kind}_vs_float32_min_cos"] = cos.min().item()
+                summary[f"{name}_{kind}_vs_float32_mean_cos"] = cos.mean().item()
+                if cos_gate is not None and name == "float32" and not float_towers:
+                    check(cos.min().item() >= cos_gate,
+                          f"{tag} {mode} {kind}: int8 vs float min cosine {cos.min().item()} < {cos_gate}")
+
+        # ---- kernel path vs the plain paths, fp32: plain K5 under the
+        # kernel attention (K5 alone: exact by design), and plain K5 under
+        # plain attention. K1 equals its plain version bit for bit, K2 to
+        # ~1e-6, and a 1e-6 change can flip a dynamic int8 rounding, which
+        # moves a feature by ~1e-3: where K2 runs (L/14 images) the all-plain
+        # comparison is held by cosine, elsewhere at 1e-4
+        p32 = encoders["float32"].params
+        with torch.inference_mode():
+            for kind, fn, x in (("images", encode_image, x_img), ("texts", encode_text, x_tok)):
+                k = l2_normalize(fn(p32, mcfg, x, impl="kernel")).float()
+                quant.set_gemm_impl("xla")
+                try:
+                    pk = l2_normalize(fn(p32, mcfg, x, impl="kernel")).float()
+                    p = l2_normalize(fn(p32, mcfg, x, impl="plain")).float()
+                finally:
+                    quant.set_gemm_impl("auto")
+                err = (k - pk).abs().max().item()
+                check(err <= 1e-4, f"{tag} {mode} fp32 {kind}: K5 vs plain K5 max abs err {err}")
+                summary[f"float32_{kind}_k5_vs_plain_k5_max_abs_err"] = err
+                err = (k - p).abs().max().item()
+                cos = F.cosine_similarity(k, p, dim=-1).min().item()
+                if kind == "texts" or vision_kernels(mcfg)[0] == KERNEL:
+                    check(err <= 1e-4, f"{tag} {mode} fp32 {kind}: kernel vs plain max abs err {err}")
+                else:
+                    check(cos >= 0.999, f"{tag} {mode} fp32 {kind}: kernel vs plain min cosine {cos}")
+                summary[f"float32_{kind}_kernel_vs_plain_max_abs_err"] = err
+                summary[f"float32_{kind}_kernel_vs_plain_min_cos"] = cos
+
+        # ---- throughput at batch 64 and one profiled batch of each tower
+        rates, profiles = {}, {}
+        iters = 20 if mcfg.vision_layers <= 12 else 8
+        with torch.inference_mode():
+            for name, enc in encoders.items():
+                ms_img = cuda_ms(lambda: enc.encode_images(x_img), iters=iters, warmup=3)
+                ms_txt = cuda_ms(lambda: enc.encode_texts(x_tok), iters=iters, warmup=3)
+                rates[name] = {"images_per_s": BATCH / ms_img * 1e3, "texts_per_s": BATCH / ms_txt * 1e3,
+                               "image_batch_ms": ms_img, "text_batch_ms": ms_txt,
+                               "embed_stream_wall_s": wall[name]}
+            enc = encoders["float32"]
+            needles = (("quant_matmul", "int8_gemm_kernel"), ("quant_rows", "quant_rows_kernel"),
+                       ("attention", "attention_"))
+            for kind, fn, x, ms in (("images", enc.encode_images, x_img, rates["float32"]["image_batch_ms"]),
+                                    ("texts", enc.encode_texts, x_tok, rates["float32"]["text_batch_ms"])):
+                profiles[kind] = profile_one(lambda: fn(x), ms, kernels=needles)
+        emit({"phase": tag, "model": model, "mode": mode, "config": qcfg, "seed": 0, "init_s": init_s,
+              "images": n_items, "texts": n_items, "batch": BATCH, "launches": launches,
+              "per_batch": {"image": int8_launches(mcfg, 1, 0, float_towers),
+                            "text": int8_launches(mcfg, 0, 1, float_towers)},
+              "throughput": rates, "float_throughput": float_rates, **summary})
+        for kind, prof in profiles.items():
+            emit({"phase": f"{tag}_profile", "model": model, "mode": mode, "dtype": "float32",
+                  "tower": kind, **prof})
+        del encoders, model_obj, params, p32
+        torch.cuda.empty_cache()
+    return all_launches
+
+
+def _load_fixtures():
+    """tests/fixtures.py (numpy and PIL only) by path: the synthetic
+    annotation files and images of the eval CLIs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("eval_fixtures", os.path.join(REPO, "tests", "fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _loader_batches(n, batch):
+    return [min(batch, n - i) for i in range(0, n, batch)]
+
+
+def _encoder_batches(n_items, batch):
+    return -(-n_items // batch)
+
+
+def phase_evals(out_root):
+    """The M2E2, VCR, VisualCOMET and retrieval CLIs through `evals.cli.run`
+    on synthetic annotation files: metrics finite and in [0, 1] (rates),
+    the expected keys, and exact launch counts (Encoders pads every call to
+    its fixed batch; M2E2 encodes the grid of each loader batch once more,
+    unpadded)."""
+    import contextlib
+    import io
+
+    from clip_event_tpu_torch import eval_m2e2, eval_retrieval, eval_vcr, eval_visualcomet
+    from clip_event_tpu_torch.evals.cli import run
+
+    fx = _load_fixtures()
+    B = 4
+    root = os.path.join(out_root, "evals")
+    os.makedirs(root, exist_ok=True)
+    results, all_launches = {}, dict.fromkeys(COUNTERS, 0)
+
+    def run_cli(name, module, cfg, expected, keys):
+        cfg = dict(cfg, seed=0, batch_size=B, output_json=os.path.join(root, f"{name}.json"))
+        path = os.path.join(root, f"{name}_cfg.json")
+        with open(path, "w") as fh:
+            json.dump(cfg, fh)
+        argv, sys.argv = sys.argv, [f"{name}", "--cfg", path]
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                run(name, module.evaluate)
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        with open(cfg["output_json"]) as fh:
+            metrics = json.load(fh)
+        check(json.loads(out.getvalue()) == metrics, f"{name}: printed and written metrics agree")
+        check(launches == expected, f"{name} launches {launches} != {expected}")
+        check(keys <= set(metrics), f"{name}: keys {sorted(keys - set(metrics))} missing")
+
+        def rates_ok(m):
+            for k, v in m.items():
+                if isinstance(v, dict):
+                    rates_ok(v)
+                elif isinstance(v, float) and k != "mean_rank":
+                    check(math.isfinite(v) and 0.0 <= v <= 1.0, f"{name}: {k} = {v}")
+        rates_ok(metrics)
+        results[name] = {"model": cfg["model"], "quantize": cfg.get("quantize"), "wall_s": wall,
+                         "metrics": metrics, "launches": launches}
+        for k in COUNTERS:
+            all_launches[k] += launches[k]
+
+    def launches_for(mcfg, image_batches, text_batches, quantized=False):
+        if quantized:
+            return int8_launches(mcfg, image_batches, text_batches)
+        return serving_launches(mcfg, image_batches, text_batches)
+
+    # VCR at ViT-B/32: 5 questions of 4 choices
+    p = fx.make_vcr_fixture(os.path.join(root, "vcr"))
+    sizes = _loader_batches(5, B)
+    run_cli("eval_vcr", eval_vcr, {"model": "ViT-B/32", "qa_jsonl": p["qa_jsonl"], "image_dir": p["image_dir"]},
+            launches_for(VIT_B32, sum(_encoder_batches(b, B) for b in sizes),
+                         sum(_encoder_batches(4 * b, B) for b in sizes)),
+            {"accuracy", "num_questions"})
+    # VisualCOMET at ViT-B/32: 5 images against the pool of 10 intents
+    p = fx.make_visualcomet_fixture(os.path.join(root, "visualcomet"))
+    run_cli("eval_visualcomet", eval_visualcomet,
+            {"model": "ViT-B/32", "anno_json": p["anno_json"], "image_dir": p["image_dir"], "field": "intent"},
+            launches_for(VIT_B32, sum(_encoder_batches(b, B) for b in _loader_batches(5, B)),
+                         _encoder_batches(10, B)),
+            {"R@1", "R@5", "R@10", "mean_rank", "num_images", "num_candidates"})
+    # retrieval (COCO layout) at ViT-B/32: 4 images of 5 captions
+    p = fx.make_retrieval_fixture(os.path.join(root, "retrieval"))
+    sizes = _loader_batches(4, B)
+    run_cli("eval_retrieval", eval_retrieval,
+            {"model": "ViT-B/32", "dataset": "coco", "caption_file": p["coco_json"], "image_dir": p["coco_dir"]},
+            launches_for(VIT_B32, sum(_encoder_batches(b, B) for b in sizes),
+                         sum(_encoder_batches(5 * b, B) for b in sizes)),
+            {"t2i_R@1", "i2t_R@1", "t2i_R@10", "num_images"})
+    # M2E2 at ViT-L/14 in int8_static with argument grounding: 8 images, 3
+    # event types of 2 roles each
+    p = fx.make_m2e2_fixture(os.path.join(root, "m2e2"))
+    with open(p["ontology_json"]) as fh:
+        ontology = json.load(fh)
+    roles = {"Attacker": "the person attacking", "Place": "where it happens"}
+    ont = os.path.join(root, "m2e2", "ontology_roles.json")
+    with open(ont, "w") as fh:
+        json.dump({t: {"template": v, "roles": roles} for t, v in ontology.items()}, fh)
+    sizes = _loader_batches(8, B)
+    image_batches = sum(_encoder_batches(b, B) for b in sizes) + len(sizes)  # + the grid encodes
+    text_batches = _encoder_batches(len(ontology), B) + len(ontology) * _encoder_batches(len(roles), B)
+    run_cli("eval_m2e2", eval_m2e2,
+            {"model": "ViT-L/14", "quantize": "int8_static", "image_anno": p["anno_json"],
+             "image_dir": p["image_dir"], "ie_ontology_json": ont, "ground_arguments": True},
+            launches_for(VIT_L14, image_batches, text_batches, quantized=True),
+            {"event_precision", "event_recall", "event_f1", "argument_precision", "argument_recall",
+             "argument_f1", "per_type", "accuracy", "macro_f1", "num_images"})
+    check(results["eval_m2e2"]["metrics"]["argument_mentions_gold"] == 8, "M2E2 gold arguments")
+    emit({"phase": "evals", "batch_size": B, **results})
+    return all_launches
 
 
 class _BenchPairs(ExampleDataset):
@@ -1025,12 +1448,17 @@ def main() -> int:
     rows, errs = phase_kernels()
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_root:
-        paths["serving"] = phase_serving(out_root)
+        paths["serving"], float_rates = phase_serving(out_root)
         paths["train"] = phase_train(out_root)
-        paths["serving_l14"] = phase_serving(out_root, "ViT-L/14", L14_SERVING_ITEMS, matching=False,
-                                             tag="serving_l14")
+        paths["serving_l14"], l14_rates = phase_serving(out_root, "ViT-L/14", L14_SERVING_ITEMS,
+                                                        matching=False, tag="serving_l14")
         paths["train_l14"], paths["train_b16"] = phase_train_l14(out_root)
         paths["train_ot"] = phase_train_ot(out_root)
+        paths["serving_int8_l14"] = phase_serving_int8(out_root, "ViT-L/14", L14_SERVING_ITEMS,
+                                                       "serving_int8_l14", l14_rates)
+        paths["serving_int8_b32"] = phase_serving_int8(out_root, "ViT-B/32", L14_SERVING_ITEMS,
+                                                       "serving_int8_b32", float_rates, cos_gate=0.99)
+        paths["evals"] = phase_evals(out_root)
 
     def entry(name, source, replaces, tol, head):
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1039,18 +1467,21 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "head_shape": f"{head['shape']} {head['dtype']}",
+            "library_ms": head["library_ms"],
+            "head_shape": " ".join(str(head[k]) for k in ("shape", "dtype", "mode") if k in head),
             "max_abs_err_by_dtype": errs[name], "tolerance_by_dtype": tol,
             "by_shape": [r for r in rows[name] if "ms" in r],
         }
 
-    def head(name, shape, dtype):
-        return next(r for r in rows[name] if r["shape"] == shape and r["dtype"] == dtype)
+    def head(name, shape, dtype, mode=None):
+        return next(r for r in rows[name] if r["shape"] == shape and r["dtype"] == dtype
+                    and r.get("mode") in (mode, None))
 
     # top-level numbers: K1's forward at the serving text shape in fp32 (the
     # CLI's dtype); the backwards and K2's forward at a train step's shape
-    # in bf16 (the training dtype); K3 at finetune_ot's shape; by_shape
-    # holds every timed shape in both dtypes
+    # in bf16 (the training dtype); K3 at finetune_ot's shape; K5 at L/14's
+    # MLP fc in fp32, dynamic (the CLI's "int8"); by_shape holds every timed
+    # shape in both dtypes (and K5's two modes)
     for name in COUNTERS:
         check(sum(counts[name] for counts in paths.values()) > 0, f"{name} launched on the main paths")
     emit({"kernels": [
@@ -1067,6 +1498,9 @@ def main() -> int:
               head(HG_BWD_KERNEL, "l14_vision", "bfloat16")),
         entry(ot.KERNEL, "clip_event_tpu_torch/csrc/ipot.cu",
               "clip_event_tpu/ops/ot_pallas.py:40", OT_TOL, head(ot.KERNEL, "ot_finetune", "float32")),
+        entry(quant.KERNEL, "clip_event_tpu_torch/csrc/quant_matmul.cu",
+              "clip_event_tpu/ops/quant_pallas.py:64", QUANT_TOL,
+              head(quant.KERNEL, "l14_vision_fc", "float32", "dynamic")),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,12 @@ The CLIs serve in float32, as the JAX CLI does. On the card every block of
 both towers runs the hand-written attention kernel. `--device cpu` runs the
 plain PyTorch path instead; with no card and no `--device cpu` the CLI
 raises.
+
+`"quantize": "int8"` serves the dense weights in int8 with dynamic
+per-row activation scales; `"int8_static"` adds static scales calibrated
+at load time (`calibration_batches_from_cfg`); `"quantize_towers":
+["visual"]` (or ["text"]) quantizes one tower only. On the card every
+quantized dense layer runs K5 (`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
 def load_model_from_cfg(cfg: dict, device="cuda"):
     """Returns (CLIP module, CLIPConfig) on `device`, from `ckpt` (a torch /
     OpenAI state-dict file in OpenAI naming) or from the `model` preset with
-    weights drawn from `seed` (for smoke runs)."""
+    weights drawn from `seed` (for smoke runs); int8 when `quantize` says
+    so, with `quantize_towers` and the `calibration_*` keys."""
     from clip_event_tpu_torch.config import model_config
     from clip_event_tpu_torch.models.clip import CLIP, init_params
     from clip_event_tpu_torch.models.convert import (
@@ -39,8 +46,12 @@ def load_model_from_cfg(cfg: dict, device="cuda"):
     )
 
     dev = resolve_device(device)
-    if cfg.get("quantize"):
-        raise NotImplementedError("int8 serving (`quantize`) is not ported yet")
+    quant = cfg.get("quantize")
+    if quant and quant not in ("int8", "int8_static"):
+        raise ValueError(
+            f"quantize={quant!r}; options: 'int8' (dynamic activation scales), "
+            "'int8_static' (calibrated static scales)"
+        )
     ckpt = cfg.get("ckpt")
     if ckpt:
         if os.path.isdir(ckpt):
@@ -56,7 +67,79 @@ def load_model_from_cfg(cfg: dict, device="cuda"):
         mcfg = model_config(cfg)
         gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
         params = init_params(gen, mcfg, dev)
+    if quant:
+        from clip_event_tpu_torch.ops.quant import calibrate_act_scales, quantize_params
+
+        act_stats = None
+        if quant == "int8_static":
+            imgs, toks = calibration_batches_from_cfg(cfg, mcfg)
+            act_stats = calibrate_act_scales(params, mcfg, imgs, toks)
+        towers = cfg.get("quantize_towers")
+        logging.info("quantizing dense weights to int8 (W8A8 inference path%s)",
+                     f", towers={towers}" if towers else "")
+        params = quantize_params(params, act_stats=act_stats, towers=tuple(towers) if towers else None)
     return CLIP(mcfg, params), mcfg
+
+
+def calibration_batches_from_cfg(cfg: dict, mcfg):
+    """Sample batches for static int8 calibration, the JAX CLI's draws
+    (`clip_event_tpu/evals/cli.py:76-157`): real images
+    (`calibration_images`, a directory or a list of files, decoded by the
+    serving preprocess) and prompts (`calibration_texts`, one per line) when
+    the config gives them; else `calibration_batches` (2) batches of
+    N(0, 1) images from `np.random.default_rng(seed)` and six fixed prompts
+    (synthetic token rows from the same generator for a vocab smaller than
+    CLIP's). Batches of min(batch_size, 16). Returns (image_batches,
+    token_batches) for `calibrate_act_scales`."""
+    import numpy as np
+
+    rng = np.random.default_rng(cfg.get("seed", 0))
+    bs = min(int(cfg.get("batch_size", 16)), 16)
+    res = mcfg.image_resolution
+
+    src = cfg.get("calibration_images")
+    if src:
+        from clip_event_tpu_torch.data.common import load_image_file
+
+        files = (
+            sorted(os.path.join(src, f) for f in os.listdir(src)
+                   if f.lower().endswith((".jpg", ".jpeg", ".png")))
+            if isinstance(src, str) else list(src)
+        )
+        if not files:
+            raise ValueError(f"calibration_images: no images under {src!r}")
+        arr = np.stack([load_image_file(f, res) for f in files])
+        imgs = [arr[i : i + bs] for i in range(0, len(arr), bs)]
+        logging.info("int8 calibration: %d real images from %s", len(arr), src)
+    else:
+        n = int(cfg.get("calibration_batches", 2))
+        imgs = [rng.normal(size=(bs, res, res, 3)).astype(np.float32) for _ in range(n)]
+        logging.info("int8 calibration: %d synthetic image batches (pass "
+                     "`calibration_images` for real scales)", n)
+
+    texts_src = cfg.get("calibration_texts")
+    if texts_src:
+        with open(texts_src, encoding="utf-8") as fh:
+            prompts = [line.strip() for line in fh if line.strip()]
+        if not prompts:
+            raise ValueError(f"calibration_texts: {texts_src!r} is empty")
+    else:
+        prompts = [
+            "a photo of a person", "an image of a protest march",
+            "soldiers at a military checkpoint", "a meeting of officials",
+            "a building on fire after an attack", "a crowd at a rally",
+        ]
+    if mcfg.vocab_size >= 49408:
+        from clip_event_tpu_torch.tokenizer import tokenize
+
+        toks = np.asarray(tokenize(prompts, context_length=mcfg.context_length))
+    else:  # reduced-vocab test models: synthetic token rows
+        toks = np.zeros((len(prompts), mcfg.context_length), np.int32)
+        toks[:, 0] = mcfg.vocab_size - 2
+        toks[:, 1:8] = rng.integers(1, mcfg.vocab_size - 2, (len(prompts), 7))
+        toks[:, 8] = mcfg.vocab_size - 1
+    token_batches = [toks[i : i + bs] for i in range(0, len(toks), bs)]
+    return imgs, token_batches
 
 
 def run(description: str, evaluate) -> None:

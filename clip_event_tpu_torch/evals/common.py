@@ -111,3 +111,25 @@ def collect_encoded(loader, enc: Encoders, encode: dict, keep: Tuple[str, ...] =
 
 def recall_at_k(ranks: np.ndarray, ks=(1, 5, 10)) -> dict:
     return {f"R@{k}": float((ranks < k).mean()) for k in ks}
+
+
+def macro_prf(gold: np.ndarray, pred: np.ndarray, num_classes: int) -> dict:
+    """Macro precision/recall/F1 over the classes present in gold."""
+    ps, rs, fs = [], [], []
+    for c in range(num_classes):
+        tp = int(((pred == c) & (gold == c)).sum())
+        fp = int(((pred == c) & (gold != c)).sum())
+        fn = int(((pred != c) & (gold == c)).sum())
+        if tp + fn == 0:
+            continue  # class absent from gold
+        p = tp / (tp + fp) if tp + fp else 0.0
+        r = tp / (tp + fn)
+        f = 2 * p * r / (p + r) if p + r else 0.0
+        ps.append(p)
+        rs.append(r)
+        fs.append(f)
+    return {
+        "macro_precision": float(np.mean(ps)) if ps else 0.0,
+        "macro_recall": float(np.mean(rs)) if rs else 0.0,
+        "macro_f1": float(np.mean(fs)) if fs else 0.0,
+    }

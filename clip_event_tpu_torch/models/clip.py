@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from clip_event_tpu_torch.data.transform import CLIP_MEAN, CLIP_STD
 from clip_event_tpu_torch.models import layers as L
 from clip_event_tpu_torch.models.vit import init_vit, vit_encode
+from clip_event_tpu_torch.ops.quant import QuantWeight
 from clip_event_tpu_torch.platform import resolve_device
 
 
@@ -70,7 +71,8 @@ def _require_vit(cfg: CLIPConfig) -> None:
 
 
 def tree_to(tree: dict, device=None, dtype=None) -> dict:
-    """Move (and optionally cast) every tensor of a nested param dict."""
+    """Move (and optionally cast) every tensor of a nested param dict; a
+    QuantWeight moves and keeps its int8 and fp32 tensors."""
     return {
         k: tree_to(v, device, dtype) if isinstance(v, dict) else v.to(device=device, dtype=dtype)
         for k, v in tree.items()
@@ -102,7 +104,7 @@ def init_params(gen: torch.Generator, cfg: CLIPConfig, device="cuda") -> dict:
 def cast_params(params: dict, dtype=torch.bfloat16) -> dict:
     """Cast the matmul weights to `dtype`, keeping the LayerNorm/BatchNorm
     params and logit_scale in float32 (reference `convert_weights`, with
-    bf16 instead of fp16)."""
+    bf16 instead of fp16); an int8 QuantWeight stays as it is."""
 
     def cast(tree, in_norm):
         out = {}
@@ -110,7 +112,7 @@ def cast_params(params: dict, dtype=torch.bfloat16) -> dict:
             norm = in_norm or k.startswith("ln") or k.startswith("bn")
             if isinstance(v, dict):
                 out[k] = cast(v, norm)
-            elif norm or k == "logit_scale" or "mean" in k or "var" in k:
+            elif norm or k == "logit_scale" or "mean" in k or "var" in k or isinstance(v, QuantWeight):
                 out[k] = v
             else:
                 out[k] = v.to(dtype)
@@ -166,6 +168,22 @@ def encode_text(
     eot_idx = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx]
     return L.linear(pooled, params["text_projection"])
+
+
+def text_act_stats(params: dict, cfg: CLIPConfig, tokens: torch.Tensor,
+                   compute_dtype=torch.float32) -> dict:
+    """Dense-input abs-max stats of the text tower (static int8 activation
+    calibration, `ops/quant.py`): `encode_text`'s path, returning
+    {"text_transformer": {...[L]...}, "text_projection"}."""
+    tokens = tokens.long()
+    seq = tokens.shape[-1]
+    x = params["token_embedding"][tokens].to(compute_dtype)
+    x = x + params["positional_embedding"][:seq].to(compute_dtype)
+    bias = L.causal_mask(seq, device=x.device)
+    x, tstats = L.transformer_with_act_stats(x, params["text_transformer"], cfg.transformer_heads, bias)
+    x = L.layer_norm(x, params["ln_final"])
+    pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
+    return {"text_transformer": tstats, "text_projection": L._absmax(pooled)}
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
@@ -271,15 +289,31 @@ def sim_entity(
 # ------------------------------------------------------------------ modules
 
 
+class _QuantLeaf(nn.Module):
+    """An int8 QuantWeight held as buffers (`q`, `scale`, `act_scale`)."""
+
+    def __init__(self, w: QuantWeight):
+        super().__init__()
+        self.register_buffer("q", w.q)
+        self.register_buffer("scale", w.scale)
+        self.register_buffer("act_scale", w.act_scale)
+
+    def tree(self) -> QuantWeight:
+        return QuantWeight(self.q, self.scale, self.act_scale)
+
+
 class _ParamTree(nn.Module):
     """A nested param dict held as frozen registered parameters whose names
-    mirror the JAX pytree (`visual.transformer.attn.qkv_w`, ...)."""
+    mirror the JAX pytree (`visual.transformer.attn.qkv_w`, ...); a
+    QuantWeight leaf becomes a `_QuantLeaf` of buffers."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, _ParamTree(v))
+            elif isinstance(v, QuantWeight):
+                self.add_module(k, _QuantLeaf(v))
             else:
                 self.register_parameter(k, nn.Parameter(v, requires_grad=False))
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from clip_event_tpu_torch.models.clip import TEXT_KEYS, CLIPConfig, tree_to
+from clip_event_tpu_torch.ops.quant import QuantWeight
 from clip_event_tpu_torch.platform import resolve_device
 
 Array = np.ndarray
@@ -188,18 +189,24 @@ def params_from_jax(np_params: dict, cfg: CLIPConfig, device="cuda") -> dict:
     """The JAX package's param pytree (numpy leaves, e.g. via
     `jax.tree.map(np.asarray, params)`) → the port's param dict on
     `device`. The layouts are the same, so each leaf converts as it is,
-    keeping its dtype."""
+    keeping its dtype. A quantized tree's QuantWeight leaves (any object
+    with `q`, `scale` and `act_scale`) become the port's `QuantWeight`."""
     if not cfg.is_vit:
         raise NotImplementedError("the ResNet towers are not ported yet (ViT only)")
     want = {"visual", "logit_scale", *TEXT_KEYS}
     if set(np_params) != want:
         raise ValueError(f"param tree keys {sorted(np_params)} are not {sorted(want)}")
 
+    def tensor(v):
+        return None if v is None else torch.from_numpy(np.array(v))
+
+    def leaf(v):
+        if all(hasattr(v, a) for a in ("q", "scale", "act_scale")):
+            return QuantWeight(tensor(v.q), tensor(v.scale), tensor(v.act_scale))
+        return tensor(v)
+
     def to_tensors(tree):
-        return {
-            k: to_tensors(v) if isinstance(v, dict) else torch.from_numpy(np.array(v))
-            for k, v in tree.items()
-        }
+        return {k: to_tensors(v) if isinstance(v, dict) else leaf(v) for k, v in tree.items()}
 
     return tree_to(to_tensors(np_params), resolve_device(device))
 

@@ -20,6 +20,12 @@ einsum path rounds them to bf16 before P·V.
 recomputes each block in the backward pass (`torch.utils.checkpoint`, the
 counterpart of `jax.checkpoint(..., nothing_saveable)`); False saves every
 activation. The selective policies of the JAX package are not ported yet.
+
+A dense weight may be an int8 `ops.quant.QuantWeight` (the inference
+path): `linear` sends it to `quantized_linear` (K5 on the card), and
+`_layer` slices its stacked tensors like any other leaf. `act_stats`, a
+dict passed to `multi_head_attention` / `residual_block`, records the
+abs-max of every dense input for static int8 calibration.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from clip_event_tpu_torch.ops import attention as A
 from clip_event_tpu_torch.ops.attention import IMPLS
+from clip_event_tpu_torch.ops.quant import QuantWeight, quantized_linear
 
 # the JAX package's selective remat policies (`layers.py:470-475`)
 _UNPORTED_REMAT = ("attn", "dots", "dots_nobatch")
@@ -51,12 +58,20 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ w (+ b), weights input-major `[in, out]`, cast to x's dtype."""
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ w (+ b), weights input-major `[in, out]`, cast to x's dtype;
+    an int8 `QuantWeight` goes through `quantized_linear`."""
+    if isinstance(w, QuantWeight):
+        return quantized_linear(x, w, b)
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    """Scalar abs-max in fp32 (static int8 activation calibration)."""
+    return x.float().abs().amax()
 
 
 def multi_head_attention(
@@ -65,6 +80,7 @@ def multi_head_attention(
     num_heads: int,
     attn_bias: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    act_stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """Self-attention with packed QKV projection.
 
@@ -72,8 +88,12 @@ def multi_head_attention(
     attn_bias: optional additive [S, S] mask (e.g. causal -inf upper triangle).
     """
     scale = (x.shape[-1] // num_heads) ** -0.5
+    if act_stats is not None:
+        act_stats["qkv_w"] = _absmax(x)
     qkv = linear(x, params["qkv_w"], params["qkv_b"])  # [B, S, 3W]
     out = attention_core(qkv, attn_bias, num_heads, scale, impl)
+    if act_stats is not None:
+        act_stats["out_w"] = _absmax(out)
     return linear(out, params["out_w"], params["out_b"])
 
 
@@ -114,17 +134,32 @@ def residual_block(
     num_heads: int,
     attn_bias: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    act_stats: Optional[dict] = None,
 ) -> torch.Tensor:
-    """Pre-LN transformer block: MHA + QuickGELU MLP, both residual."""
+    """Pre-LN transformer block: MHA + QuickGELU MLP, both residual.
+
+    `act_stats`: when a dict is passed, the scalar abs-max of every dense
+    input is recorded into it, nested as the param tree
+    ({"attn": {qkv_w, out_w}, "mlp": {fc_w, proj_w}})."""
+    attn_stats = mlp_stats = None
+    if act_stats is not None:
+        attn_stats = act_stats["attn"] = {}
+        mlp_stats = act_stats["mlp"] = {}
     x = x + multi_head_attention(
-        layer_norm(x, params["ln_1"]), params["attn"], num_heads, attn_bias, impl
+        layer_norm(x, params["ln_1"]), params["attn"], num_heads, attn_bias, impl, attn_stats
     )
     h = layer_norm(x, params["ln_2"])
+    if mlp_stats is not None:
+        mlp_stats["fc_w"] = _absmax(h)
     h = quick_gelu(linear(h, params["mlp"]["fc_w"], params["mlp"]["fc_b"]))
+    if mlp_stats is not None:
+        mlp_stats["proj_w"] = _absmax(h)
     return x + linear(h, params["mlp"]["proj_w"], params["mlp"]["proj_b"])
 
 
 def _layer(tree: dict, i: int) -> dict:
+    """Layer i of a stacked param tree; a QuantWeight slices its q, scale
+    and act_scale ([L] → one scalar)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
@@ -159,6 +194,29 @@ def transformer(
         args = (x, _layer(stacked_params, i), num_heads, attn_bias, impl)
         x = checkpoint(residual_block, *args, use_reentrant=False) if recompute else residual_block(*args)
     return x
+
+
+def transformer_with_act_stats(
+    x: torch.Tensor,
+    stacked_params: dict,
+    num_heads: int,
+    attn_bias: Optional[torch.Tensor] = None,
+):
+    """`transformer`'s forward that also returns the per-layer dense-input
+    abs-max stats, stacked as the params are ({"attn": {qkv_w: [L],
+    out_w: [L]}, "mlp": {fc_w: [L], proj_w: [L]}}): the calibration pass
+    for static int8 scales. Always the plain attention path (the JAX
+    package's runs its einsum path), no remat."""
+    per_layer = []
+    for i in range(stacked_params["attn"]["qkv_w"].shape[0]):
+        stats: dict = {}
+        x = residual_block(x, _layer(stacked_params, i), num_heads, attn_bias, "plain", stats)
+        per_layer.append(stats)
+    stacked = {
+        group: {k: torch.stack([s[group][k] for s in per_layer]) for k in per_layer[0][group]}
+        for group in per_layer[0]
+    }
+    return x, stacked
 
 
 def causal_mask(seq_len: int, device="cuda", dtype=torch.float32) -> torch.Tensor:

@@ -47,6 +47,33 @@ def vit_encode(
     return L.linear(x, params["proj"])
 
 
+def vit_act_stats(
+    params: dict,
+    images: torch.Tensor,
+    patch_size: int,
+    num_heads: int,
+    compute_dtype=torch.float32,
+) -> dict:
+    """Dense-input abs-max stats of the ViT tower (static int8 activation
+    calibration, `ops/quant.py`): `vit_encode`'s CLS path, returning
+    {"patch_embed_w", "transformer": {...[L]...}, "proj"}."""
+    x = images.to(compute_dtype)
+    B, H, W, C = x.shape
+    gh, gw = H // patch_size, W // patch_size
+    patches = x.reshape(B, gh, patch_size, gw, patch_size, C)
+    patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, patch_size * patch_size * C)
+    stats = {"patch_embed_w": L._absmax(patches)}
+    x = L.linear(patches, params["patch_embed_w"])
+    cls = params["class_embedding"].to(x.dtype).expand(B, 1, x.shape[-1])
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["positional_embedding"].to(x.dtype)
+    x = L.layer_norm(x, params["ln_pre"])
+    x, stats["transformer"] = L.transformer_with_act_stats(x, params["transformer"], num_heads)
+    x = L.layer_norm(x[:, 0, :], params["ln_post"])
+    stats["proj"] = L._absmax(x)
+    return stats
+
+
 def init_vit(
     gen: torch.Generator,
     input_resolution: int,

@@ -10,7 +10,13 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
   epoch's losses are finite, `loss_ot` > 0, and K2 and K3 launched;
 - `python -m clip_event_tpu_torch.embed` at ViT-B/16 and `.eval_matching`
   at ViT-L/14, seeded weights: unit-norm features of the right shape and
-  the matching metrics of the fixture's pairs."""
+  the matching metrics of the fixture's pairs;
+- K5 (`ops.quant.quantized_matmul`) against its plain version at a few
+  shapes, dynamic and static, fp32 and bf16;
+- `.eval_m2e2` at ViT-L/14 in int8_static with argument grounding (K2 for
+  the grid features, K5 in every dense layer), `.eval_vcr`,
+  `.eval_visualcomet` and `.eval_retrieval` at ViT-B/32 (the last in
+  int8): every metric finite and in [0, 1] where it is a rate."""
 
 import importlib.util
 import json
@@ -104,3 +110,79 @@ def test_eval_matching_cli_vit_l14(voa, tmp_path):
                                      "image_dir": [voa["image_dir"]], "batch_size": 4}, tmp_path)
     assert metrics["num_pairs"] == 4
     assert 0.0 <= metrics["i2t_top1"] <= metrics["i2t_top5"] <= 1.0
+
+
+@pytest.fixture(scope="module")
+def fixtures_mod():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card (tests/test_torch_card.py docstring)")
+    spec = importlib.util.spec_from_file_location("eval_fixtures", os.path.join(HERE, "fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(4928, 512, 1536), (1, 588, 1024), (37, 3, 7)])
+def test_quant_kernel_matches_plain(fixtures_mod, m, k, n, dtype, static):
+    from clip_event_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), device="cuda", generator=gen).to(dtype)
+    w = quant.quantize_weight(torch.randn((k, n), device="cuda", generator=gen),
+                              x.float().abs().amax() if static else None)
+    b = torch.randn((n,), device="cuda", generator=gen)
+    launches = quant.quantized_matmul.launches
+    y = quant.quantized_matmul(x, w.q, w.scale, b, w.act_scale)
+    ref = quant.quantized_matmul_plain(x, w.q, w.scale, b, w.act_scale)
+    torch.cuda.synchronize()
+    assert quant.quantized_matmul.launches == launches + quant.LAUNCHES_PER_CALL
+    assert y.dtype == dtype and y.shape == (m, n)
+    rel = ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    assert rel <= (1e-6 if dtype == torch.float32 else 8e-3), rel
+    xq, rs = quant.quantize_rows(x, w.act_scale)
+    pxq, prs = quant.quantize_rows_plain(x, w.act_scale)
+    assert torch.equal(xq[:, :k], pxq) and not xq[:, k:].any() and torch.equal(rs, prs)
+
+
+def _rates_ok(metrics):
+    for k, v in metrics.items():
+        if isinstance(v, dict):
+            _rates_ok(v)
+        elif isinstance(v, float) and k not in ("mean_rank",):
+            assert np.isfinite(v) and 0.0 <= v <= 1.0, (k, v)
+
+
+def test_eval_m2e2_cli_vit_l14_int8_static(fixtures_mod, tmp_path):
+    p = fixtures_mod.make_m2e2_fixture(str(tmp_path))
+    with open(p["ontology_json"]) as fh:
+        ontology = json.load(fh)
+    roles = {"Attacker": "the person attacking", "Place": "where it happens"}
+    ont = tmp_path / "ontology_roles.json"
+    ont.write_text(json.dumps({t: {"template": v, "roles": roles} for t, v in ontology.items()}))
+    metrics = _cli("eval_m2e2", {"model": "ViT-L/14", "seed": 0, "image_anno": p["anno_json"],
+                                 "image_dir": p["image_dir"], "ie_ontology_json": str(ont),
+                                 "ground_arguments": True, "quantize": "int8_static",
+                                 "batch_size": 4}, tmp_path)
+    assert metrics["num_images"] == 8 and metrics["argument_mentions_gold"] == 8
+    _rates_ok(metrics)
+
+
+@pytest.mark.parametrize("module", ["eval_vcr", "eval_visualcomet", "eval_retrieval"])
+def test_eval_clis_vit_b32(fixtures_mod, tmp_path, module):
+    root = str(tmp_path)
+    if module == "eval_vcr":
+        p = fixtures_mod.make_vcr_fixture(root)
+        cfg, key, n = {"qa_jsonl": p["qa_jsonl"], "image_dir": p["image_dir"]}, "num_questions", 5
+    elif module == "eval_visualcomet":
+        p = fixtures_mod.make_visualcomet_fixture(root)
+        cfg, key, n = {"anno_json": p["anno_json"], "image_dir": p["image_dir"], "field": "intent"}, "num_images", 5
+    else:
+        p = fixtures_mod.make_retrieval_fixture(root)
+        cfg = {"dataset": "coco", "caption_file": p["coco_json"], "image_dir": p["coco_dir"],
+               "quantize": "int8"}
+        key, n = "num_images", 4
+    metrics = _cli(module, {"model": "ViT-B/32", "seed": 0, "batch_size": 4, **cfg}, tmp_path)
+    assert metrics[key] == n
+    _rates_ok(metrics)

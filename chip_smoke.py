@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and fine-tuning paths once on one
-NVIDIA GPU: ViT-B/32 zero-shot serving and contrastive fine-tuning, ViT-L/14
-serving and fine-tuning (and one ViT-B/16 step), and the OT graph-alignment
-fine-tuning of `configs/finetune_ot.json` at ViT-B/32.
+NVIDIA GPU: ViT-B/32 zero-shot serving and contrastive fine-tuning (with
+the plain LayerNorm and with the fused LayerNorm kernels of
+`use_pallas_ln`), ViT-L/14 serving and fine-tuning (and one ViT-B/16 step),
+the OT graph-alignment fine-tuning of `configs/finetune_ot.json` at
+ViT-B/32, int8 serving, the zero-shot evals, and the bench entry point and
+component bench.
 
     python3 chip_smoke.py
 
@@ -74,6 +77,40 @@ Phases, each printing JSON lines:
               through K2, every dense layer through K5); metrics finite and
               in [0, 1], the expected keys, exact launch counts
 
+  5b. train_ln  phase 5's workload through the train loop with
+              `use_pallas_ln: true`: exact launch counts of K1 and of K4a,
+              K4b and K4c in every residual block (twice each under remat),
+              loss near chance, moved params, the LayerNorm choice put back;
+              a bf16 step with all kernels against the all-plain step (loss,
+              grad_norm 1e-3) and an fp32 step (loss and every gradient
+              2e-5); a profile of one step; pairs/s and step ms beside phase
+              5's from the same run; then ViT-L/14 steps (64 x 3) with the
+              LayerNorm kernels on and off, counted, and a bf16
+              kernel-vs-plain step there (W = 1024, K2 beside K4)
+  5c. serving_ln  one ViT-B/32 image batch and one text batch of 64 under
+              `set_ln_impl("pallas")`, fp32 (1e-4 against the plain-LN
+              features) and bf16 (cosine 0.999); K4a and K4b once a block,
+              no K4c; batch ms with and without the kernels
+ 11. bench_tools  `clip_event_tpu_torch.bench` at full width (ViT-B/32,
+              384 x 3) with the plain LayerNorm and with `--ln pallas`, and
+              the `ln` and `megakernel` sections of
+              `clip_event_tpu_torch.tools.bench_components` at their default
+              shapes (256 images x 3 texts, 12 layers), through their `main`:
+              the JSON lines parsed, metrics finite and positive, exact launch
+              counts (K6 runs here)
+
+K4, the fused LayerNorm, is held in phase 3 at the LayerNorm shapes of the
+ViT-B/32 and ViT-L/14 train steps and of ViT-B/32 serving, and at edge
+shapes (N = 1, an N that fills no row block, W = 640, 1280, 100 and 3072,
+a row of equal values, a 1e3 spike), fp32 and bf16: the forwards (K4a,
+K4b) at max|kernel - plain| <= 1e-6 (fp32) / 2e-2 (bf16) times max(1,
+max|plain|), K4b's sum exactly equal, the backward (K4c, alone and with
+the sum's cotangent) at dx, dgamma and dbeta each <= 1e-5 / 1e-2 of
+max|plain|. K6, the LayerNorm -> QKV -> attention megakernel, at the
+component bench's two shapes and at edge shapes (B = 1, S = 1, S = 128,
+head_dim 32 and 20, a width that fills no k tile): max abs error 1e-4 /
+2e-2 against its plain version and 1e-4 / 5e-2 against the unfused chain.
+
 K5, the int8 GEMM, is held in phase 3 against its plain version at the
 paths' shapes (batch 64) and at edge shapes (M = 1, K = 588, K = 3, odd N,
 an all-zero row, a row with one large value), dynamic and static, fp32
@@ -91,7 +128,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -102,6 +138,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from clip_event_tpu_torch import bench as port_bench
 from clip_event_tpu_torch.config import validate_config
 from clip_event_tpu_torch.data.common import ExampleDataset
 from clip_event_tpu_torch.data.labels import build_label_layout
@@ -120,8 +157,10 @@ from clip_event_tpu_torch.models.clip import (
     init_params,
     l2_normalize,
 )
+from clip_event_tpu_torch.models import layers
 from clip_event_tpu_torch.models.layers import causal_mask
 from clip_event_tpu_torch.ops import _build
+from clip_event_tpu_torch.ops import ln
 from clip_event_tpu_torch.ops import ot
 from clip_event_tpu_torch.ops import quant
 from clip_event_tpu_torch.ops.attention import (
@@ -131,13 +170,17 @@ from clip_event_tpu_torch.ops.attention import (
     HG_KERNEL,
     KERNEL,
     MAX_SEQ,
+    MEGA_KERNEL,
     fused_attention_qkv,
     fused_attention_qkv_bwd,
     fused_attention_qkv_bwd_plain,
     fused_attention_qkv_headgrid,
     fused_attention_qkv_headgrid_bwd,
     fused_attention_qkv_plain,
+    fused_ln_qkv_attention,
+    fused_ln_qkv_attention_plain,
 )
+from clip_event_tpu_torch.tools import bench_components
 from clip_event_tpu_torch.train import train
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -151,6 +194,15 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # backward: error relative to max
 OT_TOL = {"float32": 1e-5}  # IPOT plan: error relative to max|plain|
 # K5: error relative to max|plain|; fp32 is exact by design, bf16 two ulps
 QUANT_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
+
+# K4 forward: max abs error over max(1, max|plain|); K4 backward (dx, dgamma,
+# dbeta): error relative to max|plain|; K6: max abs error against its plain version, and against
+# the port's unfused chain (plain LN -> linear -> K1), whose bf16 projection
+# is rounded to bf16 before the attention core where K6 keeps it in fp32
+LN_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+LN_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+MEGA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MEGA_CHAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 SERVING_SHAPES = [  # (tag, B, S, W, H, causal)
     ("text", 64, 77, 512, 8, True),
@@ -224,11 +276,40 @@ QUANT_EDGE_SHAPES = [
     ("q_edge_m1", 1, 768, 2304), ("q_edge_m1_k588", 1, 588, 1024), ("q_edge_k3", 37, 3, 7),
     ("q_edge_n_odd", 130, 100, 131), ("q_edge_ragged", 129, 200, 257),
 ]
+# K4: (tag, N rows, W) of the residual blocks' LayerNorms: the ViT-B/32 and
+# ViT-L/14 train steps (384 x 3 and 64 x 3), ViT-B/32 serving at batch 64
+LN_SHAPES = [
+    ("b32_train_text", 1152 * 77, 512), ("b32_train_vision", 384 * 50, 768),
+    ("l14_train_vision", 64 * 257, 1024), ("l14_train_text", 192 * 77, 768),
+    ("b32_serving_text", 64 * 77, 512), ("b32_serving_vision", 64 * 50, 768),
+]
+# edge shapes, each with a 1e3 spike in its last row and (N > 1) a first row
+# of equal values (var = 0): N = 1, an N that fills no whole row block, the
+# other preset widths, a width that is no multiple of 4, the widest
+LN_EDGE_SHAPES = [
+    ("ln_edge_n1", 1, 512), ("ln_edge_n1001_w640", 1001, 640), ("ln_edge_w1280", 333, 1280),
+    ("ln_edge_w100", 37, 100), ("ln_edge_w3072", 9, 3072),
+]
+# K6: the component bench's shapes (B = 256 images x 3 texts), then edges:
+# B = 1, S = 1, S = 128, head_dim 32, and a width that fills no whole k tile
+MEGA_SHAPES = [  # (tag, B, S, W, H, causal)
+    ("mega_text", 768, 77, 512, 8, True),
+    ("mega_vision", 256, 50, 768, 12, False),
+]
+MEGA_EDGE_SHAPES = [
+    ("mega_edge_b1", 1, 13, 128, 2, True),
+    ("mega_edge_s1", 2, 1, 128, 2, False),
+    ("mega_edge_s128", 2, 128, 128, 2, True),
+    ("mega_edge_d32", 3, 40, 256, 8, False),
+    ("mega_edge_w60_d20", 2, 19, 60, 3, True),
+]
 N_ITEMS = 256  # images and token rows served at ViT-B/32
 BATCH = 64
 SOT, EOT = 49406, 49407
 # device kernels by family, for the profile's breakdown (first match wins)
 KERNEL_FAMILIES = (
+    ("layer norm (hand-written)", ("layer_norm_fwd_kernel", "layer_norm_bwd_")),
+    ("megakernel (hand-written)", ("ln_qkv_attention_kernel",)),
     ("attention (hand-written)", ("attention_fwd_kernel", "attention_bwd_", "attention_hg_")),
     ("ipot (hand-written)", ("ipot_kernel",)),
     ("int8 gemm (hand-written)", ("int8_gemm_kernel", "quant_rows_kernel")),
@@ -254,12 +335,17 @@ L14_SERVING_ITEMS = 128
 # 16 entity and 8 event rows per image, alignment_chunks 4
 OT_BATCH, OT_OBJECTS, OT_ENTITIES, OT_EVENTS, OT_CHUNKS = 64, 8, 16, 8, 4
 OT_FP32_CHECK_BATCH = 16
-# every kernel's launch counter, by the kernel's source name
+# every kernel's launch counter, by the kernel's source name (K4b shares
+# K4a's source)
+ADD_LN_KERNEL = "add_layer_norm"
 COUNTERS = {
     KERNEL: fused_attention_qkv, BWD_KERNEL: fused_attention_qkv_bwd,
     HG_KERNEL: fused_attention_qkv_headgrid, HG_BWD_KERNEL: fused_attention_qkv_headgrid_bwd,
     ot.KERNEL: ot.ipot_kernel, quant.KERNEL: quant.quantized_matmul,
+    ln.KERNEL: ln.fused_layer_norm, ADD_LN_KERNEL: ln.fused_add_layer_norm,
+    ln.BWD_KERNEL: ln.fused_layer_norm_bwd, MEGA_KERNEL: fused_ln_qkv_attention,
 }
+SOURCES = {name: ln.KERNEL if name == ADD_LN_KERNEL else name for name in COUNTERS}
 
 
 def reset_launches() -> None:
@@ -278,14 +364,6 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters=50, warmup=5) -> float:
@@ -526,6 +604,187 @@ def check_quant(rows, errs, gen, tag, M, K, N, dtype, static, timed, edge):
     emit({"phase": "kernel_check", "kernel": quant.KERNEL, **row})
 
 
+def ln_bound_ms(N, W, dtype_name, streams, vectors, flops_per_elt):
+    """Least time for one LayerNorm call: `streams` [N, W] tensors in the
+    I/O type and `vectors` fp32 [W] vectors, each moved once, over the memory
+    rate; `flops_per_elt`·N·W flops over the fp32 peak. The larger wins."""
+    elt = 4 if dtype_name == "float32" else 2
+    t_bytes = (streams * N * W * elt + vectors * W * 4) / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops_per_elt * N * W / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ln(rows, errs, gen, tag, N, W, dtype, timed, edge):
+    """K4a, K4b and K4c (alone, and with the cotangent of K4b's sum added)
+    against their plain versions at one shape and dtype. Forward: max abs
+    error (LN_TOL), K4b's sum exactly equal. Backward: dx, dgamma and dbeta
+    each relative to max|plain| (LN_BWD_TOL). When `timed`: times, the bound
+    and the library yardsticks (`F.layer_norm`, the add then `F.layer_norm`,
+    their backward by `torch.autograd.grad` on a retained graph)."""
+    name = str(dtype).split(".")[-1]
+    x = torch.randn((N, W), device="cuda", generator=gen).to(dtype)
+    delta = torch.randn((N, W), device="cuda", generator=gen).to(dtype)
+    dy = torch.randn((N, W), device="cuda", generator=gen).to(dtype)
+    dx_out = torch.randn((N, W), device="cuda", generator=gen).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn((W,), device="cuda", generator=gen)
+    beta = 0.1 * torch.randn((W,), device="cuda", generator=gen)
+    if edge:
+        x[-1, W // 2] = 1e3
+        if N > 1:
+            x[0] = 0.5
+            delta[0] = 0.25
+    shape = {"shape": tag, "N": N, "W": W, "dtype": name}
+    iters = 20 if N * W > 2e7 else 50
+
+    def forward_row(kernel_name, y, ref, extra):
+        check(y.dtype == dtype and y.shape == (N, W), f"{kernel_name} {tag} {name} shape/dtype")
+        check(bool(torch.isfinite(y).all()), f"{kernel_name} {tag} {name} output finite")
+        err = (y.float() - ref.float()).abs().max().item()
+        # LN_TOL is for outputs of unit size: the gate scales with the
+        # largest output (~6 over 4e7 normal values, where one fp32 ulp is
+        # 4.8e-7 and the two row reductions differ by 2-3 ulps of rstd;
+        # ~sqrt(W) in the row with the spike)
+        tol = LN_TOL[name] * max(1.0, ref.float().abs().max().item())
+        check(err <= tol, f"{kernel_name} {tag} {name}: max abs err {err} > {tol}")
+        errs[kernel_name][name] = max(errs[kernel_name].get(name, 0.0), err)
+        return {**shape, "max_abs_err": err, "tol": tol, **extra}
+
+    # ---- K4a
+    y = ln.fused_layer_norm(x, gamma, beta)
+    ref = ln.layer_norm_plain(x, gamma, beta)
+    torch.cuda.synchronize()
+    row = forward_row(ln.KERNEL, y, ref, {})
+    if edge and N > 1:
+        check(torch.equal(y[0].float(), beta.to(dtype).float()), f"{ln.KERNEL} {tag} {name}: var = 0 row yields beta")
+    g_lib, b_lib = gamma.to(dtype), beta.to(dtype)  # F.layer_norm wants one dtype
+    if timed:
+        row["ms"] = cuda_ms(lambda: ln.fused_layer_norm(x, gamma, beta), iters)
+        row["plain_ms"] = cuda_ms(lambda: ln.layer_norm_plain(x, gamma, beta), iters)
+        lib = F.layer_norm(x, (W,), g_lib, b_lib)
+        check((lib.float() - ref.float()).abs().max().item() <= (1e-5 if name == "float32" else 1e-1),
+              f"{ln.KERNEL} {tag} {name}: library yardstick disagrees")
+        row["library_ms"] = cuda_ms(lambda: F.layer_norm(x, (W,), g_lib, b_lib), iters)
+        row["bound_ms"], row["bound_by"] = ln_bound_ms(N, W, name, 2, 2, 8)
+    rows[ln.KERNEL].append(row)
+    emit({"phase": "kernel_check", "kernel": ln.KERNEL, **row})
+
+    # ---- K4b
+    xs, y = ln.fused_add_layer_norm(x, delta, gamma, beta)
+    ref_x, ref = ln.add_layer_norm_plain(x, delta, gamma, beta)
+    torch.cuda.synchronize()
+    check(xs.dtype == dtype and torch.equal(xs, ref_x), f"{ADD_LN_KERNEL} {tag} {name}: the sum differs")
+    row = forward_row(ADD_LN_KERNEL, y, ref, {"sum_exact": True})
+    if timed:
+        row["ms"] = cuda_ms(lambda: ln.fused_add_layer_norm(x, delta, gamma, beta), iters)
+        row["plain_ms"] = cuda_ms(lambda: ln.add_layer_norm_plain(x, delta, gamma, beta), iters)
+        row["library_ms"] = cuda_ms(lambda: F.layer_norm(x + delta, (W,), g_lib, b_lib), iters)
+        row["bound_ms"], row["bound_by"] = ln_bound_ms(N, W, name, 4, 2, 9)
+    rows[ADD_LN_KERNEL].append(row)
+    emit({"phase": "kernel_check", "kernel": ADD_LN_KERNEL, **row})
+
+    # ---- K4c, alone and with the sum's cotangent folded in
+    for variant, dxo in (("ln", None), ("add_ln", dx_out)):
+        got = ln.fused_layer_norm_bwd(x, gamma, dy, dxo)
+        want = ln.layer_norm_bwd_plain(x, gamma, dy, dxo)
+        torch.cuda.synchronize()
+        what = f"{ln.BWD_KERNEL} {tag} {name} {variant}"
+        check(got[0].dtype == dtype and got[0].shape == (N, W) and got[1].dtype == torch.float32
+              and got[1].shape == (W,) and got[2].shape == (W,), f"{what} shape/dtype")
+        rels, err = {}, 0.0
+        for part, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+            check(bool(torch.isfinite(a).all()), f"{what} {part} finite")
+            e = (a.float() - b.float()).abs().max().item()
+            rels[part] = e / max(b.float().abs().max().item(), 1e-30)
+            check(rels[part] <= LN_BWD_TOL[name], f"{what}: {part} rel err {rels[part]} > {LN_BWD_TOL[name]}")
+            err = max(err, e)
+        errs[ln.BWD_KERNEL][name] = max(errs[ln.BWD_KERNEL].get(name, 0.0), err)
+        row = {**shape, "variant": variant, "max_abs_err": err, "max_rel_err": rels,
+               "tol_rel": LN_BWD_TOL[name]}
+        if timed:
+            row["ms"] = cuda_ms(lambda: ln.fused_layer_norm_bwd(x, gamma, dy, dxo), iters)
+            row["plain_ms"] = cuda_ms(lambda: ln.layer_norm_bwd_plain(x, gamma, dy, dxo), iters)
+            # the library yardstick: F.layer_norm's backward alone (for the
+            # add variant through the add, with both cotangents), on a graph
+            # built once and retained
+            # (x is the saved sum: the graph adds zeros to it)
+            leaves = [t.detach().requires_grad_(True) for t in (x, torch.zeros_like(x), g_lib, b_lib)]
+            if dxo is None:
+                outs, cots = (F.layer_norm(leaves[0], (W,), leaves[2], leaves[3]),), (dy,)
+                wrt = (leaves[0], leaves[2], leaves[3])
+            else:
+                total = leaves[0] + leaves[1]
+                outs, cots = (total, F.layer_norm(total, (W,), leaves[2], leaves[3])), (dxo, dy)
+                wrt = tuple(leaves)
+            lib = torch.autograd.grad(outs, wrt, cots, retain_graph=True)
+            lib_rel = ((lib[0].float() - want[0].float()).abs().max() / want[0].float().abs().max()).item()
+            check(lib_rel <= 10 * LN_BWD_TOL[name], f"{what}: library yardstick disagrees ({lib_rel})")
+            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(outs, wrt, cots, retain_graph=True), iters)
+            del outs, leaves, wrt, lib
+            row["bound_ms"], row["bound_by"] = ln_bound_ms(N, W, name, 3 if dxo is None else 4, 3, 16)
+        rows[ln.BWD_KERNEL].append(row)
+        emit({"phase": "kernel_check", "kernel": ln.BWD_KERNEL, **row})
+
+
+def mega_bound_ms(B, S, W, H, causal, dtype_name):
+    """Least time for one K6 call: x, the weight, the vectors and the bias
+    read once and the output written once, over the memory rate; the
+    projection's 2·B·S·W·3W flops plus the attention core's 4·B·H·S²·D over
+    the peak rate for the input type. The larger wins."""
+    elt = 4 if dtype_name == "float32" else 2
+    nbytes = (2 * B * S * W + 3 * W * W + 5 * W) * elt + (S * S * 4 if causal else 0)
+    flops = 2 * B * S * W * 3 * W + 4 * B * H * S * S * (W // H)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_mega(rows, errs, gen, tag, B, S, W, H, causal, dtype, timed):
+    """K6 against its plain version at one shape and dtype (MEGA_TOL, max
+    abs), and against the port's unfused chain, plain LayerNorm -> `linear`
+    -> K1 on weights in the I/O type (MEGA_CHAIN_TOL); times, the bound and
+    the chain's time when `timed`. No one PyTorch call computes it."""
+    name = str(dtype).split(".")[-1]
+    x = torch.randn((B, S, W), device="cuda", generator=gen).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn((W,), device="cuda", generator=gen)
+    beta = 0.1 * torch.randn((W,), device="cuda", generator=gen)
+    qkv_w = torch.randn((W, 3 * W), device="cuda", generator=gen) * W ** -0.5
+    qkv_b = 0.1 * torch.randn((3 * W,), device="cuda", generator=gen)
+    bias = causal_mask(S, device="cuda") if causal else None
+    scale = (W // H) ** -0.5
+    args = (x, gamma, beta, qkv_w, qkv_b, bias, H, scale)
+    out = fused_ln_qkv_attention(*args)
+    ref = fused_ln_qkv_attention_plain(*args)
+    torch.cuda.synchronize()
+    check(out.dtype == dtype and out.shape == (B, S, W), f"{MEGA_KERNEL} {tag} {name} shape/dtype")
+    check(bool(torch.isfinite(out).all()), f"{MEGA_KERNEL} {tag} {name} output finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= MEGA_TOL[name], f"{MEGA_KERNEL} {tag} {name}: max abs err {err} > {MEGA_TOL[name]}")
+    errs[MEGA_KERNEL][name] = max(errs[MEGA_KERNEL].get(name, 0.0), err)
+
+    ln_p = {"scale": gamma.to(dtype), "bias": beta.to(dtype)}
+    w_t, b_t = qkv_w.to(dtype), qkv_b.to(dtype)
+
+    def chain():
+        return fused_attention_qkv(layers.linear(layers.layer_norm(x, ln_p), w_t, b_t), bias, H, scale)
+
+    with torch.no_grad():
+        chain_err = (out.float() - chain().float()).abs().max().item()
+    check(chain_err <= MEGA_CHAIN_TOL[name],
+          f"{MEGA_KERNEL} {tag} {name}: {chain_err} from the unfused chain > {MEGA_CHAIN_TOL[name]}")
+    row = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "causal": causal, "dtype": name,
+           "max_abs_err": err, "tol": MEGA_TOL[name], "unfused_chain_max_abs_err": chain_err,
+           "unfused_chain_tol": MEGA_CHAIN_TOL[name]}
+    if timed:
+        with torch.no_grad():
+            row["ms"] = cuda_ms(lambda: fused_ln_qkv_attention(*args), 10, warmup=2)
+            row["plain_ms"] = cuda_ms(lambda: fused_ln_qkv_attention_plain(*args), 10, warmup=2)
+            row["unfused_chain_ms"] = cuda_ms(chain, 20)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = mega_bound_ms(B, S, W, H, causal, name)
+    rows[MEGA_KERNEL].append(row)
+    emit({"phase": "kernel_check", "kernel": MEGA_KERNEL, **row})
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {name: [] for name in COUNTERS}
@@ -545,6 +804,14 @@ def phase_kernels():
             for dtype in (torch.float32, torch.bfloat16):
                 for static in (False, True):
                     check_quant(rows, errs, gen, tag, M, K, N, dtype, static, not edge, edge)
+    for shapes, edge in ((LN_SHAPES, False), (LN_EDGE_SHAPES, True)):
+        for tag, N, W in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                check_ln(rows, errs, gen, tag, N, W, dtype, not edge, edge)
+    for shapes, edge in ((MEGA_SHAPES, False), (MEGA_EDGE_SHAPES, True)):
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                check_mega(rows, errs, gen, *shape, dtype, not edge)
     torch.cuda.synchronize()
     return rows, errs
 
@@ -1099,10 +1366,13 @@ def _chunks(nodes, requested):
     return next(d for d in range(min(requested, nodes), nodes + 1) if nodes % d == 0)
 
 
-def train_launches(mcfg, steps, alignment=False):
+def train_launches(mcfg, steps, alignment=False, fused_ln=False):
     """Launches per kernel for `steps` train steps under full remat. Each
     block's attention forward runs twice (forward, block recompute) and its
-    backward once (BWD_LAUNCHES_PER_CALL launches). With alignment the crop
+    backward once (BWD_LAUNCHES_PER_CALL launches). With `fused_ln`
+    (`use_pallas_ln`) each block also runs K4a (`ln_1`) and K4b (the
+    mid-block add + `ln_2`) twice and K4c twice (once per LayerNorm,
+    ln.BWD_LAUNCHES_PER_CALL launches each). With alignment the crop
     and entity encodes run in chunks (`sim_entity`), each chunk under its
     own checkpoint around the per-block ones: a block inside a chunk runs
     its forward three times (forward, chunk recompute, block recompute)
@@ -1122,6 +1392,9 @@ def train_launches(mcfg, steps, alignment=False):
             out[kf] += (3 if c > 1 else 2) * c * L
             out[kb] += BWD_LAUNCHES_PER_CALL * c * L
         out[ot.KERNEL] += 1
+    if fused_ln:
+        out[ln.KERNEL] = out[ADD_LN_KERNEL] = 2 * (Lv + Lt)
+        out[ln.BWD_KERNEL] = 2 * ln.BWD_LAUNCHES_PER_CALL * (Lv + Lt)
     return {k: v * steps for k, v in out.items()}
 
 
@@ -1155,8 +1428,9 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(sorted(metrics) == list(range(n_steps)), f"{tag} steps {sorted(metrics)}")
-    expected = train_launches(mcfg, n_steps, cfg["alignment"])
+    expected = train_launches(mcfg, n_steps, cfg["alignment"], cfg["use_pallas_ln"])
     check(launches == expected, f"{tag} launches {launches} != {expected}")
+    check(layers._resolve_ln() == "xla", f"{tag}: the train loop put the LayerNorm choice back")
     values = {k: [float(metrics[i][k]) for i in range(n_steps)]
               for k in metrics[0] if k != "finite"}
     check(all(np.isfinite(values["loss"])), f"{tag} losses finite {values['loss']}")
@@ -1176,11 +1450,12 @@ def _chance(batch, D):
     return math.log(batch * D) + math.log(batch)
 
 
-def compare_bf16_step(mcfg, params, batch, keys=("loss",), **step_kwargs):
+def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, **step_kwargs):
     """One bf16 step on the kernel path and one on the plain path (plain
-    attention and, with alignment, the plain IPOT solver) from one state
-    and batch: each of `keys` within BF16_STEP_TOL (abs), grad_norm within
-    BF16_STEP_TOL (relative)."""
+    attention, with alignment the plain IPOT solver, and the plain
+    LayerNorm; the kernel path takes the LayerNorm kernels when `fused_ln`)
+    from one state and batch: each of `keys` within BF16_STEP_TOL (abs),
+    grad_norm within BF16_STEP_TOL (relative)."""
     sched = build_schedule("none", 1e-6, 1)
     metrics = {}
     for impl in ("kernel", "plain"):
@@ -1188,7 +1463,8 @@ def compare_bf16_step(mcfg, params, batch, keys=("loss",), **step_kwargs):
         st = create_train_state(params, opt)
         step = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True, impl=impl,
                                use_pallas_ot=impl == "kernel", **step_kwargs)
-        _, m = step(st, batch)
+        with layers.ln_impl("pallas" if fused_ln and impl == "kernel" else "xla"):
+            _, m = step(st, batch)
         metrics[impl] = {k: float(v) for k, v in m.items()}
         del st, step
     out = {"batch": batch["image"].shape[0], "kernel": metrics["kernel"], "plain": metrics["plain"]}
@@ -1202,17 +1478,19 @@ def compare_bf16_step(mcfg, params, batch, keys=("loss",), **step_kwargs):
     return out
 
 
-def compare_fp32_grads(mcfg, params, batch, **loss_kwargs):
-    """fp32 loss and every gradient tensor on the kernel path against the
-    plain path from one state and batch: loss within FP32_STEP_TOL (abs),
-    each gradient within FP32_STEP_TOL of its largest element."""
+def compare_fp32_grads(mcfg, params, batch, fused_ln=False, **loss_kwargs):
+    """fp32 loss and every gradient tensor on the kernel path (with the
+    LayerNorm kernels when `fused_ln`) against the all-plain path from one
+    state and batch: loss within FP32_STEP_TOL (abs), each gradient within
+    FP32_STEP_TOL of its largest element."""
     sched = build_schedule("none", 1e-6, 1)
     grads, loss = {}, {}
     for impl in ("kernel", "plain"):
         st = create_train_state(params, build_optimizer("adam", sched))
-        total, _ = loss_fn(st.params, batch, mcfg, compute_dtype=torch.float32, remat=True, impl=impl,
-                           use_pallas_ot=impl == "kernel", **loss_kwargs)
-        grads[impl] = torch.autograd.grad(total, tree_leaves(st.params))
+        with layers.ln_impl("pallas" if fused_ln and impl == "kernel" else "xla"):
+            total, _ = loss_fn(st.params, batch, mcfg, compute_dtype=torch.float32, remat=True,
+                               impl=impl, use_pallas_ot=impl == "kernel", **loss_kwargs)
+            grads[impl] = torch.autograd.grad(total, tree_leaves(st.params))
         loss[impl] = total.item()
         del st
     dl = abs(loss["kernel"] - loss["plain"])
@@ -1223,18 +1501,20 @@ def compare_fp32_grads(mcfg, params, batch, **loss_kwargs):
     return {"batch": batch["image"].shape[0], "loss_abs_diff": dl, "max_grad_rel_diff": worst}
 
 
-def profile_step(mcfg, params, batch, mean_ms, **step_kwargs):
+def profile_step(mcfg, params, batch, mean_ms, fused_ln=False, **step_kwargs):
     """One bf16 kernel-path step under the profiler (see `profile_one`)."""
     opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
     st = {"state": create_train_state(params, opt)}
     step = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True, **step_kwargs)
 
     def one_step():
-        st["state"], _ = step(st["state"], batch)
+        with layers.ln_impl("pallas" if fused_ln else "xla"):
+            st["state"], _ = step(st["state"], batch)
 
     kernels = (("attention_fwd", "attention_fwd_kernel"), ("attention_bwd", "attention_bwd_"),
                ("attention_hg_fwd", "attention_hg_fwd_kernel"), ("attention_hg_bwd", "attention_hg_bwd_"),
-               ("ipot", "ipot_kernel"))
+               ("ipot", "ipot_kernel"), ("layer_norm_fwd", "layer_norm_fwd_kernel"),
+               ("layer_norm_bwd", "layer_norm_bwd_"))
     # the same step with its batch already on the card and no loader
     # behind it (host clock around synchronised steps): what is left of the
     # loop's step time once the data feed is out of the way. Taken before
@@ -1285,7 +1565,203 @@ def phase_train(out_root):
     prof = profile_step(mcfg, params, _device_batch(ds, TRAIN_BATCH), run["mean_ms"])
     _train_report("train", "ViT-B/32", run, TRAIN_BATCH, D, init_s, kernel_vs_plain=compare)
     emit({"phase": "train_profile", **prof})
-    return run["launches"]
+    return run["launches"], run["mean_ms"], prof
+
+
+def phase_train_ln(out_root, plain_ln_ms, plain_ln_prof):
+    """`phase_train`'s workload through the train loop with
+    `use_pallas_ln: true` (K4a, K4b and K4c in every residual block beside
+    K1), its pairs/s beside `phase_train`'s from this run; then one
+    ViT-L/14 step (64 x 3) with the LayerNorm kernels on (W = 1024, K2
+    beside K4)."""
+    mcfg = VIT_B32
+    D = NUM_POS + NUM_NEG
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    ds = _BenchPairs(n_steps * TRAIN_BATCH, mcfg.image_resolution, mcfg.context_length,
+                     mcfg.vocab_size)
+    run = run_train_loop("train_ln", mcfg, params, ds, TRAIN_BATCH, out_root, use_pallas_ln=True)
+    first = run["values"]["loss"][0]
+    check(abs(first - _chance(TRAIN_BATCH, D)) < 0.5,
+          f"train_ln first loss {first} vs chance {_chance(TRAIN_BATCH, D)}")
+    del run["state"]
+    compare = {
+        "bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, TRAIN_BATCH), fused_ln=True),
+        "float32": compare_fp32_grads(mcfg, params, _device_batch(ds, FP32_CHECK_BATCH), fused_ln=True),
+    }
+    prof = profile_step(mcfg, params, _device_batch(ds, TRAIN_BATCH), run["mean_ms"], fused_ln=True)
+    pairs = TRAIN_BATCH * D
+
+    def non_gemm_share(p):
+        fam = p.get("by_family", {})
+        return sum(fam.get(f, {}).get("share_of_busy", 0.0) for f in ("elementwise", "reduction", "copy / cast"))
+
+    _train_report("train_ln", "ViT-B/32", run, TRAIN_BATCH, D, init_s, use_pallas_ln=True,
+                  kernel_vs_plain=compare, plain_ln={
+                      "step_ms_mean": plain_ln_ms,
+                      "contrastive_pairs_per_sec_per_chip": pairs / plain_ln_ms * 1e3,
+                      "elementwise_reduction_copy_share_of_busy": non_gemm_share(plain_ln_prof),
+                      "device_busy_ms": plain_ln_prof.get("device_busy_ms")},
+                  step_ms_ratio_to_plain_ln=run["mean_ms"] / plain_ln_ms,
+                  elementwise_reduction_copy_share_of_busy=non_gemm_share(prof))
+    emit({"phase": "train_ln_profile", **prof})
+    del params, ds
+    torch.cuda.empty_cache()
+
+    # ViT-L/14: one step with the LayerNorm kernels on, counted
+    mcfg = VIT_L14
+    params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+    batch = _device_batch(_BenchPairs(L14_BATCH, mcfg.image_resolution, mcfg.context_length,
+                                      mcfg.vocab_size), L14_BATCH)
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    state = create_train_state(params, opt)
+    step = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True)
+    # the step updates its state in place, so these are four consecutive
+    # steps on one batch (the first of each setting warms up); the launch
+    # counts are exact each time
+    walls, losses = {"xla": [], "pallas": []}, []
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with layers.ln_impl(impl):
+            _, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls[impl].append(time.perf_counter() - t0)
+        expected = train_launches(mcfg, 1, fused_ln=impl == "pallas")
+        check(read_launches() == expected, f"L/14 {impl} LN step launches {read_launches()} != {expected}")
+        if impl == "pallas":
+            l14 = read_launches()
+    check(all(math.isfinite(v) and abs(v - _chance(L14_BATCH, D)) < 0.5 for v in losses),
+          f"L/14 step losses {losses} vs chance {_chance(L14_BATCH, D)}")
+    del state, step
+    compare = compare_bf16_step(mcfg, params, batch, fused_ln=True)
+    emit({"phase": "train_ln_l14", "model": "ViT-L/14", "batch_images": L14_BATCH,
+          "descriptions_per_image": D, "losses": losses, "chance": _chance(L14_BATCH, D),
+          "step_wall_s": walls, "launches": l14, "expected": train_launches(mcfg, 1, fused_ln=True),
+          "kernel_vs_plain": {"bfloat16": compare}})
+    del params, batch
+    torch.cuda.empty_cache()
+    return run["launches"], l14
+
+
+def phase_serving_ln():
+    """One ViT-B/32 image batch and one text batch of 64 under
+    `set_ln_impl("pallas")`, fp32 and bf16, against the plain-LN features of
+    the same model: K4a and K4b once per block, no K4c."""
+    model_obj, mcfg = load_model_from_cfg({"model": "ViT-B/32", "seed": 0})
+    images, tokens = serving_inputs(mcfg, BATCH)
+    x_img, x_tok = torch.from_numpy(images).cuda(), torch.from_numpy(tokens).cuda()
+    params = model_obj.params()
+    cases = [(name, dtype, kind, fn, x)
+             for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+             for kind, fn, x in (("images", encode_image, x_img), ("texts", encode_text, x_tok))]
+    with torch.inference_mode():
+        plain = {(name, kind): l2_normalize(fn(params, mcfg, x, compute_dtype=dtype)).float()
+                 for name, dtype, kind, fn, x in cases}
+        torch.cuda.synchronize()
+        reset_launches()
+        with layers.ln_impl("pallas"):
+            fused = {(name, kind): l2_normalize(fn(params, mcfg, x, compute_dtype=dtype)).float()
+                     for name, dtype, kind, fn, x in cases}
+        torch.cuda.synchronize()
+    launches = read_launches()
+    blocks = 2 * (mcfg.vision_layers + mcfg.transformer_layers)  # two dtypes
+    expected = {**dict.fromkeys(COUNTERS, 0), KERNEL: blocks, ln.KERNEL: blocks, ADD_LN_KERNEL: blocks}
+    check(launches == expected, f"serving_ln launches {launches} != {expected}")
+    summary = {}
+    for (name, kind), k in fused.items():
+        check(k.shape == (BATCH, mcfg.embed_dim) and bool(torch.isfinite(k).all()),
+              f"serving_ln {name} {kind} shape/finite")
+        if name == "float32":
+            err = (k - plain[name, kind]).abs().max().item()
+            check(err <= 1e-4, f"serving_ln fp32 {kind}: LN kernels vs plain LN max abs err {err}")
+            summary[f"float32_{kind}_max_abs_err"] = err
+        else:
+            cos = F.cosine_similarity(k, plain[name, kind], dim=-1).min().item()
+            check(cos >= 0.999, f"serving_ln bf16 {kind}: LN kernels vs plain LN min cosine {cos}")
+            summary[f"bfloat16_{kind}_min_cos"] = cos
+    # batch ms in turns (plain, kernels, kernels, plain): the bf16 batches
+    # are bound by the host's launch rate, which drifts within a run
+    rates = {}
+    with torch.inference_mode():
+        for impl in ("xla", "pallas", "pallas", "xla"):
+            with layers.ln_impl(impl):
+                for name, dtype, kind, fn, x in cases:
+                    ms = cuda_ms(lambda: fn(params, mcfg, x, compute_dtype=dtype), iters=20, warmup=3)
+                    rates.setdefault(f"{impl}_{name}_{kind}_batch_ms", []).append(ms)
+    emit({"phase": "serving_ln", "model": "ViT-B/32", "batch": BATCH, "launches": launches,
+          "expected": expected, **summary, **rates})
+    del model_obj, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bench_tools():
+    """The port's bench entry point at full width (ViT-B/32, 384 x 3), with
+    the plain LayerNorm and with `--ln pallas` (twice each, in turns), and
+    the `ln` and `megakernel`
+    sections of the component bench at their default shapes (B = 256, D = 3,
+    12 layers), each through its `main`: the JSON lines parsed, the metric
+    finite and positive, exact launch counts."""
+    import contextlib
+    import io
+
+    def run_main(main_fn, argv):
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            check(main_fn(argv) == 0, f"{main_fn.__module__} {argv} exit code")
+        torch.cuda.synchronize()
+        return out.getvalue().splitlines(), read_launches()
+
+    all_launches = dict.fromkeys(COUNTERS, 0)
+    torch.cuda.empty_cache()
+    # in turns (plain, kernels, kernels, plain): two settings are compared
+    # within one run, and the host's share of a step drifts
+    results = {"xla": [], "pallas": []}
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        lines, launches = run_main(port_bench.main, ["--ln", impl])
+        check(len(lines) == 1, f"bench --ln {impl}: one line, got {len(lines)}")
+        result = json.loads(lines[0])
+        check(result["metric"] == "contrastive_pairs_per_sec_per_chip"
+              and math.isfinite(result["value"]) and result["value"] > 0
+              and result["device"]["nvidia_smi"] and "vs_baseline" not in result,
+              f"bench --ln {impl}: {result}")
+        steps = result["steps"]
+        per_step = train_launches(VIT_B32, 1, fused_ln=impl == "pallas")
+        check(launches == {k: v * steps for k, v in per_step.items()},
+              f"bench --ln {impl} launches {launches} over {steps} timed steps")
+        results[impl].append(result)
+        for k in COUNTERS:
+            all_launches[k] += launches[k]
+    step_ms = {impl: [r["step_ms"] for r in runs] for impl, runs in results.items()}
+    emit({"phase": "bench_tools", "tool": "clip_event_tpu_torch.bench", "plain_ln": results["xla"],
+          "fused_ln": results["pallas"], "step_ms": step_ms,
+          "step_ms_ratio_fused_to_plain": float(np.mean(step_ms["pallas"]) / np.mean(step_ms["xla"]))})
+
+    lines, launches = run_main(bench_components.main, ["ln", "megakernel"])
+    summary = json.loads(lines[-1])
+    check(len(summary["rows"]) == 10 and len(lines) == 11, f"bench_components rows {len(summary['rows'])}")
+    check(all(r["ms_per_iter"] is not None and math.isfinite(r["ms_per_iter"]) and r["ms_per_iter"] > 0
+              for r in summary["rows"]), f"bench_components times {summary['rows']}")
+    L = VIT_B32.transformer_layers + VIT_B32.vision_layers
+    runs = 1 + bench_components.STEPS  # the warm-up call and the timed ones
+    # ln: three variants of the stack gradient under remat, K1 in each (its
+    # backward too), K4 in one; megakernel: K1 in the unfused forward, K6 in
+    # the fused one
+    expected = {**dict.fromkeys(COUNTERS, 0),
+                KERNEL: (3 * 2 + 1) * L * runs, BWD_KERNEL: 3 * BWD_LAUNCHES_PER_CALL * L * runs,
+                ln.KERNEL: 2 * L * runs, ADD_LN_KERNEL: 2 * L * runs,
+                ln.BWD_KERNEL: 2 * ln.BWD_LAUNCHES_PER_CALL * L * runs, MEGA_KERNEL: L * runs}
+    check(launches == expected, f"bench_components launches {launches} != {expected}")
+    emit({"phase": "bench_tools", "tool": "clip_event_tpu_torch.tools.bench_components",
+          "lines": lines[:-1], **summary, "launches": launches})
+    for k in COUNTERS:
+        all_launches[k] += launches[k]
+    return all_launches
 
 
 def phase_train_l14(out_root):
@@ -1432,14 +1908,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = nvidia_smi()
+    smi = port_bench.nvidia_smi()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
-    check(set(COUNTERS) <= set(sources), f"kernel sources {sources}")
+    check(set(SOURCES.values()) <= set(sources), f"kernel sources {sources}")
     seconds = _build.build(sources)
     ptxas = {name: [ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines() if "Used" in ln]
              for name in sources}
@@ -1449,7 +1925,9 @@ def main() -> int:
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_root:
         paths["serving"], float_rates = phase_serving(out_root)
-        paths["train"] = phase_train(out_root)
+        paths["train"], train_ms, train_prof = phase_train(out_root)
+        paths["train_ln"], paths["train_ln_l14"] = phase_train_ln(out_root, train_ms, train_prof)
+        paths["serving_ln"] = phase_serving_ln()
         paths["serving_l14"], l14_rates = phase_serving(out_root, "ViT-L/14", L14_SERVING_ITEMS,
                                                         matching=False, tag="serving_l14")
         paths["train_l14"], paths["train_b16"] = phase_train_l14(out_root)
@@ -1459,6 +1937,7 @@ def main() -> int:
         paths["serving_int8_b32"] = phase_serving_int8(out_root, "ViT-B/32", L14_SERVING_ITEMS,
                                                        "serving_int8_b32", float_rates, cos_gate=0.99)
         paths["evals"] = phase_evals(out_root)
+        paths["bench_tools"] = phase_bench_tools()
 
     def entry(name, source, replaces, tol, head):
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1473,15 +1952,17 @@ def main() -> int:
             "by_shape": [r for r in rows[name] if "ms" in r],
         }
 
-    def head(name, shape, dtype, mode=None):
+    def head(name, shape, dtype, mode=None, variant=None):
         return next(r for r in rows[name] if r["shape"] == shape and r["dtype"] == dtype
-                    and r.get("mode") in (mode, None))
+                    and r.get("mode") in (mode, None) and r.get("variant") in (variant, None))
 
     # top-level numbers: K1's forward at the serving text shape in fp32 (the
     # CLI's dtype); the backwards and K2's forward at a train step's shape
     # in bf16 (the training dtype); K3 at finetune_ot's shape; K5 at L/14's
-    # MLP fc in fp32, dynamic (the CLI's "int8"); by_shape holds every timed
-    # shape in both dtypes (and K5's two modes)
+    # MLP fc in fp32, dynamic (the CLI's "int8"); K4 at the ViT-B/32 train
+    # step's text shape in bf16; K6 at the component bench's text shape in
+    # bf16; by_shape holds every timed shape in both dtypes (and K5's two
+    # modes, K4c's two variants)
     for name in COUNTERS:
         check(sum(counts[name] for counts in paths.values()) > 0, f"{name} launched on the main paths")
     emit({"kernels": [
@@ -1501,6 +1982,17 @@ def main() -> int:
         entry(quant.KERNEL, "clip_event_tpu_torch/csrc/quant_matmul.cu",
               "clip_event_tpu/ops/quant_pallas.py:64", QUANT_TOL,
               head(quant.KERNEL, "l14_vision_fc", "float32", "dynamic")),
+        entry(ln.KERNEL, "clip_event_tpu_torch/csrc/layer_norm.cu",
+              "clip_event_tpu/ops/ln_pallas.py:69", LN_TOL, head(ln.KERNEL, "b32_train_text", "bfloat16")),
+        entry(ADD_LN_KERNEL, "clip_event_tpu_torch/csrc/layer_norm.cu",
+              "clip_event_tpu/ops/ln_pallas.py:75", LN_TOL,
+              head(ADD_LN_KERNEL, "b32_train_text", "bfloat16")),
+        entry(ln.BWD_KERNEL, "clip_event_tpu_torch/csrc/layer_norm_bwd.cu",
+              "clip_event_tpu/ops/ln_pallas.py:83", LN_BWD_TOL,
+              head(ln.BWD_KERNEL, "b32_train_text", "bfloat16", variant="ln")),
+        entry(MEGA_KERNEL, "clip_event_tpu_torch/csrc/ln_qkv_attention.cu",
+              "clip_event_tpu/ops/attention_pallas.py:580", MEGA_TOL,
+              head(MEGA_KERNEL, "mega_text", "bfloat16")),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,8 @@ The same keys, defaults and checks as the JAX package's `validate_config`
 port carries. A key of a part not ported yet raises `ConfigError` naming
 its ROADMAP item when it is set to anything but its default: the model,
 tensor, pipeline and data parallelism keys, the multiattention branch and
-its SR data channel, the LayerNorm kernels, the image cache, K-step fused
-dispatch and the selective remat policies. The ResNet presets are not
-ported either.
+its SR data channel, the image cache, K-step fused dispatch and the
+selective remat policies. The ResNet presets are not ported either.
 """
 
 from __future__ import annotations
@@ -77,6 +76,8 @@ _DEFAULTS: Dict[str, Any] = {
     # true: the hand-written attention kernels (forward and backward) on the
     # card; false: their plain PyTorch versions
     "use_pallas_attention": True,
+    # true: the fused LayerNorm kernels (forward and backward) in every
+    # residual block; false: the plain PyTorch LayerNorm
     "use_pallas_ln": False,
     "tp": 1,
     "pp": 1,
@@ -114,7 +115,7 @@ _DEFAULTS: Dict[str, Any] = {
 # keys of parts not ported yet: the ROADMAP item that brings each
 _UNPORTED = {
     "tp": "A11", "pp": "A11", "sp": "A11", "dcn_dp": "A11", "zero": "A11", "fsdp": "A11",
-    "load_sr": "A8", "multiattention": "A8", "dedupe_sr_texts": "A8", "use_pallas_ln": "A12",
+    "load_sr": "A8", "multiattention": "A8", "dedupe_sr_texts": "A8",
     "image_cache": "A9",
 }
 

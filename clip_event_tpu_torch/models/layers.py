@@ -21,6 +21,18 @@ recomputes each block in the backward pass (`torch.utils.checkpoint`, the
 counterpart of `jax.checkpoint(..., nothing_saveable)`); False saves every
 activation. The selective policies of the JAX package are not ported yet.
 
+`ln` selects the LayerNorm of a residual block's two norms (the JAX
+package's `transformer(..., ln=)`): "xla" (the default) runs `layer_norm`
+in plain PyTorch; "pallas" runs the fused kernels of `ops.ln` (K4:
+`fused_layer_norm` for `ln_1`, `fused_add_layer_norm` for the mid-block
+residual add + `ln_2`, their shared backward kernel), on the card for a
+CUDA tensor and as plain versions for a CPU tensor. `transformer` resolves
+None to the process-wide choice of `set_ln_impl` (`use_pallas_ln` in the
+train config) and hands it to every block as a plain argument, through
+`torch.utils.checkpoint` too. `ln_pre`, `ln_post` and `ln_final` call
+`layer_norm` directly, as in the JAX package. The names of the two
+settings are the JAX package's.
+
 A dense weight may be an int8 `ops.quant.QuantWeight` (the inference
 path): `linear` sends it to `quantized_linear` (K5 on the card), and
 `_layer` slices its stacked tensors like any other leaf. `act_stats`, a
@@ -30,12 +42,14 @@ abs-max of every dense input for static int8 calibration.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from clip_event_tpu_torch.ops import attention as A
+from clip_event_tpu_torch.ops import ln as LN
 from clip_event_tpu_torch.ops.attention import IMPLS
 from clip_event_tpu_torch.ops.quant import QuantWeight, quantized_linear
 
@@ -51,6 +65,70 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = y * params["scale"].float() + params["bias"].float()
     return y.to(x.dtype)
+
+
+LN_IMPLS = ("xla", "pallas")
+_LN_IMPL = "xla"
+
+
+def set_ln_impl(impl: str, mesh=None) -> None:
+    """Select the LayerNorm of the transformer blocks for every later
+    `transformer` call that passes no `ln`: "xla" (plain PyTorch, the
+    default) or "pallas" (the fused kernels of `ops.ln`). The JAX package's
+    `mesh` argument (shard_map of the kernels over a multi-chip mesh) waits
+    for the multi-device port: only None is accepted."""
+    global _LN_IMPL
+    if impl not in LN_IMPLS:
+        raise ValueError("ln impl must be 'xla' or 'pallas'")
+    if mesh is not None:
+        raise NotImplementedError("set_ln_impl(mesh=...) is not ported yet (ROADMAP A11)")
+    _LN_IMPL = impl
+
+
+def _resolve_ln() -> str:
+    """The process-wide LayerNorm choice (`set_ln_impl`)."""
+    return _LN_IMPL
+
+
+@contextlib.contextmanager
+def ln_impl(impl: str):
+    """`with ln_impl("pallas"):` selects the LayerNorm of the transformer
+    blocks inside (`set_ln_impl`) and puts the previous choice back after,
+    so one process can run both settings."""
+    old = _resolve_ln()
+    set_ln_impl(impl)
+    try:
+        yield
+    finally:
+        set_ln_impl(old)
+
+
+def _block_ln_plan(ln: str, act_stats: Optional[dict]) -> str:
+    """The LayerNorm path of one residual block: "xla" or "pallas". The
+    calibration pass (`act_stats` given) runs the plain LayerNorm, as in
+    the JAX package. A width the kernels do not take is not sent to the
+    plain LayerNorm: `ops.ln` raises on it on every device, where the JAX
+    package warns and runs its XLA LayerNorm, which on this path would hide
+    that the kernel did not run."""
+    if ln not in LN_IMPLS:
+        raise ValueError(f"ln impl {ln!r}; options: {LN_IMPLS}")
+    return "xla" if ln != "pallas" or act_stats is not None else "pallas"
+
+
+def _ln_apply(x: torch.Tensor, p: dict, plan: str) -> torch.Tensor:
+    """LayerNorm by a `_block_ln_plan` decision."""
+    if plan == "xla":
+        return layer_norm(x, p)
+    return LN.fused_layer_norm(x, p["scale"], p["bias"])
+
+
+def _add_ln_apply(res: torch.Tensor, delta: torch.Tensor, p: dict, plan: str):
+    """(res + delta, LayerNorm(res + delta)) by a `_block_ln_plan` decision:
+    the fused kernel folds the residual add into the LayerNorm's one read."""
+    if plan == "xla":
+        x = res + delta
+        return x, layer_norm(x, p)
+    return LN.fused_add_layer_norm(res, delta, p["scale"], p["bias"])
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -135,20 +213,25 @@ def residual_block(
     attn_bias: Optional[torch.Tensor] = None,
     impl: str = "kernel",
     act_stats: Optional[dict] = None,
+    ln: str = "xla",
 ) -> torch.Tensor:
     """Pre-LN transformer block: MHA + QuickGELU MLP, both residual.
 
     `act_stats`: when a dict is passed, the scalar abs-max of every dense
     input is recorded into it, nested as the param tree
-    ({"attn": {qkv_w, out_w}, "mlp": {fc_w, proj_w}})."""
+    ({"attn": {qkv_w, out_w}, "mlp": {fc_w, proj_w}}).
+
+    `ln`: "xla" or "pallas", the LayerNorm of `ln_1` and of the mid-block
+    residual add + `ln_2` (see the module docstring)."""
     attn_stats = mlp_stats = None
     if act_stats is not None:
         attn_stats = act_stats["attn"] = {}
         mlp_stats = act_stats["mlp"] = {}
-    x = x + multi_head_attention(
-        layer_norm(x, params["ln_1"]), params["attn"], num_heads, attn_bias, impl, attn_stats
+    ln_plan = _block_ln_plan(ln, act_stats)
+    a = multi_head_attention(
+        _ln_apply(x, params["ln_1"], ln_plan), params["attn"], num_heads, attn_bias, impl, attn_stats
     )
-    h = layer_norm(x, params["ln_2"])
+    x, h = _add_ln_apply(x, a, params["ln_2"], ln_plan)
     if mlp_stats is not None:
         mlp_stats["fc_w"] = _absmax(h)
     h = quick_gelu(linear(h, params["mlp"]["fc_w"], params["mlp"]["fc_b"]))
@@ -184,14 +267,17 @@ def transformer(
     attn_bias: Optional[torch.Tensor] = None,
     impl: str = "kernel",
     remat=False,
+    ln: Optional[str] = None,
 ) -> torch.Tensor:
     """Run the stack of residual blocks over the leading L axis of the params,
     each block recomputed in the backward pass when `remat` is on and
-    autograd is recording."""
+    autograd is recording. `ln` None takes `set_ln_impl`'s choice."""
+    if ln is None:
+        ln = _resolve_ln()
     recompute = _remat_enabled(remat) and torch.is_grad_enabled()
     n_layers = stacked_params["attn"]["qkv_w"].shape[0]
     for i in range(n_layers):
-        args = (x, _layer(stacked_params, i), num_heads, attn_bias, impl)
+        args = (x, _layer(stacked_params, i), num_heads, attn_bias, impl, None, ln)
         x = checkpoint(residual_block, *args, use_reentrant=False) if recompute else residual_block(*args)
     return x
 

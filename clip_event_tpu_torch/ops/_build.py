@@ -91,6 +91,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, symbol: str, argtypes):
+    """(library, C entry point `symbol` of `csrc/<name>.cu`) with its
+    argument types set: every entry point returns a CUDA error code."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if code != 0:

@@ -1,5 +1,5 @@
 """Multi-head attention over the packed QKV projection: K1 and K2, each
-forward and backward.
+forward and backward, and K6, the LayerNorm → QKV → attention megakernel.
 
 Counterpart of `clip_event_tpu/ops/attention_pallas.py::fused_attention_qkv`
 (K1) and `fused_attention_qkv_headgrid` (K2) with their custom VJPs. Both
@@ -24,6 +24,14 @@ so any S runs; they take the head-grid shapes of the JAX kernel
 function in plain PyTorch. Nothing falls back from a kernel to its plain
 version. `attend(..., impl="plain")` runs the plain pair on any device: the
 reference a run on the card is held against.
+
+`fused_ln_qkv_attention` (K6, the counterpart of the JAX function of the
+same name) computes LayerNorm → the packed QKV projection → K1's attention
+core in one kernel, `csrc/ln_qkv_attention.cu`, forward only: neither the
+normalized rows nor the [B, S, 3W] projection reach device memory. It is a
+measurement vehicle (`tools/bench_components.py megakernel`), not on the
+train path. `fused_ln_qkv_attention_plain` is the same function in plain
+PyTorch, with the kernel's roundings.
 """
 
 from __future__ import annotations
@@ -45,6 +53,11 @@ HG_BWD_KERNEL = "attention_hg_bwd"
 BWD_LAUNCHES_PER_CALL = 2
 # K2 takes heads in 128-lane groups, as the TPU kernel's lane blocks do
 HG_LANES = 128
+MEGA_KERNEL = "ln_qkv_attention"
+# K6 keeps a head's q, k and v in shared memory beside its tiles, and each
+# thread owns 4 neighbouring columns of the projection
+MEGA_MAX_SEQ = 128
+MEGA_MAX_HEAD_DIM = 64
 IMPLS = ("kernel", "plain")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -152,15 +165,6 @@ def _check_kernel_input(
         raise ValueError(f"attention kernel needs a CUDA tensor, got {qkv.device}")
 
 
-def _load(name: str, symbol: str, argtypes):
-    lib = _build.load(name)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fn
-
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
@@ -182,7 +186,7 @@ def _launch_fwd(qkv, bias, num_heads, scale, head_grid: bool) -> torch.Tensor:
     W = W3 // 3
     bias = _kernel_bias(bias)
     name, symbol = (HG_KERNEL, "clip_attention_hg_fwd") if head_grid else (KERNEL, "clip_attention_fwd")
-    lib, fn = _load(name, symbol, _FWD_ARGS)
+    lib, fn = _build.entry(name, symbol, _FWD_ARGS)
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -205,7 +209,7 @@ def _launch_bwd(qkv, bias, do, num_heads, scale, head_grid: bool) -> torch.Tenso
     name, symbol = (
         (HG_BWD_KERNEL, "clip_attention_hg_bwd") if head_grid else (BWD_KERNEL, "clip_attention_bwd")
     )
-    lib, fn = _load(name, symbol, _BWD_ARGS)
+    lib, fn = _build.entry(name, symbol, _BWD_ARGS)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -344,9 +348,111 @@ def attend(
     return _FusedAttention.apply(qkv, bias, num_heads, float(scale), impl == "kernel")
 
 
+def megakernel_supported(seq_len: int, width: int, num_heads: int) -> bool:
+    """The shapes K6 takes: S <= 128 and a head_dim <= 64 that is a multiple
+    of 4 (the kernel's shared-memory layout; the JAX function's gate is its
+    VMEM byte model). Any width with such heads runs."""
+    if seq_len < 1 or num_heads < 1 or width < 1 or width % num_heads:
+        return False
+    d = width // num_heads
+    return seq_len <= MEGA_MAX_SEQ and d <= MEGA_MAX_HEAD_DIM and d % 4 == 0
+
+
+def fused_ln_qkv_attention_plain(
+    x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor, qkv_w: torch.Tensor,
+    qkv_b: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """K6 in plain PyTorch, with the roundings of `_mega_fwd_kernel`: γ, β,
+    the weight and its bias are cast to x's dtype first; the LayerNorm runs
+    in fp32 and is rounded to x's dtype; the projection multiplies those
+    rounded operands in fp32 (upcast first: a bf16 matmul would round its
+    result) and is not rounded before the attention core; the probabilities
+    stay fp32; the output is rounded to x's dtype. `bias=None` is no mask.
+    On the card an fp32 input needs
+    `torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's default)."""
+    dt = x.dtype
+    g, b, w, wb = (_wide(t.to(dt)) for t in (ln_scale, ln_bias, qkv_w, qkv_b))
+    x32 = _wide(x)
+    c = x32 - x32.mean(dim=-1, keepdim=True)
+    ln = c * torch.rsqrt((c * c).mean(dim=-1, keepdim=True) + eps)
+    ln = _wide((ln * g + b).to(dt))
+    qkv = torch.matmul(ln, w) + wb
+    return fused_attention_qkv_plain(qkv, bias, num_heads, scale).to(dt)
+
+
+_MEGA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
+
+
+def _launch_mega(x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps) -> torch.Tensor:
+    """Check and launch K6 on a CUDA tensor."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, S, W], got {tuple(x.shape)}")
+    B, S, W = x.shape
+    if not megakernel_supported(S, W, num_heads):
+        raise ValueError(
+            f"the megakernel takes S <= {MEGA_MAX_SEQ} and head_dim <= {MEGA_MAX_HEAD_DIM}, a "
+            f"multiple of 4; got S={S} W={W} H={num_heads}"
+        )
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"the megakernel takes float32 or bfloat16, got {x.dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the megakernel needs a CUDA tensor, got {x.device}")
+    if B < 1:
+        raise ValueError("the megakernel needs B >= 1")
+    shapes = {"ln_scale": (ln_scale, (W,)), "ln_bias": (ln_bias, (W,)),
+              "qkv_w": (qkv_w, (W, 3 * W)), "qkv_b": (qkv_b, (3 * W,))}
+    if bias is not None:
+        shapes["bias"] = (bias, (S, S))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"{name} must be {shape} on {x.device}, got {tuple(t.shape)} on {t.device}")
+    x = x.contiguous()
+    # the JAX wrapper casts these to x's dtype before its kernel too
+    g, b, w, wb = (t.detach().to(x.dtype).contiguous() for t in (ln_scale, ln_bias, qkv_w, qkv_b))
+    bias = _kernel_bias(bias)
+    lib, fn = _build.entry(MEGA_KERNEL, "clip_ln_qkv_attention", _MEGA_ARGS)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(
+            x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), wb.data_ptr(), _ptr(bias),
+            out.data_ptr(), B, S, num_heads, W // num_heads, float(scale), float(eps),
+            _DTYPES[x.dtype], stream,
+        )
+    _build.check(lib, code, f"{MEGA_KERNEL} launch")
+    return out
+
+
+def fused_ln_qkv_attention(
+    x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor, qkv_w: torch.Tensor,
+    qkv_b: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """LayerNorm → packed QKV projection → attention core, one kernel (K6).
+
+    x: [B, S, W]; ln_scale, ln_bias: [W]; qkv_w: [W, 3W]; qkv_b: [3W]; bias:
+    additive [S, S] mask or None. Returns [B, S, W] in x.dtype, the contract
+    of `fused_attention_qkv` (before the out-projection). Forward only, as
+    in the JAX package: it runs outside autograd, so where autograd records
+    the result does not require grad. CPU tensors take the plain version;
+    any other device must be a CUDA tensor the kernel takes (fp32 or bf16,
+    `megakernel_supported`), else this raises."""
+    if x.shape[-1] % num_heads:
+        raise ValueError(f"width {x.shape[-1]} not divisible by num_heads {num_heads}")
+    with torch.no_grad():
+        if x.device.type == "cpu":
+            return fused_ln_qkv_attention_plain(
+                x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps)
+        out = _launch_mega(x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps)
+    fused_ln_qkv_attention.launches += 1
+    return out
+
+
 # kernel launches since the last reset (chip_smoke.py reads and resets them):
 # one per forward call, BWD_LAUNCHES_PER_CALL per backward call
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0
 fused_attention_qkv_headgrid.launches = 0
 fused_attention_qkv_headgrid_bwd.launches = 0
+fused_ln_qkv_attention.launches = 0

@@ -7,7 +7,7 @@ The config is the JAX CLI's (`config.py`). It trains from a random init
 (`seed`), from an OpenAI / reference `.pth` (`jit: true` + `begin_ckpt`), or
 resumes a checkpoint of this port (`begin_ckpt`), mid-epoch resumes
 included. Length buckets, dedupe-encode, gradient accumulation,
-`max_steps`, `save_steps`, the SIGTERM checkpoint, the NaN abort with its
+`max_steps`, `save_steps`, `use_pallas_ln`, the SIGTERM checkpoint, the NaN abort with its
 `nan_debug_step*.json` artifact and per-epoch zero-shot matching
 validation work as in the JAX CLI; `config.json` and `scalars.jsonl` are
 written beside the logs. The default device is the card; with no card and
@@ -44,6 +44,7 @@ from clip_event_tpu_torch.engine.train_step import (
     make_accum_step,
     make_train_step,
 )
+from clip_event_tpu_torch.models import layers
 from clip_event_tpu_torch.models.clip import CLIPConfig
 from clip_event_tpu_torch.platform import resolve_device
 
@@ -134,6 +135,12 @@ def train(
         log.warning("=> SIGTERM: checkpointing at the next step boundary, then exiting")
 
     old_handler = signal.signal(signal.SIGTERM, on_sigterm) if cfg["is_train"] else None
+    # the fused LayerNorm kernels (K4) in every residual block for the length
+    # of this run; the process-wide choice is put back when the loop returns,
+    # so one process can run both settings
+    old_ln = layers._resolve_ln()
+    if cfg["use_pallas_ln"]:
+        layers.set_ln_impl("pallas")
     try:
         for epoch in range(begin_epoch, cfg["max_epoch"]):
             log.info("=> Epoch[%d]: train start", epoch)
@@ -252,6 +259,7 @@ def train(
             save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
                             best_perf, step=state.step)
     finally:
+        layers.set_ln_impl(old_ln)
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
     return state

@@ -16,7 +16,13 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
 - `.eval_m2e2` at ViT-L/14 in int8_static with argument grounding (K2 for
   the grid features, K5 in every dense layer), `.eval_vcr`,
   `.eval_visualcomet` and `.eval_retrieval` at ViT-B/32 (the last in
-  int8): every metric finite and in [0, 1] where it is a rate."""
+  int8): every metric finite and in [0, 1] where it is a rate;
+- K4 (`ops.ln`: the fused LayerNorm forward, the add + LayerNorm forward
+  and their shared backward) and K6 (`ops.attention.fused_ln_qkv_attention`)
+  against their plain versions at a few shapes, fp32 and bf16;
+- `python -m clip_event_tpu_torch.train` at ViT-B/32 with
+  `use_pallas_ln: true`: K4a, K4b and K4c launched in every residual block
+  of every step, finite losses, and the LayerNorm choice put back."""
 
 import importlib.util
 import json
@@ -186,3 +192,92 @@ def test_eval_clis_vit_b32(fixtures_mod, tmp_path, module):
     metrics = _cli(module, {"model": "ViT-B/32", "seed": 0, "batch_size": 4, **cfg}, tmp_path)
     assert metrics[key] == n
     _rates_ok(metrics)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,w", [(64 * 77, 512), (1001, 640), (1, 1280), (37, 100)])
+def test_layer_norm_kernels_match_plain(fixtures_mod, n, w, dtype):
+    from clip_event_tpu_torch.ops import ln
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, delta, dy, dxo = (torch.randn((n, w), device="cuda", generator=gen).to(dtype) for _ in range(4))
+    gamma = 1.0 + 0.1 * torch.randn((w,), device="cuda", generator=gen)
+    beta = 0.1 * torch.randn((w,), device="cuda", generator=gen)
+    counts = (ln.fused_layer_norm.launches, ln.fused_add_layer_norm.launches, ln.fused_layer_norm_bwd.launches)
+    y = ln.fused_layer_norm(x, gamma, beta)
+    xs, y2 = ln.fused_add_layer_norm(x, delta, gamma, beta)
+    got = ln.fused_layer_norm_bwd(xs, gamma, dy, dxo)
+    torch.cuda.synchronize()
+    assert (ln.fused_layer_norm.launches, ln.fused_add_layer_norm.launches,
+            ln.fused_layer_norm_bwd.launches) == (counts[0] + 1, counts[1] + 1,
+                                                  counts[2] + ln.BWD_LAUNCHES_PER_CALL)
+    ref_x, ref_y2 = ln.add_layer_norm_plain(x, delta, gamma, beta)
+    assert torch.equal(xs, ref_x)
+    fwd_tol = 1e-6 if dtype == torch.float32 else 2e-2
+    for a, b in ((y, ln.layer_norm_plain(x, gamma, beta)), (y2, ref_y2)):
+        assert a.dtype == dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= fwd_tol * max(1.0, b.float().abs().max().item()), err
+    bwd_tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, ln.layer_norm_bwd_plain(xs, gamma, dy, dxo)):
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+        assert rel <= bwd_tol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,w,h,causal", [(64, 77, 512, 8, True), (16, 50, 768, 12, False),
+                                            (2, 19, 60, 3, True)])
+def test_megakernel_matches_plain(fixtures_mod, b, s, w, h, causal, dtype):
+    from clip_event_tpu_torch.models.layers import causal_mask
+    from clip_event_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((b, s, w), device="cuda", generator=gen).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn((w,), device="cuda", generator=gen)
+    beta = 0.1 * torch.randn((w,), device="cuda", generator=gen)
+    qkv_w = torch.randn((w, 3 * w), device="cuda", generator=gen) * w ** -0.5
+    qkv_b = 0.1 * torch.randn((3 * w,), device="cuda", generator=gen)
+    bias = causal_mask(s, device="cuda") if causal else None
+    args = (x, gamma, beta, qkv_w, qkv_b, bias, h, (w // h) ** -0.5)
+    launches = A.fused_ln_qkv_attention.launches
+    out = A.fused_ln_qkv_attention(*args)
+    ref = A.fused_ln_qkv_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert A.fused_ln_qkv_attention.launches == launches + 1
+    assert out.dtype == dtype and out.shape == (b, s, w) and not out.requires_grad
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 2e-2), err
+    with pytest.raises(ValueError, match="megakernel takes"):
+        A.fused_ln_qkv_attention(torch.zeros((1, 129, 64), device="cuda"), gamma[:64], beta[:64],
+                                 qkv_w[:64, :192], qkv_b[:192], None, 1, 1.0)
+
+
+def test_train_cli_vit_b32_with_ln_kernels(voa, tmp_path):
+    from clip_event_tpu_torch.models import layers
+    from clip_event_tpu_torch.ops import attention as A
+    from clip_event_tpu_torch.ops import ln
+    from clip_event_tpu_torch.train import main
+
+    cfg = {
+        "task": "card_ln", "model": "ViT-B/32", "seed": 0, "constrastive_loss": "ce",
+        "posneg_descriptions_json": voa["descriptions_json"],
+        "image_caption_json": [voa["mapping_json"]], "image_dir": [voa["image_dir"]],
+        "use_pallas_ln": True, "batch_size": 2, "max_epoch": 1, "lr": 1e-6, "optimizer": "adam",
+        "compute_dtype": "bfloat16", "remat": True, "num_workers": 2,
+        "ckpt_dir": str(tmp_path / "ckpt"), "tb_log_dir": str(tmp_path / "logs"),
+    }
+    path = tmp_path / "train.json"
+    path.write_text(json.dumps(cfg))
+    counters = (A.fused_attention_qkv, ln.fused_layer_norm, ln.fused_add_layer_norm, ln.fused_layer_norm_bwd)
+    for fn in counters:
+        fn.launches = 0
+    main(["--cfg", str(path)])
+    # 4 images at batch 2; 12 + 12 blocks, each forward twice under remat,
+    # each block's two LayerNorm backwards of 2 launches
+    steps, blocks = 2, 24
+    assert [fn.launches for fn in counters] == [2 * blocks * steps, 2 * blocks * steps,
+                                                2 * blocks * steps, 2 * 2 * blocks * steps]
+    assert layers._resolve_ln() == "xla"
+    scalars = _scalars(tmp_path / "logs" / "card_ln" / "tensorboard" / "scalars.jsonl")
+    assert all(np.isfinite(scalars[tag, 0]) for tag in ("train_loss", "loss_i", "loss_t"))

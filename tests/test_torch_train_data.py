@@ -121,7 +121,7 @@ def test_config_defaults_and_refusals():
     for key, value, item in [("tp", 2, "A11"), ("pp", 2, "A11"), ("dcn_dp", 2, "A11"),
                              ("zero", True, "A11"), ("fsdp", True, "A11"),
                              ("multiattention", True, "A8"),
-                             ("use_pallas_ln", True, "A12"), ("image_cache", "/c", "A9"),
+                             ("image_cache", "/c", "A9"),
                              ("load_sr", True, "A8"), ("dedupe_sr_texts", 8, "A8"), ("steps_per_dispatch", 4, "A2"),
                              ("remat", "attn", "A2")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):

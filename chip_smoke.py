@@ -7,13 +7,15 @@ the OT graph-alignment fine-tuning of `configs/finetune_ot.json` at
 ViT-B/32, int8 serving, the zero-shot evals, and the bench entry point and
 component bench.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --only k2   # device, build and K2's kernel checks
 
 Phases, each printing JSON lines:
 
   1. device   the card's name; needs `torch.cuda.is_available()`
   2. build    compiles every kernel source in `clip_event_tpu_torch/csrc/`,
-              one nvcc each, all started together
+              one nvcc each, all started together; the tensor-core attention
+              kernels must not spill (`-Xptxas -v`)
   3. kernels  each kernel against its plain PyTorch version at the shapes
               the paths give it and at edge shapes, fp32 and bf16, and its
               time beside the plain version's, one PyTorch library call's and
@@ -21,7 +23,15 @@ Phases, each printing JSON lines:
               (K1-fwd, K2-fwd) are held at max abs error 1e-5 (fp32) / 2e-2
               (bf16); the backwards (K1-bwd, K2-bwd) at max|kernel − plain| /
               max|plain| ≤ 1e-5 (fp32) / 1e-2 (bf16); the IPOT solver (K3)
-              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32)
+              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32). K2 has two
+              variants, "mma" (bf16 on the tensor cores) and "simt" (fp32):
+              every K2 row says which, the Python rule and both libraries'
+              rule must agree, and the mma rows are also held at forward
+              ≤ 1e-2 of max|plain| and, against the plain versions that
+              round where the kernel rounds, at ≤ 8e-3 (worst) and 5e-4
+              (mean) of max|plain|; the backward through autograd's saved
+              residuals and on a second run gives equal bits; a misaligned
+              qkv view is refused
   4. serving  full-width ViT-B/32 from seed 0 (12 + 12 layers): embed_stream
               over 256 images and 256 token rows into shards and a manifest,
               in fp32 and in bf16, then evaluate_matching; the launch counts
@@ -39,13 +49,16 @@ Phases, each printing JSON lines:
               S=257 through K2, text through K1): embed_stream over 128
               images and 128 token rows at batch 64, fp32 and bf16; launch
               counts, features against a plain-attention run, images/s and
-              texts/s
+              texts/s, and one bf16 image batch with the plain attention
+              beside the kernel path's, in turns
   7. train_l14  7 full-width ViT-L/14 steps through the train loop at the
               bench's L/14 workload (64 uint8 images × 3 descriptions, bf16,
               full remat, Adam at lr 1e-6): exact K1/K2 launch counts, losses
               near chance, moved params, pairs/s, step ms, peak memory and a
-              bf16 kernel-vs-plain step; then one ViT-B/16 kernel-path step
-              at its bench batch (96)
+              bf16 kernel-vs-plain step, and the step with the plain
+              attention beside the kernel-path step in turns
+              (`plain_attention_step_ms`); then one ViT-B/16 kernel-path step
+              at its bench batch (96), with the same two comparisons
   8. train_ot  7 steps of finetune_ot.json's settings at ViT-B/32 full width
               through the train loop (64 images × 3 descriptions, 8 float32
               object crops at 224² and 16 entity rows of 77 tokens per image,
@@ -75,7 +88,9 @@ Phases, each printing JSON lines:
               VCR, VisualCOMET and retrieval at ViT-B/32 fp32, M2E2 at
               ViT-L/14 with argument grounding in int8_static (grid features
               through K2, every dense layer through K5); metrics finite and
-              in [0, 1], the expected keys, exact launch counts
+              in [0, 1], the expected keys, exact launch counts; then
+              retrieval again with `"use_pallas_attention": false`: no
+              attention kernel launches, equal metrics, the choice put back
 
   5b. train_ln  phase 5's workload through the train loop with
               `use_pallas_ln: true`: exact launch counts of K1 and of K4a,
@@ -92,7 +107,8 @@ Phases, each printing JSON lines:
               features) and bf16 (cosine 0.999); K4a and K4b once a block,
               no K4c; batch ms with and without the kernels
  11. bench_tools  `clip_event_tpu_torch.bench` at full width (ViT-B/32,
-              384 x 3) with the plain LayerNorm and with `--ln pallas`, and
+              384 x 3) with the plain LayerNorm and with `--ln pallas`, then
+              with `--images uint8` and `--images float32` in turns, and
               the `ln` and `megakernel` sections of
               `clip_event_tpu_torch.tools.bench_components` at their default
               shapes (256 images x 3 texts, 12 layers), through their `main`:
@@ -167,6 +183,7 @@ from clip_event_tpu_torch.ops.attention import (
     BWD_KERNEL,
     BWD_LAUNCHES_PER_CALL,
     HG_BWD_KERNEL,
+    HG_BWD_LAUNCHES_PER_CALL,
     HG_KERNEL,
     KERNEL,
     MAX_SEQ,
@@ -176,9 +193,12 @@ from clip_event_tpu_torch.ops.attention import (
     fused_attention_qkv_bwd_plain,
     fused_attention_qkv_headgrid,
     fused_attention_qkv_headgrid_bwd,
+    fused_attention_qkv_headgrid_fwd,
     fused_attention_qkv_plain,
     fused_ln_qkv_attention,
     fused_ln_qkv_attention_plain,
+    headgrid_variant,
+    library_variant,
 )
 from clip_event_tpu_torch.tools import bench_components
 from clip_event_tpu_torch.train import train
@@ -191,6 +211,16 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_INT8_OPS = 1979e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # forward: max abs error
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # backward: error relative to max|plain|
+# K2's tensor-core ("mma") variant, bf16: the forward also relative to
+# max|plain| (2e-2 absolute is weak where outputs are ~0.1), and forward and
+# backward against the plain versions that round where the kernel rounds
+# (`mma_rounding=True`): one bf16 ulp of the largest result, which is up to
+# 2^-7 of it (an element just under a power of two: the H100 read 1/240 =
+# 4.17e-3 at max|plain| = 1.875, one ulp of 2^-7), and the mean error over
+# all elements, which a one-ulp flip here and there leaves far smaller
+MMA_FWD_REL_TOL = 1e-2
+MMA_ROUNDED_TOL = 8e-3
+MMA_ROUNDED_MEAN_TOL = 5e-4
 OT_TOL = {"float32": 1e-5}  # IPOT plan: error relative to max|plain|
 # K5: error relative to max|plain|; fp32 is exact by design, bf16 two ulps
 QUANT_TOL = {"float32": 1e-6, "bfloat16": 8e-3}
@@ -244,6 +274,19 @@ HG_EDGE_SHAPES = [
     ("hg_edge_d32_causal", 2, 150, 256, 8, True),
     ("hg_edge_d128", 2, 257, 256, 2, False),
     ("hg_edge_s512_causal", 2, 512, 256, 4, True),
+    # the tile edges of the tensor-core variant: one full 64-row tile, one
+    # row more, one row short of two tiles (with a bias); S = 16 k + 1 (one
+    # row past a warp's 16); head_dim 32 without a bias and head_dim 16;
+    # more blocks than a grid's y or z dimension holds (72,000)
+    ("hg_edge_s64_causal", 2, 64, 256, 4, True),
+    ("hg_edge_s65_causal", 2, 65, 256, 4, True),
+    ("hg_edge_s127_causal", 2, 127, 256, 4, True),
+    ("hg_edge_s17", 2, 17, 256, 4, False),
+    ("hg_edge_s49", 2, 49, 256, 4, False),
+    ("hg_edge_s193", 2, 193, 256, 4, False),
+    ("hg_edge_d32", 2, 150, 256, 8, False),
+    ("hg_edge_d16_causal", 2, 150, 128, 8, True),
+    ("hg_edge_blocks_d16", 3000, 130, 128, 8, False),
 ]
 # K3: (tag, B, M entities, N objects, k, empty_row): finetune_ot's shape
 # (16 entities, 8 object slots minus the whole image) with ragged counts,
@@ -323,9 +366,13 @@ KERNEL_FAMILIES = (
 TRAIN_BATCH, NUM_POS, NUM_NEG = 384, 1, 2
 FP32_CHECK_BATCH = 64  # the fp32 kernel-vs-plain step
 # kernel step vs plain-attention step: bf16 loss (abs) and grad_norm (rel);
-# fp32 loss (abs) and each gradient tensor (rel. to its max). Both sides keep
-# an fp32 softmax; measured 0 and ~2e-6 on the H100, so 10x that margin
+# fp32 loss (abs) and each gradient tensor (rel. to its max). Where both
+# sides keep an fp32 softmax (K1): measured 0 and ~2e-6 on the H100, so 10x
+# that margin. K2's tensor-core variant rounds P and dS to bf16, which the
+# plain step does not: its phases (ViT-L/14, ViT-B/16) state their own
+# tolerance
 BF16_STEP_TOL = 1e-3
+BF16_STEP_TOL_K2 = 1e-3
 FP32_STEP_TOL = 2e-5
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # ViT-L/14 (bench.py's L/14 workload) and ViT-B/16 (its bench batch)
@@ -419,6 +466,21 @@ def library_fwd(qkv, bias, H, scale):
     return out.transpose(1, 2).reshape(B, S, W3 // 3)
 
 
+def check_against_rounded(row, got, rounded, ref_max, what):
+    """K2's mma variant against the plain version that rounds where it
+    rounds: the worst and the mean error, relative to max|plain|."""
+    diff = (got.float() - rounded.float()).abs()
+    row["max_rel_err_vs_rounded_plain"] = diff.max().item() / ref_max
+    row["mean_rel_err_vs_rounded_plain"] = diff.mean().item() / ref_max
+    row["tol_rel_vs_rounded_plain"] = MMA_ROUNDED_TOL
+    row["tol_mean_rel_vs_rounded_plain"] = MMA_ROUNDED_MEAN_TOL
+    check(row["max_rel_err_vs_rounded_plain"] <= MMA_ROUNDED_TOL,
+          f"{what}: {row['max_rel_err_vs_rounded_plain']} from the rounded plain version > {MMA_ROUNDED_TOL}")
+    check(row["mean_rel_err_vs_rounded_plain"] <= MMA_ROUNDED_MEAN_TOL,
+          f"{what}: mean {row['mean_rel_err_vs_rounded_plain']} from the rounded plain version > "
+          f"{MMA_ROUNDED_MEAN_TOL}")
+
+
 def check_attention(rows, errs, names, fns, gen, tag, B, S, W, H, causal, dtype, timed):
     """One attention kernel pair (forward, backward) against its plain
     versions at one shape and dtype; times, bound and library time when
@@ -432,6 +494,15 @@ def check_attention(rows, errs, names, fns, gen, tag, B, S, W, H, causal, dtype,
     scale = (W // H) ** -0.5
     iters = 20 if B > 64 or S > 128 else 50
     shape = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "causal": causal, "dtype": name}
+    variant = None
+    if fwd_name == HG_KERNEL:
+        # the Python rule and both libraries' rule pick one variant
+        variant = headgrid_variant(dtype, W // H)
+        check(library_variant(HG_KERNEL, dtype, W // H) == variant
+              and library_variant(HG_BWD_KERNEL, dtype, W // H) == variant,
+              f"{fwd_name} {tag} {name}: the libraries' variant differs from {variant}")
+        check(variant == ("mma" if name == "bfloat16" else "simt"), f"{fwd_name} {tag} {name}: variant {variant}")
+        shape["variant"] = variant
 
     out = fwd(qkv, bias, H, scale)
     ref = fused_attention_qkv_plain(qkv, bias, H, scale)
@@ -442,6 +513,14 @@ def check_attention(rows, errs, names, fns, gen, tag, B, S, W, H, causal, dtype,
     check(err <= TOL[name], f"{fwd_name} {tag} {name}: max abs err {err} > {TOL[name]}")
     errs[fwd_name][name] = max(errs[fwd_name].get(name, 0.0), err)
     row = {**shape, "max_abs_err": err, "tol": TOL[name]}
+    if variant == "mma":
+        ref_max = max(ref.float().abs().max().item(), 1e-30)
+        row["max_rel_err"], row["tol_rel"] = err / ref_max, MMA_FWD_REL_TOL
+        check(row["max_rel_err"] <= MMA_FWD_REL_TOL,
+              f"{fwd_name} {tag} {name}: rel err {row['max_rel_err']} > {MMA_FWD_REL_TOL}")
+        rounded = fused_attention_qkv_plain(qkv, bias, H, scale, mma_rounding=True)
+        check_against_rounded(row, out, rounded, ref_max, f"{fwd_name} {tag} {name}")
+        del rounded
     if timed:
         row["ms"] = cuda_ms(lambda: fwd(qkv, bias, H, scale), iters)
         row["plain_ms"] = cuda_ms(lambda: fused_attention_qkv_plain(qkv, bias, H, scale), iters)
@@ -463,6 +542,29 @@ def check_attention(rows, errs, names, fns, gen, tag, B, S, W, H, causal, dtype,
     check(rel <= BWD_TOL[name], f"{bwd_name} {tag} {name}: rel err {rel} > {BWD_TOL[name]}")
     errs[bwd_name][name] = max(errs[bwd_name].get(name, 0.0), err)
     row = {**shape, "max_abs_err": err, "max_rel_err": rel, "tol_rel": BWD_TOL[name]}
+    if variant == "mma":
+        ref_max = max(ref.float().abs().max().item(), 1e-30)
+        rounded = fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale, mma_rounding=True)
+        check_against_rounded(row, dq, rounded, ref_max, f"{bwd_name} {tag} {name}")
+        del rounded
+        # through autograd the forward's output and row log-sum-exp are
+        # saved and the backward reads them: the same bits as the direct
+        # call, which runs the forward kernel for them first
+        leaf = qkv.detach().requires_grad_(True)
+        (via_autograd,) = torch.autograd.grad(fused_attention_qkv_headgrid(leaf, bias, H, scale), leaf, do)
+        check(torch.equal(via_autograd, dq), f"{bwd_name} {tag} {name}: saved residuals change the bits")
+        del leaf, via_autograd
+        if timed:
+            saved_out, lse = fused_attention_qkv_headgrid_fwd(qkv, bias, H, scale, with_lse=True)
+            row["ms_with_saved_residuals"] = cuda_ms(
+                lambda: bwd(qkv, bias, do, H, scale, out=saved_out, lse=lse), iters)
+            del saved_out, lse
+        if tag == "l14_vision":
+            # no atomics: the same bits on every run
+            again = bwd(qkv, bias, do, H, scale)
+            check(torch.equal(again, dq), f"{bwd_name} {tag} {name}: two runs differ")
+            row["deterministic"] = True
+            del again
     if timed:
         row["ms"] = cuda_ms(lambda: bwd(qkv, bias, do, H, scale), iters)
         row["plain_ms"] = cuda_ms(lambda: fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale), iters)
@@ -785,18 +887,52 @@ def check_mega(rows, errs, gen, tag, B, S, W, H, causal, dtype, timed):
     emit({"phase": "kernel_check", "kernel": MEGA_KERNEL, **row})
 
 
+def check_misaligned_view():
+    """K2's mma variant copies 16 bytes at a time: a contiguous bf16 view
+    whose storage offset leaves it 2 bytes past a boundary is refused by
+    the wrapper, forward and backward, before anything launches; its clone
+    runs."""
+    B, S, W, H = 2, 130, 256, 4
+    flat = torch.randn(B * S * 3 * W + 1, device="cuda").to(torch.bfloat16)
+    qkv = flat[1:].view(B, S, 3 * W)
+    do = torch.randn((B, S, W), device="cuda").to(torch.bfloat16)
+    check(qkv.is_contiguous() and qkv.data_ptr() % 16 != 0, "the view is contiguous and misaligned")
+    before = read_launches()
+    for what, call in (("forward", lambda: fused_attention_qkv_headgrid(qkv, None, H, 0.125)),
+                       ("backward", lambda: fused_attention_qkv_headgrid_bwd(qkv, None, do, H, 0.125))):
+        try:
+            call()
+        except ValueError as e:
+            check("aligned to 16 bytes" in str(e), f"misaligned {what}: {e}")
+        else:
+            raise RuntimeError(f"check failed: K2 {what} took a misaligned qkv")
+    check(read_launches() == before, "a refused call launches nothing")
+    out = fused_attention_qkv_headgrid(qkv.clone(), None, H, 0.125)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "the aligned clone runs")
+    emit({"phase": "kernel_check", "kernel": HG_KERNEL, "shape": "hg_misaligned_view", "refused": True})
+
+
+def check_k2(rows, errs, gen):
+    """K2's two variants, forward and backward, at the path and edge shapes."""
+    k2 = ((HG_KERNEL, HG_BWD_KERNEL), (fused_attention_qkv_headgrid, fused_attention_qkv_headgrid_bwd))
+    timed = {t[0] for t in HG_SHAPES}
+    for tag, B, S, W, H, causal in HG_SHAPES + HG_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_attention(rows, errs, *k2, gen, tag, B, S, W, H, causal, dtype, tag in timed)
+    check_misaligned_view()
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {name: [] for name in COUNTERS}
     errs = {name: {} for name in COUNTERS}
     k1 = ((KERNEL, BWD_KERNEL), (fused_attention_qkv, fused_attention_qkv_bwd))
-    k2 = ((HG_KERNEL, HG_BWD_KERNEL), (fused_attention_qkv_headgrid, fused_attention_qkv_headgrid_bwd))
-    timed = {"text", "vision", "train_text", "train_vision"} | {t[0] for t in NEW_K1_SHAPES + HG_SHAPES}
-    for kernels, shapes in ((k1, SERVING_SHAPES + TRAIN_SHAPES + NEW_K1_SHAPES + EDGE_SHAPES),
-                            (k2, HG_SHAPES + HG_EDGE_SHAPES)):
-        for tag, B, S, W, H, causal in shapes:
-            for dtype in (torch.float32, torch.bfloat16):
-                check_attention(rows, errs, *kernels, gen, tag, B, S, W, H, causal, dtype, tag in timed)
+    timed = {"text", "vision", "train_text", "train_vision"} | {t[0] for t in NEW_K1_SHAPES}
+    for tag, B, S, W, H, causal in SERVING_SHAPES + TRAIN_SHAPES + NEW_K1_SHAPES + EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_attention(rows, errs, *k1, gen, tag, B, S, W, H, causal, dtype, tag in timed)
+    check_k2(rows, errs, gen)
     for shape in OT_SHAPES:
         check_ipot(rows, errs, gen, *shape)
     for shapes, edge in ((QUANT_SHAPES, False), (QUANT_EDGE_SHAPES, True)):
@@ -986,6 +1122,17 @@ def phase_serving(out_root, model="ViT-B/32", n_items=N_ITEMS, matching=True, ta
                 "image_batch_ms": ms_img, "text_batch_ms": ms_txt,
                 "embed_stream_wall_s": wall[name],
             }
+    if vision_kernels(mcfg)[0] == HG_KERNEL:
+        # one bf16 image batch with the plain attention beside the kernel
+        # path's, in turns within this run
+        turns = {"kernel": [], "plain": []}
+        with torch.inference_mode():
+            for impl in ("kernel", "plain", "plain", "kernel"):
+                turns[impl].append(cuda_ms(
+                    lambda: encode_image(params, mcfg, x_img, compute_dtype=torch.bfloat16, impl=impl),
+                    iters=iters, warmup=2))
+        summary["bfloat16_image_batch_ms_in_turns"] = turns
+        summary["plain_attention_image_batch_ms"] = float(np.mean(turns["plain"]))
     emit({"phase": tag, "model": model, "seed": 0, "init_s": init_s,
           "images": n_items, "texts": n_items, "batch": BATCH, "throughput": rates, **summary})
     needles = {"images": vision_kernels(mcfg)[0] + "_kernel", "texts": KERNEL + "_kernel"}
@@ -1275,6 +1422,18 @@ def phase_evals(out_root):
             {"event_precision", "event_recall", "event_f1", "argument_precision", "argument_recall",
              "argument_f1", "per_type", "accuracy", "macro_f1", "num_images"})
     check(results["eval_m2e2"]["metrics"]["argument_mentions_gold"] == 8, "M2E2 gold arguments")
+    # `"use_pallas_attention": false`: the retrieval CLI again with the plain
+    # attention in every encoder call: no attention kernel launches, the
+    # same metrics (ranks of well-separated scores), the choice put back
+    p = fx.make_retrieval_fixture(os.path.join(root, "retrieval_plain"))
+    run_cli("eval_retrieval_plain_attention", eval_retrieval,
+            {"model": "ViT-B/32", "dataset": "coco", "caption_file": p["coco_json"],
+             "image_dir": p["coco_dir"], "use_pallas_attention": False},
+            dict.fromkeys(COUNTERS, 0),
+            {"t2i_R@1", "i2t_R@1", "t2i_R@10", "num_images"})
+    check(layers._resolve_attention() == "kernel", "the eval put the attention choice back")
+    check(results["eval_retrieval_plain_attention"]["metrics"] == results["eval_retrieval"]["metrics"],
+          "retrieval metrics with the plain attention equal the kernel path's")
     emit({"phase": "evals", "batch_size": B, **results})
     return all_launches
 
@@ -1369,7 +1528,8 @@ def _chunks(nodes, requested):
 def train_launches(mcfg, steps, alignment=False, fused_ln=False):
     """Launches per kernel for `steps` train steps under full remat. Each
     block's attention forward runs twice (forward, block recompute) and its
-    backward once (BWD_LAUNCHES_PER_CALL launches). With `fused_ln`
+    backward once (BWD_LAUNCHES_PER_CALL launches; K2:
+    HG_BWD_LAUNCHES_PER_CALL). With `fused_ln`
     (`use_pallas_ln`) each block also runs K4a (`ln_1`) and K4b (the
     mid-block add + `ln_2`) twice and K4c twice (once per LayerNorm,
     ln.BWD_LAUNCHES_PER_CALL launches each). With alignment the crop
@@ -1380,17 +1540,19 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False):
     IPOT solve per step (tests/test_torch_ot_train.py pins the rule on the
     CPU)."""
     vis_f, vis_b = vision_kernels(mcfg)
+    vis_bwd_launches = HG_BWD_LAUNCHES_PER_CALL if vis_b == HG_BWD_KERNEL else BWD_LAUNCHES_PER_CALL
     Lv, Lt = mcfg.vision_layers, mcfg.transformer_layers
     out = dict.fromkeys(COUNTERS, 0)
     out[vis_f] += 2 * Lv
-    out[vis_b] += BWD_LAUNCHES_PER_CALL * Lv
+    out[vis_b] += vis_bwd_launches * Lv
     out[KERNEL] += 2 * Lt
     out[BWD_KERNEL] += BWD_LAUNCHES_PER_CALL * Lt
     if alignment:
-        for kf, kb, L, c in ((vis_f, vis_b, Lv, _chunks(OT_OBJECTS, OT_CHUNKS)),
-                             (KERNEL, BWD_KERNEL, Lt, _chunks(OT_ENTITIES, OT_CHUNKS))):
+        for kf, kb, n, L, c in (
+                (vis_f, vis_b, vis_bwd_launches, Lv, _chunks(OT_OBJECTS, OT_CHUNKS)),
+                (KERNEL, BWD_KERNEL, BWD_LAUNCHES_PER_CALL, Lt, _chunks(OT_ENTITIES, OT_CHUNKS))):
             out[kf] += (3 if c > 1 else 2) * c * L
-            out[kb] += BWD_LAUNCHES_PER_CALL * c * L
+            out[kb] += n * c * L
         out[ot.KERNEL] += 1
     if fused_ln:
         out[ln.KERNEL] = out[ADD_LN_KERNEL] = 2 * (Lv + Lt)
@@ -1450,12 +1612,13 @@ def _chance(batch, D):
     return math.log(batch * D) + math.log(batch)
 
 
-def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, **step_kwargs):
+def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, tol=BF16_STEP_TOL,
+                      **step_kwargs):
     """One bf16 step on the kernel path and one on the plain path (plain
     attention, with alignment the plain IPOT solver, and the plain
     LayerNorm; the kernel path takes the LayerNorm kernels when `fused_ln`)
-    from one state and batch: each of `keys` within BF16_STEP_TOL (abs),
-    grad_norm within BF16_STEP_TOL (relative)."""
+    from one state and batch: each of `keys` within `tol` (abs), grad_norm
+    within `tol` (relative)."""
     sched = build_schedule("none", 1e-6, 1)
     metrics = {}
     for impl in ("kernel", "plain"):
@@ -1467,13 +1630,14 @@ def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, **ste
             _, m = step(st, batch)
         metrics[impl] = {k: float(v) for k, v in m.items()}
         del st, step
-    out = {"batch": batch["image"].shape[0], "kernel": metrics["kernel"], "plain": metrics["plain"]}
+    out = {"batch": batch["image"].shape[0], "kernel": metrics["kernel"], "plain": metrics["plain"],
+           "tol": tol}
     for key in keys:
         diff = abs(metrics["kernel"][key] - metrics["plain"][key])
-        check(diff <= BF16_STEP_TOL, f"bf16 step: kernel vs plain {key} differs by {diff}")
+        check(diff <= tol, f"bf16 step: kernel vs plain {key} differs by {diff} > {tol}")
         out[f"{key}_abs_diff"] = diff
     dg = abs(metrics["kernel"]["grad_norm"] - metrics["plain"]["grad_norm"]) / metrics["plain"]["grad_norm"]
-    check(dg <= BF16_STEP_TOL, f"bf16 step: kernel vs plain grad_norm differs by {dg} (relative)")
+    check(dg <= tol, f"bf16 step: kernel vs plain grad_norm differs by {dg} (relative) > {tol}")
     out["grad_norm_rel_diff"] = dg
     return out
 
@@ -1499,6 +1663,28 @@ def compare_fp32_grads(mcfg, params, batch, fused_ln=False, **loss_kwargs):
     check(dl <= FP32_STEP_TOL, f"fp32 step: kernel vs plain loss differs by {dl}")
     check(worst <= FP32_STEP_TOL, f"fp32 step: a gradient differs by {worst} of its max")
     return {"batch": batch["image"].shape[0], "loss_abs_diff": dl, "max_grad_rel_diff": worst}
+
+
+def step_ms_in_turns(mcfg, params, batch):
+    """One bf16 train step with its batch on the card, timed in turns
+    (kernel, plain, plain, kernel attention; host clock around a
+    synchronised step, after one warm-up step of each): the plain-attention
+    step beside the kernel-path step within one run."""
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    steps, states, ms = {}, {}, {"kernel": [], "plain": []}
+    for impl in ("kernel", "plain"):
+        states[impl] = create_train_state(params, opt)
+        steps[impl] = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True, impl=impl)
+        steps[impl](states[impl], batch)
+    for impl in ("kernel", "plain", "plain", "kernel"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps[impl](states[impl], batch)
+        torch.cuda.synchronize()
+        ms[impl].append((time.perf_counter() - t0) * 1e3)
+    del steps, states
+    torch.cuda.empty_cache()
+    return ms
 
 
 def profile_step(mcfg, params, batch, mean_ms, fused_ln=False, **step_kwargs):
@@ -1638,7 +1824,7 @@ def phase_train_ln(out_root, plain_ln_ms, plain_ln_prof):
     check(all(math.isfinite(v) and abs(v - _chance(L14_BATCH, D)) < 0.5 for v in losses),
           f"L/14 step losses {losses} vs chance {_chance(L14_BATCH, D)}")
     del state, step
-    compare = compare_bf16_step(mcfg, params, batch, fused_ln=True)
+    compare = compare_bf16_step(mcfg, params, batch, fused_ln=True, tol=BF16_STEP_TOL_K2)
     emit({"phase": "train_ln_l14", "model": "ViT-L/14", "batch_images": L14_BATCH,
           "descriptions_per_image": D, "losses": losses, "chance": _chance(L14_BATCH, D),
           "step_wall_s": walls, "launches": l14, "expected": train_launches(mcfg, 1, fused_ln=True),
@@ -1742,6 +1928,22 @@ def phase_bench_tools():
           "fused_ln": results["pallas"], "step_ms": step_ms,
           "step_ms_ratio_fused_to_plain": float(np.mean(step_ms["pallas"]) / np.mean(step_ms["xla"]))})
 
+    # the JAX bench's input (float32 N(0, 1) images) beside the train loop's
+    # (uint8 pixels normalized on the device), in turns
+    by_images = {"uint8": [], "float32": []}
+    for images in ("uint8", "float32", "float32", "uint8"):
+        lines, launches = run_main(port_bench.main, ["--images", images])
+        result = json.loads(lines[0])
+        check(len(lines) == 1 and result["images"] == images and math.isfinite(result["value"])
+              and result["value"] > 0, f"bench --images {images}: {result}")
+        check(launches == {k: v * result["steps"] for k, v in train_launches(VIT_B32, 1).items()},
+              f"bench --images {images} launches {launches}")
+        by_images[images].append(result["step_ms"])
+        for k in COUNTERS:
+            all_launches[k] += launches[k]
+    emit({"phase": "bench_tools", "tool": "clip_event_tpu_torch.bench --images", "step_ms": by_images,
+          "step_ms_ratio_float32_to_uint8": float(np.mean(by_images["float32"]) / np.mean(by_images["uint8"]))})
+
     lines, launches = run_main(bench_components.main, ["ln", "megakernel"])
     summary = json.loads(lines[-1])
     check(len(summary["rows"]) == 10 and len(lines) == 11, f"bench_components rows {len(summary['rows'])}")
@@ -1781,11 +1983,14 @@ def phase_train_l14(out_root):
     check(abs(first - _chance(L14_BATCH, D)) < 0.5,
           f"L/14 first loss {first} vs chance {_chance(L14_BATCH, D)}")
     del run["state"]
-    compare = {"bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, L14_BATCH))}
+    compare = {"bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, L14_BATCH),
+                                             tol=BF16_STEP_TOL_K2)}
+    turns = step_ms_in_turns(mcfg, params, _device_batch(ds, L14_BATCH))
     prof = profile_step(mcfg, params, _device_batch(ds, L14_BATCH), run["mean_ms"])
     _train_report("train_l14", "ViT-L/14", run, L14_BATCH, D, init_s, remat_note=(
         "full remat; bench.py runs L/14 with the 'attn' policy, not ported yet"),
-        kernel_vs_plain=compare)
+        kernel_vs_plain=compare, kernel_attention_step_ms=turns["kernel"],
+        plain_attention_step_ms=turns["plain"])
     emit({"phase": "train_l14_profile", **prof})
     del params, ds
     torch.cuda.empty_cache()
@@ -1808,10 +2013,15 @@ def phase_train_l14(out_root):
     expected = train_launches(mcfg, 1)
     check(b16 == expected, f"B/16 step launches {b16} != {expected}")
     check(math.isfinite(loss), f"B/16 step loss {loss}")
+    del state, step
+    compare = {"bfloat16": compare_bf16_step(mcfg, params, batch, tol=BF16_STEP_TOL_K2)}
+    turns = step_ms_in_turns(mcfg, params, batch)
     emit({"phase": "train_b16", "model": "ViT-B/16", "batch_images": B16_BATCH,
           "descriptions_per_image": D, "loss": loss, "chance": _chance(B16_BATCH, D),
-          "first_step_wall_s": step_s, "launches": b16, "expected": expected})
-    del params, state, step, batch
+          "first_step_wall_s": step_s, "launches": b16, "expected": expected,
+          "kernel_vs_plain": compare, "kernel_attention_step_ms": turns["kernel"],
+          "plain_attention_step_ms": turns["plain"]})
+    del params, batch
     torch.cuda.empty_cache()
     return run["launches"], b16
 
@@ -1901,7 +2111,35 @@ def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),))
     return out
 
 
-def main() -> int:
+def ptxas_spills(log: str, needle: str) -> dict:
+    """Spill bytes (stores + loads) of every kernel whose name holds
+    `needle`, from a `-Xptxas -v` log: ptxas names a function and gives its
+    stack frame and spills on the next line."""
+    import re
+
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name is not None:
+            if needle in name:
+                spills[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    return spills
+
+
+def main(argv=None) -> int:
+    """No arguments: every phase. `--only k2`: the device and build phases
+    and K2's kernel checks alone (the quick look after an edit to K2), with
+    a last line that says so."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", choices=("k2",), default=None)
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
@@ -1919,7 +2157,24 @@ def main() -> int:
     seconds = _build.build(sources)
     ptxas = {name: [ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines() if "Used" in ln]
              for name in sources}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds, "ptxas": ptxas})
+    # the tensor-core kernels keep their tiles' accumulators in registers:
+    # a spill would send them to local memory
+    spills = {name: ptxas_spills(_build.BUILD_LOGS.get(name, ""), "_mma") for name in (HG_KERNEL, HG_BWD_KERNEL)}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds, "ptxas": ptxas,
+          "mma_kernel_spill_bytes": spills})
+    for name, by_kernel in spills.items():
+        check(seconds[name] == 0.0 or by_kernel, f"{name}: no mma kernel in the ptxas log")
+        check(not any(by_kernel.values()), f"{name}: an mma kernel spills: {by_kernel}")
+
+    if args.only == "k2":
+        rows = {name: [] for name in COUNTERS}
+        errs = {name: {} for name in COUNTERS}
+        check_k2(rows, errs, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        print(smi, flush=True)
+        emit({"ok": True, "only": "k2", "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                  "count": torch.cuda.device_count()}})
+        return 0
 
     rows, errs = phase_kernels()
     paths = {}
@@ -1973,10 +2228,10 @@ def main() -> int:
               head(BWD_KERNEL, "train_text", "bfloat16")),
         entry(HG_KERNEL, "clip_event_tpu_torch/csrc/attention_hg_fwd.cu",
               "clip_event_tpu/ops/attention_pallas.py:410", TOL,
-              head(HG_KERNEL, "l14_vision", "bfloat16")),
+              head(HG_KERNEL, "l14_vision", "bfloat16", variant="mma")),
         entry(HG_BWD_KERNEL, "clip_event_tpu_torch/csrc/attention_hg_bwd.cu",
               "clip_event_tpu/ops/attention_pallas.py:421", BWD_TOL,
-              head(HG_BWD_KERNEL, "l14_vision", "bfloat16")),
+              head(HG_BWD_KERNEL, "l14_vision", "bfloat16", variant="mma")),
         entry(ot.KERNEL, "clip_event_tpu_torch/csrc/ipot.cu",
               "clip_event_tpu/ops/ot_pallas.py:40", OT_TOL, head(ot.KERNEL, "ot_finetune", "float32")),
         entry(quant.KERNEL, "clip_event_tpu_torch/csrc/quant_matmul.cu",

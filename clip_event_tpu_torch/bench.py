@@ -13,6 +13,11 @@ device; after the warm-up steps the timed steps run back to back and the
 clock stops after a device synchronize. It reports contrastive pairs/s per
 chip, pairs = images × descriptions scored.
 
+`--images uint8` (the default) feeds the train loop's input
+(`device_normalize: true`: uint8 pixels, normalized on the device);
+`--images float32` feeds the JAX bench's input, N(0, 1) float32 images that
+skip the normalize and move four times the bytes. The line says which.
+
 The JAX bench runs ViT-B/16 and ViT-L/14 with the selective "attn" remat
 policy. The port has full remat only, so those presets run full remat and
 the output says so.
@@ -21,7 +26,7 @@ Environment, as in the JAX bench: `BENCH_MODEL` (a preset name, or a JSON
 object with `CLIPConfig`'s fields for a small model), `BENCH_BATCH`,
 `BENCH_LN=pallas` (the fused LayerNorm kernels in every residual block),
 `BENCH_REMAT` (`0` turns remat off), `BENCH_CONTEXT_CAP`; and
-`BENCH_STEPS`, `BENCH_WARMUP`. The flags of the same names override them.
+`BENCH_STEPS`, `BENCH_WARMUP`, `BENCH_IMAGES`. The flags of the same names override them.
 
 Prints exactly one JSON line. On the card the metric is
 `contrastive_pairs_per_sec_per_chip` and the line carries the card's name
@@ -57,6 +62,7 @@ DEFAULT_BATCH = {"ViT-B/32": 384, "ViT-B/16": 96, "ViT-L/14": 64}
 ATTN_REMAT_PRESETS = ("ViT-B/16", "ViT-L/14")
 NUM_POS, NUM_NEG = 1, 2
 WARMUP_STEPS, MEASURE_STEPS = 3, 10
+IMAGE_INPUTS = ("uint8", "float32")
 
 _COUNTERS = {
     "attention_fwd": attention.fused_attention_qkv,
@@ -78,18 +84,25 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_batch(mcfg, batch: int, seq: int, device) -> dict:
-    """The bench workload's batch from seed 0, on `device`: uint8 images,
+def bench_batch(mcfg, batch: int, seq: int, device, images: str = "uint8") -> dict:
+    """The bench workload's batch from seed 0, on `device`: uint8 images
+    (or, for `images="float32"`, the JAX bench's N(0, 1) float32 images),
     [B·D, seq] token rows (random ids, EOT in the last slot) and the label
     layout."""
+    if images not in IMAGE_INPUTS:
+        raise ValueError(f"images {images!r}; options: {IMAGE_INPUTS}")
     rng = np.random.default_rng(0)
     D = NUM_POS + NUM_NEG
     res = mcfg.image_resolution
     layout = build_label_layout(batch, NUM_POS, NUM_NEG)
     text = rng.integers(1, min(49000, mcfg.vocab_size - 1), size=(batch * D, seq)).astype(np.int32)
     text[:, -1] = mcfg.vocab_size - 1
+    if images == "uint8":
+        image = rng.integers(0, 256, size=(batch, res, res, 3), dtype=np.uint8)
+    else:
+        image = rng.normal(size=(batch, res, res, 3)).astype(np.float32)
     arrays = {
-        "image": rng.integers(0, 256, size=(batch, res, res, 3), dtype=np.uint8),
+        "image": image,
         "text": text,
         "labels_per_image": layout.labels_per_image,
         "labels_per_text": layout.labels_per_text,
@@ -99,7 +112,7 @@ def bench_batch(mcfg, batch: int, seq: int, device) -> dict:
 
 
 def run(model="ViT-B/32", batch=None, ln_impl="xla", remat=True, context_cap=0,
-        steps=MEASURE_STEPS, warmup=WARMUP_STEPS, device="cuda") -> dict:
+        steps=MEASURE_STEPS, warmup=WARMUP_STEPS, device="cuda", images="uint8") -> dict:
     """Time the train step and return the result line as a dict."""
     device = resolve_device(device)
     mcfg = model_config({"model": model})
@@ -109,7 +122,7 @@ def run(model="ViT-B/32", batch=None, ln_impl="xla", remat=True, context_cap=0,
     D = NUM_POS + NUM_NEG
 
     params = init_params(torch.Generator().manual_seed(0), mcfg, device)
-    data = bench_batch(mcfg, batch, seq, device)
+    data = bench_batch(mcfg, batch, seq, device, images)
     optimizer = build_optimizer("adam", build_schedule("none", 1e-6, 30))
     state = create_train_state(params, optimizer)
     step = make_train_step(mcfg, optimizer, loss_type="ce", overbatch=True,
@@ -140,7 +153,7 @@ def run(model="ViT-B/32", batch=None, ln_impl="xla", remat=True, context_cap=0,
         "value": batch * D / dt,
         "unit": "pairs/s/chip" if on_card else "pairs/s",
         "model": name, "batch_images": batch, "descriptions_per_image": D, "tokens": seq,
-        "compute_dtype": "bfloat16", "remat": "full" if remat else "off", "ln": ln_impl,
+        "images": images, "compute_dtype": "bfloat16", "remat": "full" if remat else "off", "ln": ln_impl,
         "optimizer": "adam", "steps": steps, "warmup_steps": warmup, "step_ms": dt * 1e3,
         "loss": loss,
         "launches_per_step": {k: fn.launches // steps for k, fn in _COUNTERS.items()},
@@ -168,10 +181,12 @@ def main(argv=None) -> int:
     parser.add_argument("--context-cap", type=int, default=int(env.get("BENCH_CONTEXT_CAP", 0)))
     parser.add_argument("--steps", type=int, default=int(env.get("BENCH_STEPS", MEASURE_STEPS)))
     parser.add_argument("--warmup", type=int, default=int(env.get("BENCH_WARMUP", WARMUP_STEPS)))
+    parser.add_argument("--images", default=env.get("BENCH_IMAGES", "uint8"), choices=IMAGE_INPUTS,
+                        help="uint8 pixels normalized on the device, or the JAX bench's float32")
     args = parser.parse_args(argv)
     model = json.loads(args.model) if args.model.lstrip().startswith("{") else args.model
     result = run(model, args.batch, args.ln, args.remat == "1", args.context_cap,
-                 args.steps, args.warmup, args.device)
+                 args.steps, args.warmup, args.device, args.images)
     print(json.dumps(result), flush=True)
     return 0
 

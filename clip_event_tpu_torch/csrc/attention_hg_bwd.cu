@@ -10,50 +10,466 @@
 //   bias  [S, S]      fp32 additive mask (may hold -inf), or null; it gets
 //                     no gradient
 //   do    [B, S, W]   the output's cotangent, qkv's dtype
+//   out   [B, S, W]   the forward's output and
+//   lse   [B, H, S]   its fp32 row log-sum-exp (natural log): read by the
+//                     tensor-core variant only; the CUDA-core variant
+//                     recomputes both and ignores these
 //   dqkv  [B, S, 3W]  written once in qkv's dtype: dq at lanes h*D, dk at
 //                     W + h*D, dv at 2W + h*D, the layout of the TPU
 //                     wrapper's concatenate([dq, dk, dv], -1)
-//   stats [3, B, H, S] fp32 scratch: each query row's softmax max m, sum l
-//                     and delta = rowsum(dO o O) (= rowsum(dP o P))
+//   stats [3, B, H, S] fp32 scratch. Tensor-core variant: the first
+//                     [B, H, S] holds delta = rowsum(dO o O). CUDA-core
+//                     variant: each row's softmax max m, sum l and delta
 //
-// The math is _hg_bwd_kernel's, every product and sum in fp32:
-//   P  = softmax(q*scale . k^T + bias)     (recomputed, never stored)
+// The math is _hg_bwd_kernel's:
+//   P  = softmax(q . k^T * scale + bias)   (recomputed, never stored)
 //   dV = P^T . dO        dP = dO . V^T      dS = P o (dP - delta)
 //   dQ = dS . K * scale  dK = dS^T . Q * scale
 //
-// Design. K1's backward (attention_bwd.cu) stages whole [S, D] tiles and
-// stops at S = 128; here every pass walks the other side in tiles, as
-// FlashAttention-2 does, so shared memory stays bounded whatever S is. Two
-// launches:
-//   1. dq pass: one block per (b, h, tile of 64 query rows) holds its
-//      scaled q rows and dO rows. A first walk over K/V tiles runs the
-//      forward's online softmax to get each row's m, l and output O (fp32,
-//      never stored), and delta = dO . O. A second walk recomputes each
-//      tile's P from m and l, forms dP and dS, and adds dS . K to the row's
-//      dQ. The row's m, l and delta go to `stats`.
-//   2. dkv pass: one block per (b, h, tile of 32 key rows) holds its K and
-//      V rows and walks Q/dO tiles of 64 rows with their stats, recomputing
-//      each column of P bitwise as pass 1 does (same operands, same order),
-//      and adds P^T . dO to dV and dS^T . q*scale to dK.
-// Each (b, h) owns its dq/dk/dv slices and each block its rows of them, so
-// there are no atomics and the result is deterministic. q, k, v and dO are
-// read by stride straight out of the packed rows; nothing is split,
-// transposed or copied on the host.
+// What bounds it. At the vision training shapes (S=197 W=768 H=12, S=257
+// W=1024 H=16, D=64) the work is 10*B*H*S^2*D flops against B*S*7W elements
+// moved. In bf16 on the tensor cores the bound is the memory rate (0.0704
+// ms at ViT-L/14's B=64 on the NVIDIA H100 80GB HBM3); in fp32 on the CUDA
+// cores the operation rate.
 //
-// What bounds it: at the vision training shapes (S=197 W=768 H=12, S=257
-// W=1024 H=16, D=64) the work is 10*B*H*S^2*D flops (12 with the forward
-// recomputed in pass 1) against B*S*7W elements moved, so on the fp32 CUDA
-// cores it is the operation rate and in bf16 the memory rate. This simple
-// first version runs the products on the CUDA cores out of shared memory,
-// so it is limited by shared-memory loads, far above either floor.
+// Two hand-written variants, chosen by dtype and head_dim alone
+// (`clip_attention_hg_variant`, the forward's rule). Both take two
+// launches, and in both each (b, h) owns its dq/dk/dv slices and each block
+// its rows of them: no atomics, the same bits on every run. q, k, v and dO
+// are read by stride straight out of the packed rows.
 //
-// Limits, checked by the Python wrapper too: D <= 128; any S >= 1.
+// "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores
+// (mma.sync.m16n8k16 bf16, fp32 accumulators; helpers in attention_mma.cuh).
+// The forward left each row's log-sum-exp and the output, so nothing of the
+// forward is recomputed but the scores: P = exp2(s - lse) directly.
+//   1. dq pass: one block per (b, h, 64 query rows), 4 warps x 16 rows. Each
+//      thread first forms delta for its two rows from dO and O (and the
+//      block writes it to `stats` for pass 2). Q and dO fragments are held
+//      in registers (D <= 64; reloaded by ldmatrix per chunk at D = 128,
+//      where they would not fit beside the dQ accumulator). K and V walk
+//      through a two-stage cp.async ring of 64-key tiles; per 16-key chunk
+//      S = Q.K^T and dP = dO.V^T in fp32, P and dS = P o (dP - delta) in
+//      fp32, dS rounded to bf16 in registers as the A operand of
+//      dQ += dS.K (K by ldmatrix.trans). dQ * scale is staged in the warp's
+//      own Q rows and written with 16-byte stores.
+//   2. dkv pass: one block per (b, h, 64 key rows), 4 warps x 16 key rows,
+//      walking Q/dO tiles of 64 rows (with their lse and delta) through the
+//      same ring. It computes the transposed chunks S^T = K.Q^T and
+//      dP^T = V.dO^T (key rows as M), so P^T and dS^T come out in
+//      accumulator layout and turn in registers into the A operands of
+//      dV += P^T.dO and dK += dS^T.Q; lse and delta are per column there,
+//      read from shared memory. dK * scale and dV are staged in the warp's
+//      own K and V rows and written with 16-byte stores.
+//   Tile rows past S are zero-filled by cp.async; keys past S get P = 0;
+//   query rows past S carry zero dO, lse = 0 and delta = 0, so they add
+//   nothing. A warp whose 16 rows are all past S skips the math but
+//   reaches every barrier.
+//
+// "simt": fp32 inputs, and bf16 with another head_dim; every product and
+// sum in fp32 on the CUDA cores out of shared memory, limited by
+// shared-memory loads. Its dq pass first re-runs the forward's online
+// softmax over K/V tiles for m, l and O (never stored) and delta, then
+// walks K/V again for dQ; its dkv pass takes 32 key rows a block and
+// recomputes each column of P bitwise as pass 1 does. fp32 is held to 1e-5
+// against the plain version, which rules out TF32 or bf16 operands.
+//
+// Limits, checked by the Python wrapper too: D <= 128; any S >= 1; the mma
+// variant needs 16-byte-aligned qkv, do, out and dqkv.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------- mma
+
+template <int D>
+constexpr size_t bwd_mma_smem_bytes() {
+  // dq pass: Q, dO tiles + two stages of K, V; dkv pass: K, V tiles + two
+  // stages of Q, dO and of the lse and delta rows
+  return (size_t)6 * mma::kTile * (D + mma::kPad) * sizeof(__nv_bfloat16)
+         + (size_t)4 * mma::kTile * sizeof(float);
+}
+
+// score -> P in units of log2: exp2(s * scale*log2e + bias*log2e - lse*log2e)
+template <bool HAS_BIAS>
+__device__ __forceinline__ float prob(float s, float scale_log2e, const float* __restrict__ bias,
+                                      int qrow, int kcol, int S, float lse2) {
+  float v = s * scale_log2e;
+  if constexpr (HAS_BIAS) {
+    if (qrow < S && kcol < S) v += bias[(size_t)qrow * S + kcol] * mma::kLog2e;
+  }
+  return kcol < S ? exp2f(v - lse2) : 0.f;
+}
+
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(mma::kThreads)
+attention_hg_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const __nv_bfloat16* __restrict__ out, const float* __restrict__ lse,
+                               __nv_bfloat16* __restrict__ dqkv, float* __restrict__ delta_out,
+                               int S, int H, float scale, float scale_log2e) {
+  using namespace mma;
+  constexpr int kStride = D + kPad;
+  constexpr int kSteps = D / 16;
+  constexpr int kChunks = kTile / 16;
+  constexpr bool kHold = D <= 64;  // Q and dO fragments stay in registers
+  constexpr int kHeld = kHold ? kSteps : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8]
+  __nv_bfloat16* sG = sQ + kTile * kStride;                        // [64][D+8] dO
+  __nv_bfloat16* sK = sG + kTile * kStride;                        // [2][64][D+8]
+  __nv_bfloat16* sV = sK + 2 * kTile * kStride;                    // [2][64][D+8]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int W = H * D;
+  const int tiles = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles;
+  const int i0 = (blockIdx.x - bh * tiles) * kTile;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = 3 * (size_t)W;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row + h * D;
+  const __nv_bfloat16* gbase = dout + (size_t)b * S * W + h * D;
+  const __nv_bfloat16* obase = out + (size_t)b * S * W + h * D;
+  const int nq = min(kTile, S - i0);
+
+  load_tile<D>(sQ, base + (size_t)i0 * row, row, nq, tid);
+  load_tile<D>(sG, gbase + (size_t)i0 * W, (size_t)W, nq, tid);
+  load_tile<D>(sK, base + W, row, min(kTile, S), tid);
+  load_tile<D>(sV, base + 2 * W, row, min(kTile, S), tid);
+  cp_async_commit();
+
+  // delta = rowsum(dO o O) and lse (in log2 units) of this thread's rows,
+  // while the copies fly: the 4 lanes of a row take D/4 columns each
+  const bool active = warp * 16 < nq;
+  const int row_g = i0 + warp * 16 + g;
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ri = row_g + 8 * r;
+    float part = 0.f;
+    if (ri < S) {
+      const __nv_bfloat162* gp =
+          reinterpret_cast<const __nv_bfloat162*>(gbase + (size_t)ri * W + t4 * (D / 4));
+      const __nv_bfloat162* op =
+          reinterpret_cast<const __nv_bfloat162*>(obase + (size_t)ri * W + t4 * (D / 4));
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const float2 gv = __bfloat1622float2(gp[c]);
+        const float2 ov = __bfloat1622float2(op[c]);
+        part = fmaf(gv.x, ov.x, part);
+        part = fmaf(gv.y, ov.y, part);
+      }
+    }
+    part = quad_sum(part);
+    delta[r] = part;
+    lse2[r] = ri < S ? lse[(size_t)bh * S + ri] * kLog2e : 0.f;
+    if (t4 == 0 && ri < S) delta_out[(size_t)bh * S + ri] = part;
+  }
+
+  uint32_t qf[kHeld][4], gf[kHeld][4];
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  for (int kt = 0; kt < tiles; ++kt) {
+    if (kt + 1 < tiles) {
+      const int stage = (kt + 1) & 1;
+      const int j1 = (kt + 1) * kTile;
+      load_tile<D>(sK + stage * kTile * kStride, base + (size_t)j1 * row + W, row,
+                   min(kTile, S - j1), tid);
+      load_tile<D>(sV + stage * kTile * kStride, base + (size_t)j1 * row + 2 * W, row,
+                   min(kTile, S - j1), tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if constexpr (kHold) {
+        if (kt == 0) {
+#pragma unroll
+          for (int ks = 0; ks < kHeld; ++ks) {
+            load_a(qf[ks], sQ, kStride, warp * 16, ks * 16, lane);
+            load_a(gf[ks], sG, kStride, warp * 16, ks * 16, lane);
+          }
+        }
+      }
+      const __nv_bfloat16* ks_tile = sK + (kt & 1) * kTile * kStride;
+      const __nv_bfloat16* vs_tile = sV + (kt & 1) * kTile * kStride;
+      const int j0 = kt * kTile;
+      const int nk = min(kTile, S - j0);
+#pragma unroll
+      for (int kc = 0; kc < kChunks; ++kc) {
+        if (kc * 16 < nk) {
+          float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            uint32_t kb[4], vb[4];
+            load_b_nk(kb, ks_tile, kStride, kc * 16, ks * 16, lane);
+            load_b_nk(vb, vs_tile, kStride, kc * 16, ks * 16, lane);
+            if constexpr (kHold) {
+              mma_bf16(s[0], qf[ks % kHeld], kb[0], kb[1]);
+              mma_bf16(s[1], qf[ks % kHeld], kb[2], kb[3]);
+              mma_bf16(dp[0], gf[ks % kHeld], vb[0], vb[1]);
+              mma_bf16(dp[1], gf[ks % kHeld], vb[2], vb[3]);
+            } else {
+              uint32_t a[4];
+              load_a(a, sQ, kStride, warp * 16, ks * 16, lane);
+              mma_bf16(s[0], a, kb[0], kb[1]);
+              mma_bf16(s[1], a, kb[2], kb[3]);
+              load_a(a, sG, kStride, warp * 16, ks * 16, lane);
+              mma_bf16(dp[0], a, vb[0], vb[1]);
+              mma_bf16(dp[1], a, vb[2], vb[3]);
+            }
+          }
+          // dS = P o (dP - delta), fp32, then bf16 as the next A operand
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const int col = j0 + kc * 16 + n * 8 + 2 * t4 + (e & 1);
+              const float p = prob<HAS_BIAS>(s[n][e], scale_log2e, bias, row_g + 8 * r, col, S,
+                                             lse2[r]);
+              s[n][e] = p * (dp[n][e] - delta[r]);
+            }
+          }
+          uint32_t da[4];
+          pack_a(da, s[0], s[1]);
+#pragma unroll
+          for (int dn = 0; dn < kSteps; ++dn) {
+            uint32_t kb[4];
+            load_b_kn(kb, ks_tile, kStride, kc * 16, dn * 16, lane);
+            mma_bf16(dq[2 * dn], da, kb[0], kb[1]);
+            mma_bf16(dq[2 * dn + 1], da, kb[2], kb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active)
+    store_rows<D>(sQ + warp * 16 * kStride, dq, scale, scale,
+                  dqkv + ((size_t)b * S + i0 + warp * 16) * row + h * D, row, nq - warp * 16,
+                  lane);
+}
+
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(mma::kThreads)
+attention_hg_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ qkv,
+                                const float* __restrict__ bias,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dqkv, int S, int H, float scale,
+                                float scale_log2e) {
+  using namespace mma;
+  constexpr int kStride = D + kPad;
+  constexpr int kSteps = D / 16;
+  constexpr int kChunks = kTile / 16;
+  constexpr bool kHold = D <= 64;  // K and V fragments stay in registers
+  constexpr int kHeld = kHold ? kSteps : 1;
+  // held fragments are indexed by the k-step, so that loop unrolls fully;
+  // at D = 128 a shallower unroll keeps the loads from piling up in
+  // registers beside the two 64-register accumulators
+  constexpr int kUnrollKs = kHold ? kSteps : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8] own keys
+  __nv_bfloat16* sV = sK + kTile * kStride;                        // [64][D+8]
+  __nv_bfloat16* sQ = sV + kTile * kStride;                        // [2][64][D+8]
+  __nv_bfloat16* sG = sQ + 2 * kTile * kStride;                    // [2][64][D+8] dO
+  float* sLse = reinterpret_cast<float*>(sG + 2 * kTile * kStride);  // [2][64], log2 units
+  float* sDelta = sLse + 2 * kTile;                                  // [2][64]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int W = H * D;
+  const int tiles = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - bh * tiles) * kTile;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = 3 * (size_t)W;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row + h * D;
+  const __nv_bfloat16* gbase = dout + (size_t)b * S * W + h * D;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* delta_bh = delta + (size_t)bh * S;
+  const int nk = min(kTile, S - j0);
+
+  load_tile<D>(sK, base + (size_t)j0 * row + W, row, nk, tid);
+  load_tile<D>(sV, base + (size_t)j0 * row + 2 * W, row, nk, tid);
+  load_tile<D>(sQ, base, row, min(kTile, S), tid);
+  load_tile<D>(sG, gbase, (size_t)W, min(kTile, S), tid);
+  cp_async_commit();
+  if (tid < kTile) {
+    sLse[tid] = tid < S ? lse_bh[tid] * kLog2e : 0.f;
+    sDelta[tid] = tid < S ? delta_bh[tid] : 0.f;
+  }
+
+  const bool active = warp * 16 < nk;
+  const int key_g = j0 + warp * 16 + g;  // this thread's key rows: key_g, key_g + 8
+  uint32_t kf[kHeld][4], vf[kHeld][4];
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  }
+
+  for (int qt = 0; qt < tiles; ++qt) {
+    if (qt + 1 < tiles) {
+      const int stage = (qt + 1) & 1;
+      const int i1 = (qt + 1) * kTile;
+      load_tile<D>(sQ + stage * kTile * kStride, base + (size_t)i1 * row, row, min(kTile, S - i1),
+                   tid);
+      load_tile<D>(sG + stage * kTile * kStride, gbase + (size_t)i1 * W, (size_t)W,
+                   min(kTile, S - i1), tid);
+      cp_async_commit();
+      if (tid < kTile) {
+        const int i = i1 + tid;
+        sLse[stage * kTile + tid] = i < S ? lse_bh[i] * kLog2e : 0.f;
+        sDelta[stage * kTile + tid] = i < S ? delta_bh[i] : 0.f;
+      }
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if constexpr (kHold) {
+        if (qt == 0) {
+#pragma unroll
+          for (int ks = 0; ks < kHeld; ++ks) {
+            load_a(kf[ks], sK, kStride, warp * 16, ks * 16, lane);
+            load_a(vf[ks], sV, kStride, warp * 16, ks * 16, lane);
+          }
+        }
+      }
+      const int stage = qt & 1;
+      const __nv_bfloat16* qs_tile = sQ + stage * kTile * kStride;
+      const __nv_bfloat16* gs_tile = sG + stage * kTile * kStride;
+      const float* lse_t = sLse + stage * kTile;
+      const float* delta_t = sDelta + stage * kTile;
+      const int i0 = qt * kTile;
+      const int nq = min(kTile, S - i0);
+#pragma unroll
+      for (int qc = 0; qc < kChunks; ++qc) {
+        if (qc * 16 < nq) {
+          // transposed chunks: rows are this warp's keys, columns 16 queries
+          float st[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          float dpt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll(kUnrollKs)
+          for (int ks = 0; ks < kSteps; ++ks) {
+            uint32_t qb[4], gb[4];
+            load_b_nk(qb, qs_tile, kStride, qc * 16, ks * 16, lane);
+            load_b_nk(gb, gs_tile, kStride, qc * 16, ks * 16, lane);
+            if constexpr (kHold) {
+              mma_bf16(st[0], kf[ks % kHeld], qb[0], qb[1]);
+              mma_bf16(st[1], kf[ks % kHeld], qb[2], qb[3]);
+              mma_bf16(dpt[0], vf[ks % kHeld], gb[0], gb[1]);
+              mma_bf16(dpt[1], vf[ks % kHeld], gb[2], gb[3]);
+            } else {
+              uint32_t a[4];
+              load_a(a, sK, kStride, warp * 16, ks * 16, lane);
+              mma_bf16(st[0], a, qb[0], qb[1]);
+              mma_bf16(st[1], a, qb[2], qb[3]);
+              load_a(a, sV, kStride, warp * 16, ks * 16, lane);
+              mma_bf16(dpt[0], a, gb[0], gb[1]);
+              mma_bf16(dpt[1], a, gb[2], gb[3]);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = qc * 16 + n * 8 + 2 * t4 + (e & 1);  // query within the tile
+              const float p = prob<HAS_BIAS>(st[n][e], scale_log2e, bias, i0 + qi,
+                                             key_g + 8 * (e >> 1), S, lse_t[qi]);
+              st[n][e] = p;
+              dpt[n][e] = p * (dpt[n][e] - delta_t[qi]);
+            }
+          }
+          uint32_t pa[4], da[4];
+          pack_a(pa, st[0], st[1]);
+          pack_a(da, dpt[0], dpt[1]);
+#pragma unroll
+          for (int dn = 0; dn < kSteps; ++dn) {
+            uint32_t gb[4], qb[4];
+            load_b_kn(gb, gs_tile, kStride, qc * 16, dn * 16, lane);
+            mma_bf16(dv[2 * dn], pa, gb[0], gb[1]);
+            mma_bf16(dv[2 * dn + 1], pa, gb[2], gb[3]);
+            load_b_kn(qb, qs_tile, kStride, qc * 16, dn * 16, lane);
+            mma_bf16(dk[2 * dn], da, qb[0], qb[1]);
+            mma_bf16(dk[2 * dn + 1], da, qb[2], qb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    __nv_bfloat16* dst = dqkv + ((size_t)b * S + j0 + warp * 16) * row + h * D;
+    store_rows<D>(sK + warp * 16 * kStride, dk, scale, scale, dst + W, row, nk - warp * 16, lane);
+    store_rows<D>(sV + warp * 16 * kStride, dv, 1.f, 1.f, dst + 2 * W, row, nk - warp * 16, lane);
+  }
+}
+
+template <int D, bool HAS_BIAS>
+int launch_mma(const void* qkv, const float* bias, const void* dout, const void* out,
+               const float* lse, void* dqkv, float* delta, int B, int S, int H, float scale,
+               cudaStream_t stream) {
+  static bool dq_allowed[mma::kMaxDevices] = {};
+  static bool dkv_allowed[mma::kMaxDevices] = {};
+  auto dq_kernel = attention_hg_bwd_dq_kernel_mma<D, HAS_BIAS>;
+  auto dkv_kernel = attention_hg_bwd_dkv_kernel_mma<D, HAS_BIAS>;
+  constexpr size_t smem = bwd_mma_smem_bytes<D>();
+  int e = mma::allow_smem_once(dq_kernel, smem, dq_allowed);
+  if (e) return e;
+  e = mma::allow_smem_once(dkv_kernel, smem, dkv_allowed);
+  if (e) return e;
+  const long long blocks = (long long)B * H * ((S + mma::kTile - 1) / mma::kTile);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(dout);
+  __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dqkv);
+  const float scale_log2e = scale * mma::kLog2e;
+  dq_kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(
+      q, bias, g, static_cast<const __nv_bfloat16*>(out), lse, d, delta, S, H, scale, scale_log2e);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  dkv_kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(q, bias, g, lse, delta, d, S, H,
+                                                                scale, scale_log2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_mma_d(const void* qkv, const float* bias, const void* dout, const void* out,
+                 const float* lse, void* dqkv, float* delta, int B, int S, int H, float scale,
+                 cudaStream_t stream) {
+  if (bias != nullptr)
+    return launch_mma<D, true>(qkv, bias, dout, out, lse, dqkv, delta, B, S, H, scale, stream);
+  return launch_mma<D, false>(qkv, bias, dout, out, lse, dqkv, delta, B, S, H, scale, stream);
+}
+
+// ---------------------------------------------------------------- simt
+
 
 constexpr int kWarps = 8;
 constexpr int kQTile = 64;   // query rows per dq block, and per dkv walk tile
@@ -383,22 +799,20 @@ attention_hg_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict__
   }
 }
 
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)bytes);
-}
-
 template <typename T>
 int launch(const void* qkv, const float* bias, const void* dout, void* dqkv, float* stats,
            int B, int S, int H, int D, float scale, cudaStream_t stream) {
+  // one kernel serves every D: allow the most it can ask for, once
+  static bool dq_allowed[mma::kMaxDevices] = {};
+  static bool dkv_allowed[mma::kMaxDevices] = {};
+  int e = mma::allow_smem_once(attention_hg_bwd_dq_kernel<T>, dq_smem_floats(kMaxD) * sizeof(float),
+                               dq_allowed);
+  if (e) return e;
+  e = mma::allow_smem_once(attention_hg_bwd_dkv_kernel<T>, dkv_smem_floats(kMaxD) * sizeof(float),
+                           dkv_allowed);
+  if (e) return e;
   const size_t smem_dq = dq_smem_floats(D) * sizeof(float);
   const size_t smem_dkv = dkv_smem_floats(D) * sizeof(float);
-  int e = allow_smem(attention_hg_bwd_dq_kernel<T>, smem_dq);
-  if (e) return e;
-  e = allow_smem(attention_hg_bwd_dkv_kernel<T>, smem_dkv);
-  if (e) return e;
   const long long dq_blocks = (long long)B * H * ((S + kQTile - 1) / kQTile);
   const long long dkv_blocks = (long long)B * H * ((S + kKRows - 1) / kKRows);
   if (dkv_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -416,16 +830,35 @@ int launch(const void* qkv, const float* bias, const void* dout, void* dqkv, flo
 
 }  // namespace
 
+// 1 when (dtype, D) takes the tensor-core variant, 0 for the CUDA-core one
+// (the forward's rule). dtype: 0 = fp32, 1 = bf16.
+extern "C" int clip_attention_hg_variant(int dtype, int D) {
+  return dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128) ? 1 : 0;
+}
+
 // dtype: 0 = fp32, 1 = bf16. Launches the dq pass, then the dkv pass, on
-// `stream`; returns the first launch error, or 0.
+// `stream`; returns the first launch error, or 0. `out` and `lse` (the
+// forward's) are required by the tensor-core variant and ignored by the
+// other.
 extern "C" int clip_attention_hg_bwd(const void* qkv, const void* bias, const void* dout,
-                                     void* dqkv, void* stats, int B, int S, int H, int D,
-                                     float scale, int dtype, void* stream) {
+                                     const void* out, const void* lse, void* dqkv, void* stats,
+                                     int B, int S, int H, int D, float scale, int dtype,
+                                     void* stream) {
   if (B < 1 || S < 1 || H < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const float* bias_f = static_cast<const float*>(bias);
   float* stats_f = static_cast<float*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clip_attention_hg_variant(dtype, D)) {
+    if (out == nullptr || lse == nullptr) return (int)cudaErrorInvalidValue;
+    const float* lse_f = static_cast<const float*>(lse);
+    switch (D) {
+      case 16: return launch_mma_d<16>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      case 32: return launch_mma_d<32>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      case 64: return launch_mma_d<64>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      default: return launch_mma_d<128>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+    }
+  }
   if (dtype == 0) return launch<float>(qkv, bias_f, dout, dqkv, stats_f, B, S, H, D, scale, s);
   return launch<__nv_bfloat16>(qkv, bias_f, dout, dqkv, stats_f, B, S, H, D, scale, s);
 }

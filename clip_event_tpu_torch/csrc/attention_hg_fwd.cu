@@ -8,44 +8,281 @@
 //   qkv  [B, S, 3W]  fp32 or bf16, contiguous; q lanes [0, W), k [W, 2W),
 //                    v [2W, 3W), head h at [h*D, (h+1)*D) within each
 //   bias [S, S]      fp32 additive mask (may hold -inf), or null
-//   out  [B, S, W]   softmax(q*scale . k^T + bias) . v per head, heads
+//   out  [B, S, W]   softmax(q . k^T * scale + bias) . v per head, heads
 //                    concatenated along the lanes, in qkv's dtype
+//   lse  [B, H, S]   fp32, optional (tensor-core variant only): each row's
+//                    log-sum-exp of its scaled, biased scores, natural log;
+//                    the backward reads it instead of recomputing the
+//                    softmax statistics
 //
-// Every product and sum is fp32; q is scaled before the dot product.
+// Why a second kernel beside K1. K1 (attention_fwd.cu) stages a head's
+// whole K and V in shared memory, which stops at S = 128; the ViT-B/16 and
+// ViT-L/14 vision towers have S = 197 and 257. The TPU kernel answered its
+// VMEM limit by taking one 128-lane head group per program. On Hopper the
+// answer is a FlashAttention-style walk: one block per (batch item, head,
+// tile of 64 query rows), K and V passing through shared memory 64 keys at
+// a time under an online softmax, so shared memory is bounded whatever S
+// is. q, k and v are read by stride straight out of the packed rows and
+// the output is written to the head's D lanes: nothing is split,
+// transposed or copied on the host.
 //
-// Why a second kernel. K1 (attention_fwd.cu) stages a head's whole K and V
-// in shared memory, which stops at S = 128; the ViT-B/16 and ViT-L/14
-// vision towers have S = 197 and 257. The TPU kernel answered its VMEM
-// limit by taking one 128-lane head group per program. On Hopper the limit
-// is the 227 KB of shared memory a block may use, and the answer is a
-// FlashAttention-style walk: one block per (batch item, head, tile of 64
-// query rows) holds its scaled q rows, and K and V pass through shared
-// memory 64 keys at a time. Each query row keeps a running max m, a running
-// sum l and an unnormalized output row in fp32; when a tile raises the max,
-// l and the output row are scaled by exp(m_old - m_new) before the tile's
-// terms are added, and the row is divided by l at the end. Shared memory is
-// then bounded by the tile sizes whatever S is. A tile in which a row has
-// only masked keys (-inf) and no earlier unmasked key leaves the row as it
-// was. q, k and v are read by stride straight out of the packed rows and
-// the output is written to the head's D lanes: nothing is split, transposed
-// or copied on the host.
-//
-// What bounds it: at the vision shapes (S=197 W=768 H=12, S=257 W=1024
+// What bounds it. At the vision shapes (S=197 W=768 H=12, S=257 W=1024
 // H=16, D=64) the work is 4*B*H*S^2*D flops against B*S*4W elements moved,
-// ~2*S/3 flops per element, which on the card's fp32 CUDA cores is the
-// operation rate (67 TFLOP/s), and in bf16 on the tensor cores the memory
-// rate. This simple first version runs the inner products on the CUDA
-// cores out of shared memory (a broadcast q or p value and one K or V value
-// per FMA), so it is limited by shared-memory loads, well above either
-// floor; tensor-core tiles (mma.sync / wgmma) are later work.
+// ~2*S/3 flops per element. In bf16 on the tensor cores (989 TFLOP/s) that
+// is under the card's 295 flops per byte: the bound is the memory rate,
+// 0.0402 ms at ViT-L/14's B=64 on the NVIDIA H100 80GB HBM3. In fp32 on the
+// CUDA cores (67 TFLOP/s) it is the operation rate.
 //
-// Limits, checked by the Python wrapper too: D <= 128; any S >= 1.
+// Two hand-written variants, chosen by dtype and head_dim alone before
+// anything launches (`clip_attention_hg_variant`; the Python wrapper's
+// `headgrid_variant` mirrors it). Neither gives way to the other.
+//
+// "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores
+// (mma.sync.m16n8k16 bf16, fp32 accumulators, fragments by ldmatrix; the
+// helpers are in attention_mma.cuh). What the design does about the bound:
+//   * 4 warps a block, each owning 16 query rows for the whole walk. Q
+//     fragments are loaded once; the output accumulator (16 x D fp32), the
+//     running max and the running sum live in registers.
+//   * K and V stay bf16 in shared memory, rows padded by 16 bytes so that
+//     ldmatrix is conflict-free. They walk through a two-stage cp.async
+//     ring of 64-key tiles, so tile j+1 loads while tile j multiplies. A
+//     ring rather than the whole head staged once: "any S" needs the walk
+//     anyway, and 46 KB a block at D = 64 lets four blocks share an SM
+//     where a staged head (66 KB at S = 257, more at D = 128) allows
+//     three or fewer.
+//   * S = Q.K^T per tile with K's row-major [key][d] rows as the "col"
+//     operand. Scores stay fp32 in the accumulator: scale (times log2 e)
+//     and bias are applied there, keys >= S get -inf before the row max,
+//     the online softmax reduces over the 4 lanes that share a row and
+//     uses exp2f. A row that has seen only -inf so far keeps m = -inf; the
+//     exponent is taken against 0 then, so -inf - (-inf) never forms.
+//   * P is rounded to bf16 in registers (two neighbouring accumulator
+//     tiles are one A fragment) and multiplied with V's fragments from
+//     ldmatrix.trans. The row sum l adds the unrounded fp32 p.
+//   * Tile rows past S are zero-filled by cp.async (src-size 0), never
+//     stale: 0 x NaN would poison the products. Query rows past S are
+//     computed on zeros and not stored; a warp whose 16 rows are all past
+//     S skips the math but reaches every barrier. 16-key chunks past S are
+//     skipped.
+//   * O / l in fp32, rounded to bf16, staged in the warp's own (spent) Q
+//     rows and written with 16-byte stores.
+//
+// "simt": fp32 inputs, and bf16 with another head_dim. Every product and
+// sum is fp32 on the CUDA cores out of shared memory (a broadcast q or p
+// value and one K or V value per FMA), q scaled before the dot product. It
+// is limited by shared-memory loads; fp32 is held to 1e-5 against the
+// plain version, which rules out TF32 or bf16 operands.
+//
+// Limits, checked by the Python wrapper too: D <= 128; any S >= 1; the mma
+// variant needs 16-byte-aligned qkv and out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------- mma
+
+template <int D>
+constexpr size_t fwd_mma_smem_bytes() {
+  // Q tile + two stages of K and V tiles
+  return (size_t)5 * mma::kTile * (D + mma::kPad) * sizeof(__nv_bfloat16);
+}
+
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(mma::kThreads)
+attention_hg_fwd_kernel_mma(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
+                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H,
+                            float scale_log2e) {
+  using namespace mma;
+  constexpr int kStride = D + kPad;
+  constexpr int kSteps = D / 16;   // k-steps over the head dim
+  constexpr int kChunks = kTile / 16;  // 16-key chunks of a tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8]
+  __nv_bfloat16* sK = sQ + kTile * kStride;                        // [2][64][D+8]
+  __nv_bfloat16* sV = sK + 2 * kTile * kStride;                    // [2][64][D+8]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int W = H * D;
+  const int q_tiles = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / q_tiles;
+  const int i0 = (blockIdx.x - bh * q_tiles) * kTile;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = 3 * (size_t)W;  // packed rows are 3W apart
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row + h * D;
+  const int nq = min(kTile, S - i0);
+  const int k_tiles = q_tiles;
+
+  load_tile<D>(sQ, base + (size_t)i0 * row, row, nq, tid);
+  load_tile<D>(sK, base + W, row, min(kTile, S), tid);
+  load_tile<D>(sV, base + 2 * W, row, min(kTile, S), tid);
+  cp_async_commit();
+
+  const bool active = warp * 16 < nq;  // else all 16 rows are past S
+  const int row_g = i0 + warp * 16 + g;  // this thread's rows: row_g, row_g + 8
+  uint32_t qf[kSteps][4];
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    if (kt + 1 < k_tiles) {
+      const int stage = (kt + 1) & 1;
+      const int j1 = (kt + 1) * kTile;
+      load_tile<D>(sK + stage * kTile * kStride, base + (size_t)j1 * row + W, row,
+                   min(kTile, S - j1), tid);
+      load_tile<D>(sV + stage * kTile * kStride, base + (size_t)j1 * row + 2 * W, row,
+                   min(kTile, S - j1), tid);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile kt (and Q) has landed; tile kt + 1 is in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if (kt == 0) {
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) load_a(qf[ks], sQ, kStride, warp * 16, ks * 16, lane);
+      }
+      const __nv_bfloat16* ks_tile = sK + (kt & 1) * kTile * kStride;
+      const __nv_bfloat16* vs_tile = sV + (kt & 1) * kTile * kStride;
+      const int j0 = kt * kTile;
+      const int nk = min(kTile, S - j0);
+
+      // scores of 16 rows x 64 keys, fp32
+      float s[2 * kChunks][4];
+#pragma unroll
+      for (int n = 0; n < 2 * kChunks; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kChunks; ++kc) {
+        if (kc * 16 < nk) {
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            uint32_t kb[4];
+            load_b_nk(kb, ks_tile, kStride, kc * 16, ks * 16, lane);
+            mma_bf16(s[2 * kc], qf[ks], kb[0], kb[1]);
+            mma_bf16(s[2 * kc + 1], qf[ks], kb[2], kb[3]);
+          }
+        }
+      }
+
+      // scale, bias, the key tail's mask, in units of log2
+      const bool tail = j0 + kTile > S;
+#pragma unroll
+      for (int n = 0; n < 2 * kChunks; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j0 + n * 8 + 2 * t4 + (e & 1);
+          float v = s[n][e] * scale_log2e;
+          if constexpr (HAS_BIAS) {
+            const int r = row_g + 8 * (e >> 1);
+            if (r < S && col < S) v += bias[(size_t)r * S + col] * kLog2e;
+          }
+          if (tail && col >= S) v = -INFINITY;
+          s[n][e] = v;
+        }
+      }
+
+      // online softmax per row (rows row_g and row_g + 8)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 2 * kChunks; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = quad_max(mx);
+        const float m_new = fmaxf(m_run[r], mx);
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2f(m_run[r] - m_safe);  // 0 while m_run is -inf
+        m_run[r] = m_new;
+        float psum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2 * kChunks; ++n) {
+          const float p0 = exp2f(s[n][2 * r] - m_safe);
+          const float p1 = exp2f(s[n][2 * r + 1] - m_safe);
+          s[n][2 * r] = p0;
+          s[n][2 * r + 1] = p1;
+          psum += p0 + p1;
+        }
+        l_run[r] = l_run[r] * corr + psum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] *= corr;
+          o[n][2 * r + 1] *= corr;
+        }
+      }
+
+      // O += P . V, P rounded to bf16 in registers
+#pragma unroll
+      for (int kc = 0; kc < kChunks; ++kc) {
+        if (kc * 16 < nk) {
+          uint32_t pa[4];
+          pack_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+          for (int dn = 0; dn < kSteps; ++dn) {
+            uint32_t vb[4];
+            load_b_kn(vb, vs_tile, kStride, kc * 16, dn * 16, lane);
+            mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
+            mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the copy after next
+  }
+
+  if (active) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_run[r]);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;
+      const int ri = row_g + 8 * r;
+      if (lse != nullptr && t4 == 0 && ri < S)
+        lse[(size_t)bh * S + ri] = l > 0.f ? m_run[r] * kLn2 + logf(l) : 0.f;
+    }
+    store_rows<D>(sQ + warp * 16 * kStride, o, inv[0], inv[1],
+                  out + ((size_t)b * S + i0 + warp * 16) * W + h * D, (size_t)W,
+                  nq - warp * 16, lane);
+  }
+}
+
+template <int D, bool HAS_BIAS>
+int launch_mma(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
+               float scale, cudaStream_t stream) {
+  static bool smem_allowed[mma::kMaxDevices] = {};
+  auto kernel = attention_hg_fwd_kernel_mma<D, HAS_BIAS>;
+  constexpr size_t smem = fwd_mma_smem_bytes<D>();
+  const int e = mma::allow_smem_once(kernel, smem, smem_allowed);
+  if (e) return e;
+  const long long blocks = (long long)B * H * ((S + mma::kTile - 1) / mma::kTile);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), bias, static_cast<__nv_bfloat16*>(out), lse, S, H,
+      scale * mma::kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_mma_d(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
+                 float scale, cudaStream_t stream) {
+  if (bias != nullptr) return launch_mma<D, true>(qkv, bias, out, lse, B, S, H, scale, stream);
+  return launch_mma<D, false>(qkv, bias, out, lse, B, S, H, scale, stream);
+}
+
+// ---------------------------------------------------------------- simt
+
 
 constexpr int kWarps = 8;
 constexpr int kQTile = 64;  // query rows per block
@@ -200,12 +437,12 @@ attention_hg_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bia
 template <typename T>
 int launch(const void* qkv, const float* bias, void* out, int B, int S, int H, int D,
            float scale, cudaStream_t stream) {
+  // one kernel serves every D: allow the most it can ask for, once
+  static bool smem_allowed[mma::kMaxDevices] = {};
+  const int e = mma::allow_smem_once(attention_hg_fwd_kernel<T>, smem_floats(kMaxD) * sizeof(float),
+                                     smem_allowed);
+  if (e) return e;
   const size_t smem = smem_floats(D) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attention_hg_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const int tiles = (S + kQTile - 1) / kQTile;
   const long long blocks = (long long)B * H * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -216,13 +453,29 @@ int launch(const void* qkv, const float* bias, void* out, int B, int S, int H, i
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError() after the launch.
-extern "C" int clip_attention_hg_fwd(const void* qkv, const void* bias, void* out, int B, int S,
-                                     int H, int D, float scale, int dtype, void* stream) {
+// 1 when (dtype, D) takes the tensor-core variant, 0 for the CUDA-core one.
+// dtype: 0 = fp32, 1 = bf16.
+extern "C" int clip_attention_hg_variant(int dtype, int D) {
+  return dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128) ? 1 : 0;
+}
+
+// dtype: 0 = fp32, 1 = bf16. `lse` may be null; the CUDA-core variant does
+// not write it. Returns cudaGetLastError() after the launch.
+extern "C" int clip_attention_hg_fwd(const void* qkv, const void* bias, void* out, void* lse, int B,
+                                     int S, int H, int D, float scale, int dtype, void* stream) {
   if (B < 1 || S < 1 || H < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const float* bias_f = static_cast<const float*>(bias);
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clip_attention_hg_variant(dtype, D)) {
+    switch (D) {
+      case 16: return launch_mma_d<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+      case 32: return launch_mma_d<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+      case 64: return launch_mma_d<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+      default: return launch_mma_d<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+    }
+  }
   if (dtype == 0) return launch<float>(qkv, bias_f, out, B, S, H, D, scale, s);
   return launch<__nv_bfloat16>(qkv, bias_f, out, B, S, H, D, scale, s);
 }

@@ -1,0 +1,201 @@
+// Tensor-core building blocks of the attention kernels, for sm_90a: bf16
+// tiles in shared memory, asynchronous 16-byte copies into them, ldmatrix
+// loads of mma.sync fragments, the m16n8k16 bf16 product with an fp32
+// accumulator, and the register-only turn of an accumulator tile into the
+// A operand of the next product.
+//
+// Tile layout. A tile is ROWS rows of D bf16 values, row-major, with a row
+// stride of D + 8 elements. The 16 bytes of padding move each row by 4
+// banks, so the eight 16-byte rows one ldmatrix phase reads lie in eight
+// different bank groups: no conflicts for D = 16, 32, 64 and 128, plain or
+// transposed. Every row starts on a 16-byte boundary, which cp.async and
+// ldmatrix need.
+//
+// Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16 x 16, row):  a0 = (g, 2t..2t+1)      a1 = (g + 8, 2t..2t+1)
+//                      a2 = (g, 2t+8..2t+9)    a3 = (g + 8, 2t+8..2t+9)
+//   B (16 x 8, col):   b0 = (k 2t..2t+1, n g)  b1 = (k 2t+8..2t+9, n g)
+//   C (16 x 8, fp32):  c0 = (g, 2t) c1 = (g, 2t+1) c2 = (g+8, 2t) c3 = (g+8, 2t+1)
+// Two neighbouring C tiles (columns n0..n0+7 and n0+8..n0+15) hold exactly
+// the elements of one A tile over k = n0..n0+15: `pack_a` rounds them to
+// bf16 in place, so P and dS never pass through shared memory.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mma {
+
+constexpr int kPad = 8;            // bf16 elements of padding per tile row
+constexpr int kTile = 64;          // rows of a tile (queries or keys)
+constexpr int kThreads = 128;      // 4 warps, 16 tile rows each
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when `valid` is false
+// (src-size 0 reads nothing, but the address must still be mapped).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, valid_rows) of a strided global matrix (row pitch `pitch`
+// elements, D elements wide) into a padded tile of kTile rows; the rows
+// past valid_rows are zero-filled (valid_rows >= 1).
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          size_t pitch, int valid_rows, int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kStride = D + kPad;
+  static_assert((kTile * kChunks) % kThreads == 0, "every thread copies the same number of chunks");
+#pragma unroll
+  for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
+    const int idx = tid + it * kThreads;
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + r * kStride + c * 8, src + (size_t)(ok ? r : 0) * pitch + c * 8, ok);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The A fragment of rows [row0, row0 + 16), columns [col0, col0 + 16) of a
+// row-major tile with row stride `stride`.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int stride,
+                                       int row0, int col0, int lane) {
+  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * stride + col0 + 8 * (lane >> 4));
+}
+
+// B fragments of X^T for two n-tiles, where the tile holds X row-major as
+// [n][k] (K for q.k^T, V for dO.v^T, Q for k.q^T): n in [n0, n0 + 16), k in
+// [k0, k0 + 16). b[0], b[1] feed the n-tile n0..n0+7; b[2], b[3] the next.
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16* tile, int stride,
+                                          int n0, int k0, int lane) {
+  ldmatrix_x4(b, tile + (n0 + (lane & 7) + 8 * (lane >> 4)) * stride + k0 + 8 * ((lane >> 3) & 1));
+}
+
+// B fragments of X for two n-tiles, where the tile holds X row-major as
+// [k][n] (V for p.v, K for dS.k, dO for p^T.dO, Q for dS^T.q): k in
+// [k0, k0 + 16), n in [n0, n0 + 16). b[0], b[1] feed n0..n0+7; b[2], b[3]
+// the next n-tile.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16* tile, int stride,
+                                          int k0, int n0, int lane) {
+  ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + n0 + 8 * (lane >> 4));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two neighbouring accumulator tiles, rounded to bf16, as one A fragment.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Sum / max over the 4 lanes that share an accumulator row.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return x;
+}
+
+// A warp's 16 x D fp32 accumulator rows, times `factor` per row pair,
+// rounded to bf16 into the warp's own 16 rows of a tile, then written with
+// 16-byte stores to dst[(row0 + r) * pitch + c] for the rows below
+// `valid_rows`. The caller owns those tile rows (only this warp reads them).
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* tile_rows, const float (&acc)[D / 8][4],
+                                           float f0, float f1, __nv_bfloat16* dst, size_t pitch,
+                                           int valid_rows, int lane) {
+  constexpr int kStride = D + kPad;
+  constexpr int kChunks = D / 8;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(tile_rows + g * kStride + nt * 8 + 2 * t) =
+        pack_bf16(acc[nt][0] * f0, acc[nt][1] * f0);
+    *reinterpret_cast<uint32_t*>(tile_rows + (g + 8) * kStride + nt * 8 + 2 * t) =
+        pack_bf16(acc[nt][2] * f1, acc[nt][3] * f1);
+  }
+  __syncwarp();
+  static_assert((16 * kChunks) % 32 == 0, "every lane stores the same number of chunks");
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int idx = lane + it * 32;
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    if (r < valid_rows)
+      *reinterpret_cast<int4*>(dst + (size_t)r * pitch + c * 8) =
+          *reinterpret_cast<const int4*>(tile_rows + r * kStride + c * 8);
+  }
+}
+
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel
+// instantiation and device, not per launch. `done` is the instantiation's
+// own table (a static in its launch function).
+constexpr int kMaxDevices = 64;
+
+template <typename K>
+int allow_smem_once(K kernel, size_t bytes, bool (&done)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 0 && dev < kMaxDevices && done[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 0 && dev < kMaxDevices) done[dev] = true;
+  return 0;
+}
+
+}  // namespace mma

@@ -2,7 +2,10 @@
 `clip_event_tpu/evals/cli.py`).
 
 The CLIs serve in float32, as the JAX CLI does. On the card every block of
-both towers runs the hand-written attention kernel. `--device cpu` runs the
+both towers runs the hand-written attention kernel, unless the config says
+`"use_pallas_attention": false` (default true, the JAX CLI's key): then
+every encoder call of the run takes the plain attention, and the
+process-wide choice is put back when the run ends. `--device cpu` runs the
 plain PyTorch path instead; with no card and no `--device cpu` the CLI
 raises.
 
@@ -144,7 +147,10 @@ def calibration_batches_from_cfg(cfg: dict, mcfg):
 
 def run(description: str, evaluate) -> None:
     """Parse --cfg/--device, build the model, call
-    `evaluate(cfg, model, mcfg, device)`, print the metrics JSON."""
+    `evaluate(cfg, model, mcfg, device)` under the attention choice of
+    `use_pallas_attention`, print the metrics JSON."""
+    from clip_event_tpu_torch.models import layers
+
     logging.basicConfig(level=logging.INFO)
     args = build_parser(description).parse_args()
     with open(args.cfg) as fh:
@@ -154,7 +160,8 @@ def run(description: str, evaluate) -> None:
     if cfg.get("image_cache"):
         logging.warning("image_cache is not ported yet: decoding images live")
     model, mcfg = load_model_from_cfg(cfg, args.device)
-    metrics = evaluate(cfg, model, mcfg, args.device)
+    with layers.attention_impl("kernel" if cfg.get("use_pallas_attention", True) else "plain"):
+        metrics = evaluate(cfg, model, mcfg, args.device)
     print(json.dumps(metrics, indent=2))
     out = cfg.get("output_json")
     if out:

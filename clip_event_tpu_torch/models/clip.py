@@ -127,7 +127,7 @@ def encode_image(
     images: torch.Tensor,
     use_grid: bool = False,
     compute_dtype=torch.float32,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     remat=False,
 ) -> torch.Tensor:
     """[B, H, W, 3] → [B, E], or [B, grid²+1, E] when use_grid.
@@ -150,7 +150,7 @@ def encode_text(
     cfg: CLIPConfig,
     tokens: torch.Tensor,
     compute_dtype=torch.float32,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     remat=False,
 ) -> torch.Tensor:
     """[B, S] int tokens → [B, E]; EOT pooling via argmax token id.
@@ -216,7 +216,7 @@ def forward(
     tokens: torch.Tensor,
     overbatch: bool = True,
     compute_dtype=torch.float32,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     remat=False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Contrastive logits (reference `CLIP.forward`).
@@ -241,7 +241,7 @@ def sim_entity(
     object_images: torch.Tensor,
     entity_tokens: torch.Tensor,
     compute_dtype=torch.float32,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     remat=False,
     chunks: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -261,6 +261,9 @@ def sim_entity(
     B, N = object_images.shape[:2]
     M = entity_tokens.shape[1]
     recompute = torch.is_grad_enabled()
+    # resolved once: a chunk's recompute in the backward pass must take the
+    # attention its forward took
+    impl = L._resolve_attention(impl)
 
     def encode_chunked(encode_fn, x, node_axis_len):
         c = 1
@@ -328,7 +331,7 @@ class VisionTower(_ParamTree):
         super().__init__(tree)
         self.cfg = cfg
 
-    def forward(self, images, use_grid=False, compute_dtype=torch.float32, impl="kernel"):
+    def forward(self, images, use_grid=False, compute_dtype=torch.float32, impl=None):
         return encode_image(
             {"visual": self.tree()}, self.cfg, images, use_grid, compute_dtype, impl
         )
@@ -339,7 +342,7 @@ class TextTower(_ParamTree):
         super().__init__(tree)
         self.cfg = cfg
 
-    def forward(self, tokens, compute_dtype=torch.float32, impl="kernel"):
+    def forward(self, tokens, compute_dtype=torch.float32, impl=None):
         return encode_text(self.tree(), self.cfg, tokens, compute_dtype, impl)
 
 
@@ -362,11 +365,11 @@ class CLIP(nn.Module):
     def device(self) -> torch.device:
         return self.logit_scale.device
 
-    def encode_image(self, images, use_grid=False, compute_dtype=torch.float32, impl="kernel"):
+    def encode_image(self, images, use_grid=False, compute_dtype=torch.float32, impl=None):
         return self.visual(images, use_grid, compute_dtype, impl)
 
-    def encode_text(self, tokens, compute_dtype=torch.float32, impl="kernel"):
+    def encode_text(self, tokens, compute_dtype=torch.float32, impl=None):
         return self.text(tokens, compute_dtype, impl)
 
-    def forward(self, images, tokens, overbatch=True, compute_dtype=torch.float32, impl="kernel"):
+    def forward(self, images, tokens, overbatch=True, compute_dtype=torch.float32, impl=None):
         return forward(self.params(), self.cfg, images, tokens, overbatch, compute_dtype, impl)

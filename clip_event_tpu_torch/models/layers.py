@@ -6,15 +6,21 @@ layouts: dense weights input-major `[in, out]`, transformer layers stacked
 along a leading `[L, ...]` axis. LayerNorm always runs in float32 (the fp32
 island); matmuls run in the activations' dtype.
 
-`impl` selects the attention core: "kernel" (the default) calls
+`impl` selects the attention core: "kernel" calls
 `ops.attention.fused_attention_qkv` (K1) where S <= 128, else
 `fused_attention_qkv_headgrid` (K2) where `head_grid_supported`, else
 raises; each launches its hand-written kernels (forward and backward) on a
 CUDA tensor and runs their plain versions on a CPU tensor. "plain" runs
 those plain versions on any device, the reference a run on the card is
-held against. In fp32 both equal the JAX package's einsum path; in bf16
-they keep the probabilities in fp32 as its kernel path does, where its
-einsum path rounds them to bf16 before P·V.
+held against. None (the default everywhere) takes the process-wide choice
+of `set_attention_impl` ("kernel" unless a caller changed it: the eval
+CLIs, `embed` and the train loop's validation set it from
+`use_pallas_attention`, the JAX package's `set_attention_impl`);
+`transformer` resolves it once and hands every block the resolved value,
+through `torch.utils.checkpoint` too. In fp32 both equal the JAX package's
+einsum path; in bf16 K1 and the plain versions keep the probabilities in
+fp32 as the JAX kernel path does, K2's tensor-core variant rounds them to
+bf16 before P·V as the JAX einsum path does.
 
 `remat` (the JAX package's `transformer(..., remat=)`): True or "full"
 recomputes each block in the backward pass (`torch.utils.checkpoint`, the
@@ -69,6 +75,40 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor
 
 LN_IMPLS = ("xla", "pallas")
 _LN_IMPL = "xla"
+_ATTENTION_IMPL = "kernel"
+
+
+def set_attention_impl(impl: str) -> None:
+    """Select the attention core for every later call that passes no
+    `impl`: "kernel" (K1 / K2, the default) or "plain" (their plain
+    versions on any device): the JAX package's
+    `set_attention_impl("pallas" | "xla")`."""
+    global _ATTENTION_IMPL
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    _ATTENTION_IMPL = impl
+
+
+def _resolve_attention(impl: Optional[str] = None) -> str:
+    """`impl`, or the process-wide attention choice (`set_attention_impl`)
+    for None."""
+    impl = _ATTENTION_IMPL if impl is None else impl
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    return impl
+
+
+@contextlib.contextmanager
+def attention_impl(impl: str):
+    """`with attention_impl("plain"):` selects the attention core of the
+    calls inside that pass no `impl` and puts the previous choice back
+    after."""
+    old = _resolve_attention()
+    set_attention_impl(impl)
+    try:
+        yield
+    finally:
+        set_attention_impl(old)
 
 
 def set_ln_impl(impl: str, mesh=None) -> None:
@@ -157,7 +197,7 @@ def multi_head_attention(
     params: dict,
     num_heads: int,
     attn_bias: Optional[torch.Tensor] = None,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     act_stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """Self-attention with packed QKV projection.
@@ -180,7 +220,7 @@ def attention_core(
     attn_bias: Optional[torch.Tensor],
     num_heads: int,
     scale: float,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """The attention core over the packed projection, chosen by shape alone
     before anything launches (JAX `layers.py:285-311`): K1 where S <= 128
@@ -188,9 +228,8 @@ def attention_core(
     ValueError naming the shape. The JAX package sends that last case to its
     einsum path; here it raises on every device, so a CPU run shows what a
     card run would do. No CLIP preset reaches it. `impl="plain"` runs the
-    plain versions at any shape."""
-    if impl not in IMPLS:
-        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    plain versions at any shape; None takes `set_attention_impl`'s choice."""
+    impl = _resolve_attention(impl)
     if impl == "plain":
         return A.attend(qkv, attn_bias, num_heads, scale, "plain")
     B, S, W3 = qkv.shape
@@ -211,7 +250,7 @@ def residual_block(
     params: dict,
     num_heads: int,
     attn_bias: Optional[torch.Tensor] = None,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     act_stats: Optional[dict] = None,
     ln: str = "xla",
 ) -> torch.Tensor:
@@ -265,15 +304,17 @@ def transformer(
     stacked_params: dict,
     num_heads: int,
     attn_bias: Optional[torch.Tensor] = None,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     remat=False,
     ln: Optional[str] = None,
 ) -> torch.Tensor:
     """Run the stack of residual blocks over the leading L axis of the params,
     each block recomputed in the backward pass when `remat` is on and
-    autograd is recording. `ln` None takes `set_ln_impl`'s choice."""
+    autograd is recording. `ln` None takes `set_ln_impl`'s choice, `impl`
+    None `set_attention_impl`'s."""
     if ln is None:
         ln = _resolve_ln()
+    impl = _resolve_attention(impl)
     recompute = _remat_enabled(remat) and torch.is_grad_enabled()
     n_layers = stacked_params["attn"]["qkv_w"].shape[0]
     for i in range(n_layers):

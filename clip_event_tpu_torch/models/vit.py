@@ -6,6 +6,8 @@ stride == kernel). Input layout is NHWC, as in the JAX package.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from clip_event_tpu_torch.models import layers as L
@@ -29,7 +31,7 @@ def vit_encode(
     num_heads: int,
     use_grid: bool = False,
     compute_dtype=torch.float32,
-    impl: str = "kernel",
+    impl: Optional[str] = None,
     remat=False,
 ) -> torch.Tensor:
     """ViT forward. Returns [B, E] (CLS-pooled) or [B, grid²+1, E] if use_grid."""

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` into
 `_build/<name>-<hash>.so` inside the package, then loaded with `ctypes`. The
-hash covers the source and the flags, so an edited source rebuilds and an
+hash covers the source, every header `csrc/*.cuh` (a source may include
+any of them) and the flags, so an edited source or header rebuilds and an
 unchanged one is loaded as it is. No PyTorch header is compiled in, which
 keeps a build to seconds. Nothing here runs at import time: the CPU suite
 imports every module on a machine with no `nvcc`.
@@ -26,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HEADER_SUFFIX = ".cuh"
 
 # name → loaded library / last compiler output (registers, shared memory and
 # spills per kernel, from -Xptxas -v)
@@ -46,10 +48,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library built from `csrc/<name>.cu` with the current flags lives."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    """Where the library built from `csrc/<name>.cu`, the headers beside it
+    and the current flags lives."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(HEADER_SUFFIX))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fname.encode() + b"\0" + fh.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names: Sequence[str]) -> Dict[str, float]:
@@ -67,7 +74,7 @@ def build(names: Sequence[str]) -> Dict[str, float]:
         # unique temporary name + atomic rename: concurrent builders never
         # load a half-written library
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, lib, time.perf_counter())
     for name, (proc, tmp, lib, t0) in started.items():

@@ -25,6 +25,22 @@ function in plain PyTorch. Nothing falls back from a kernel to its plain
 version. `attend(..., impl="plain")` runs the plain pair on any device: the
 reference a run on the card is held against.
 
+K2 has two hand-written variants, chosen by dtype and head_dim alone
+before anything launches (`headgrid_variant`, and `clip_attention_hg_variant`
+in both libraries): "mma" (bf16 with head_dim 16, 32, 64 or 128) runs
+every product on the tensor cores with bf16 operands and fp32
+accumulators, which rounds P to bf16 before P·V and Pᵀ·dO and dS to bf16
+before dS·K and dSᵀ·Q; "simt" (fp32, and bf16 with another head_dim) keeps
+every product in fp32 on the CUDA cores. Neither gives way to the other or
+to the plain version. The mma forward also writes each row's log-sum-exp
+[B, H, S]; `_HeadGridAttention` saves it and the output beside qkv and
+bias (the out-projection saves the output anyway), so the mma backward
+recomputes nothing of the forward but the scores. Called directly without
+them, `fused_attention_qkv_headgrid_bwd` runs the forward kernel first.
+`mma_rounding=True` on the plain versions rounds where the mma variant
+rounds: that is the variant's plain version proper, which tests and
+`chip_smoke.py` hold it against; nothing on a main path calls it.
+
 `fused_ln_qkv_attention` (K6, the counterpart of the JAX function of the
 same name) computes LayerNorm → the packed QKV projection → K1's attention
 core in one kernel, `csrc/ln_qkv_attention.cu`, forward only: neither the
@@ -51,6 +67,12 @@ HG_KERNEL = "attention_hg_fwd"
 HG_BWD_KERNEL = "attention_hg_bwd"
 # each backward's C entry point launches two kernels (dq pass, dk/dv pass)
 BWD_LAUNCHES_PER_CALL = 2
+HG_BWD_LAUNCHES_PER_CALL = 2
+# K2's tensor-core variant: bf16 with one of these head dims
+MMA_HEAD_DIMS = (16, 32, 64, 128)
+HG_VARIANTS = ("mma", "simt")
+# cp.async and ldmatrix move 16 bytes at a time
+MMA_ALIGN = 16
 # K2 takes heads in 128-lane groups, as the TPU kernel's lane blocks do
 HG_LANES = 128
 MEGA_KERNEL = "ln_qkv_attention"
@@ -67,9 +89,10 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _split_probs(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float):
-    """q, k, v as [B, H, S, D] fp32 views and P = softmax(q·scale·kᵀ + bias)
-    in fp32 (`_split_heads` / `_probs`)."""
+def _split_scores(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float):
+    """q, k, v as [B, H, S, D] fp32 views, the unnormalized probabilities
+    e = exp(q·scale·kᵀ + bias − rowmax) and their row sums, in fp32
+    (`_split_heads` / `_probs`)."""
     B, S, W3 = qkv.shape
     x = _wide(qkv).view(B, S, 3, num_heads, W3 // 3 // num_heads)
     q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
@@ -77,35 +100,65 @@ def _split_probs(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int
     if bias is not None:
         logits = logits + _wide(bias)
     m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    return q, k, v, p / p.sum(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    return q, k, v, e, e.sum(dim=-1, keepdim=True)
+
+
+def _split_probs(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float):
+    """q, k, v as [B, H, S, D] fp32 views and P = softmax(q·scale·kᵀ + bias)
+    in fp32."""
+    q, k, v, e, l = _split_scores(qkv, bias, num_heads, scale)
+    return q, k, v, e / l
+
+
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t rounded to `dtype` and widened again: the value a tensor-core
+    operand of that type carries."""
+    return _wide(t.to(dtype))
 
 
 def fused_attention_qkv_plain(
-    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
+    mma_rounding: bool = False,
 ) -> torch.Tensor:
     """softmax(q·scale·kᵀ + bias)·v per head in fp32, output in qkv.dtype
-    (the math of `_fwd_kernel` / `_probs`)."""
+    (the math of `_fwd_kernel` / `_probs`). With `mma_rounding` the
+    unnormalized probabilities are rounded to qkv.dtype before they
+    multiply v and the row sum (of the unrounded values) divides after, as
+    K2's tensor-core variant does; scores, softmax and sums stay fp32."""
     B, S, W3 = qkv.shape
-    _, _, v, p = _split_probs(qkv, bias, num_heads, scale)
-    out = torch.matmul(p, v)
+    if mma_rounding:
+        _, _, v, e, l = _split_scores(qkv, bias, num_heads, scale)
+        out = torch.matmul(_rounded(e, qkv.dtype), v) / l
+    else:
+        _, _, v, p = _split_probs(qkv, bias, num_heads, scale)
+        out = torch.matmul(p, v)
     return out.transpose(1, 2).reshape(B, S, W3 // 3).to(qkv.dtype)
 
 
 def fused_attention_qkv_bwd_plain(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
-    scale: float,
+    scale: float, mma_rounding: bool = False,
 ) -> torch.Tensor:
     """dqkv [B, S, 3W] in qkv.dtype from qkv and the output's cotangent `do`
     [B, S, W], in fp32 ops (the formulas of `_bwd_kernel`): recompute P,
     dv = Pᵀ·do, dp = do·vᵀ, ds = P∘(dp − rowsum(dp∘P)), dq = ds·k·scale,
-    dk = dsᵀ·q·scale."""
+    dk = dsᵀ·q·scale. With `mma_rounding`, as K2's tensor-core variant: P is
+    rounded to qkv.dtype before Pᵀ·do, ds before ds·k and dsᵀ·q, and the row
+    term is rowsum(do∘out) over the forward's rounded output (equal to
+    rowsum(dp∘P) before rounding); P, dp, ds and every sum stay fp32."""
     B, S, W3 = qkv.shape
     q, k, v, p = _split_probs(qkv, bias, num_heads, scale)
     g = _wide(do).view(B, S, num_heads, -1).transpose(1, 2)
-    dv = torch.matmul(p.transpose(-1, -2), g)
     dp = torch.matmul(g, v.transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if mma_rounding:
+        out = fused_attention_qkv_plain(qkv, bias, num_heads, scale, mma_rounding=True)
+        out = _wide(out).view(B, S, num_heads, -1).transpose(1, 2)
+        ds = _rounded(p * (dp - (g * out).sum(dim=-1, keepdim=True)), qkv.dtype)
+        p = _rounded(p, qkv.dtype)
+    else:
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dv = torch.matmul(p.transpose(-1, -2), g)
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
     dqkv = torch.stack([t.transpose(1, 2) for t in (dq, dk, dv)], dim=2)  # [B, S, 3, H, D]
@@ -119,6 +172,27 @@ def head_grid_supported(seq_len: int, width: int, num_heads: int) -> bool:
     if seq_len < 1 or width % num_heads or width % HG_LANES:
         return False
     return HG_LANES % (width // num_heads) == 0
+
+
+def headgrid_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which of K2's two hand-written variants takes an input, by dtype and
+    head_dim alone: "mma" (tensor cores; bf16 with head_dim 16, 32, 64 or
+    128) or "simt" (CUDA cores; everything else K2 takes). The libraries'
+    `clip_attention_hg_variant` is the same rule."""
+    return "mma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS else "simt"
+
+
+def _check_aligned(**tensors) -> None:
+    """K2's mma variant copies 16 bytes at a time: every tensor it reads or
+    writes must start on a 16-byte boundary (a contiguous view with a
+    storage offset need not)."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % MMA_ALIGN:
+            raise ValueError(
+                f"head-grid attention kernel (mma variant) needs {name} aligned to {MMA_ALIGN} "
+                f"bytes, got data_ptr() % {MMA_ALIGN} == {t.data_ptr() % MMA_ALIGN} (a view with "
+                "a storage offset? pass a .clone())"
+            )
 
 
 def _check_kernel_input(
@@ -142,6 +216,8 @@ def _check_kernel_input(
                 f"head-grid attention kernel takes W % {HG_LANES} == 0 and head_dim "
                 f"dividing {HG_LANES}, got S={S} W={W} H={num_heads}"
             )
+        if headgrid_variant(qkv.dtype, D) == "mma":
+            _check_aligned(qkv=qkv, do=do)
     else:
         if not 1 <= S <= MAX_SEQ:
             raise ValueError(f"attention kernel takes 1 <= S <= {MAX_SEQ}, got S={S}")
@@ -168,6 +244,9 @@ def _check_kernel_input(
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+# K2: the forward also takes lse; the backward the forward's out and lse
+_HG_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_HG_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
 
 
 def _kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -179,14 +258,22 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(qkv, bias, num_heads, scale, head_grid: bool) -> torch.Tensor:
-    """Check and launch the forward kernel of K1 or K2 on a CUDA tensor."""
-    _check_kernel_input(qkv, bias, num_heads, head_grid=head_grid)
+def library_variant(name: str, dtype: torch.dtype, head_dim: int) -> str:
+    """`headgrid_variant` as the built library `name` (K2's forward or
+    backward) decides it: `chip_smoke.py` checks that the two agree."""
+    lib = _build.load(name)
+    fn = lib.clip_attention_hg_variant
+    fn.argtypes, fn.restype = [_I, _I], _I
+    return HG_VARIANTS[0] if fn(_DTYPES[dtype], head_dim) else HG_VARIANTS[1]
+
+
+def _launch_fwd(qkv, bias, num_heads, scale) -> torch.Tensor:
+    """Check and launch K1's forward kernel on a CUDA tensor."""
+    _check_kernel_input(qkv, bias, num_heads)
     B, S, W3 = qkv.shape
     W = W3 // 3
     bias = _kernel_bias(bias)
-    name, symbol = (HG_KERNEL, "clip_attention_hg_fwd") if head_grid else (KERNEL, "clip_attention_fwd")
-    lib, fn = _build.entry(name, symbol, _FWD_ARGS)
+    lib, fn = _build.entry(KERNEL, "clip_attention_fwd", _FWD_ARGS)
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -194,22 +281,19 @@ def _launch_fwd(qkv, bias, num_heads, scale, head_grid: bool) -> torch.Tensor:
             qkv.data_ptr(), _ptr(bias), out.data_ptr(),
             B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
         )
-    _build.check(lib, code, f"{name} launch")
+    _build.check(lib, code, f"{KERNEL} launch")
     return out
 
 
-def _launch_bwd(qkv, bias, do, num_heads, scale, head_grid: bool) -> torch.Tensor:
-    """Check and launch the two backward kernels of K1 or K2 on a CUDA
-    tensor; the softmax row stats go to a [3, B, H, S] fp32 scratch."""
-    _check_kernel_input(qkv, bias, num_heads, do, head_grid=head_grid)
+def _launch_bwd(qkv, bias, do, num_heads, scale) -> torch.Tensor:
+    """Check and launch K1's two backward kernels on a CUDA tensor; the
+    softmax row stats go to a [3, B, H, S] fp32 scratch."""
+    _check_kernel_input(qkv, bias, num_heads, do)
     B, S, W3 = qkv.shape
     W = W3 // 3
     do = do.contiguous()
     bias = _kernel_bias(bias)
-    name, symbol = (
-        (HG_BWD_KERNEL, "clip_attention_hg_bwd") if head_grid else (BWD_KERNEL, "clip_attention_bwd")
-    )
-    lib, fn = _build.entry(name, symbol, _BWD_ARGS)
+    lib, fn = _build.entry(BWD_KERNEL, "clip_attention_bwd", _BWD_ARGS)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -218,7 +302,71 @@ def _launch_bwd(qkv, bias, do, num_heads, scale, head_grid: bool) -> torch.Tenso
             qkv.data_ptr(), _ptr(bias), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
             B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
         )
-    _build.check(lib, code, f"{name} launch")
+    _build.check(lib, code, f"{BWD_KERNEL} launch")
+    return dqkv
+
+
+def _launch_hg_fwd(qkv, bias, num_heads, scale, with_lse: bool):
+    """Check and launch K2's forward kernel on a CUDA tensor. Returns (out,
+    lse): lse is the [B, H, S] fp32 row log-sum-exp when `with_lse` and the
+    input takes the mma variant, else None."""
+    _check_kernel_input(qkv, bias, num_heads, head_grid=True)
+    B, S, W3 = qkv.shape
+    W = W3 // 3
+    D = W // num_heads
+    bias = _kernel_bias(bias)
+    lib, fn = _build.entry(HG_KERNEL, "clip_attention_hg_fwd", _HG_FWD_ARGS)
+    out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
+    lse = None
+    if headgrid_variant(qkv.dtype, D) == "mma":
+        _check_aligned(out=out)
+        if with_lse:
+            lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = fn(
+            qkv.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
+            B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], stream,
+        )
+    _build.check(lib, code, f"{HG_KERNEL} launch")
+    return out, lse
+
+
+def _launch_hg_bwd(qkv, bias, do, out, lse, num_heads, scale) -> torch.Tensor:
+    """Check and launch K2's two backward kernels on a CUDA tensor. The mma
+    variant reads the forward's `out` and `lse` (it runs the forward kernel
+    for them when the caller has none) and keeps delta in the [3, B, H, S]
+    fp32 scratch; the simt variant keeps m, l and delta there and ignores
+    them."""
+    do = do.contiguous()
+    _check_kernel_input(qkv, bias, num_heads, do, head_grid=True)
+    B, S, W3 = qkv.shape
+    W = W3 // 3
+    D = W // num_heads
+    bias = _kernel_bias(bias)
+    lib, fn = _build.entry(HG_BWD_KERNEL, "clip_attention_hg_bwd", _HG_BWD_ARGS)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
+    if headgrid_variant(qkv.dtype, D) == "mma":
+        if out is None or lse is None:
+            out, lse = fused_attention_qkv_headgrid_fwd(qkv, bias, num_heads, scale, with_lse=True)
+        if tuple(out.shape) != (B, S, W) or out.dtype != qkv.dtype or tuple(lse.shape) != (B, num_heads, S) \
+                or lse.dtype != torch.float32 or out.device != qkv.device or lse.device != qkv.device:
+            raise ValueError(
+                f"out must be {(B, S, W)} in {qkv.dtype} and lse {(B, num_heads, S)} in float32 on "
+                f"{qkv.device}, got {tuple(out.shape)} in {out.dtype}, {tuple(lse.shape)} in {lse.dtype}"
+            )
+        out, lse = out.contiguous(), lse.contiguous()
+        _check_aligned(out=out, dqkv=dqkv)
+    else:
+        out = lse = None
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        code = fn(
+            qkv.data_ptr(), _ptr(bias), do.data_ptr(), _ptr(out), _ptr(lse), dqkv.data_ptr(),
+            stats.data_ptr(), B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], stream,
+        )
+    _build.check(lib, code, f"{HG_BWD_KERNEL} launch")
     return dqkv
 
 
@@ -229,7 +377,7 @@ def _attention_fwd(
     tensor it takes, else raise."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
-    out = _launch_fwd(qkv, bias, num_heads, scale, head_grid=False)
+    out = _launch_fwd(qkv, bias, num_heads, scale)
     fused_attention_qkv.launches += 1
     return out
 
@@ -244,34 +392,41 @@ def fused_attention_qkv_bwd(
     do of qkv's dtype), else this raises."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
-    dqkv = _launch_bwd(qkv, bias, do, num_heads, scale, head_grid=False)
+    dqkv = _launch_bwd(qkv, bias, do, num_heads, scale)
     fused_attention_qkv_bwd.launches += BWD_LAUNCHES_PER_CALL
     return dqkv
 
 
-def _headgrid_fwd(
-    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
-) -> torch.Tensor:
-    """K2's forward: the plain version on a CPU tensor, the kernel on a CUDA
-    tensor it takes, else raise."""
+def fused_attention_qkv_headgrid_fwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
+    with_lse: bool = False,
+):
+    """K2's forward as (out, lse), outside autograd: the plain version on a
+    CPU tensor (lse None), the kernel on a CUDA tensor it takes, else raise.
+    `with_lse` asks the mma variant for the [B, H, S] row log-sum-exp that
+    `fused_attention_qkv_headgrid_bwd` reads beside `out`."""
     if qkv.device.type == "cpu":
-        return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
-    out = _launch_fwd(qkv, bias, num_heads, scale, head_grid=True)
+        return fused_attention_qkv_plain(qkv, bias, num_heads, scale), None
+    out, lse = _launch_hg_fwd(qkv, bias, num_heads, scale, with_lse)
     fused_attention_qkv_headgrid.launches += 1
-    return out
+    return out, lse
 
 
 def fused_attention_qkv_headgrid_bwd(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
-    scale: float,
+    scale: float, out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2's backward: dqkv [B, S, 3W] packed as JAX's
     `concatenate([dq, dk, dv], -1)` lays it out. CPU tensors take the plain
-    version; any other device must be a CUDA tensor K2 takes, else raise."""
+    version; any other device must be a CUDA tensor K2 takes, else raise.
+    `out` and `lse` are the forward's output and row log-sum-exp, which the
+    mma variant reads (`_HeadGridAttention` saves them); without them it
+    runs the forward kernel first, counted as a forward launch. The simt
+    variant recomputes both inside its dq pass and ignores them."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
-    dqkv = _launch_bwd(qkv, bias, do, num_heads, scale, head_grid=True)
-    fused_attention_qkv_headgrid_bwd.launches += BWD_LAUNCHES_PER_CALL
+    dqkv = _launch_hg_bwd(qkv, bias, do, out, lse, num_heads, scale)
+    fused_attention_qkv_headgrid_bwd.launches += HG_BWD_LAUNCHES_PER_CALL
     return dqkv
 
 
@@ -298,18 +453,23 @@ class _FusedAttention(torch.autograd.Function):
 class _HeadGridAttention(torch.autograd.Function):
     """K2 with its gradient, the counterpart of `_hg_fwd` / `_hg_bwd`: saves
     qkv and bias, not the probabilities, so it composes with
-    `torch.utils.checkpoint`; no gradient for the bias."""
+    `torch.utils.checkpoint`; on the mma variant also the output (which the
+    out-projection saves anyway) and the [B, H, S] row log-sum-exp, where
+    the JAX VJP recomputes both. No gradient for the bias."""
 
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, scale):
-        ctx.save_for_backward(qkv, bias)
         ctx.num_heads, ctx.scale = num_heads, scale
-        return _headgrid_fwd(qkv, bias, num_heads, scale)
+        out, lse = fused_attention_qkv_headgrid_fwd(
+            qkv, bias, num_heads, scale, with_lse=ctx.needs_input_grad[0])
+        ctx.save_for_backward(*((qkv, bias) if lse is None else (qkv, bias, out, lse)))
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        qkv, bias = ctx.saved_tensors
-        dqkv = fused_attention_qkv_headgrid_bwd(qkv, bias, do, ctx.num_heads, ctx.scale)
+        qkv, bias, *residuals = ctx.saved_tensors
+        out, lse = residuals or (None, None)
+        dqkv = fused_attention_qkv_headgrid_bwd(qkv, bias, do, ctx.num_heads, ctx.scale, out, lse)
         return dqkv, None, None, None
 
 
@@ -450,7 +610,8 @@ def fused_ln_qkv_attention(
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them):
-# one per forward call, BWD_LAUNCHES_PER_CALL per backward call
+# one per forward call, BWD_LAUNCHES_PER_CALL (K2: HG_BWD_LAUNCHES_PER_CALL)
+# per backward call
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0
 fused_attention_qkv_headgrid.launches = 0

@@ -249,8 +249,10 @@ def train(
                     cfg["val_image_caption_json"], cfg["val_image_dir"],
                     image_size=mcfg.image_resolution,
                 )
-                val = evaluate_matching(state.params, mcfg, val_ds,
-                                        batch_size=cfg["batch_size"], device=device)
+                # the validation encodes with the step's attention choice
+                with layers.attention_impl(step_kwargs["impl"]):
+                    val = evaluate_matching(state.params, mcfg, val_ds,
+                                            batch_size=cfg["batch_size"], device=device)
                 best_perf = max(best_perf, val["i2t_top1"])
                 log.info("=> Epoch[%d] validation: %s (best %.4f)", epoch, val, best_perf)
                 if writer is not None:

@@ -28,7 +28,8 @@ MODEL = json.dumps({
 TINY = ["--device", "cpu", "--model", MODEL, "--batch", "2", "--steps", "1", "--warmup", "1"]
 
 
-def _check_line(result, ln):
+def _check_line(result, ln, images="uint8"):
+    assert result["images"] == images
     assert result["metric"] == "contrastive_pairs_per_sec_cpu" and result["unit"] == "pairs/s"
     assert math.isfinite(result["value"]) and result["value"] > 0
     assert math.isclose(result["value"], 2 * 3 / result["step_ms"] * 1e3, rel_tol=1e-9)
@@ -48,6 +49,25 @@ def test_bench_prints_one_json_line(capsys, ln):
     assert len(lines) == 1
     _check_line(json.loads(lines[0]), ln)
     assert TL._resolve_ln() == "xla"  # put back
+
+
+@pytest.mark.parametrize("images", ["uint8", "float32"])
+def test_bench_images_option(capsys, images):
+    """`--images float32` feeds the JAX bench's N(0, 1) float32 images,
+    `uint8` (the default) the train loop's pixels; the line says which."""
+    assert bench.main(TINY + ["--images", images]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    _check_line(json.loads(lines[0]), "xla", images)
+    mcfg = bench.model_config({"model": json.loads(MODEL)})
+    data = bench.bench_batch(mcfg, 2, 16, torch.device("cpu"), images)
+    assert data["image"].dtype == getattr(torch, images) and data["image"].shape == (2, 32, 32, 3)
+    other = bench.bench_batch(mcfg, 2, 16, torch.device("cpu"))
+    assert torch.equal(data["text"], other["text"])  # the same token rows either way
+    if images == "float32":
+        assert abs(float(data["image"].mean())) < 0.1 and abs(float(data["image"].std()) - 1.0) < 0.1
+    with pytest.raises(ValueError, match="images"):
+        bench.bench_batch(mcfg, 2, 16, torch.device("cpu"), "float16")
 
 
 def test_bench_module_reads_the_environment():

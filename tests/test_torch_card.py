@@ -22,7 +22,14 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
   against their plain versions at a few shapes, fp32 and bf16;
 - `python -m clip_event_tpu_torch.train` at ViT-B/32 with
   `use_pallas_ln: true`: K4a, K4b and K4c launched in every residual block
-  of every step, finite losses, and the LayerNorm choice put back."""
+  of every step, finite losses, and the LayerNorm choice put back;
+- K2's tensor-core variant (bf16, head_dim 64) against both of its plain
+  versions (fp32 inside; rounded where the kernel rounds) at ViT-L/14's
+  vision shape and at a ragged causal shape, forward and backward, with
+  the backward's launch count, equal bits through autograd's saved
+  residuals and on a second run;
+- `.eval_retrieval` at ViT-B/32 with `"use_pallas_attention": false`: no
+  attention kernel launches, and the process-wide choice is put back."""
 
 import importlib.util
 import json
@@ -76,11 +83,14 @@ def test_train_cli_vit_l14_with_ot(voa, tmp_path):
     path = tmp_path / "train.json"
     path.write_text(json.dumps(cfg))
     A.fused_attention_qkv_headgrid.launches = ot.ipot_kernel.launches = 0
+    A.fused_attention_qkv_headgrid_bwd.launches = 0
     main(["--cfg", str(path)])
     # 4 images at batch 2; each of the 24 vision blocks runs its forward
-    # twice for the image and three times in each of the 2 crop chunks
+    # twice for the image and three times in each of the 2 crop chunks, and
+    # its backward once for the image and once per chunk
     steps = 2
     assert A.fused_attention_qkv_headgrid.launches == 24 * (2 + 3 * 2) * steps
+    assert A.fused_attention_qkv_headgrid_bwd.launches == A.HG_BWD_LAUNCHES_PER_CALL * 24 * (1 + 2) * steps
     assert ot.ipot_kernel.launches == steps
     scalars = _scalars(tmp_path / "logs" / "card" / "tensorboard" / "scalars.jsonl")
     assert all(np.isfinite(scalars[tag, 0]) for tag in ("train_loss", "loss_i", "loss_t"))
@@ -281,3 +291,72 @@ def test_train_cli_vit_b32_with_ln_kernels(voa, tmp_path):
     assert layers._resolve_ln() == "xla"
     scalars = _scalars(tmp_path / "logs" / "card_ln" / "tensorboard" / "scalars.jsonl")
     assert all(np.isfinite(scalars[tag, 0]) for tag in ("train_loss", "loss_i", "loss_t"))
+
+
+@pytest.mark.parametrize("tag,B,S,W,H,causal", [
+    ("l14_vision", 64, 257, 1024, 16, False), ("ragged_causal", 2, 200, 256, 4, True),
+])
+def test_k2_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, H, causal):
+    from clip_event_tpu_torch.models.layers import causal_mask
+    from clip_event_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn((B, S, 3 * W), device="cuda", generator=gen).to(torch.bfloat16)
+    do = torch.randn((B, S, W), device="cuda", generator=gen).to(torch.bfloat16)
+    bias = causal_mask(S, device="cuda") if causal else None
+    scale = (W // H) ** -0.5
+    assert A.headgrid_variant(qkv.dtype, W // H) == "mma"
+    assert A.library_variant(A.HG_KERNEL, qkv.dtype, W // H) == "mma"
+    assert A.library_variant(A.HG_BWD_KERNEL, torch.float32, W // H) == "simt"
+
+    A.fused_attention_qkv_headgrid.launches = A.fused_attention_qkv_headgrid_bwd.launches = 0
+    leaf = qkv.detach().requires_grad_(True)
+    out = A.fused_attention_qkv_headgrid(leaf, bias, H, scale)
+    (grad,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    assert A.fused_attention_qkv_headgrid.launches == 1
+    assert A.fused_attention_qkv_headgrid_bwd.launches == A.HG_BWD_LAUNCHES_PER_CALL
+    # called directly, the backward has no saved residuals: it runs the
+    # forward kernel for them and gives the same bits, twice
+    direct = A.fused_attention_qkv_headgrid_bwd(qkv, bias, do, H, scale)
+    again = A.fused_attention_qkv_headgrid_bwd(qkv, bias, do, H, scale)
+    assert A.fused_attention_qkv_headgrid.launches == 3
+    assert torch.equal(direct, grad) and torch.equal(again, grad)
+
+    for got, plain in (
+        (out, lambda **kw: A.fused_attention_qkv_plain(qkv, bias, H, scale, **kw)),
+        (grad, lambda **kw: A.fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale, **kw)),
+    ):
+        ref = plain().float()
+        rounded = plain(mma_rounding=True).float()
+        top = ref.abs().max().item()
+        assert bool(torch.isfinite(got).all())
+        assert (got.float() - ref).abs().max().item() <= 1e-2 * top
+        # at worst one bf16 ulp of the largest result (up to 2^-7 of it),
+        # and far less in the mean
+        diff = (got.float() - rounded).abs()
+        assert diff.max().item() <= 8e-3 * top
+        assert diff.mean().item() <= 5e-4 * top
+
+
+def test_eval_cli_with_plain_attention_launches_no_attention_kernel(fixtures_mod, tmp_path, monkeypatch, capsys):
+    from clip_event_tpu_torch import eval_retrieval
+    from clip_event_tpu_torch.evals.cli import run
+    from clip_event_tpu_torch.models import layers
+    from clip_event_tpu_torch.ops import attention as A
+
+    p = fixtures_mod.make_retrieval_fixture(str(tmp_path))
+    metrics = {}
+    for key, setting in (("plain", False), ("kernel", True)):
+        cfg = {"model": "ViT-B/32", "seed": 0, "dataset": "coco", "caption_file": p["coco_json"],
+               "image_dir": p["coco_dir"], "batch_size": 4, "use_pallas_attention": setting}
+        path = tmp_path / f"{key}.json"
+        path.write_text(json.dumps(cfg))
+        monkeypatch.setattr(sys, "argv", ["eval_retrieval", "--cfg", str(path)])
+        A.fused_attention_qkv.launches = A.fused_attention_qkv_headgrid.launches = 0
+        run("retrieval", eval_retrieval.evaluate)
+        metrics[key] = json.loads(capsys.readouterr().out)
+        launched = A.fused_attention_qkv.launches + A.fused_attention_qkv_headgrid.launches
+        assert (launched == 0) == (not setting)
+        assert layers._resolve_attention() == "kernel"
+    assert metrics["plain"]["num_images"] == metrics["kernel"]["num_images"] == 4

@@ -8,6 +8,7 @@ ViT-B/32, int8 serving, the zero-shot evals, and the bench entry point and
 component bench.
 
     python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --only k1   # device, build and K1's kernel checks
     python3 chip_smoke.py --only k2   # device, build and K2's kernel checks
 
 Phases, each printing JSON lines:
@@ -15,7 +16,7 @@ Phases, each printing JSON lines:
   1. device   the card's name; needs `torch.cuda.is_available()`
   2. build    compiles every kernel source in `clip_event_tpu_torch/csrc/`,
               one nvcc each, all started together; the tensor-core attention
-              kernels must not spill (`-Xptxas -v`)
+              kernels (K1's and K2's) must not spill (`-Xptxas -v`)
   3. kernels  each kernel against its plain PyTorch version at the shapes
               the paths give it and at edge shapes, fp32 and bf16, and its
               time beside the plain version's, one PyTorch library call's and
@@ -23,15 +24,16 @@ Phases, each printing JSON lines:
               (K1-fwd, K2-fwd) are held at max abs error 1e-5 (fp32) / 2e-2
               (bf16); the backwards (K1-bwd, K2-bwd) at max|kernel − plain| /
               max|plain| ≤ 1e-5 (fp32) / 1e-2 (bf16); the IPOT solver (K3)
-              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32). K2 has two
-              variants, "mma" (bf16 on the tensor cores) and "simt" (fp32):
-              every K2 row says which, the Python rule and both libraries'
-              rule must agree, and the mma rows are also held at forward
-              ≤ 1e-2 of max|plain| and, against the plain versions that
-              round where the kernel rounds, at ≤ 8e-3 (worst) and 5e-4
-              (mean) of max|plain|; the backward through autograd's saved
-              residuals and on a second run gives equal bits; a misaligned
-              qkv view is refused
+              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32). K1 and K2
+              each have two variants, "mma" (bf16 on the tensor cores) and
+              "simt" (fp32, and bf16 with another head_dim): every K1 and
+              K2 row says which, the Python rule and both libraries' rule
+              must agree, and the mma rows are also held at forward ≤ 1e-2
+              of max|plain| and, against the plain versions that round
+              where the kernel rounds, at ≤ 8e-3 (worst) and 5e-4 (mean) of
+              max|plain|; the backward through autograd's saved residuals
+              and on a second run gives equal bits; a misaligned qkv view
+              is refused
   4. serving  full-width ViT-B/32 from seed 0 (12 + 12 layers): embed_stream
               over 256 images and 256 token rows into shards and a manifest,
               in fp32 and in bf16, then evaluate_matching; the launch counts
@@ -43,8 +45,11 @@ Phases, each printing JSON lines:
               descriptions (1 positive, 2 hard negatives) of 77 tokens, bf16,
               full remat, Adam at lr 1e-6; the launch counts of that run,
               contrastive pairs/s, step ms and peak memory; a kernel step
-              against a plain-attention step from one state and batch (bf16
-              at B=384 and fp32 at B=64); a profile of one step
+              against plain-attention steps from one state and batch (bf16
+              at B=384: loss and grad_norm 1e-3 against the plain step with
+              the kernels' roundings, 2^-8 relative against the fp32-P
+              one; fp32 at B=64); the step with the plain attention
+              beside the kernel-path step in turns; a profile of one step
   6. serving_l14  full-width ViT-L/14 from seed 0 (24 + 12 layers; vision
               S=257 through K2, text through K1): embed_stream over 128
               images and 128 token rows at batch 64, fp32 and bf16; launch
@@ -96,10 +101,12 @@ Phases, each printing JSON lines:
               `use_pallas_ln: true`: exact launch counts of K1 and of K4a,
               K4b and K4c in every residual block (twice each under remat),
               loss near chance, moved params, the LayerNorm choice put back;
-              a bf16 step with all kernels against the all-plain step (loss,
-              grad_norm 1e-3) and an fp32 step (loss and every gradient
-              2e-5); a profile of one step; pairs/s and step ms beside phase
-              5's from the same run; then ViT-L/14 steps (64 x 3) with the
+              a bf16 step with all kernels against the all-plain steps (as
+              phase 5) and an fp32 step (loss and every gradient
+              2e-5); the step with the plain attention beside the
+              kernel-path step in turns; a profile of one step; pairs/s and
+              step ms beside phase 5's from the same run; then ViT-L/14
+              steps (64 x 3) with the
               LayerNorm kernels on and off, counted, and a bf16
               kernel-vs-plain step there (W = 1024, K2 beside K4)
   5c. serving_ln  one ViT-B/32 image batch and one text batch of 64 under
@@ -141,6 +148,7 @@ exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -188,9 +196,11 @@ from clip_event_tpu_torch.ops.attention import (
     KERNEL,
     MAX_SEQ,
     MEGA_KERNEL,
+    MMA_HEAD_DIMS,
     fused_attention_qkv,
     fused_attention_qkv_bwd,
     fused_attention_qkv_bwd_plain,
+    fused_attention_qkv_fwd,
     fused_attention_qkv_headgrid,
     fused_attention_qkv_headgrid_bwd,
     fused_attention_qkv_headgrid_fwd,
@@ -198,6 +208,7 @@ from clip_event_tpu_torch.ops.attention import (
     fused_ln_qkv_attention,
     fused_ln_qkv_attention_plain,
     headgrid_variant,
+    k1_variant,
     library_variant,
 )
 from clip_event_tpu_torch.tools import bench_components
@@ -211,7 +222,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_INT8_OPS = 1979e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # forward: max abs error
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # backward: error relative to max|plain|
-# K2's tensor-core ("mma") variant, bf16: the forward also relative to
+# K1's and K2's tensor-core ("mma") variants, bf16: the forward also relative to
 # max|plain| (2e-2 absolute is weak where outputs are ~0.1), and forward and
 # backward against the plain versions that round where the kernel rounds
 # (`mma_rounding=True`): one bf16 ulp of the largest result, which is up to
@@ -256,6 +267,23 @@ EDGE_SHAPES = [
     ("edge_nobias", 3, 13, 128, 2, False),
     ("edge_s128_d128", 2, 128, 256, 2, True),
     ("edge_b1_s1", 1, 1, 64, 1, False),
+    # the tile edges of K1's tensor-core variant (16 query rows a warp,
+    # ceil(S/16) warps, 16-key chunks): S = 16 (one warp), 17 (one row
+    # past it), 64, 65, 127 and 128 (eight warps), some with a bias;
+    # head_dim 16 and 32; more (b, h) blocks than a grid's y or z
+    # dimension holds (72,000); and bf16 with a head_dim the mma variant
+    # does not take (simt)
+    ("edge_s16_causal", 3, 16, 256, 4, True),
+    ("edge_s17", 3, 17, 256, 4, False),
+    ("edge_s64", 2, 64, 256, 4, False),
+    ("edge_s65_causal", 2, 65, 256, 4, True),
+    ("edge_s127_causal", 2, 127, 256, 4, True),
+    ("edge_s128", 2, 128, 256, 4, False),
+    ("edge_s1_d16", 2, 1, 64, 4, False),
+    ("edge_d16_causal", 3, 77, 128, 8, True),
+    ("edge_d32", 3, 50, 256, 8, False),
+    ("edge_blocks_d16", 9000, 20, 128, 8, False),
+    ("edge_d40_causal", 2, 33, 80, 2, True),
 ]
 # K2: the vision towers of ViT-L/14 (train and serving batch 64) and
 # ViT-B/16 (train batch 96, serving batch 64), and edge shapes: S=129 (the
@@ -366,13 +394,16 @@ KERNEL_FAMILIES = (
 TRAIN_BATCH, NUM_POS, NUM_NEG = 384, 1, 2
 FP32_CHECK_BATCH = 64  # the fp32 kernel-vs-plain step
 # kernel step vs plain-attention step: bf16 loss (abs) and grad_norm (rel);
-# fp32 loss (abs) and each gradient tensor (rel. to its max). Where both
-# sides keep an fp32 softmax (K1): measured 0 and ~2e-6 on the H100, so 10x
-# that margin. K2's tensor-core variant rounds P and dS to bf16, which the
-# plain step does not: its phases (ViT-L/14, ViT-B/16) state their own
-# tolerance
+# fp32 loss (abs) and each gradient tensor (rel. to its max). fp32: both
+# sides keep an fp32 softmax (the CUDA-core kernels): measured 0 and ~2e-6
+# on the H100, so 10x that margin. bf16: the tensor-core variants of K1 and
+# K2 round P and dS to bf16, so the kernel step is held at 1e-3 against the
+# plain step that rounds where they round (impl "rounded"), and against the
+# fp32-P plain step at one bf16 rounding, u = 2^-8, relative to the value
+# (to max(1, |loss|) for a loss): every attention product's operand carries
+# one such rounding (PERF.md §2)
 BF16_STEP_TOL = 1e-3
-BF16_STEP_TOL_K2 = 1e-3
+BF16_ROUNDING_TOL = 2 ** -8
 FP32_STEP_TOL = 2e-5
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # ViT-L/14 (bench.py's L/14 workload) and ViT-B/16 (its bench batch)
@@ -467,7 +498,7 @@ def library_fwd(qkv, bias, H, scale):
 
 
 def check_against_rounded(row, got, rounded, ref_max, what):
-    """K2's mma variant against the plain version that rounds where it
+    """An mma variant (K1's or K2's) against the plain version that rounds where it
     rounds: the worst and the mean error, relative to max|plain|."""
     diff = (got.float() - rounded.float()).abs()
     row["max_rel_err_vs_rounded_plain"] = diff.max().item() / ref_max
@@ -481,28 +512,40 @@ def check_against_rounded(row, got, rounded, ref_max, what):
           f"{MMA_ROUNDED_MEAN_TOL}")
 
 
-def check_attention(rows, errs, names, fns, gen, tag, B, S, W, H, causal, dtype, timed):
-    """One attention kernel pair (forward, backward) against its plain
+# one attention kernel pair: its counter names, autograd entry point,
+# backward, forward with lse, variant rule, and the path shape where two
+# backward runs must give equal bits
+AttentionKernels = collections.namedtuple(
+    "AttentionKernels", "names fn bwd fwd_lse variant deterministic_at")
+K1 = AttentionKernels((KERNEL, BWD_KERNEL), fused_attention_qkv, fused_attention_qkv_bwd,
+                      fused_attention_qkv_fwd, k1_variant, "train_text")
+K2 = AttentionKernels((HG_KERNEL, HG_BWD_KERNEL), fused_attention_qkv_headgrid,
+                      fused_attention_qkv_headgrid_bwd, fused_attention_qkv_headgrid_fwd,
+                      headgrid_variant, "l14_vision")
+
+
+def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
+    """One attention kernel pair `k` (forward, backward) against its plain
     versions at one shape and dtype; times, bound and library time when
     `timed`. Rows and the worst errors go under the kernels' names."""
-    fwd_name, bwd_name = names
-    fwd, bwd = fns
+    fwd_name, bwd_name = k.names
+    fwd, bwd = k.fn, k.bwd
     name = str(dtype).split(".")[-1]
     qkv = torch.randn((B, S, 3 * W), device="cuda", generator=gen).to(dtype)
     do = torch.randn((B, S, W), device="cuda", generator=gen).to(dtype)
     bias = causal_mask(S, device="cuda") if causal else None
     scale = (W // H) ** -0.5
     iters = 20 if B > 64 or S > 128 else 50
-    shape = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "causal": causal, "dtype": name}
-    variant = None
-    if fwd_name == HG_KERNEL:
-        # the Python rule and both libraries' rule pick one variant
-        variant = headgrid_variant(dtype, W // H)
-        check(library_variant(HG_KERNEL, dtype, W // H) == variant
-              and library_variant(HG_BWD_KERNEL, dtype, W // H) == variant,
-              f"{fwd_name} {tag} {name}: the libraries' variant differs from {variant}")
-        check(variant == ("mma" if name == "bfloat16" else "simt"), f"{fwd_name} {tag} {name}: variant {variant}")
-        shape["variant"] = variant
+    # the Python rule and both libraries' rule pick one variant; the path
+    # shapes' bf16 takes the tensor cores
+    variant = k.variant(dtype, W // H)
+    check(library_variant(fwd_name, dtype, W // H) == variant
+          and library_variant(bwd_name, dtype, W // H) == variant,
+          f"{fwd_name} {tag} {name}: the libraries' variant differs from {variant}")
+    check(variant == ("mma" if name == "bfloat16" and W // H in MMA_HEAD_DIMS else "simt"),
+          f"{fwd_name} {tag} {name}: variant {variant}")
+    shape = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "causal": causal, "dtype": name,
+             "variant": variant}
 
     out = fwd(qkv, bias, H, scale)
     ref = fused_attention_qkv_plain(qkv, bias, H, scale)
@@ -551,15 +594,15 @@ def check_attention(rows, errs, names, fns, gen, tag, B, S, W, H, causal, dtype,
         # saved and the backward reads them: the same bits as the direct
         # call, which runs the forward kernel for them first
         leaf = qkv.detach().requires_grad_(True)
-        (via_autograd,) = torch.autograd.grad(fused_attention_qkv_headgrid(leaf, bias, H, scale), leaf, do)
+        (via_autograd,) = torch.autograd.grad(fwd(leaf, bias, H, scale), leaf, do)
         check(torch.equal(via_autograd, dq), f"{bwd_name} {tag} {name}: saved residuals change the bits")
         del leaf, via_autograd
         if timed:
-            saved_out, lse = fused_attention_qkv_headgrid_fwd(qkv, bias, H, scale, with_lse=True)
+            saved_out, lse = k.fwd_lse(qkv, bias, H, scale, with_lse=True)
             row["ms_with_saved_residuals"] = cuda_ms(
                 lambda: bwd(qkv, bias, do, H, scale, out=saved_out, lse=lse), iters)
             del saved_out, lse
-        if tag == "l14_vision":
+        if tag == k.deterministic_at:
             # no atomics: the same bits on every run
             again = bwd(qkv, bias, do, H, scale)
             check(torch.equal(again, dq), f"{bwd_name} {tag} {name}: two runs differ")
@@ -887,51 +930,55 @@ def check_mega(rows, errs, gen, tag, B, S, W, H, causal, dtype, timed):
     emit({"phase": "kernel_check", "kernel": MEGA_KERNEL, **row})
 
 
-def check_misaligned_view():
-    """K2's mma variant copies 16 bytes at a time: a contiguous bf16 view
+def check_misaligned_view(k, B, S, W, H):
+    """The mma variants copy 16 bytes at a time: a contiguous bf16 view
     whose storage offset leaves it 2 bytes past a boundary is refused by
-    the wrapper, forward and backward, before anything launches; its clone
-    runs."""
-    B, S, W, H = 2, 130, 256, 4
+    the wrapper of `k`, forward and backward, before anything launches; its
+    clone runs."""
     flat = torch.randn(B * S * 3 * W + 1, device="cuda").to(torch.bfloat16)
     qkv = flat[1:].view(B, S, 3 * W)
     do = torch.randn((B, S, W), device="cuda").to(torch.bfloat16)
     check(qkv.is_contiguous() and qkv.data_ptr() % 16 != 0, "the view is contiguous and misaligned")
+    check(k.variant(qkv.dtype, W // H) == "mma", "the misaligned view takes the mma variant")
     before = read_launches()
-    for what, call in (("forward", lambda: fused_attention_qkv_headgrid(qkv, None, H, 0.125)),
-                       ("backward", lambda: fused_attention_qkv_headgrid_bwd(qkv, None, do, H, 0.125))):
+    for what, call in (("forward", lambda: k.fn(qkv, None, H, 0.125)),
+                       ("backward", lambda: k.bwd(qkv, None, do, H, 0.125))):
         try:
             call()
         except ValueError as e:
             check("aligned to 16 bytes" in str(e), f"misaligned {what}: {e}")
         else:
-            raise RuntimeError(f"check failed: K2 {what} took a misaligned qkv")
+            raise RuntimeError(f"check failed: {k.names[0]} {what} took a misaligned qkv")
     check(read_launches() == before, "a refused call launches nothing")
-    out = fused_attention_qkv_headgrid(qkv.clone(), None, H, 0.125)
+    out = k.fn(qkv.clone(), None, H, 0.125)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "the aligned clone runs")
-    emit({"phase": "kernel_check", "kernel": HG_KERNEL, "shape": "hg_misaligned_view", "refused": True})
+    emit({"phase": "kernel_check", "kernel": k.names[0], "shape": "misaligned_view", "refused": True})
+
+
+def check_k1(rows, errs, gen):
+    """K1's two variants, forward and backward, at the path and edge shapes."""
+    timed = {"text", "vision", "train_text", "train_vision"} | {t[0] for t in NEW_K1_SHAPES}
+    for tag, B, S, W, H, causal in SERVING_SHAPES + TRAIN_SHAPES + NEW_K1_SHAPES + EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_attention(rows, errs, K1, gen, tag, B, S, W, H, causal, dtype, tag in timed)
+    check_misaligned_view(K1, 2, 77, 512, 8)
 
 
 def check_k2(rows, errs, gen):
     """K2's two variants, forward and backward, at the path and edge shapes."""
-    k2 = ((HG_KERNEL, HG_BWD_KERNEL), (fused_attention_qkv_headgrid, fused_attention_qkv_headgrid_bwd))
     timed = {t[0] for t in HG_SHAPES}
     for tag, B, S, W, H, causal in HG_SHAPES + HG_EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            check_attention(rows, errs, *k2, gen, tag, B, S, W, H, causal, dtype, tag in timed)
-    check_misaligned_view()
+            check_attention(rows, errs, K2, gen, tag, B, S, W, H, causal, dtype, tag in timed)
+    check_misaligned_view(K2, 2, 130, 256, 4)
 
 
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {name: [] for name in COUNTERS}
     errs = {name: {} for name in COUNTERS}
-    k1 = ((KERNEL, BWD_KERNEL), (fused_attention_qkv, fused_attention_qkv_bwd))
-    timed = {"text", "vision", "train_text", "train_vision"} | {t[0] for t in NEW_K1_SHAPES}
-    for tag, B, S, W, H, causal in SERVING_SHAPES + TRAIN_SHAPES + NEW_K1_SHAPES + EDGE_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            check_attention(rows, errs, *k1, gen, tag, B, S, W, H, causal, dtype, tag in timed)
+    check_k1(rows, errs, gen)
     check_k2(rows, errs, gen)
     for shape in OT_SHAPES:
         check_ipot(rows, errs, gen, *shape)
@@ -1525,11 +1572,19 @@ def _chunks(nodes, requested):
     return next(d for d in range(min(requested, nodes), nodes + 1) if nodes % d == 0)
 
 
+def k1_bwd_launches(width, heads):
+    """Launches of one bf16 K1 backward call (the train steps' dtype) in a
+    tower of that width: per variant."""
+    return BWD_LAUNCHES_PER_CALL[k1_variant(torch.bfloat16, width // heads)]
+
+
 def train_launches(mcfg, steps, alignment=False, fused_ln=False):
-    """Launches per kernel for `steps` train steps under full remat. Each
-    block's attention forward runs twice (forward, block recompute) and its
-    backward once (BWD_LAUNCHES_PER_CALL launches; K2:
-    HG_BWD_LAUNCHES_PER_CALL). With `fused_ln`
+    """Launches per kernel for `steps` bf16 train steps under full remat.
+    Each block's attention forward runs twice (forward, block recompute)
+    and its backward once (K1: `k1_bwd_launches`, one on the tensor-core
+    variant; K2: HG_BWD_LAUNCHES_PER_CALL); the recompute saves the output
+    and log-sum-exp the backward reads, so no backward runs a forward of
+    its own. With `fused_ln`
     (`use_pallas_ln`) each block also runs K4a (`ln_1`) and K4b (the
     mid-block add + `ln_2`) twice and K4c twice (once per LayerNorm,
     ln.BWD_LAUNCHES_PER_CALL launches each). With alignment the crop
@@ -1540,17 +1595,21 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False):
     IPOT solve per step (tests/test_torch_ot_train.py pins the rule on the
     CPU)."""
     vis_f, vis_b = vision_kernels(mcfg)
-    vis_bwd_launches = HG_BWD_LAUNCHES_PER_CALL if vis_b == HG_BWD_KERNEL else BWD_LAUNCHES_PER_CALL
+    if vis_b == HG_BWD_KERNEL:
+        vis_bwd_launches = HG_BWD_LAUNCHES_PER_CALL
+    else:
+        vis_bwd_launches = k1_bwd_launches(mcfg.vision_width, mcfg.vision_heads)
+    text_bwd_launches = k1_bwd_launches(mcfg.transformer_width, mcfg.transformer_heads)
     Lv, Lt = mcfg.vision_layers, mcfg.transformer_layers
     out = dict.fromkeys(COUNTERS, 0)
     out[vis_f] += 2 * Lv
     out[vis_b] += vis_bwd_launches * Lv
     out[KERNEL] += 2 * Lt
-    out[BWD_KERNEL] += BWD_LAUNCHES_PER_CALL * Lt
+    out[BWD_KERNEL] += text_bwd_launches * Lt
     if alignment:
         for kf, kb, n, L, c in (
                 (vis_f, vis_b, vis_bwd_launches, Lv, _chunks(OT_OBJECTS, OT_CHUNKS)),
-                (KERNEL, BWD_KERNEL, BWD_LAUNCHES_PER_CALL, Lt, _chunks(OT_ENTITIES, OT_CHUNKS))):
+                (KERNEL, BWD_KERNEL, text_bwd_launches, Lt, _chunks(OT_ENTITIES, OT_CHUNKS))):
             out[kf] += (3 if c > 1 else 2) * c * L
             out[kb] += n * c * L
         out[ot.KERNEL] += 1
@@ -1612,16 +1671,17 @@ def _chance(batch, D):
     return math.log(batch * D) + math.log(batch)
 
 
-def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, tol=BF16_STEP_TOL,
-                      **step_kwargs):
-    """One bf16 step on the kernel path and one on the plain path (plain
-    attention, with alignment the plain IPOT solver, and the plain
-    LayerNorm; the kernel path takes the LayerNorm kernels when `fused_ln`)
-    from one state and batch: each of `keys` within `tol` (abs), grad_norm
-    within `tol` (relative)."""
+def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, **step_kwargs):
+    """One bf16 step on the kernel path and two on plain paths (plain
+    attention as it is and with the kernels' roundings, "rounded"; with
+    alignment the plain IPOT solver; the plain LayerNorm; the kernel path
+    takes the LayerNorm kernels when `fused_ln`) from one state and batch:
+    against "rounded", each of `keys` within BF16_STEP_TOL (abs) and
+    grad_norm within BF16_STEP_TOL (relative); against "plain", each within
+    BF16_ROUNDING_TOL relative (of max(1, |plain|) for `keys`)."""
     sched = build_schedule("none", 1e-6, 1)
     metrics = {}
-    for impl in ("kernel", "plain"):
+    for impl in ("kernel", "rounded", "plain"):
         opt = build_optimizer("adam", sched)
         st = create_train_state(params, opt)
         step = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True, impl=impl,
@@ -1630,15 +1690,18 @@ def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, tol=B
             _, m = step(st, batch)
         metrics[impl] = {k: float(v) for k, v in m.items()}
         del st, step
-    out = {"batch": batch["image"].shape[0], "kernel": metrics["kernel"], "plain": metrics["plain"],
-           "tol": tol}
-    for key in keys:
-        diff = abs(metrics["kernel"][key] - metrics["plain"][key])
-        check(diff <= tol, f"bf16 step: kernel vs plain {key} differs by {diff} > {tol}")
-        out[f"{key}_abs_diff"] = diff
-    dg = abs(metrics["kernel"]["grad_norm"] - metrics["plain"]["grad_norm"]) / metrics["plain"]["grad_norm"]
-    check(dg <= tol, f"bf16 step: kernel vs plain grad_norm differs by {dg} (relative) > {tol}")
-    out["grad_norm_rel_diff"] = dg
+    out = {"batch": batch["image"].shape[0], **metrics, "tol": BF16_STEP_TOL,
+           "rounding_tol": BF16_ROUNDING_TOL}
+    kernel = metrics["kernel"]
+    for ref, tol in (("rounded", BF16_STEP_TOL), ("plain", BF16_ROUNDING_TOL)):
+        for key in keys:
+            diff = abs(kernel[key] - metrics[ref][key])
+            bound = tol if ref == "rounded" else tol * max(1.0, abs(metrics[ref][key]))
+            check(diff <= bound, f"bf16 step: kernel vs {ref} {key} differs by {diff} > {bound}")
+            out[f"{key}_abs_diff_vs_{ref}"] = diff
+        dg = abs(kernel["grad_norm"] - metrics[ref]["grad_norm"]) / metrics[ref]["grad_norm"]
+        check(dg <= tol, f"bf16 step: kernel vs {ref} grad_norm differs by {dg} (relative) > {tol}")
+        out[f"grad_norm_rel_diff_vs_{ref}"] = dg
     return out
 
 
@@ -1665,23 +1728,25 @@ def compare_fp32_grads(mcfg, params, batch, fused_ln=False, **loss_kwargs):
     return {"batch": batch["image"].shape[0], "loss_abs_diff": dl, "max_grad_rel_diff": worst}
 
 
-def step_ms_in_turns(mcfg, params, batch):
+def step_ms_in_turns(mcfg, params, batch, fused_ln=False):
     """One bf16 train step with its batch on the card, timed in turns
     (kernel, plain, plain, kernel attention; host clock around a
     synchronised step, after one warm-up step of each): the plain-attention
-    step beside the kernel-path step within one run."""
+    step beside the kernel-path step within one run, both with the
+    LayerNorm kernels when `fused_ln`."""
     opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
     steps, states, ms = {}, {}, {"kernel": [], "plain": []}
-    for impl in ("kernel", "plain"):
-        states[impl] = create_train_state(params, opt)
-        steps[impl] = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True, impl=impl)
-        steps[impl](states[impl], batch)
-    for impl in ("kernel", "plain", "plain", "kernel"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        steps[impl](states[impl], batch)
-        torch.cuda.synchronize()
-        ms[impl].append((time.perf_counter() - t0) * 1e3)
+    with layers.ln_impl("pallas" if fused_ln else "xla"):
+        for impl in ("kernel", "plain"):
+            states[impl] = create_train_state(params, opt)
+            steps[impl] = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True, impl=impl)
+            steps[impl](states[impl], batch)
+        for impl in ("kernel", "plain", "plain", "kernel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[impl](states[impl], batch)
+            torch.cuda.synchronize()
+            ms[impl].append((time.perf_counter() - t0) * 1e3)
     del steps, states
     torch.cuda.empty_cache()
     return ms
@@ -1748,8 +1813,10 @@ def phase_train(out_root):
         "bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, TRAIN_BATCH)),
         "float32": compare_fp32_grads(mcfg, params, _device_batch(ds, FP32_CHECK_BATCH)),
     }
+    turns = step_ms_in_turns(mcfg, params, _device_batch(ds, TRAIN_BATCH))
     prof = profile_step(mcfg, params, _device_batch(ds, TRAIN_BATCH), run["mean_ms"])
-    _train_report("train", "ViT-B/32", run, TRAIN_BATCH, D, init_s, kernel_vs_plain=compare)
+    _train_report("train", "ViT-B/32", run, TRAIN_BATCH, D, init_s, kernel_vs_plain=compare,
+                  kernel_attention_step_ms=turns["kernel"], plain_attention_step_ms=turns["plain"])
     emit({"phase": "train_profile", **prof})
     return run["launches"], run["mean_ms"], prof
 
@@ -1778,6 +1845,7 @@ def phase_train_ln(out_root, plain_ln_ms, plain_ln_prof):
         "bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, TRAIN_BATCH), fused_ln=True),
         "float32": compare_fp32_grads(mcfg, params, _device_batch(ds, FP32_CHECK_BATCH), fused_ln=True),
     }
+    turns = step_ms_in_turns(mcfg, params, _device_batch(ds, TRAIN_BATCH), fused_ln=True)
     prof = profile_step(mcfg, params, _device_batch(ds, TRAIN_BATCH), run["mean_ms"], fused_ln=True)
     pairs = TRAIN_BATCH * D
 
@@ -1792,6 +1860,7 @@ def phase_train_ln(out_root, plain_ln_ms, plain_ln_prof):
                       "elementwise_reduction_copy_share_of_busy": non_gemm_share(plain_ln_prof),
                       "device_busy_ms": plain_ln_prof.get("device_busy_ms")},
                   step_ms_ratio_to_plain_ln=run["mean_ms"] / plain_ln_ms,
+                  kernel_attention_step_ms=turns["kernel"], plain_attention_step_ms=turns["plain"],
                   elementwise_reduction_copy_share_of_busy=non_gemm_share(prof))
     emit({"phase": "train_ln_profile", **prof})
     del params, ds
@@ -1824,7 +1893,7 @@ def phase_train_ln(out_root, plain_ln_ms, plain_ln_prof):
     check(all(math.isfinite(v) and abs(v - _chance(L14_BATCH, D)) < 0.5 for v in losses),
           f"L/14 step losses {losses} vs chance {_chance(L14_BATCH, D)}")
     del state, step
-    compare = compare_bf16_step(mcfg, params, batch, fused_ln=True, tol=BF16_STEP_TOL_K2)
+    compare = compare_bf16_step(mcfg, params, batch, fused_ln=True)
     emit({"phase": "train_ln_l14", "model": "ViT-L/14", "batch_images": L14_BATCH,
           "descriptions_per_image": D, "losses": losses, "chance": _chance(L14_BATCH, D),
           "step_wall_s": walls, "launches": l14, "expected": train_launches(mcfg, 1, fused_ln=True),
@@ -1952,10 +2021,10 @@ def phase_bench_tools():
     L = VIT_B32.transformer_layers + VIT_B32.vision_layers
     runs = 1 + bench_components.STEPS  # the warm-up call and the timed ones
     # ln: three variants of the stack gradient under remat, K1 in each (its
-    # backward too), K4 in one; megakernel: K1 in the unfused forward, K6 in
-    # the fused one
+    # bf16 backward too, at head_dim 64), K4 in one; megakernel: K1 in the
+    # unfused forward, K6 in the fused one
     expected = {**dict.fromkeys(COUNTERS, 0),
-                KERNEL: (3 * 2 + 1) * L * runs, BWD_KERNEL: 3 * BWD_LAUNCHES_PER_CALL * L * runs,
+                KERNEL: (3 * 2 + 1) * L * runs, BWD_KERNEL: 3 * k1_bwd_launches(64, 1) * L * runs,
                 ln.KERNEL: 2 * L * runs, ADD_LN_KERNEL: 2 * L * runs,
                 ln.BWD_KERNEL: 2 * ln.BWD_LAUNCHES_PER_CALL * L * runs, MEGA_KERNEL: L * runs}
     check(launches == expected, f"bench_components launches {launches} != {expected}")
@@ -1983,8 +2052,7 @@ def phase_train_l14(out_root):
     check(abs(first - _chance(L14_BATCH, D)) < 0.5,
           f"L/14 first loss {first} vs chance {_chance(L14_BATCH, D)}")
     del run["state"]
-    compare = {"bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, L14_BATCH),
-                                             tol=BF16_STEP_TOL_K2)}
+    compare = {"bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, L14_BATCH))}
     turns = step_ms_in_turns(mcfg, params, _device_batch(ds, L14_BATCH))
     prof = profile_step(mcfg, params, _device_batch(ds, L14_BATCH), run["mean_ms"])
     _train_report("train_l14", "ViT-L/14", run, L14_BATCH, D, init_s, remat_note=(
@@ -2014,7 +2082,7 @@ def phase_train_l14(out_root):
     check(b16 == expected, f"B/16 step launches {b16} != {expected}")
     check(math.isfinite(loss), f"B/16 step loss {loss}")
     del state, step
-    compare = {"bfloat16": compare_bf16_step(mcfg, params, batch, tol=BF16_STEP_TOL_K2)}
+    compare = {"bfloat16": compare_bf16_step(mcfg, params, batch)}
     turns = step_ms_in_turns(mcfg, params, batch)
     emit({"phase": "train_b16", "model": "ViT-B/16", "batch_images": B16_BATCH,
           "descriptions_per_image": D, "loss": loss, "chance": _chance(B16_BATCH, D),
@@ -2132,13 +2200,13 @@ def ptxas_spills(log: str, needle: str) -> dict:
 
 
 def main(argv=None) -> int:
-    """No arguments: every phase. `--only k2`: the device and build phases
-    and K2's kernel checks alone (the quick look after an edit to K2), with
-    a last line that says so."""
+    """No arguments: every phase. `--only k1` / `--only k2`: the device and
+    build phases and that kernel's checks alone (the quick look after an
+    edit to it), with a last line that says so."""
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=("k2",), default=None)
+    parser.add_argument("--only", choices=("k1", "k2"), default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2159,20 +2227,22 @@ def main(argv=None) -> int:
              for name in sources}
     # the tensor-core kernels keep their tiles' accumulators in registers:
     # a spill would send them to local memory
-    spills = {name: ptxas_spills(_build.BUILD_LOGS.get(name, ""), "_mma") for name in (HG_KERNEL, HG_BWD_KERNEL)}
+    spills = {name: ptxas_spills(_build.BUILD_LOGS.get(name, ""), "_mma")
+              for name in (KERNEL, BWD_KERNEL, HG_KERNEL, HG_BWD_KERNEL)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds, "ptxas": ptxas,
           "mma_kernel_spill_bytes": spills})
     for name, by_kernel in spills.items():
         check(seconds[name] == 0.0 or by_kernel, f"{name}: no mma kernel in the ptxas log")
         check(not any(by_kernel.values()), f"{name}: an mma kernel spills: {by_kernel}")
 
-    if args.only == "k2":
+    if args.only:
         rows = {name: [] for name in COUNTERS}
         errs = {name: {} for name in COUNTERS}
-        check_k2(rows, errs, torch.Generator(device="cuda").manual_seed(0))
+        checks = {"k1": check_k1, "k2": check_k2}[args.only]
+        checks(rows, errs, torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
         print(smi, flush=True)
-        emit({"ok": True, "only": "k2", "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        emit({"ok": True, "only": args.only, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                   "count": torch.cuda.device_count()}})
         return 0
 
@@ -2211,9 +2281,8 @@ def main(argv=None) -> int:
         return next(r for r in rows[name] if r["shape"] == shape and r["dtype"] == dtype
                     and r.get("mode") in (mode, None) and r.get("variant") in (variant, None))
 
-    # top-level numbers: K1's forward at the serving text shape in fp32 (the
-    # CLI's dtype); the backwards and K2's forward at a train step's shape
-    # in bf16 (the training dtype); K3 at finetune_ot's shape; K5 at L/14's
+    # top-level numbers: the attention kernels at a train step's shape in
+    # bf16 (the training dtype; the tensor-core variants); K3 at finetune_ot's shape; K5 at L/14's
     # MLP fc in fp32, dynamic (the CLI's "int8"); K4 at the ViT-B/32 train
     # step's text shape in bf16; K6 at the component bench's text shape in
     # bf16; by_shape holds every timed shape in both dtypes (and K5's two
@@ -2222,10 +2291,11 @@ def main(argv=None) -> int:
         check(sum(counts[name] for counts in paths.values()) > 0, f"{name} launched on the main paths")
     emit({"kernels": [
         entry(KERNEL, "clip_event_tpu_torch/csrc/attention_fwd.cu",
-              "clip_event_tpu/ops/attention_pallas.py:93", TOL, head(KERNEL, "text", "float32")),
+              "clip_event_tpu/ops/attention_pallas.py:93", TOL,
+              head(KERNEL, "train_text", "bfloat16", variant="mma")),
         entry(BWD_KERNEL, "clip_event_tpu_torch/csrc/attention_bwd.cu",
               "clip_event_tpu/ops/attention_pallas.py:101", BWD_TOL,
-              head(BWD_KERNEL, "train_text", "bfloat16")),
+              head(BWD_KERNEL, "train_text", "bfloat16", variant="mma")),
         entry(HG_KERNEL, "clip_event_tpu_torch/csrc/attention_hg_fwd.cu",
               "clip_event_tpu/ops/attention_pallas.py:410", TOL,
               head(HG_KERNEL, "l14_vision", "bfloat16", variant="mma")),

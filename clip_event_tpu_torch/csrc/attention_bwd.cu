@@ -1,4 +1,5 @@
-// Multi-head attention backward over the packed QKV projection, for sm_90a.
+// Multi-head attention backward over the packed QKV projection, for sm_90a
+// (K1).
 //
 // Replaces the backward Pallas kernel of
 // clip_event_tpu/ops/attention_pallas.py::fused_attention_qkv
@@ -6,22 +7,63 @@
 //
 //   qkv   [B, S, 3W]  fp32 or bf16, contiguous; q lanes [0, W), k [W, 2W),
 //                     v [2W, 3W), head h at [h*D, (h+1)*D) within each
-//   bias  [S, S]      fp32 additive mask, or null (it gets no gradient)
+//   bias  [S, S]      fp32 additive mask (may hold -inf), or null (it gets
+//                     no gradient)
 //   do    [B, S, W]   the output's cotangent, qkv's dtype
+//   out   [B, S, W]   the forward's output and
+//   lse   [B, H, S]   its fp32 row log-sum-exp (natural log): read by the
+//                     tensor-core variant only
 //   dqkv  [B, S, 3W]  written once, packed like qkv, in qkv's dtype
-//   stats [3, B, H, S] fp32 scratch: the softmax row max m, row sum l and
-//                     delta = rowsum(dP o P) of every query row
+//   stats [3, B, H, S] fp32 scratch of the CUDA-core variant: the softmax
+//                     row max m, row sum l and delta = rowsum(dP o P) of
+//                     every query row (null for the tensor-core variant)
 //
-// The math is _bwd_kernel's, every product and sum in fp32:
+// The math is _bwd_kernel's:
 //   P  = softmax(q*scale . k^T + bias)     (recomputed, never stored)
-//   dV = P^T . dO        dP = dO . V^T      dS = P o (dP - rowsum(dP o P))
+//   dV = P^T . dO        dP = dO . V^T      dS = P o (dP - delta)
 //   dQ = dS . K * scale  dK = dS^T . Q * scale
 //
-// Design. One (batch item, head) needs q, k, v and dO staged to form dQ and
-// dK/dV together; at S = D = 128 in fp32 that is 4*128*129*4 B = 264 KB,
-// more than the 227 KB a block may use. So the work is split in two
-// launches, as FlashAttention-2 splits its backward, each staging two of
-// the four [S, D] tiles:
+// What bounds it: at the training shapes (text S=77 D=64, vision S=50
+// D=64) the work is 10*B*H*S^2*D flops against B*S*7W elements moved, a
+// few flops per byte, so the memory rate is the card's floor (0.1898 ms at
+// the B/32 train step's text call, B=1152, on the NVIDIA H100 80GB HBM3).
+//
+// Two hand-written variants, chosen by dtype and head_dim alone
+// (`clip_attention_variant`, the forward's rule). In both, each (b, h)
+// owns its dq/dk/dv slices: no atomics, the same bits on every run. q, k,
+// v and dO are read by stride straight out of the packed rows; nothing is
+// split, transposed or copied on the host.
+//
+// "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores
+// (mma.sync.m16n8k16 bf16, fp32 accumulators; helpers in attention_mma.cuh,
+// shared with K2). The forward left each row's log-sum-exp and the output,
+// so nothing of the forward is recomputed but the scores: P = exp2(s - lse)
+// directly. At S <= 128 all four [S, D] tiles fit one block (4 x 128 x 72
+// x 2 B = 73.7 KB at D = 64, 139 KB at D = 128), so ONE launch, one block
+// per (b, h), reads qkv and dO once:
+//   * Q, K, V and dO are staged bf16 by cp.async into padded tiles; while
+//     they fly each warp forms delta = rowsum(dO o O) and takes lse (in
+//     log2 units) for its 16 query rows, into shared memory.
+//   * dQ: ceil(S/16) warps, each owning 16 query rows. Per 16-key chunk
+//     S = Q.K^T and dP = dO.V^T in fp32, P and dS = P o (dP - delta) in
+//     fp32, dS rounded to bf16 in registers as the A operand of dQ += dS.K
+//     (K by ldmatrix.trans). Q and dO fragments stay in registers at
+//     D <= 64 (reloaded per chunk at D = 128). dQ * scale goes straight
+//     from the accumulators to dqkv: every tile row is still read.
+//   * A barrier, then dK and dV: each warp owns 16 key rows and walks the
+//     16-query chunks with the transposed products S^T = K.Q^T and
+//     dP^T = V.dO^T (key rows as M), so P^T and dS^T come out in
+//     accumulator layout and turn in registers into the A operands of
+//     dV += P^T.dO and dK += dS^T.Q; lse and delta are per column there.
+//     dK * scale and dV are staged in the warp's own K and V rows (only
+//     that warp reads them now) and written with 16-byte stores.
+//   Tile rows past S are zero-filled; keys past S get P = 0; query rows
+//   past S carry zero dO, lse = 0 and delta = 0, so they add nothing.
+//
+// "simt": fp32 inputs, and bf16 with another head_dim: two launches,
+// as FlashAttention-2 splits its backward, each staging two of the four
+// [S, D] tiles as fp32 (at S = D = 128 all four in fp32 would need 264 KB,
+// more than a block's 227 KB):
 //   1. dq pass: one block per (b, h) stages K and V. Each warp takes query
 //      rows: it recomputes that row of P with the forward's exact
 //      arithmetic, forms dP and dS for the row in registers, writes the dQ
@@ -30,28 +72,261 @@
 //      the stats. Each warp takes key rows j: it recomputes column j of P
 //      from m and l (bitwise the values of pass 1), forms dS for the
 //      column, and writes the dK and dV rows.
-// Each (b, h) owns its whole dq/dk/dv slice, so there are no atomics and the
-// result is deterministic. q, k, v and dO are read by stride straight out
-// of the packed rows; nothing is split, transposed or copied on the host.
+//   Every product and sum is fp32 on the CUDA cores out of shared memory
+//   (one shared load per operand per FMA), so it is limited by
+//   shared-memory loads, far above the memory floor. fp32 is held to 1e-5
+//   against the plain version, which rules out TF32 or bf16 operands.
 //
-// What bounds it: at the training shapes (text S=77 D=64, vision S=50
-// D=64) the work is 10*B*H*S^2*D flops against B*S*7W elements moved, a
-// few flops per byte, so the memory rate is the card's floor. This simple
-// first version runs the inner products on the CUDA cores out of shared
-// memory (one shared load per operand per FMA), so it is limited by
-// shared-memory loads, far above that floor.
-//
-// Limits, checked by the Python wrapper too: S <= 128, D <= 128.
+// Limits, checked by the Python wrapper too: S <= 128, D <= 128; the mma
+// variant needs 16-byte-aligned qkv, do, out and dqkv.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
 constexpr int kMaxS = 128;
 constexpr int kMaxD = 128;
+
+// ---------------------------------------------------------------- mma
+
+constexpr int kMmaWarps = kMaxS / 16;  // most warps a block takes: 16 rows each
+
+template <int D>
+constexpr size_t bwd_mma_smem_bytes(int rows) {
+  // Q, K, V and dO tiles of `rows` padded rows, lse and delta per row
+  return (size_t)4 * rows * (D + mma::kPad) * sizeof(__nv_bfloat16) + (size_t)2 * rows * sizeof(float);
+}
+
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+attention_bwd_kernel_mma(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const __nv_bfloat16* __restrict__ out, const float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ dqkv, int S, int H, float scale,
+                         float scale_log2e) {
+  using namespace mma;
+  constexpr int kStride = D + kPad;
+  constexpr int kSteps = D / 16;
+  constexpr bool kHold = D <= 64;  // A fragments of the warp's own rows stay in registers
+  constexpr int kHeld = kHold ? kSteps : 1;
+  // held fragments are indexed by the k-step, so that loop unrolls fully;
+  // at D = 128 a shallower unroll keeps the loads from piling up in
+  // registers beside the two 64-register accumulators
+  constexpr int kUnrollKs = kHold ? kSteps : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = blockDim.x / 2;  // 16 per warp: S rounded up to 16
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [rows][D+8]
+  __nv_bfloat16* sK = sQ + rows * kStride;                         // [rows][D+8]
+  __nv_bfloat16* sV = sK + rows * kStride;                         // [rows][D+8]
+  __nv_bfloat16* sG = sV + rows * kStride;                         // [rows][D+8] dO
+  float* sLse = reinterpret_cast<float*>(sG + rows * kStride);     // [rows], log2 units
+  float* sDelta = sLse + rows;                                     // [rows]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int W = H * D;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = 3 * (size_t)W;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * row + h * D;
+  const __nv_bfloat16* gbase = dout + (size_t)b * S * W + h * D;
+  const __nv_bfloat16* obase = out + (size_t)b * S * W + h * D;
+  __nv_bfloat16* dst = dqkv + (size_t)b * S * row + h * D;
+
+  load_warp_rows<D>(sQ, base, row, S, tid, blockDim.x);
+  load_warp_rows<D>(sK, base + W, row, S, tid, blockDim.x);
+  load_warp_rows<D>(sV, base + 2 * W, row, S, tid, blockDim.x);
+  load_warp_rows<D>(sG, gbase, (size_t)W, S, tid, blockDim.x);
+  cp_async_commit();
+
+  // delta = rowsum(dO o O) and lse (in log2 units) of this thread's rows,
+  // while the copies fly; 0 for rows past S
+  const int row_g = warp * 16 + g;  // this thread's query rows: row_g, row_g + 8
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ri = row_g + 8 * r;
+    delta[r] = row_delta<D>(gbase, obase, W, ri, S, t4);
+    lse2[r] = ri < S ? lse[(size_t)bh * S + ri] * kLog2e : 0.f;
+    if (t4 == 0) {
+      sDelta[ri] = delta[r];
+      sLse[ri] = lse2[r];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nc = (S + 15) >> 4;  // 16-row chunks that hold a row below S
+
+  // ---- dQ of the warp's 16 query rows
+  {
+    uint32_t qf[kHeld][4], gf[kHeld][4];
+    if constexpr (kHold) {
+#pragma unroll
+      for (int ks = 0; ks < kHeld; ++ks) {
+        load_a(qf[ks], sQ, kStride, warp * 16, ks * 16, lane);
+        load_a(gf[ks], sG, kStride, warp * 16, ks * 16, lane);
+      }
+    }
+    float dq[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+    for (int kc = 0; kc < nc; ++kc) {
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t kb[4], vb[4];
+        load_b_nk(kb, sK, kStride, kc * 16, ks * 16, lane);
+        load_b_nk(vb, sV, kStride, kc * 16, ks * 16, lane);
+        if constexpr (kHold) {
+          mma_bf16(s[0], qf[ks % kHeld], kb[0], kb[1]);
+          mma_bf16(s[1], qf[ks % kHeld], kb[2], kb[3]);
+          mma_bf16(dp[0], gf[ks % kHeld], vb[0], vb[1]);
+          mma_bf16(dp[1], gf[ks % kHeld], vb[2], vb[3]);
+        } else {
+          uint32_t a[4];
+          load_a(a, sQ, kStride, warp * 16, ks * 16, lane);
+          mma_bf16(s[0], a, kb[0], kb[1]);
+          mma_bf16(s[1], a, kb[2], kb[3]);
+          load_a(a, sG, kStride, warp * 16, ks * 16, lane);
+          mma_bf16(dp[0], a, vb[0], vb[1]);
+          mma_bf16(dp[1], a, vb[2], vb[3]);
+        }
+      }
+      // dS = P o (dP - delta), fp32, then bf16 as the next A operand
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = kc * 16 + n * 8 + 2 * t4 + (e & 1);
+          const float p = prob<HAS_BIAS>(s[n][e], scale_log2e, bias, row_g + 8 * r, col, S, lse2[r]);
+          s[n][e] = p * (dp[n][e] - delta[r]);
+        }
+      }
+      uint32_t da[4];
+      pack_a(da, s[0], s[1]);
+#pragma unroll
+      for (int dn = 0; dn < kSteps; ++dn) {
+        uint32_t kb[4];
+        load_b_kn(kb, sK, kStride, kc * 16, dn * 16, lane);
+        mma_bf16(dq[2 * dn], da, kb[0], kb[1]);
+        mma_bf16(dq[2 * dn + 1], da, kb[2], kb[3]);
+      }
+    }
+    store_frag_rows<D>(dq, scale, dst + (size_t)warp * 16 * row, row, S - warp * 16, lane);
+  }
+  __syncthreads();  // no warp reads K or V rows other than its own from here
+
+  // ---- dK and dV of the warp's 16 key rows
+  const int key_g = warp * 16 + g;  // this thread's key rows: key_g, key_g + 8
+  uint32_t kf[kHeld][4], vf[kHeld][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int ks = 0; ks < kHeld; ++ks) {
+      load_a(kf[ks], sK, kStride, warp * 16, ks * 16, lane);
+      load_a(vf[ks], sV, kStride, warp * 16, ks * 16, lane);
+    }
+  }
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  }
+  for (int qc = 0; qc < nc; ++qc) {
+    // transposed chunks: rows are this warp's keys, columns 16 queries
+    float st[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float dpt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll(kUnrollKs)
+    for (int ks = 0; ks < kSteps; ++ks) {
+      uint32_t qb[4], gb[4];
+      load_b_nk(qb, sQ, kStride, qc * 16, ks * 16, lane);
+      load_b_nk(gb, sG, kStride, qc * 16, ks * 16, lane);
+      if constexpr (kHold) {
+        mma_bf16(st[0], kf[ks % kHeld], qb[0], qb[1]);
+        mma_bf16(st[1], kf[ks % kHeld], qb[2], qb[3]);
+        mma_bf16(dpt[0], vf[ks % kHeld], gb[0], gb[1]);
+        mma_bf16(dpt[1], vf[ks % kHeld], gb[2], gb[3]);
+      } else {
+        uint32_t a[4];
+        load_a(a, sK, kStride, warp * 16, ks * 16, lane);
+        mma_bf16(st[0], a, qb[0], qb[1]);
+        mma_bf16(st[1], a, qb[2], qb[3]);
+        load_a(a, sV, kStride, warp * 16, ks * 16, lane);
+        mma_bf16(dpt[0], a, gb[0], gb[1]);
+        mma_bf16(dpt[1], a, gb[2], gb[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qc * 16 + n * 8 + 2 * t4 + (e & 1);
+        const float p = prob<HAS_BIAS>(st[n][e], scale_log2e, bias, qi, key_g + 8 * (e >> 1), S,
+                                       sLse[qi]);
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - sDelta[qi]);
+      }
+    }
+    uint32_t pa[4], da[4];
+    pack_a(pa, st[0], st[1]);
+    pack_a(da, dpt[0], dpt[1]);
+#pragma unroll
+    for (int dn = 0; dn < kSteps; ++dn) {
+      uint32_t gb[4], qb[4];
+      load_b_kn(gb, sG, kStride, qc * 16, dn * 16, lane);
+      mma_bf16(dv[2 * dn], pa, gb[0], gb[1]);
+      mma_bf16(dv[2 * dn + 1], pa, gb[2], gb[3]);
+      load_b_kn(qb, sQ, kStride, qc * 16, dn * 16, lane);
+      mma_bf16(dk[2 * dn], da, qb[0], qb[1]);
+      mma_bf16(dk[2 * dn + 1], da, qb[2], qb[3]);
+    }
+  }
+  __nv_bfloat16* dkv = dst + (size_t)warp * 16 * row;
+  store_rows<D>(sK + warp * 16 * kStride, dk, scale, scale, dkv + W, row, S - warp * 16, lane);
+  store_rows<D>(sV + warp * 16 * kStride, dv, 1.f, 1.f, dkv + 2 * W, row, S - warp * 16, lane);
+}
+
+template <int D, bool HAS_BIAS>
+int launch_mma(const void* qkv, const float* bias, const void* dout, const void* out,
+               const float* lse, void* dqkv, int B, int S, int H, float scale,
+               cudaStream_t stream) {
+  static bool smem_allowed[mma::kMaxDevices] = {};
+  auto kernel = attention_bwd_kernel_mma<D, HAS_BIAS>;
+  const int e = mma::allow_smem_once(kernel, bwd_mma_smem_bytes<D>(16 * kMmaWarps), smem_allowed);
+  if (e) return e;
+  const long long blocks = (long long)B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int warps = (S + 15) / 16;
+  kernel<<<(unsigned)blocks, warps * 32, bwd_mma_smem_bytes<D>(16 * warps), stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), bias, static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const __nv_bfloat16*>(out), lse, static_cast<__nv_bfloat16*>(dqkv), S, H, scale,
+      scale * mma::kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_mma_d(const void* qkv, const float* bias, const void* dout, const void* out,
+                 const float* lse, void* dqkv, int B, int S, int H, float scale,
+                 cudaStream_t stream) {
+  if (bias != nullptr)
+    return launch_mma<D, true>(qkv, bias, dout, out, lse, dqkv, B, S, H, scale, stream);
+  return launch_mma<D, false>(qkv, bias, dout, out, lse, dqkv, B, S, H, scale, stream);
+}
+
+// ---------------------------------------------------------------- simt
+
+constexpr int kWarps = 8;
 constexpr int kSlots = kMaxS / 32;  // rows of P (or columns) each lane holds
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -306,16 +581,35 @@ int launch(const void* qkv, const float* bias, const void* dout, void* dqkv, flo
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Launches the dq pass, then the dkv pass, on
-// `stream`; returns the first launch error, or 0.
+// 1 when (dtype, D) takes the tensor-core variant, 0 for the CUDA-core one
+// (the forward's rule). dtype: 0 = fp32, 1 = bf16.
+extern "C" int clip_attention_variant(int dtype, int D) {
+  return dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128) ? 1 : 0;
+}
+
+// dtype: 0 = fp32, 1 = bf16. The tensor-core variant launches one kernel
+// and needs `out` and `lse` (the forward's); the CUDA-core variant launches
+// the dq pass, then the dkv pass, needs `stats` and ignores `out` and
+// `lse`. On `stream`; returns the first launch error, or 0.
 extern "C" int clip_attention_bwd(const void* qkv, const void* bias, const void* dout,
-                                  void* dqkv, void* stats, int B, int S, int H, int D,
-                                  float scale, int dtype, void* stream) {
+                                  const void* out, const void* lse, void* dqkv, void* stats, int B,
+                                  int S, int H, int D, float scale, int dtype, void* stream) {
   if (B < 1 || S < 1 || S > kMaxS || H < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const float* bias_f = static_cast<const float*>(bias);
-  float* stats_f = static_cast<float*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clip_attention_variant(dtype, D)) {
+    if (out == nullptr || lse == nullptr) return (int)cudaErrorInvalidValue;
+    const float* lse_f = static_cast<const float*>(lse);
+    switch (D) {
+      case 16: return launch_mma_d<16>(qkv, bias_f, dout, out, lse_f, dqkv, B, S, H, scale, s);
+      case 32: return launch_mma_d<32>(qkv, bias_f, dout, out, lse_f, dqkv, B, S, H, scale, s);
+      case 64: return launch_mma_d<64>(qkv, bias_f, dout, out, lse_f, dqkv, B, S, H, scale, s);
+      default: return launch_mma_d<128>(qkv, bias_f, dout, out, lse_f, dqkv, B, S, H, scale, s);
+    }
+  }
+  if (stats == nullptr) return (int)cudaErrorInvalidValue;
+  float* stats_f = static_cast<float*>(stats);
   if (dtype == 0) return launch<float>(qkv, bias_f, dout, dqkv, stats_f, B, S, H, D, scale, s);
   return launch<__nv_bfloat16>(qkv, bias_f, dout, dqkv, stats_f, B, S, H, D, scale, s);
 }

@@ -94,17 +94,6 @@ constexpr size_t bwd_mma_smem_bytes() {
          + (size_t)4 * mma::kTile * sizeof(float);
 }
 
-// score -> P in units of log2: exp2(s * scale*log2e + bias*log2e - lse*log2e)
-template <bool HAS_BIAS>
-__device__ __forceinline__ float prob(float s, float scale_log2e, const float* __restrict__ bias,
-                                      int qrow, int kcol, int S, float lse2) {
-  float v = s * scale_log2e;
-  if constexpr (HAS_BIAS) {
-    if (qrow < S && kcol < S) v += bias[(size_t)qrow * S + kcol] * mma::kLog2e;
-  }
-  return kcol < S ? exp2f(v - lse2) : 0.f;
-}
-
 template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(mma::kThreads)
 attention_hg_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
@@ -155,21 +144,7 @@ attention_hg_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ qkv, const floa
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int ri = row_g + 8 * r;
-    float part = 0.f;
-    if (ri < S) {
-      const __nv_bfloat162* gp =
-          reinterpret_cast<const __nv_bfloat162*>(gbase + (size_t)ri * W + t4 * (D / 4));
-      const __nv_bfloat162* op =
-          reinterpret_cast<const __nv_bfloat162*>(obase + (size_t)ri * W + t4 * (D / 4));
-#pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
-        const float2 gv = __bfloat1622float2(gp[c]);
-        const float2 ov = __bfloat1622float2(op[c]);
-        part = fmaf(gv.x, ov.x, part);
-        part = fmaf(gv.y, ov.y, part);
-      }
-    }
-    part = quad_sum(part);
+    const float part = row_delta<D>(gbase, obase, W, ri, S, t4);
     delta[r] = part;
     lse2[r] = ri < S ? lse[(size_t)bh * S + ri] * kLog2e : 0.f;
     if (t4 == 0 && ri < S) delta_out[(size_t)bh * S + ri] = part;

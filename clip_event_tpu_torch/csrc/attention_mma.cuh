@@ -76,6 +76,24 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// A tile of 16 rows for each warp of the block (blockDim.x / 2 rows in
+// all), from rows [0, valid_rows) of a strided global matrix; the rows past
+// valid_rows are zero-filled. Every thread copies D / 16 chunks.
+template <int D>
+__device__ __forceinline__ void load_warp_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               size_t pitch, int valid_rows, int tid, int nthreads) {
+  constexpr int kChunks = D / 8;
+  constexpr int kStride = D + kPad;
+#pragma unroll
+  for (int it = 0; it < D / 16; ++it) {
+    const int idx = tid + it * nthreads;
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + r * kStride + c * 8, src + (size_t)(ok ? r : 0) * pitch + c * 8, ok);
+  }
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -145,6 +163,63 @@ __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
   return x;
+}
+
+// A backward score -> P, in units of log2: exp2(s * scale*log2e +
+// bias*log2e - lse*log2e) for a key below S, else 0. The bias is read only
+// inside the S x S square.
+template <bool HAS_BIAS>
+__device__ __forceinline__ float prob(float s, float scale_log2e, const float* __restrict__ bias,
+                                      int qrow, int kcol, int S, float lse2) {
+  float v = s * scale_log2e;
+  if constexpr (HAS_BIAS) {
+    if (qrow < S && kcol < S) v += bias[(size_t)qrow * S + kcol] * kLog2e;
+  }
+  return kcol < S ? exp2f(v - lse2) : 0.f;
+}
+
+// delta = rowsum(dO o O) of row `ri` (0 past S), in fp32: the 4 lanes of a
+// quad (t4 = lane % 4) take D / 4 columns each and every lane of the quad
+// gets the sum. dout and out point at the head's lanes of row 0, W apart.
+template <int D>
+__device__ __forceinline__ float row_delta(const __nv_bfloat16* dout, const __nv_bfloat16* out,
+                                           int W, int ri, int S, int t4) {
+  float part = 0.f;
+  if (ri < S) {
+    const __nv_bfloat162* gp =
+        reinterpret_cast<const __nv_bfloat162*>(dout + (size_t)ri * W + t4 * (D / 4));
+    const __nv_bfloat162* op =
+        reinterpret_cast<const __nv_bfloat162*>(out + (size_t)ri * W + t4 * (D / 4));
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const float2 gv = __bfloat1622float2(gp[c]);
+      const float2 ov = __bfloat1622float2(op[c]);
+      part = fmaf(gv.x, ov.x, part);
+      part = fmaf(gv.y, ov.y, part);
+    }
+  }
+  return quad_sum(part);
+}
+
+// A warp's 16 x D fp32 accumulator rows, times `f`, rounded to bf16 and
+// written straight from registers (4 bytes a lane) to dst[(row0 + r) *
+// pitch + c] for the rows below `valid_rows`: for a result whose warp owns
+// no spare tile rows to stage it in.
+template <int D>
+__device__ __forceinline__ void store_frag_rows(const float (&acc)[D / 8][4], float f,
+                                                __nv_bfloat16* dst, size_t pitch, int valid_rows,
+                                                int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    if (g < valid_rows)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)g * pitch + nt * 8 + 2 * t) =
+          pack_bf16(acc[nt][0] * f, acc[nt][1] * f);
+    if (g + 8 < valid_rows)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(g + 8) * pitch + nt * 8 + 2 * t) =
+          pack_bf16(acc[nt][2] * f, acc[nt][3] * f);
+  }
 }
 
 // A warp's 16 x D fp32 accumulator rows, times `factor` per row pair,

@@ -12,15 +12,17 @@ island); matmuls run in the activations' dtype.
 raises; each launches its hand-written kernels (forward and backward) on a
 CUDA tensor and runs their plain versions on a CPU tensor. "plain" runs
 those plain versions on any device, the reference a run on the card is
-held against. None (the default everywhere) takes the process-wide choice
+held against; "rounded" runs them with the roundings of the kernels'
+tensor-core variants (P and dS in bf16) where an input takes that
+variant, the reference of the kernel path itself in bf16. None (the default everywhere) takes the process-wide choice
 of `set_attention_impl` ("kernel" unless a caller changed it: the eval
 CLIs, `embed` and the train loop's validation set it from
 `use_pallas_attention`, the JAX package's `set_attention_impl`);
 `transformer` resolves it once and hands every block the resolved value,
 through `torch.utils.checkpoint` too. In fp32 both equal the JAX package's
-einsum path; in bf16 K1 and the plain versions keep the probabilities in
-fp32 as the JAX kernel path does, K2's tensor-core variant rounds them to
-bf16 before P·V as the JAX einsum path does.
+einsum path; in bf16 the plain versions keep the probabilities in fp32 as
+the JAX kernel path does, the tensor-core variants of K1 and K2 round them
+to bf16 before P·V as the JAX einsum path does.
 
 `remat` (the JAX package's `transformer(..., remat=)`): True or "full"
 recomputes each block in the backward pass (`torch.utils.checkpoint`, the
@@ -82,7 +84,9 @@ def set_attention_impl(impl: str) -> None:
     """Select the attention core for every later call that passes no
     `impl`: "kernel" (K1 / K2, the default) or "plain" (their plain
     versions on any device): the JAX package's
-    `set_attention_impl("pallas" | "xla")`."""
+    `set_attention_impl("pallas" | "xla")`; or "rounded" (the plain versions
+    with the tensor-core variants' roundings), which has no JAX
+    counterpart."""
     global _ATTENTION_IMPL
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
@@ -227,11 +231,12 @@ def attention_core(
     and head_dim <= 128, else K2 where `head_grid_supported`, else a
     ValueError naming the shape. The JAX package sends that last case to its
     einsum path; here it raises on every device, so a CPU run shows what a
-    card run would do. No CLIP preset reaches it. `impl="plain"` runs the
-    plain versions at any shape; None takes `set_attention_impl`'s choice."""
+    card run would do. No CLIP preset reaches it. `impl="plain"` (or
+    "rounded") runs the plain versions at any shape; None takes
+    `set_attention_impl`'s choice."""
     impl = _resolve_attention(impl)
-    if impl == "plain":
-        return A.attend(qkv, attn_bias, num_heads, scale, "plain")
+    if impl != "kernel":
+        return A.attend(qkv, attn_bias, num_heads, scale, impl)
     B, S, W3 = qkv.shape
     W = W3 // 3
     if S <= A.MAX_SEQ and W // num_heads <= A.MAX_HEAD_DIM:

@@ -14,7 +14,8 @@ is recomputed, never saved); the bias gets none.
 forward launches the hand-written kernel of `csrc/attention_fwd.cu` and
 its backward the one of `csrc/attention_bwd.cu`, or they raise if the
 kernel cannot take the input. Those kernels stage a whole head's K and V
-in shared memory, so they take S <= 128. `fused_attention_qkv_headgrid`
+(the backward also Q and dO) in shared memory, so they take S <= 128.
+`fused_attention_qkv_headgrid`
 is the same function for the longer sequences of the ViT-B/16 and ViT-L/14
 vision towers (S = 197, 257): its kernels, `csrc/attention_hg_fwd.cu` and
 `csrc/attention_hg_bwd.cu`, walk K and V in tiles with an online softmax,
@@ -23,20 +24,24 @@ so any S runs; they take the head-grid shapes of the JAX kernel
 `fused_attention_qkv_plain` and `fused_attention_qkv_bwd_plain`, the same
 function in plain PyTorch. Nothing falls back from a kernel to its plain
 version. `attend(..., impl="plain")` runs the plain pair on any device: the
-reference a run on the card is held against.
+reference a run on the card is held against; `impl="rounded"` runs it with
+the roundings of the kernels' tensor-core variants (below) where an input
+takes that variant.
 
-K2 has two hand-written variants, chosen by dtype and head_dim alone
-before anything launches (`headgrid_variant`, and `clip_attention_hg_variant`
-in both libraries): "mma" (bf16 with head_dim 16, 32, 64 or 128) runs
+K1 and K2 each have two hand-written variants, chosen by dtype and
+head_dim alone before anything launches, by one rule (`k1_variant` and
+`headgrid_variant`; `clip_attention_variant` and `clip_attention_hg_variant`
+in the libraries): "mma" (bf16 with head_dim 16, 32, 64 or 128) runs
 every product on the tensor cores with bf16 operands and fp32
 accumulators, which rounds P to bf16 before P·V and Pᵀ·dO and dS to bf16
 before dS·K and dSᵀ·Q; "simt" (fp32, and bf16 with another head_dim) keeps
 every product in fp32 on the CUDA cores. Neither gives way to the other or
 to the plain version. The mma forward also writes each row's log-sum-exp
-[B, H, S]; `_HeadGridAttention` saves it and the output beside qkv and
-bias (the out-projection saves the output anyway), so the mma backward
-recomputes nothing of the forward but the scores. Called directly without
-them, `fused_attention_qkv_headgrid_bwd` runs the forward kernel first.
+[B, H, S]; `_FusedAttention` and `_HeadGridAttention` save it and the
+output beside qkv and bias (the out-projection saves the output anyway),
+so the mma backward recomputes nothing of the forward but the scores.
+Called directly without them, `fused_attention_qkv_bwd` and
+`fused_attention_qkv_headgrid_bwd` run the forward kernel first.
 `mma_rounding=True` on the plain versions rounds where the mma variant
 rounds: that is the variant's plain version proper, which tests and
 `chip_smoke.py` hold it against; nothing on a main path calls it.
@@ -65,12 +70,14 @@ KERNEL = "attention_fwd"
 BWD_KERNEL = "attention_bwd"
 HG_KERNEL = "attention_hg_fwd"
 HG_BWD_KERNEL = "attention_hg_bwd"
-# each backward's C entry point launches two kernels (dq pass, dk/dv pass)
-BWD_LAUNCHES_PER_CALL = 2
+# kernels a backward call launches: K1's mma variant one (every tile of a
+# head fits one block), its simt variant two (dq pass, dk/dv pass); K2 two
+# in both variants
+BWD_LAUNCHES_PER_CALL = {"mma": 1, "simt": 2}
 HG_BWD_LAUNCHES_PER_CALL = 2
-# K2's tensor-core variant: bf16 with one of these head dims
+# the tensor-core variants of K1 and K2: bf16 with one of these head dims
 MMA_HEAD_DIMS = (16, 32, 64, 128)
-HG_VARIANTS = ("mma", "simt")
+VARIANTS = HG_VARIANTS = ("mma", "simt")
 # cp.async and ldmatrix move 16 bytes at a time
 MMA_ALIGN = 16
 # K2 takes heads in 128-lane groups, as the TPU kernel's lane blocks do
@@ -80,7 +87,7 @@ MEGA_KERNEL = "ln_qkv_attention"
 # thread owns 4 neighbouring columns of the projection
 MEGA_MAX_SEQ = 128
 MEGA_MAX_HEAD_DIM = 64
-IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain", "rounded")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -182,14 +189,22 @@ def headgrid_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "mma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS else "simt"
 
 
+def k1_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which of K1's two hand-written variants takes an input, by dtype and
+    head_dim alone: K2's rule (`headgrid_variant`), "mma" for bf16 with
+    head_dim 16, 32, 64 or 128 and "simt" for everything else K1 takes.
+    The libraries' `clip_attention_variant` is the same rule."""
+    return headgrid_variant(dtype, head_dim)
+
+
 def _check_aligned(**tensors) -> None:
-    """K2's mma variant copies 16 bytes at a time: every tensor it reads or
-    writes must start on a 16-byte boundary (a contiguous view with a
+    """The mma variants copy 16 bytes at a time: every tensor they read or
+    write must start on a 16-byte boundary (a contiguous view with a
     storage offset need not)."""
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % MMA_ALIGN:
             raise ValueError(
-                f"head-grid attention kernel (mma variant) needs {name} aligned to {MMA_ALIGN} "
+                f"attention kernel (mma variant) needs {name} aligned to {MMA_ALIGN} "
                 f"bytes, got data_ptr() % {MMA_ALIGN} == {t.data_ptr() % MMA_ALIGN} (a view with "
                 "a storage offset? pass a .clone())"
             )
@@ -216,13 +231,13 @@ def _check_kernel_input(
                 f"head-grid attention kernel takes W % {HG_LANES} == 0 and head_dim "
                 f"dividing {HG_LANES}, got S={S} W={W} H={num_heads}"
             )
-        if headgrid_variant(qkv.dtype, D) == "mma":
-            _check_aligned(qkv=qkv, do=do)
     else:
         if not 1 <= S <= MAX_SEQ:
             raise ValueError(f"attention kernel takes 1 <= S <= {MAX_SEQ}, got S={S}")
         if not 1 <= D <= MAX_HEAD_DIM:
             raise ValueError(f"attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
+    if headgrid_variant(qkv.dtype, D) == "mma":
+        _check_aligned(qkv=qkv, do=do)
     if B < 1:
         raise ValueError("attention kernel needs B >= 1")
     if bias is not None:
@@ -242,11 +257,15 @@ def _check_kernel_input(
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
-_BWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
-# K2: the forward also takes lse; the backward the forward's out and lse
-_HG_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
-_HG_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+# K1 and K2 alike: the forward takes lse; the backward the forward's out and
+# lse, and the simt variant's [3, B, H, S] scratch
+_FWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+# (library, C entry point) of each kernel, by `head_grid`: K1 or K2
+_FWD_ENTRY = {False: (KERNEL, "clip_attention_fwd"), True: (HG_KERNEL, "clip_attention_hg_fwd")}
+_BWD_ENTRY = {False: (BWD_KERNEL, "clip_attention_bwd"), True: (HG_BWD_KERNEL, "clip_attention_hg_bwd")}
+_VARIANT_SYMBOL = {KERNEL: "clip_attention_variant", BWD_KERNEL: "clip_attention_variant",
+                   HG_KERNEL: "clip_attention_hg_variant", HG_BWD_KERNEL: "clip_attention_hg_variant"}
 
 
 def _kernel_bias(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -259,63 +278,27 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def library_variant(name: str, dtype: torch.dtype, head_dim: int) -> str:
-    """`headgrid_variant` as the built library `name` (K2's forward or
-    backward) decides it: `chip_smoke.py` checks that the two agree."""
+    """`k1_variant` / `headgrid_variant` as the built library `name` (K1's
+    or K2's forward or backward) decides it: `chip_smoke.py` checks that
+    the two agree."""
     lib = _build.load(name)
-    fn = lib.clip_attention_hg_variant
+    fn = getattr(lib, _VARIANT_SYMBOL[name])
     fn.argtypes, fn.restype = [_I, _I], _I
-    return HG_VARIANTS[0] if fn(_DTYPES[dtype], head_dim) else HG_VARIANTS[1]
+    return VARIANTS[0] if fn(_DTYPES[dtype], head_dim) else VARIANTS[1]
 
 
-def _launch_fwd(qkv, bias, num_heads, scale) -> torch.Tensor:
-    """Check and launch K1's forward kernel on a CUDA tensor."""
-    _check_kernel_input(qkv, bias, num_heads)
-    B, S, W3 = qkv.shape
-    W = W3 // 3
-    bias = _kernel_bias(bias)
-    lib, fn = _build.entry(KERNEL, "clip_attention_fwd", _FWD_ARGS)
-    out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = fn(
-            qkv.data_ptr(), _ptr(bias), out.data_ptr(),
-            B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
-        )
-    _build.check(lib, code, f"{KERNEL} launch")
-    return out
-
-
-def _launch_bwd(qkv, bias, do, num_heads, scale) -> torch.Tensor:
-    """Check and launch K1's two backward kernels on a CUDA tensor; the
-    softmax row stats go to a [3, B, H, S] fp32 scratch."""
-    _check_kernel_input(qkv, bias, num_heads, do)
-    B, S, W3 = qkv.shape
-    W = W3 // 3
-    do = do.contiguous()
-    bias = _kernel_bias(bias)
-    lib, fn = _build.entry(BWD_KERNEL, "clip_attention_bwd", _BWD_ARGS)
-    dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        code = fn(
-            qkv.data_ptr(), _ptr(bias), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], stream,
-        )
-    _build.check(lib, code, f"{BWD_KERNEL} launch")
-    return dqkv
-
-
-def _launch_hg_fwd(qkv, bias, num_heads, scale, with_lse: bool):
-    """Check and launch K2's forward kernel on a CUDA tensor. Returns (out,
-    lse): lse is the [B, H, S] fp32 row log-sum-exp when `with_lse` and the
-    input takes the mma variant, else None."""
-    _check_kernel_input(qkv, bias, num_heads, head_grid=True)
+def _launch_fwd(qkv, bias, num_heads, scale, with_lse: bool, head_grid: bool):
+    """Check and launch K1's (K2's with `head_grid`) forward kernel on a
+    CUDA tensor. Returns (out, lse): lse is the [B, H, S] fp32 row
+    log-sum-exp when `with_lse` and the input takes the mma variant, else
+    None."""
+    _check_kernel_input(qkv, bias, num_heads, head_grid=head_grid)
     B, S, W3 = qkv.shape
     W = W3 // 3
     D = W // num_heads
     bias = _kernel_bias(bias)
-    lib, fn = _build.entry(HG_KERNEL, "clip_attention_hg_fwd", _HG_FWD_ARGS)
+    name, symbol = _FWD_ENTRY[head_grid]
+    lib, fn = _build.entry(name, symbol, _FWD_ARGS)
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     lse = None
     if headgrid_variant(qkv.dtype, D) == "mma":
@@ -328,28 +311,33 @@ def _launch_hg_fwd(qkv, bias, num_heads, scale, with_lse: bool):
             qkv.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
             B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], stream,
         )
-    _build.check(lib, code, f"{HG_KERNEL} launch")
+    _build.check(lib, code, f"{name} launch")
     return out, lse
 
 
-def _launch_hg_bwd(qkv, bias, do, out, lse, num_heads, scale) -> torch.Tensor:
-    """Check and launch K2's two backward kernels on a CUDA tensor. The mma
-    variant reads the forward's `out` and `lse` (it runs the forward kernel
-    for them when the caller has none) and keeps delta in the [3, B, H, S]
-    fp32 scratch; the simt variant keeps m, l and delta there and ignores
-    them."""
+def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> torch.Tensor:
+    """Check and launch K1's (K2's with `head_grid`) backward kernels on a
+    CUDA tensor. The mma variant reads the forward's `out` and `lse` (it
+    runs the forward kernel for them when the caller has none); K2's mma
+    variant keeps delta in the [3, B, H, S] fp32 scratch, K1's needs none.
+    The simt variants keep m, l and delta there and ignore out and lse."""
     do = do.contiguous()
-    _check_kernel_input(qkv, bias, num_heads, do, head_grid=True)
+    _check_kernel_input(qkv, bias, num_heads, do, head_grid=head_grid)
     B, S, W3 = qkv.shape
     W = W3 // 3
     D = W // num_heads
     bias = _kernel_bias(bias)
-    lib, fn = _build.entry(HG_BWD_KERNEL, "clip_attention_hg_bwd", _HG_BWD_ARGS)
+    name, symbol = _BWD_ENTRY[head_grid]
+    lib, fn = _build.entry(name, symbol, _BWD_ARGS)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
-    if headgrid_variant(qkv.dtype, D) == "mma":
+    mma = headgrid_variant(qkv.dtype, D) == "mma"
+    stats = None
+    if head_grid or not mma:
+        stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
+    if mma:
         if out is None or lse is None:
-            out, lse = fused_attention_qkv_headgrid_fwd(qkv, bias, num_heads, scale, with_lse=True)
+            fwd = fused_attention_qkv_headgrid_fwd if head_grid else fused_attention_qkv_fwd
+            out, lse = fwd(qkv, bias, num_heads, scale, with_lse=True)
         if tuple(out.shape) != (B, S, W) or out.dtype != qkv.dtype or tuple(lse.shape) != (B, num_heads, S) \
                 or lse.dtype != torch.float32 or out.device != qkv.device or lse.device != qkv.device:
             raise ValueError(
@@ -364,36 +352,43 @@ def _launch_hg_bwd(qkv, bias, do, out, lse, num_heads, scale) -> torch.Tensor:
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = fn(
             qkv.data_ptr(), _ptr(bias), do.data_ptr(), _ptr(out), _ptr(lse), dqkv.data_ptr(),
-            stats.data_ptr(), B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], stream,
+            _ptr(stats), B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], stream,
         )
-    _build.check(lib, code, f"{HG_BWD_KERNEL} launch")
+    _build.check(lib, code, f"{name} launch")
     return dqkv
 
 
-def _attention_fwd(
-    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float
-) -> torch.Tensor:
-    """K1's forward: the plain version on a CPU tensor, the kernel on a CUDA
-    tensor it takes, else raise."""
+def fused_attention_qkv_fwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
+    with_lse: bool = False,
+):
+    """K1's forward as (out, lse), outside autograd: the plain version on a
+    CPU tensor (lse None), the kernel on a CUDA tensor it takes, else raise.
+    `with_lse` asks the mma variant for the [B, H, S] row log-sum-exp that
+    `fused_attention_qkv_bwd` reads beside `out`."""
     if qkv.device.type == "cpu":
-        return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
-    out = _launch_fwd(qkv, bias, num_heads, scale)
+        return fused_attention_qkv_plain(qkv, bias, num_heads, scale), None
+    out, lse = _launch_fwd(qkv, bias, num_heads, scale, with_lse, head_grid=False)
     fused_attention_qkv.launches += 1
-    return out
+    return out, lse
 
 
 def fused_attention_qkv_bwd(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
-    scale: float,
+    scale: float, out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """dqkv [B, S, 3W] in qkv.dtype from qkv [B, S, 3W] and the output's
     cotangent do [B, S, W]. CPU tensors take the plain version; any other
     device must be a CUDA tensor the kernel takes (the forward's domain, with
-    do of qkv's dtype), else this raises."""
+    do of qkv's dtype), else this raises. `out` and `lse` are the forward's
+    output and row log-sum-exp, which the mma variant reads (`_FusedAttention`
+    saves them); without them it runs the forward kernel first, counted as a
+    forward launch. The simt variant recomputes both and ignores them."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
-    dqkv = _launch_bwd(qkv, bias, do, num_heads, scale)
-    fused_attention_qkv_bwd.launches += BWD_LAUNCHES_PER_CALL
+    dqkv = _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid=False)
+    head_dim = qkv.shape[-1] // 3 // num_heads
+    fused_attention_qkv_bwd.launches += BWD_LAUNCHES_PER_CALL[k1_variant(qkv.dtype, head_dim)]
     return dqkv
 
 
@@ -407,7 +402,7 @@ def fused_attention_qkv_headgrid_fwd(
     `fused_attention_qkv_headgrid_bwd` reads beside `out`."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, bias, num_heads, scale), None
-    out, lse = _launch_hg_fwd(qkv, bias, num_heads, scale, with_lse)
+    out, lse = _launch_fwd(qkv, bias, num_heads, scale, with_lse, head_grid=True)
     fused_attention_qkv_headgrid.launches += 1
     return out, lse
 
@@ -425,29 +420,47 @@ def fused_attention_qkv_headgrid_bwd(
     variant recomputes both inside its dq pass and ignores them."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
-    dqkv = _launch_hg_bwd(qkv, bias, do, out, lse, num_heads, scale)
+    dqkv = _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid=True)
     fused_attention_qkv_headgrid_bwd.launches += HG_BWD_LAUNCHES_PER_CALL
     return dqkv
 
 
+def _plain_rounding(impl: str, qkv: torch.Tensor, num_heads: int) -> bool:
+    """Whether impl "rounded" applies the mma variants' roundings to this
+    input: only where the kernels would take that variant."""
+    return impl == "rounded" and headgrid_variant(qkv.dtype, qkv.shape[-1] // 3 // num_heads) == "mma"
+
+
 class _FusedAttention(torch.autograd.Function):
-    """K1 with its gradient: saves qkv and bias (the residuals of
-    `_fused_qkv_fwd`), not the probabilities; no gradient for the bias,
-    num_heads, scale or the impl flag (`_fused_qkv_bwd` returns None)."""
+    """K1 with its gradient ("kernel"), or the plain pair at any shape
+    ("plain", "rounded"): saves qkv and bias (the residuals of
+    `_fused_qkv_fwd`), not the probabilities, so it composes with
+    `torch.utils.checkpoint`; on the kernels' mma variant also the output
+    (which the out-projection saves anyway) and the [B, H, S] row
+    log-sum-exp, where the JAX VJP recomputes both. No gradient for the
+    bias, num_heads, scale or the impl (`_fused_qkv_bwd` returns None)."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, num_heads, scale, kernel):
-        ctx.save_for_backward(qkv, bias)
-        ctx.num_heads, ctx.scale, ctx.kernel = num_heads, scale, kernel
-        if kernel:
-            return _attention_fwd(qkv, bias, num_heads, scale)
-        return fused_attention_qkv_plain(qkv, bias, num_heads, scale)
+    def forward(ctx, qkv, bias, num_heads, scale, impl):
+        ctx.num_heads, ctx.scale, ctx.impl = num_heads, scale, impl
+        if impl != "kernel":
+            ctx.save_for_backward(qkv, bias)
+            return fused_attention_qkv_plain(qkv, bias, num_heads, scale,
+                                             mma_rounding=_plain_rounding(impl, qkv, num_heads))
+        out, lse = fused_attention_qkv_fwd(qkv, bias, num_heads, scale, with_lse=ctx.needs_input_grad[0])
+        ctx.save_for_backward(*((qkv, bias) if lse is None else (qkv, bias, out, lse)))
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        qkv, bias = ctx.saved_tensors
-        bwd = fused_attention_qkv_bwd if ctx.kernel else fused_attention_qkv_bwd_plain
-        return bwd(qkv, bias, do, ctx.num_heads, ctx.scale), None, None, None, None
+        qkv, bias, *residuals = ctx.saved_tensors
+        if ctx.impl != "kernel":
+            dqkv = fused_attention_qkv_bwd_plain(qkv, bias, do, ctx.num_heads, ctx.scale,
+                                                 mma_rounding=_plain_rounding(ctx.impl, qkv, ctx.num_heads))
+            return dqkv, None, None, None, None
+        out, lse = residuals or (None, None)
+        dqkv = fused_attention_qkv_bwd(qkv, bias, do, ctx.num_heads, ctx.scale, out, lse)
+        return dqkv, None, None, None, None
 
 
 class _HeadGridAttention(torch.autograd.Function):
@@ -483,7 +496,7 @@ def fused_attention_qkv(
     [B, S, W] in qkv.dtype. CPU tensors take the plain versions; any other
     device must be a CUDA tensor the kernels take (fp32 or bf16, contiguous,
     S <= 128, head_dim <= 128), else this raises."""
-    return _FusedAttention.apply(qkv, bias, num_heads, float(scale), True)
+    return _FusedAttention.apply(qkv, bias, num_heads, float(scale), "kernel")
 
 
 def fused_attention_qkv_headgrid(
@@ -501,11 +514,14 @@ def attend(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
     impl: str = "kernel",
 ) -> torch.Tensor:
-    """`fused_attention_qkv` ("kernel") or its plain forward and backward on
-    any device ("plain")."""
+    """`fused_attention_qkv` ("kernel"), or its plain forward and backward on
+    any device and at any shape: as they are ("plain"), or with the
+    roundings of the kernels' tensor-core variants where an input takes
+    that variant ("rounded": P and dS rounded to bf16; the whole-model
+    reference of the mma kernels, which no CLI selects)."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
-    return _FusedAttention.apply(qkv, bias, num_heads, float(scale), impl == "kernel")
+    return _FusedAttention.apply(qkv, bias, num_heads, float(scale), impl)
 
 
 def megakernel_supported(seq_len: int, width: int, num_heads: int) -> bool:
@@ -610,8 +626,8 @@ def fused_ln_qkv_attention(
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them):
-# one per forward call, BWD_LAUNCHES_PER_CALL (K2: HG_BWD_LAUNCHES_PER_CALL)
-# per backward call
+# one per forward call, BWD_LAUNCHES_PER_CALL[variant] (K2:
+# HG_BWD_LAUNCHES_PER_CALL) per backward call
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0
 fused_attention_qkv_headgrid.launches = 0

@@ -28,6 +28,9 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
   vision shape and at a ragged causal shape, forward and backward, with
   the backward's launch count, equal bits through autograd's saved
   residuals and on a second run;
+- K1's tensor-core variant the same way, at the ViT-B/32 text tower's shape
+  (S = 77, causal) and vision shape (S = 50), and at a ragged one (S = 65,
+  head_dim 32): one backward launch a call;
 - `.eval_retrieval` at ViT-B/32 with `"use_pallas_attention": false`: no
   attention kernel launches, and the process-wide choice is put back."""
 
@@ -334,6 +337,52 @@ def test_k2_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, 
         assert (got.float() - ref).abs().max().item() <= 1e-2 * top
         # at worst one bf16 ulp of the largest result (up to 2^-7 of it),
         # and far less in the mean
+        diff = (got.float() - rounded).abs()
+        assert diff.max().item() <= 8e-3 * top
+        assert diff.mean().item() <= 5e-4 * top
+
+
+@pytest.mark.parametrize("tag,B,S,W,H,causal", [
+    ("train_text", 96, 77, 512, 8, True), ("train_vision", 64, 50, 768, 12, False),
+    ("ragged_d32_causal", 3, 65, 256, 8, True),
+])
+def test_k1_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, H, causal):
+    from clip_event_tpu_torch.models.layers import causal_mask
+    from clip_event_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn((B, S, 3 * W), device="cuda", generator=gen).to(torch.bfloat16)
+    do = torch.randn((B, S, W), device="cuda", generator=gen).to(torch.bfloat16)
+    bias = causal_mask(S, device="cuda") if causal else None
+    scale = (W // H) ** -0.5
+    assert A.k1_variant(qkv.dtype, W // H) == "mma"
+    assert A.library_variant(A.KERNEL, qkv.dtype, W // H) == "mma"
+    assert A.library_variant(A.BWD_KERNEL, qkv.dtype, W // H) == "mma"
+    assert A.library_variant(A.BWD_KERNEL, torch.float32, W // H) == "simt"
+
+    A.fused_attention_qkv.launches = A.fused_attention_qkv_bwd.launches = 0
+    leaf = qkv.detach().requires_grad_(True)
+    out = A.fused_attention_qkv(leaf, bias, H, scale)
+    (grad,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    assert A.fused_attention_qkv.launches == 1
+    assert A.fused_attention_qkv_bwd.launches == A.BWD_LAUNCHES_PER_CALL["mma"] == 1
+    # called directly, the backward has no saved residuals: it runs the
+    # forward kernel for them and gives the same bits, twice
+    direct = A.fused_attention_qkv_bwd(qkv, bias, do, H, scale)
+    again = A.fused_attention_qkv_bwd(qkv, bias, do, H, scale)
+    assert A.fused_attention_qkv.launches == 3
+    assert torch.equal(direct, grad) and torch.equal(again, grad)
+
+    for got, plain in (
+        (out, lambda **kw: A.fused_attention_qkv_plain(qkv, bias, H, scale, **kw)),
+        (grad, lambda **kw: A.fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale, **kw)),
+    ):
+        ref = plain().float()
+        rounded = plain(mma_rounding=True).float()
+        top = ref.abs().max().item()
+        assert bool(torch.isfinite(got).all())
+        assert (got.float() - ref).abs().max().item() <= 1e-2 * top
         diff = (got.float() - rounded).abs()
         assert diff.max().item() <= 8e-3 * top
         assert diff.mean().item() <= 5e-4 * top

@@ -24,16 +24,20 @@ Phases, each printing JSON lines:
               (K1-fwd, K2-fwd) are held at max abs error 1e-5 (fp32) / 2e-2
               (bf16); the backwards (K1-bwd, K2-bwd) at max|kernel − plain| /
               max|plain| ≤ 1e-5 (fp32) / 1e-2 (bf16); the IPOT solver (K3)
-              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32). K1 and K2
-              each have two variants, "mma" (bf16 on the tensor cores) and
-              "simt" (fp32, and bf16 with another head_dim): every K1 and
-              K2 row says which, the Python rule and both libraries' rule
-              must agree, and the mma rows are also held at forward ≤ 1e-2
-              of max|plain| and, against the plain versions that round
-              where the kernel rounds, at ≤ 8e-3 (worst) and 5e-4 (mean) of
-              max|plain|; the backward through autograd's saved residuals
-              and on a second run gives equal bits; a misaligned qkv view
-              is refused
+              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32). K1 has two
+              variants, "mma" (bf16 on the tensor cores) and "simt" (fp32,
+              and bf16 with another head_dim); K2 three, "mma", "tf32x3"
+              (fp32 on the tensor cores in split TF32, held to the fp32
+              gates) and "simt" (head dims 1-8): every K1 and K2 row says
+              which, the Python rule and both libraries' rule must agree
+              with each pair's own rule, and the mma rows are also held at
+              forward ≤ 1e-2 of max|plain| and, against the plain versions
+              that round where the kernel rounds, at ≤ 8e-3 (worst) and
+              5e-4 (mean) of max|plain|; the tf32x3 rows also give their
+              error against the plain versions that split where the kernel
+              splits; a tensor-core backward through autograd's saved
+              residuals and on a second run gives equal bits; a misaligned
+              qkv view is refused
   4. serving  full-width ViT-B/32 from seed 0 (12 + 12 layers): embed_stream
               over 256 images and 256 token rows into shards and a manifest,
               in fp32 and in bf16, then evaluate_matching; the launch counts
@@ -62,7 +66,11 @@ Phases, each printing JSON lines:
               near chance, moved params, pairs/s, step ms, peak memory and a
               bf16 kernel-vs-plain step, and the step with the plain
               attention beside the kernel-path step in turns
-              (`plain_attention_step_ms`); then one ViT-B/16 kernel-path step
+              (`plain_attention_step_ms`); one fp32 L/14 step at 16 × 3
+              (K2's tf32x3 variant, forward and backward): loss and every
+              gradient within 2e-5 of the plain step, exact launch counts,
+              and its ms beside the plain attention's in turns; then one
+              ViT-B/16 kernel-path step
               at its bench batch (96), with the same two comparisons
   8. train_ot  7 steps of finetune_ot.json's settings at ViT-B/32 full width
               through the train loop (64 images × 3 descriptions, 8 float32
@@ -197,6 +205,7 @@ from clip_event_tpu_torch.ops.attention import (
     MAX_SEQ,
     MEGA_KERNEL,
     MMA_HEAD_DIMS,
+    TENSOR_CORE_VARIANTS,
     fused_attention_qkv,
     fused_attention_qkv_bwd,
     fused_attention_qkv_bwd_plain,
@@ -216,9 +225,13 @@ from clip_event_tpu_torch.train import train
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the card's published peaks (H100 SXM data sheet, dense): memory, fp32 on
-# the CUDA cores, bf16 on the tensor cores
+# the CUDA cores, bf16 and TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_TF32_FLOPS = 495e12
+# fp32 work to fp32 accuracy on the tensor cores: three TF32 products a
+# term (split TF32, the tf32x3 variant)
+TF32X3_PRODUCTS = 3
 PEAK_INT8_OPS = 1979e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # forward: max abs error
 BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # backward: error relative to max|plain|
@@ -315,6 +328,8 @@ HG_EDGE_SHAPES = [
     ("hg_edge_d32", 2, 150, 256, 8, False),
     ("hg_edge_d16_causal", 2, 150, 128, 8, True),
     ("hg_edge_blocks_d16", 3000, 130, 128, 8, False),
+    # head_dim 8: no tensor-core tile, the simt variant in both dtypes
+    ("hg_edge_d8_causal", 2, 150, 128, 16, True),
 ]
 # K3: (tag, B, M entities, N objects, k, empty_row): finetune_ot's shape
 # (16 entities, 8 object slots minus the whole image) with ragged counts,
@@ -408,6 +423,7 @@ FP32_STEP_TOL = 2e-5
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 # ViT-L/14 (bench.py's L/14 workload) and ViT-B/16 (its bench batch)
 L14_BATCH, B16_BATCH = 64, 96
+L14_FP32_BATCH = 16  # the fp32 L/14 step (kernel vs plain, in turns)
 L14_SERVING_ITEMS = 128
 # finetune_ot.json: batch 64, 8 object slots (the whole image at slot 0),
 # 16 entity and 8 event rows per image, alignment_chunks 4
@@ -458,29 +474,38 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _attention_bound(nbytes, flops, dtype_name):
+    """(bound ms, what bounds it, the CUDA-core route's ms or None): the
+    larger of bytes over the memory rate and flops over the peak rate. bf16
+    at the tensor cores' rate; fp32 at the least of the card's two routes to
+    fp32 accuracy, three TF32 products a flop on the tensor cores (the
+    least) or one FMA on the CUDA cores, whose bound is returned beside."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    if dtype_name == "float32":
+        t_ops = TF32X3_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
+        cuda_cores = max(t_bytes, flops / PEAK_FLOPS["float32"] * 1e3)
+    else:
+        t_ops, cuda_cores = flops / PEAK_FLOPS[dtype_name] * 1e3, None
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), cuda_cores
+
+
 def attention_bound_ms(B, S, W, H, causal, dtype_name):
     """Least time for one attention forward: qkv read once, the bias read
     once, the output written once, over the memory rate; 4·B·H·S²·D flops
-    (q·kᵀ and p·v) over the peak rate for the input type. The larger wins."""
+    (q·kᵀ and p·v) over the peak rate (`_attention_bound`)."""
     elt = 4 if dtype_name == "float32" else 2
     nbytes = B * S * 3 * W * elt + B * S * W * elt + (S * S * 4 if causal else 0)
-    flops = 4 * B * H * S * S * (W // H)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _attention_bound(nbytes, 4 * B * H * S * S * (W // H), dtype_name)
 
 
 def attention_bwd_bound_ms(B, S, W, H, causal, dtype_name):
     """Least time for one attention backward: qkv (3W) and do (W) read once
     and dqkv (3W) written once per token, the bias read once, over the
     memory rate; 10·B·H·S²·D flops (recompute q·kᵀ, dv, dp, dq, dk) over
-    the peak rate for the input type. The larger wins."""
+    the peak rate (`_attention_bound`)."""
     elt = 4 if dtype_name == "float32" else 2
     nbytes = B * S * 7 * W * elt + (S * S * 4 if causal else 0)
-    flops = 10 * B * H * S * S * (W // H)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _attention_bound(nbytes, 10 * B * H * S * S * (W // H), dtype_name)
 
 
 def _split(qkv, H):
@@ -513,15 +538,16 @@ def check_against_rounded(row, got, rounded, ref_max, what):
 
 
 # one attention kernel pair: its counter names, autograd entry point,
-# backward, forward with lse, variant rule, and the path shape where two
-# backward runs must give equal bits
+# backward, forward with lse, variant rule, the path shape where two
+# backward runs must give equal bits, and its variant for fp32 inputs with
+# a head_dim a tensor-core tile takes
 AttentionKernels = collections.namedtuple(
-    "AttentionKernels", "names fn bwd fwd_lse variant deterministic_at")
+    "AttentionKernels", "names fn bwd fwd_lse variant deterministic_at fp32_variant")
 K1 = AttentionKernels((KERNEL, BWD_KERNEL), fused_attention_qkv, fused_attention_qkv_bwd,
-                      fused_attention_qkv_fwd, k1_variant, "train_text")
+                      fused_attention_qkv_fwd, k1_variant, "train_text", "simt")
 K2 = AttentionKernels((HG_KERNEL, HG_BWD_KERNEL), fused_attention_qkv_headgrid,
                       fused_attention_qkv_headgrid_bwd, fused_attention_qkv_headgrid_fwd,
-                      headgrid_variant, "l14_vision")
+                      headgrid_variant, "l14_vision", "tf32x3")
 
 
 def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
@@ -536,14 +562,17 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
     bias = causal_mask(S, device="cuda") if causal else None
     scale = (W // H) ** -0.5
     iters = 20 if B > 64 or S > 128 else 50
-    # the Python rule and both libraries' rule pick one variant; the path
-    # shapes' bf16 takes the tensor cores
+    # the Python rule and both libraries' rule pick one variant, the pair's
+    # own: the path shapes take the tensor cores (K2 in both dtypes)
     variant = k.variant(dtype, W // H)
     check(library_variant(fwd_name, dtype, W // H) == variant
           and library_variant(bwd_name, dtype, W // H) == variant,
           f"{fwd_name} {tag} {name}: the libraries' variant differs from {variant}")
-    check(variant == ("mma" if name == "bfloat16" and W // H in MMA_HEAD_DIMS else "simt"),
-          f"{fwd_name} {tag} {name}: variant {variant}")
+    expected = "simt"
+    if W // H in MMA_HEAD_DIMS:
+        expected = "mma" if name == "bfloat16" else k.fp32_variant
+    check(variant == expected, f"{fwd_name} {tag} {name}: variant {variant}, not {expected}")
+    tensor_cores = variant in TENSOR_CORE_VARIANTS
     shape = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "causal": causal, "dtype": name,
              "variant": variant}
 
@@ -564,6 +593,12 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
         rounded = fused_attention_qkv_plain(qkv, bias, H, scale, mma_rounding=True)
         check_against_rounded(row, out, rounded, ref_max, f"{fwd_name} {tag} {name}")
         del rounded
+    if variant == "tf32x3":
+        # against the plain version that splits where the kernel splits:
+        # what is left is the sum order (a bug would show here first)
+        split = fused_attention_qkv_plain(qkv, bias, H, scale, tf32x3=True)
+        row["max_abs_err_vs_tf32x3_plain"] = (out - split).abs().max().item()
+        del split
     if timed:
         row["ms"] = cuda_ms(lambda: fwd(qkv, bias, H, scale), iters)
         row["plain_ms"] = cuda_ms(lambda: fused_attention_qkv_plain(qkv, bias, H, scale), iters)
@@ -571,7 +606,9 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
         check((lib.float() - ref.float()).abs().max().item() <= 10 * TOL[name],
               f"{fwd_name} {tag} {name}: library yardstick disagrees")
         row["library_ms"] = cuda_ms(lambda: library_fwd(qkv, bias, H, scale), iters)
-        row["bound_ms"], row["bound_by"] = attention_bound_ms(B, S, W, H, causal, name)
+        row["bound_ms"], row["bound_by"], cuda_cores = attention_bound_ms(B, S, W, H, causal, name)
+        if cuda_cores is not None:
+            row["bound_ms_cuda_cores"] = cuda_cores
     rows[fwd_name].append(row)
     emit({"phase": "kernel_check", "kernel": fwd_name, **row})
 
@@ -585,11 +622,16 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
     check(rel <= BWD_TOL[name], f"{bwd_name} {tag} {name}: rel err {rel} > {BWD_TOL[name]}")
     errs[bwd_name][name] = max(errs[bwd_name].get(name, 0.0), err)
     row = {**shape, "max_abs_err": err, "max_rel_err": rel, "tol_rel": BWD_TOL[name]}
+    ref_max = max(ref.float().abs().max().item(), 1e-30)
     if variant == "mma":
-        ref_max = max(ref.float().abs().max().item(), 1e-30)
         rounded = fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale, mma_rounding=True)
         check_against_rounded(row, dq, rounded, ref_max, f"{bwd_name} {tag} {name}")
         del rounded
+    if variant == "tf32x3":
+        split = fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale, tf32x3=True)
+        row["max_rel_err_vs_tf32x3_plain"] = (dq - split).abs().max().item() / ref_max
+        del split
+    if tensor_cores:
         # through autograd the forward's output and row log-sum-exp are
         # saved and the backward reads them: the same bits as the direct
         # call, which runs the forward kernel for them first
@@ -621,7 +663,9 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
         row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, leaf, do, retain_graph=True),
                                     iters)
         del lib_out, leaf
-        row["bound_ms"], row["bound_by"] = attention_bwd_bound_ms(B, S, W, H, causal, name)
+        row["bound_ms"], row["bound_by"], cuda_cores = attention_bwd_bound_ms(B, S, W, H, causal, name)
+        if cuda_cores is not None:
+            row["bound_ms_cuda_cores"] = cuda_cores
     rows[bwd_name].append(row)
     emit({"phase": "kernel_check", "kernel": bwd_name, **row})
 
@@ -930,16 +974,17 @@ def check_mega(rows, errs, gen, tag, B, S, W, H, causal, dtype, timed):
     emit({"phase": "kernel_check", "kernel": MEGA_KERNEL, **row})
 
 
-def check_misaligned_view(k, B, S, W, H):
-    """The mma variants copy 16 bytes at a time: a contiguous bf16 view
-    whose storage offset leaves it 2 bytes past a boundary is refused by
-    the wrapper of `k`, forward and backward, before anything launches; its
-    clone runs."""
-    flat = torch.randn(B * S * 3 * W + 1, device="cuda").to(torch.bfloat16)
+def check_misaligned_view(k, B, S, W, H, dtype=torch.bfloat16):
+    """The tensor-core variants copy 16 bytes at a time: a contiguous view
+    whose storage offset leaves it one element past a boundary is refused
+    by the wrapper of `k`, forward and backward, before anything launches;
+    its clone runs."""
+    flat = torch.randn(B * S * 3 * W + 1, device="cuda").to(dtype)
     qkv = flat[1:].view(B, S, 3 * W)
-    do = torch.randn((B, S, W), device="cuda").to(torch.bfloat16)
+    do = torch.randn((B, S, W), device="cuda").to(dtype)
     check(qkv.is_contiguous() and qkv.data_ptr() % 16 != 0, "the view is contiguous and misaligned")
-    check(k.variant(qkv.dtype, W // H) == "mma", "the misaligned view takes the mma variant")
+    variant = k.variant(qkv.dtype, W // H)
+    check(variant in TENSOR_CORE_VARIANTS, f"the misaligned view takes a tensor-core variant, not {variant}")
     before = read_launches()
     for what, call in (("forward", lambda: k.fn(qkv, None, H, 0.125)),
                        ("backward", lambda: k.bwd(qkv, None, do, H, 0.125))):
@@ -953,7 +998,8 @@ def check_misaligned_view(k, B, S, W, H):
     out = k.fn(qkv.clone(), None, H, 0.125)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "the aligned clone runs")
-    emit({"phase": "kernel_check", "kernel": k.names[0], "shape": "misaligned_view", "refused": True})
+    emit({"phase": "kernel_check", "kernel": k.names[0], "shape": "misaligned_view",
+          "dtype": str(dtype).split(".")[-1], "variant": variant, "refused": True})
 
 
 def check_k1(rows, errs, gen):
@@ -966,12 +1012,13 @@ def check_k1(rows, errs, gen):
 
 
 def check_k2(rows, errs, gen):
-    """K2's two variants, forward and backward, at the path and edge shapes."""
+    """K2's three variants, forward and backward, at the path and edge shapes."""
     timed = {t[0] for t in HG_SHAPES}
     for tag, B, S, W, H, causal in HG_SHAPES + HG_EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             check_attention(rows, errs, K2, gen, tag, B, S, W, H, causal, dtype, tag in timed)
-    check_misaligned_view(K2, 2, 130, 256, 4)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_misaligned_view(K2, 2, 130, 256, 4, dtype)
 
 
 def phase_kernels():
@@ -1572,19 +1619,20 @@ def _chunks(nodes, requested):
     return next(d for d in range(min(requested, nodes), nodes + 1) if nodes % d == 0)
 
 
-def k1_bwd_launches(width, heads):
-    """Launches of one bf16 K1 backward call (the train steps' dtype) in a
+def k1_bwd_launches(width, heads, dtype=torch.bfloat16):
+    """Launches of one K1 backward call (bf16: the train steps' dtype) in a
     tower of that width: per variant."""
-    return BWD_LAUNCHES_PER_CALL[k1_variant(torch.bfloat16, width // heads)]
+    return BWD_LAUNCHES_PER_CALL[k1_variant(dtype, width // heads)]
 
 
-def train_launches(mcfg, steps, alignment=False, fused_ln=False):
-    """Launches per kernel for `steps` bf16 train steps under full remat.
+def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfloat16):
+    """Launches per kernel for `steps` train steps (bf16, or `dtype`) under
+    full remat.
     Each block's attention forward runs twice (forward, block recompute)
     and its backward once (K1: `k1_bwd_launches`, one on the tensor-core
-    variant; K2: HG_BWD_LAUNCHES_PER_CALL); the recompute saves the output
-    and log-sum-exp the backward reads, so no backward runs a forward of
-    its own. With `fused_ln`
+    variant; K2: HG_BWD_LAUNCHES_PER_CALL in every variant); the recompute
+    saves the output and log-sum-exp a tensor-core backward reads, so no
+    backward runs a forward of its own. With `fused_ln`
     (`use_pallas_ln`) each block also runs K4a (`ln_1`) and K4b (the
     mid-block add + `ln_2`) twice and K4c twice (once per LayerNorm,
     ln.BWD_LAUNCHES_PER_CALL launches each). With alignment the crop
@@ -1598,8 +1646,8 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False):
     if vis_b == HG_BWD_KERNEL:
         vis_bwd_launches = HG_BWD_LAUNCHES_PER_CALL
     else:
-        vis_bwd_launches = k1_bwd_launches(mcfg.vision_width, mcfg.vision_heads)
-    text_bwd_launches = k1_bwd_launches(mcfg.transformer_width, mcfg.transformer_heads)
+        vis_bwd_launches = k1_bwd_launches(mcfg.vision_width, mcfg.vision_heads, dtype)
+    text_bwd_launches = k1_bwd_launches(mcfg.transformer_width, mcfg.transformer_heads, dtype)
     Lv, Lt = mcfg.vision_layers, mcfg.transformer_layers
     out = dict.fromkeys(COUNTERS, 0)
     out[vis_f] += 2 * Lv
@@ -1728,9 +1776,9 @@ def compare_fp32_grads(mcfg, params, batch, fused_ln=False, **loss_kwargs):
     return {"batch": batch["image"].shape[0], "loss_abs_diff": dl, "max_grad_rel_diff": worst}
 
 
-def step_ms_in_turns(mcfg, params, batch, fused_ln=False):
-    """One bf16 train step with its batch on the card, timed in turns
-    (kernel, plain, plain, kernel attention; host clock around a
+def step_ms_in_turns(mcfg, params, batch, fused_ln=False, dtype=torch.bfloat16):
+    """One train step (bf16, or `dtype`) with its batch on the card, timed
+    in turns (kernel, plain, plain, kernel attention; host clock around a
     synchronised step, after one warm-up step of each): the plain-attention
     step beside the kernel-path step within one run, both with the
     LayerNorm kernels when `fused_ln`."""
@@ -1739,7 +1787,7 @@ def step_ms_in_turns(mcfg, params, batch, fused_ln=False):
     with layers.ln_impl("pallas" if fused_ln else "xla"):
         for impl in ("kernel", "plain"):
             states[impl] = create_train_state(params, opt)
-            steps[impl] = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True, impl=impl)
+            steps[impl] = make_train_step(mcfg, opt, compute_dtype=dtype, remat=True, impl=impl)
             steps[impl](states[impl], batch)
         for impl in ("kernel", "plain", "plain", "kernel"):
             torch.cuda.synchronize()
@@ -2060,7 +2108,26 @@ def phase_train_l14(out_root):
         kernel_vs_plain=compare, kernel_attention_step_ms=turns["kernel"],
         plain_attention_step_ms=turns["plain"])
     emit({"phase": "train_l14_profile", **prof})
-    del params, ds
+
+    # fp32 steps (`compute_dtype: "float32"`): the vision tower's K2 on its
+    # tf32x3 variant, forward and backward. The train steps timed beside the
+    # plain attention in turns are the path, counted (one warm-up step and
+    # two timed ones on the kernels); then one step's loss and gradients
+    # against the plain step
+    batch = _device_batch(ds, L14_FP32_BATCH)
+    reset_launches()
+    turns = step_ms_in_turns(mcfg, params, batch, dtype=torch.float32)
+    launches = read_launches()
+    expected = train_launches(mcfg, 1 + len(turns["kernel"]), dtype=torch.float32)
+    check(launches == expected, f"fp32 L/14 step launches {launches} != {expected}")
+    fp32 = compare_fp32_grads(mcfg, params, batch)
+    emit({"phase": "train_l14_fp32", "model": "ViT-L/14", "batch_images": L14_FP32_BATCH,
+          "descriptions_per_image": D, "compute_dtype": "float32", "remat": "full",
+          "vision_attention_variant": headgrid_variant(torch.float32, mcfg.vision_width // mcfg.vision_heads),
+          "kernel_vs_plain": fp32, "tol": FP32_STEP_TOL, "launches": launches,
+          "kernel_attention_step_ms": turns["kernel"], "plain_attention_step_ms": turns["plain"]})
+    fp32_launches = launches
+    del params, ds, batch
     torch.cuda.empty_cache()
 
     # ViT-B/16: one kernel-path step at its bench batch, counted
@@ -2091,7 +2158,7 @@ def phase_train_l14(out_root):
           "plain_attention_step_ms": turns["plain"]})
     del params, batch
     torch.cuda.empty_cache()
-    return run["launches"], b16
+    return run["launches"], b16, fp32_launches
 
 
 def phase_train_ot(out_root):
@@ -2225,15 +2292,18 @@ def main(argv=None) -> int:
     seconds = _build.build(sources)
     ptxas = {name: [ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines() if "Used" in ln]
              for name in sources}
-    # the tensor-core kernels keep their tiles' accumulators in registers:
-    # a spill would send them to local memory
-    spills = {name: ptxas_spills(_build.BUILD_LOGS.get(name, ""), "_mma")
-              for name in (KERNEL, BWD_KERNEL, HG_KERNEL, HG_BWD_KERNEL)}
+    # the tensor-core kernels ("mma", K2's "tf32x3") keep their tiles'
+    # accumulators in registers: a spill would send them to local memory
+    needles = {KERNEL: ("_mma",), BWD_KERNEL: ("_mma",), HG_KERNEL: ("_mma", "_tf32x3"),
+               HG_BWD_KERNEL: ("_mma", "_tf32x3")}
+    spills = {name: {needle: ptxas_spills(_build.BUILD_LOGS.get(name, ""), needle) for needle in found}
+              for name, found in needles.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds, "ptxas": ptxas,
-          "mma_kernel_spill_bytes": spills})
-    for name, by_kernel in spills.items():
-        check(seconds[name] == 0.0 or by_kernel, f"{name}: no mma kernel in the ptxas log")
-        check(not any(by_kernel.values()), f"{name}: an mma kernel spills: {by_kernel}")
+          "tensor_core_kernel_spill_bytes": spills})
+    for name, by_needle in spills.items():
+        for needle, by_kernel in by_needle.items():
+            check(seconds[name] == 0.0 or by_kernel, f"{name}: no {needle} kernel in the ptxas log")
+            check(not any(by_kernel.values()), f"{name}: a {needle} kernel spills: {by_kernel}")
 
     if args.only:
         rows = {name: [] for name in COUNTERS}
@@ -2255,7 +2325,7 @@ def main(argv=None) -> int:
         paths["serving_ln"] = phase_serving_ln()
         paths["serving_l14"], l14_rates = phase_serving(out_root, "ViT-L/14", L14_SERVING_ITEMS,
                                                         matching=False, tag="serving_l14")
-        paths["train_l14"], paths["train_b16"] = phase_train_l14(out_root)
+        paths["train_l14"], paths["train_b16"], paths["train_l14_fp32"] = phase_train_l14(out_root)
         paths["train_ot"] = phase_train_ot(out_root)
         paths["serving_int8_l14"] = phase_serving_int8(out_root, "ViT-L/14", L14_SERVING_ITEMS,
                                                        "serving_int8_l14", l14_rates)

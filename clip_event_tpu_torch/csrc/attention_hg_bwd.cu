@@ -12,12 +12,12 @@
 //   do    [B, S, W]   the output's cotangent, qkv's dtype
 //   out   [B, S, W]   the forward's output and
 //   lse   [B, H, S]   its fp32 row log-sum-exp (natural log): read by the
-//                     tensor-core variant only; the CUDA-core variant
+//                     tensor-core variants only; the CUDA-core variant
 //                     recomputes both and ignores these
 //   dqkv  [B, S, 3W]  written once in qkv's dtype: dq at lanes h*D, dk at
 //                     W + h*D, dv at 2W + h*D, the layout of the TPU
 //                     wrapper's concatenate([dq, dk, dv], -1)
-//   stats [3, B, H, S] fp32 scratch. Tensor-core variant: the first
+//   stats [3, B, H, S] fp32 scratch. Tensor-core variants: the first
 //                     [B, H, S] holds delta = rowsum(dO o O). CUDA-core
 //                     variant: each row's softmax max m, sum l and delta
 //
@@ -29,12 +29,13 @@
 // What bounds it. At the vision training shapes (S=197 W=768 H=12, S=257
 // W=1024 H=16, D=64) the work is 10*B*H*S^2*D flops against B*S*7W elements
 // moved. In bf16 on the tensor cores the bound is the memory rate (0.0704
-// ms at ViT-L/14's B=64 on the NVIDIA H100 80GB HBM3); in fp32 on the CUDA
-// cores the operation rate.
+// ms at ViT-L/14's B=64 on the NVIDIA H100 80GB HBM3); in fp32 to fp32
+// accuracy the operation rate: three TF32 products a term at 495 TFLOP/s,
+// 0.2623 ms at that shape (67 TFLOP/s on the CUDA cores).
 //
-// Two hand-written variants, chosen by dtype and head_dim alone
-// (`clip_attention_hg_variant`, the forward's rule). Both take two
-// launches, and in both each (b, h) owns its dq/dk/dv slices and each block
+// Three hand-written variants, chosen by dtype and head_dim alone
+// (`clip_attention_hg_variant`, the forward's rule). All take two
+// launches, and in all each (b, h) owns its dq/dk/dv slices and each block
 // its rows of them: no atomics, the same bits on every run. q, k, v and dO
 // are read by stride straight out of the packed rows.
 //
@@ -65,16 +66,37 @@
 //   nothing. A warp whose 16 rows are all past S skips the math but
 //   reaches every barrier.
 //
-// "simt": fp32 inputs, and bf16 with another head_dim; every product and
-// sum in fp32 on the CUDA cores out of shared memory, limited by
-// shared-memory loads. Its dq pass first re-runs the forward's online
+// "tf32x3": fp32 with D in {16, 32, 64, 128}, the mma variant's two passes
+// on fp32 tiles (rows padded to D + 4 floats; 103 KB a block at D = 64, two
+// blocks an SM) with every product in split TF32 (mma.sync.m16n8k8 tf32,
+// three products a term; attention_mma.cuh), held to the fp32 plain
+// version's 1e-5. It reads the forward's saved out and lse, as the mma
+// variant does. What differs:
+//   * dq pass: per 32-key chunk, S = Q.K^T and dP = dO.V^T, K and V by
+//     ldmatrix, split per use; Q's split fragments held at D <= 64
+//     (reloaded per k-step at D = 128), dO's reloaded per k-step. P and
+//     dS in fp32 on the accumulators; each 8-key tile of dS split in
+//     registers as the A operand of dQ += dS.K over relabelled keys, K's B
+//     fragments by scalar shared loads.
+//   * dkv pass: per chunk of 32 queries (16 at D = 128), S^T = K.Q^T and
+//     dP^T = V.dO^T with K's and V's fragments reloaded per k-step; P^T
+//     and dS^T, split per 8-query tile, are the A operands of
+//     dV += P^T.dO and dK += dS^T.Q. At D = 128, where dK and dV would
+//     take 128 registers, the block walks the Q/dO tiles twice, each time
+//     for half of dK's and dV's columns (S^T and dP^T formed twice; the
+//     launch count stays 2).
+//   * Results staged in fp32 in the warp's own spent rows, 16-byte stores.
+//   * __launch_bounds__ with a least of one block an SM, as the forward.
+//
+// "simt": bf16 and fp32 with another head_dim (1, 2, 4 or 8); every
+// product and sum in fp32 on the CUDA cores out of shared memory, limited
+// by shared-memory loads. Its dq pass first re-runs the forward's online
 // softmax over K/V tiles for m, l and O (never stored) and delta, then
 // walks K/V again for dQ; its dkv pass takes 32 key rows a block and
-// recomputes each column of P bitwise as pass 1 does. fp32 is held to 1e-5
-// against the plain version, which rules out TF32 or bf16 operands.
+// recomputes each column of P bitwise as pass 1 does.
 //
 // Limits, checked by the Python wrapper too: D <= 128; any S >= 1; the mma
-// variant needs 16-byte-aligned qkv, do, out and dqkv.
+// and tf32x3 variants need 16-byte-aligned qkv, do, out and dqkv.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -443,6 +465,429 @@ int launch_mma_d(const void* qkv, const float* bias, const void* dout, const voi
   return launch_mma<D, false>(qkv, bias, dout, out, lse, dqkv, delta, B, S, H, scale, stream);
 }
 
+// ---------------------------------------------------------------- tf32x3
+
+template <int D>
+constexpr size_t bwd_tf32x3_smem_bytes() {
+  // dq pass: Q, dO tiles + two stages of K, V; dkv pass: K, V tiles + two
+  // stages of Q, dO and of the lse and delta rows; fp32
+  return (size_t)6 * mma::kTile * (D + mma::kPadF) * sizeof(float)
+         + (size_t)4 * mma::kTile * sizeof(float);
+}
+
+template <int D>
+__device__ __forceinline__ void zero_acc(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+attention_hg_bwd_dq_kernel_tf32x3(const float* __restrict__ qkv, const float* __restrict__ bias,
+                                  const float* __restrict__ dout, const float* __restrict__ out,
+                                  const float* __restrict__ lse, float* __restrict__ dqkv,
+                                  float* __restrict__ delta_out, int S, int H, float scale,
+                                  float scale_log2e) {
+  using namespace mma;
+  constexpr int kStride = D + kPadF;
+  constexpr int kSteps = D / 8;
+  constexpr int kChunk = 32;              // keys a chunk
+  constexpr int kChunkTiles = kChunk / 8;  // 8-key n-tiles of a chunk
+  constexpr bool kHold = D <= 64;         // Q's split fragments stay in registers
+  constexpr int kHeld = kHold ? kSteps : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [64][D+4]
+  float* sG = sQ + kTile * kStride;                // [64][D+4] dO
+  float* sK = sG + kTile * kStride;                // [2][64][D+4]
+  float* sV = sK + 2 * kTile * kStride;            // [2][64][D+4]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int W = H * D;
+  const int tiles = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles;
+  const int i0 = (blockIdx.x - bh * tiles) * kTile;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = 3 * (size_t)W;
+  const float* base = qkv + (size_t)b * S * row + h * D;
+  const float* gbase = dout + (size_t)b * S * W + h * D;
+  const float* obase = out + (size_t)b * S * W + h * D;
+  const int nq = min(kTile, S - i0);
+
+  load_tile_f32<D>(sQ, base + (size_t)i0 * row, row, nq, tid);
+  load_tile_f32<D>(sG, gbase + (size_t)i0 * W, (size_t)W, nq, tid);
+  load_tile_f32<D>(sK, base + W, row, min(kTile, S), tid);
+  load_tile_f32<D>(sV, base + 2 * W, row, min(kTile, S), tid);
+  cp_async_commit();
+
+  const bool active = warp * 16 < nq;
+  const int row_g = i0 + warp * 16 + g;
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ri = row_g + 8 * r;
+    const float part = row_delta_f32<D>(gbase, obase, W, ri, S, t4);
+    delta[r] = part;
+    lse2[r] = ri < S ? lse[(size_t)bh * S + ri] * kLog2e : 0.f;
+    if (t4 == 0 && ri < S) delta_out[(size_t)bh * S + ri] = part;
+  }
+
+  uint32_t qh[kHeld][4], ql[kHeld][4];
+  float dq[D / 8][4];
+  zero_acc<D>(dq);
+
+  for (int kt = 0; kt < tiles; ++kt) {
+    if (kt + 1 < tiles) {
+      const int stage = (kt + 1) & 1;
+      const int j1 = (kt + 1) * kTile;
+      load_tile_f32<D>(sK + stage * kTile * kStride, base + (size_t)j1 * row + W, row,
+                       min(kTile, S - j1), tid);
+      load_tile_f32<D>(sV + stage * kTile * kStride, base + (size_t)j1 * row + 2 * W, row,
+                       min(kTile, S - j1), tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if constexpr (kHold) {
+        if (kt == 0) {
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            uint32_t x[4];
+            load_a_f32(x, sQ, kStride, warp * 16, ks * 8, lane);
+            split_frag(x, qh[ks], ql[ks]);
+          }
+        }
+      }
+      const float* ks_tile = sK + (kt & 1) * kTile * kStride;
+      const float* vs_tile = sV + (kt & 1) * kTile * kStride;
+      const int j0 = kt * kTile;
+      const int nk = min(kTile, S - j0);
+#pragma unroll
+      for (int kc = 0; kc < kTile / kChunk; ++kc) {
+        if (kc * kChunk < nk) {
+          float s[kChunkTiles][4], dp[kChunkTiles][4];
+#pragma unroll
+          for (int n = 0; n < kChunkTiles; ++n) {
+            s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+            dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+          }
+          // S = Q.K^T and dP = dO.V^T over this chunk's keys
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            uint32_t x[4], ah[4], al[4], gh[4], gl[4];
+            if constexpr (kHold) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                ah[i] = qh[ks % kHeld][i];
+                al[i] = ql[ks % kHeld][i];
+              }
+            } else {
+              load_a_f32(x, sQ, kStride, warp * 16, ks * 8, lane);
+              split_frag(x, ah, al);
+            }
+            load_a_f32(x, sG, kStride, warp * 16, ks * 8, lane);
+            split_frag(x, gh, gl);
+#pragma unroll
+            for (int p = 0; p < kChunkTiles / 2; ++p) {
+              const int key0 = kc * kChunk + p * 16;
+              if (key0 < nk) {
+                uint32_t fh[4], fl[4];
+                load_b_nk_f32(x, ks_tile, kStride, key0, ks * 8, lane);
+                split_frag(x, fh, fl);
+                mma_tf32x3_x2(s[2 * p], s[2 * p + 1], ah, al, fh, fl);
+                load_b_nk_f32(x, vs_tile, kStride, key0, ks * 8, lane);
+                split_frag(x, fh, fl);
+                mma_tf32x3_x2(dp[2 * p], dp[2 * p + 1], gh, gl, fh, fl);
+              }
+            }
+          }
+          // dS = P o (dP - delta), fp32 (P = 0 for keys past S)
+#pragma unroll
+          for (int n = 0; n < kChunkTiles; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              const int col = j0 + kc * kChunk + n * 8 + 2 * t4 + (e & 1);
+              const float p = prob<HAS_BIAS>(s[n][e], scale_log2e, bias, row_g + 8 * r, col, S,
+                                             lse2[r]);
+              s[n][e] = p * (dp[n][e] - delta[r]);
+            }
+          }
+          // dQ += dS . K: each 8-key tile of dS, split, over relabelled keys
+#pragma unroll
+          for (int n = 0; n < kChunkTiles; ++n) {
+            if (kc * kChunk + n * 8 < nk) {
+              uint32_t dh[4], dl[4];
+              split_acc(s[n], dh, dl);
+#pragma unroll
+              for (int dn = 0; dn < D / 8; dn += 2) {
+                uint32_t kh[2], kl[2], jh[2], jl[2];
+                load_b_kn_f32(kh, kl, ks_tile, kStride, kc * kChunk + n * 8, dn * 8, lane);
+                load_b_kn_f32(jh, jl, ks_tile, kStride, kc * kChunk + n * 8, dn * 8 + 8, lane);
+                mma_tf32x3_2(dq[dn], dh, dl, kh[0], kh[1], kl[0], kl[1], dq[dn + 1], dh, dl, jh[0],
+                             jh[1], jl[0], jl[1]);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active)
+    store_rows_f32<D>(sQ + warp * 16 * kStride, dq, scale, scale,
+                      dqkv + ((size_t)b * S + i0 + warp * 16) * row + h * D, row, nq - warp * 16,
+                      lane);
+}
+
+// One walk of the dkv pass over every Q/dO tile of (b, h), with their lse
+// and delta rows, through the two-stage ring: S^T = K.Q^T, dP^T = V.dO^T,
+// P^T and dS^T for this warp's 16 key rows, then dV += P^T.dO and
+// dK += dS^T.Q for the NC 8-column tiles from column c0, into accumulators
+// the caller zeroed. The block's own K and V rows are issued already (the
+// walk's first commit covers them) or in shared memory.
+template <int D, bool HAS_BIAS, int NC>
+__device__ __forceinline__ void dkv_walk_tf32x3(float* smem, const float* base, const float* gbase,
+                                                const float* lse_bh, const float* delta_bh,
+                                                const float* __restrict__ bias, int S, int W,
+                                                int key_g, bool active, float scale_log2e, int c0,
+                                                float (&dk)[NC][4], float (&dv)[NC][4]) {
+  using namespace mma;
+  constexpr int kStride = D + kPadF;
+  constexpr int kSteps = D / 8;
+  // queries a chunk; at D = 128 the chunk narrows and the k-steps of the
+  // transposed products unroll by two, so that the chunk's scores and
+  // their fragment loads fit beside the 64 accumulator registers
+  constexpr int kChunk = D <= 64 ? 32 : 16;
+  constexpr int kChunkTiles = kChunk / 8;
+  constexpr int kUnrollKs = D <= 64 ? kSteps : 2;
+  float* sK = smem;                     // [64][D+4] own keys
+  float* sV = sK + kTile * kStride;     // [64][D+4]
+  float* sQ = sV + kTile * kStride;     // [2][64][D+4]
+  float* sG = sQ + 2 * kTile * kStride; // [2][64][D+4] dO
+  float* sLse = sG + 2 * kTile * kStride;  // [2][64], log2 units
+  float* sDelta = sLse + 2 * kTile;        // [2][64]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t4 = lane & 3;
+  const size_t row = 3 * (size_t)W;
+  const int tiles = (S + kTile - 1) / kTile;
+
+  load_tile_f32<D>(sQ, base, row, min(kTile, S), tid);
+  load_tile_f32<D>(sG, gbase, (size_t)W, min(kTile, S), tid);
+  cp_async_commit();
+  if (tid < kTile) {
+    sLse[tid] = tid < S ? lse_bh[tid] * kLog2e : 0.f;
+    sDelta[tid] = tid < S ? delta_bh[tid] : 0.f;
+  }
+
+  for (int qt = 0; qt < tiles; ++qt) {
+    if (qt + 1 < tiles) {
+      const int stage = (qt + 1) & 1;
+      const int i1 = (qt + 1) * kTile;
+      load_tile_f32<D>(sQ + stage * kTile * kStride, base + (size_t)i1 * row, row,
+                       min(kTile, S - i1), tid);
+      load_tile_f32<D>(sG + stage * kTile * kStride, gbase + (size_t)i1 * W, (size_t)W,
+                       min(kTile, S - i1), tid);
+      cp_async_commit();
+      if (tid < kTile) {
+        const int i = i1 + tid;
+        sLse[stage * kTile + tid] = i < S ? lse_bh[i] * kLog2e : 0.f;
+        sDelta[stage * kTile + tid] = i < S ? delta_bh[i] : 0.f;
+      }
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      const int stage = qt & 1;
+      const float* qs_tile = sQ + stage * kTile * kStride;
+      const float* gs_tile = sG + stage * kTile * kStride;
+      const float* lse_t = sLse + stage * kTile;
+      const float* delta_t = sDelta + stage * kTile;
+      const int i0 = qt * kTile;
+      const int nq = min(kTile, S - i0);
+#pragma unroll
+      for (int qc = 0; qc < kTile / kChunk; ++qc) {
+        if (qc * kChunk < nq) {
+          // transposed chunks: rows are this warp's keys, columns queries
+          float st[kChunkTiles][4], dpt[kChunkTiles][4];
+#pragma unroll
+          for (int n = 0; n < kChunkTiles; ++n) {
+            st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+            dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
+          }
+#pragma unroll(kUnrollKs)
+          for (int ks = 0; ks < kSteps; ++ks) {
+            uint32_t x[4], kh[4], kl[4], vh[4], vl[4];
+            load_a_f32(x, sK, kStride, warp * 16, ks * 8, lane);
+            split_frag(x, kh, kl);
+            load_a_f32(x, sV, kStride, warp * 16, ks * 8, lane);
+            split_frag(x, vh, vl);
+#pragma unroll
+            for (int p = 0; p < kChunkTiles / 2; ++p) {
+              const int q0 = qc * kChunk + p * 16;
+              if (q0 < nq) {
+                uint32_t fh[4], fl[4];
+                load_b_nk_f32(x, qs_tile, kStride, q0, ks * 8, lane);
+                split_frag(x, fh, fl);
+                mma_tf32x3_x2(st[2 * p], st[2 * p + 1], kh, kl, fh, fl);
+                load_b_nk_f32(x, gs_tile, kStride, q0, ks * 8, lane);
+                split_frag(x, fh, fl);
+                mma_tf32x3_x2(dpt[2 * p], dpt[2 * p + 1], vh, vl, fh, fl);
+              }
+            }
+          }
+          // P^T and dS^T = P^T o (dP^T - delta), per query column
+#pragma unroll
+          for (int n = 0; n < kChunkTiles; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = qc * kChunk + n * 8 + 2 * t4 + (e & 1);  // query within the tile
+              const float p = prob<HAS_BIAS>(st[n][e], scale_log2e, bias, i0 + qi,
+                                             key_g + 8 * (e >> 1), S, lse_t[qi]);
+              st[n][e] = p;
+              dpt[n][e] = p * (dpt[n][e] - delta_t[qi]);
+            }
+          }
+          // dV += P^T . dO and dK += dS^T . Q over relabelled queries
+#pragma unroll
+          for (int n = 0; n < kChunkTiles; ++n) {
+            if (qc * kChunk + n * 8 < nq) {
+              uint32_t ph[4], pl[4], dh[4], dl[4];
+              split_acc(st[n], ph, pl);
+              split_acc(dpt[n], dh, dl);
+#pragma unroll
+              for (int dn = 0; dn < NC; ++dn) {
+                uint32_t gh[2], gl[2], fh[2], fl[2];
+                load_b_kn_f32(gh, gl, gs_tile, kStride, qc * kChunk + n * 8, c0 + dn * 8, lane);
+                load_b_kn_f32(fh, fl, qs_tile, kStride, qc * kChunk + n * 8, c0 + dn * 8, lane);
+                mma_tf32x3_2(dv[dn], ph, pl, gh[0], gh[1], gl[0], gl[1], dk[dn], dh, dl, fh[0], fh[1],
+                             fl[0], fl[1]);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+attention_hg_bwd_dkv_kernel_tf32x3(const float* __restrict__ qkv, const float* __restrict__ bias,
+                                   const float* __restrict__ dout, const float* __restrict__ lse,
+                                   const float* __restrict__ delta, float* __restrict__ dqkv, int S,
+                                   int H, float scale, float scale_log2e) {
+  using namespace mma;
+  constexpr int kStride = D + kPadF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* sK = smem;                  // [64][D+4] own keys, then dK
+  float* sV = sK + kTile * kStride;  // [64][D+4] own values, then dV
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int W = H * D;
+  const int tiles = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - bh * tiles) * kTile;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = 3 * (size_t)W;
+  const float* base = qkv + (size_t)b * S * row + h * D;
+  const float* gbase = dout + (size_t)b * S * W + h * D;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* delta_bh = delta + (size_t)bh * S;
+  const int nk = min(kTile, S - j0);
+
+  load_tile_f32<D>(sK, base + (size_t)j0 * row + W, row, nk, tid);
+  load_tile_f32<D>(sV, base + (size_t)j0 * row + 2 * W, row, nk, tid);
+
+  const bool active = warp * 16 < nk;
+  const int key_g = j0 + warp * 16 + g;  // this thread's key rows: key_g, key_g + 8
+  float* dst = dqkv + ((size_t)b * S + j0 + warp * 16) * row + h * D;
+  if constexpr (D <= 64) {
+    float dk[D / 8][4], dv[D / 8][4];
+    zero_acc<D>(dk);
+    zero_acc<D>(dv);
+    dkv_walk_tf32x3<D, HAS_BIAS, D / 8>(smem, base, gbase, lse_bh, delta_bh, bias, S, W, key_g,
+                                        active, scale_log2e, 0, dk, dv);
+    if (active) {
+      store_rows_f32<D>(sK + warp * 16 * kStride, dk, scale, scale, dst + W, row, nk - warp * 16, lane);
+      store_rows_f32<D>(sV + warp * 16 * kStride, dv, 1.f, 1.f, dst + 2 * W, row, nk - warp * 16, lane);
+    }
+  } else {
+    // dK and dV would take 128 registers beside the products: two walks,
+    // each over half the columns (S^T and dP^T formed in both), written
+    // straight from the registers (K's and V's rows are still read)
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float dk[D / 16][4], dv[D / 16][4];
+      zero_acc<D / 2>(dk);
+      zero_acc<D / 2>(dv);
+      dkv_walk_tf32x3<D, HAS_BIAS, D / 16>(smem, base, gbase, lse_bh, delta_bh, bias, S, W, key_g,
+                                           active, scale_log2e, half * (D / 2), dk, dv);
+      if (active) {
+        store_frag_rows_f32<D / 2>(dk, scale, dst + W + half * (D / 2), row, nk - warp * 16, lane);
+        store_frag_rows_f32<D / 2>(dv, 1.f, dst + 2 * W + half * (D / 2), row, nk - warp * 16, lane);
+      }
+    }
+  }
+}
+
+template <int D, bool HAS_BIAS>
+int launch_tf32x3(const void* qkv, const float* bias, const void* dout, const void* out,
+                  const float* lse, void* dqkv, float* delta, int B, int S, int H, float scale,
+                  cudaStream_t stream) {
+  static bool dq_allowed[mma::kMaxDevices] = {};
+  static bool dkv_allowed[mma::kMaxDevices] = {};
+  auto dq_kernel = attention_hg_bwd_dq_kernel_tf32x3<D, HAS_BIAS>;
+  auto dkv_kernel = attention_hg_bwd_dkv_kernel_tf32x3<D, HAS_BIAS>;
+  constexpr size_t smem = bwd_tf32x3_smem_bytes<D>();
+  int e = mma::allow_smem_once(dq_kernel, smem, dq_allowed);
+  if (e) return e;
+  e = mma::allow_smem_once(dkv_kernel, smem, dkv_allowed);
+  if (e) return e;
+  const long long blocks = (long long)B * H * ((S + mma::kTile - 1) / mma::kTile);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const float* q = static_cast<const float*>(qkv);
+  const float* g = static_cast<const float*>(dout);
+  float* d = static_cast<float*>(dqkv);
+  const float scale_log2e = scale * mma::kLog2e;
+  dq_kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(
+      q, bias, g, static_cast<const float*>(out), lse, d, delta, S, H, scale, scale_log2e);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  dkv_kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(q, bias, g, lse, delta, d, S, H,
+                                                                scale, scale_log2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tf32x3_d(const void* qkv, const float* bias, const void* dout, const void* out,
+                    const float* lse, void* dqkv, float* delta, int B, int S, int H, float scale,
+                    cudaStream_t stream) {
+  if (bias != nullptr)
+    return launch_tf32x3<D, true>(qkv, bias, dout, out, lse, dqkv, delta, B, S, H, scale, stream);
+  return launch_tf32x3<D, false>(qkv, bias, dout, out, lse, dqkv, delta, B, S, H, scale, stream);
+}
+
 // ---------------------------------------------------------------- simt
 
 
@@ -805,15 +1250,16 @@ int launch(const void* qkv, const float* bias, const void* dout, void* dqkv, flo
 
 }  // namespace
 
-// 1 when (dtype, D) takes the tensor-core variant, 0 for the CUDA-core one
-// (the forward's rule). dtype: 0 = fp32, 1 = bf16.
+// The variant that takes (dtype, D), the forward's rule: 1 = "mma", 2 =
+// "tf32x3", 0 = "simt". dtype: 0 = fp32, 1 = bf16.
 extern "C" int clip_attention_hg_variant(int dtype, int D) {
-  return dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128) ? 1 : 0;
+  if (D != 16 && D != 32 && D != 64 && D != 128) return 0;
+  return dtype == 1 ? 1 : dtype == 0 ? 2 : 0;
 }
 
 // dtype: 0 = fp32, 1 = bf16. Launches the dq pass, then the dkv pass, on
 // `stream`; returns the first launch error, or 0. `out` and `lse` (the
-// forward's) are required by the tensor-core variant and ignored by the
+// forward's) are required by the tensor-core variants and ignored by the
 // other.
 extern "C" int clip_attention_hg_bwd(const void* qkv, const void* bias, const void* dout,
                                      const void* out, const void* lse, void* dqkv, void* stats,
@@ -824,14 +1270,23 @@ extern "C" int clip_attention_hg_bwd(const void* qkv, const void* bias, const vo
   const float* bias_f = static_cast<const float*>(bias);
   float* stats_f = static_cast<float*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (clip_attention_hg_variant(dtype, D)) {
+  const int variant = clip_attention_hg_variant(dtype, D);
+  if (variant != 0) {
     if (out == nullptr || lse == nullptr) return (int)cudaErrorInvalidValue;
     const float* lse_f = static_cast<const float*>(lse);
+    if (variant == 1) {
+      switch (D) {
+        case 16: return launch_mma_d<16>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+        case 32: return launch_mma_d<32>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+        case 64: return launch_mma_d<64>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+        default: return launch_mma_d<128>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      }
+    }
     switch (D) {
-      case 16: return launch_mma_d<16>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
-      case 32: return launch_mma_d<32>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
-      case 64: return launch_mma_d<64>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
-      default: return launch_mma_d<128>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      case 16: return launch_tf32x3_d<16>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      case 32: return launch_tf32x3_d<32>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      case 64: return launch_tf32x3_d<64>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
+      default: return launch_tf32x3_d<128>(qkv, bias_f, dout, out, lse_f, dqkv, stats_f, B, S, H, scale, s);
     }
   }
   if (dtype == 0) return launch<float>(qkv, bias_f, dout, dqkv, stats_f, B, S, H, D, scale, s);

@@ -2,7 +2,8 @@
 // tiles in shared memory, asynchronous 16-byte copies into them, ldmatrix
 // loads of mma.sync fragments, the m16n8k16 bf16 product with an fp32
 // accumulator, and the register-only turn of an accumulator tile into the
-// A operand of the next product.
+// A operand of the next product; the same for fp32 tiles and split-TF32
+// m16n8k8 products (below).
 //
 // Tile layout. A tile is ROWS rows of D bf16 values, row-major, with a row
 // stride of D + 8 elements. The 16 bytes of padding move each row by 4
@@ -19,12 +20,38 @@
 // Two neighbouring C tiles (columns n0..n0+7 and n0+8..n0+15) hold exactly
 // the elements of one A tile over k = n0..n0+15: `pack_a` rounds them to
 // bf16 in place, so P and dS never pass through shared memory.
+//
+// Split-TF32 ("3xTF32", the `_f32` / `tf32` helpers at the end): fp32
+// tiles (row stride D + 4 floats) feed mma.sync.m16n8k8 tf32 products.
+// Each fp32 operand x is split as hi = tf32(x), lo = tf32(x - hi), both by
+// cvt.rna, and a.b is summed as lo.hi' + hi.lo' + hi.hi' into fp32
+// accumulators: every tf32 x tf32 product is exact, and what is dropped
+// (lo.lo', the roundings of lo) is about 2^-22 of |a||b| a term, against
+// fp32 FMA's 2^-24 (CUTLASS's OpMultiplyAddFastF32). Only finite values
+// are split: -inf - (-inf) would be NaN, so masks and scales are applied
+// on the accumulators.
+//   A (16 x 8, row):  a0 = (g, t)  a1 = (g + 8, t)  a2 = (g, t + 4)  a3 = (g + 8, t + 4)
+//   B (8 x 8, col):   b0 = (k t, n g)  b1 = (k t + 4, n g)
+//   C (16 x 8, fp32): as above.
+// Q, K, V and dO rows come as A, or as B of X^T, by ldmatrix: .b16 on fp32
+// rows hands each lane one 32-bit word, (row g, word t) of each 8 x 4-word
+// matrix. An accumulator tile (P, dS) becomes an A operand without a
+// shuffle: the products sum over its columns, so its k positions are
+// relabelled, t -> column 2t and t + 4 -> column 2t + 1 (a0 = c0, a1 = c2,
+// a2 = c1, a3 = c3), and the B operand of X row-major as [k][n] is read
+// with the same labels, rows k0 + 2t and k0 + 2t + 1 of column n0 + g, by
+// scalar loads (ldmatrix.trans moves 16-bit elements only). With a row
+// stride of D + 4 floats both reads are free of bank conflicts: ldmatrix's
+// eight 16-byte rows start 4 banks apart, and the scalar loads of lane
+// (g, t) fall on bank 8t + g.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mma {
 
@@ -252,6 +279,194 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* tile_rows, const float
     if (r < valid_rows)
       *reinterpret_cast<int4*>(dst + (size_t)r * pitch + c * 8) =
           *reinterpret_cast<const int4*>(tile_rows + r * kStride + c * 8);
+  }
+}
+
+// ---------------------------------------------------------------- tf32
+
+constexpr int kPadF = 4;  // fp32 elements of padding per fp32 tile row
+
+// Rows [0, valid_rows) of a strided fp32 global matrix (row pitch `pitch`
+// floats, D wide) into a padded fp32 tile of kTile rows (row stride
+// D + kPadF); the rows past valid_rows are zero-filled (valid_rows >= 1).
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, size_t pitch,
+                                              int valid_rows, int tid) {
+  constexpr int kChunks = D / 4;
+  constexpr int kStride = D + kPadF;
+  static_assert((kTile * kChunks) % kThreads == 0, "every thread copies the same number of chunks");
+#pragma unroll
+  for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
+    const int idx = tid + it * kThreads;
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + r * kStride + c * 4, src + (size_t)(ok ? r : 0) * pitch + c * 4, ok);
+  }
+}
+
+// fp32 -> tf32, round to nearest, ties away from zero; the low 13 bits
+// of the result are 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi = tf32(x), lo = tf32(x - hi); x - hi is exact in fp32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// the split of every word of a fragment that holds fp32 bit patterns
+__device__ __forceinline__ void split_frag(const uint32_t (&x)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// An accumulator tile as the split A fragment of its relabelled columns
+// (a0 = c0, a1 = c2, a2 = c1, a3 = c3): B must come from `load_b_kn_f32`.
+__device__ __forceinline__ void split_acc(const float (&c)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// The A fragment of rows [row0, row0 + 16), columns [col0, col0 + 8) of a
+// row-major fp32 tile with row stride `stride` (unsplit fp32 bits).
+__device__ __forceinline__ void load_a_f32(uint32_t (&a)[4], const float* tile, int stride, int row0,
+                                           int col0, int lane) {
+  ldmatrix_x4(a, tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + col0 + 4 * (lane >> 4));
+}
+
+// B fragments of X^T for two n-tiles, where the fp32 tile holds X
+// row-major as [n][k]: n in [n0, n0 + 16), k in [k0, k0 + 8). b[0], b[1]
+// feed the n-tile n0..n0+7; b[2], b[3] the next (unsplit fp32 bits).
+__device__ __forceinline__ void load_b_nk_f32(uint32_t (&b)[4], const float* tile, int stride, int n0,
+                                              int k0, int lane) {
+  ldmatrix_x4(b, tile + (n0 + (lane & 7) + 8 * (lane >> 4)) * stride + k0 + 4 * ((lane >> 3) & 1));
+}
+
+// The split B fragment of X for one n-tile, where the fp32 tile holds X
+// row-major as [k][n], k in [k0, k0 + 8) relabelled as `split_acc` does:
+// lane (g, t) reads rows k0 + 2t and k0 + 2t + 1 of column n0 + g.
+__device__ __forceinline__ void load_b_kn_f32(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* tile,
+                                              int stride, int k0, int n0, int lane) {
+  const float* p = tile + (k0 + 2 * (lane & 3)) * stride + n0 + (lane >> 2);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[stride], hi[1], lo[1]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c0 += a0.b0 and c1 += a1.b1 in split TF32, each as lo.hi' + hi.lo'
+// (the small terms first) + hi.hi', the two sums' products side by side so
+// that no product waits on the one before it (b: the hi and lo words of
+// one n-tile's B fragment)
+__device__ __forceinline__ void mma_tf32x3_2(float (&c0)[4], const uint32_t (&a0hi)[4],
+                                             const uint32_t (&a0lo)[4], uint32_t b0h0, uint32_t b0h1,
+                                             uint32_t b0l0, uint32_t b0l1, float (&c1)[4],
+                                             const uint32_t (&a1hi)[4], const uint32_t (&a1lo)[4],
+                                             uint32_t b1h0, uint32_t b1h1, uint32_t b1l0,
+                                             uint32_t b1l1) {
+  mma_tf32(c0, a0lo, b0h0, b0h1);
+  mma_tf32(c1, a1lo, b1h0, b1h1);
+  mma_tf32(c0, a0hi, b0l0, b0l1);
+  mma_tf32(c1, a1hi, b1l0, b1l1);
+  mma_tf32(c0, a0hi, b0h0, b0h1);
+  mma_tf32(c1, a1hi, b1h0, b1h1);
+}
+
+// c0 += a.b and c1 += a.b' for the two n-tiles of one split B pair
+// (`load_b_nk_f32`), interleaved as `mma_tf32x3_2`
+__device__ __forceinline__ void mma_tf32x3_x2(float (&c0)[4], float (&c1)[4], const uint32_t (&ahi)[4],
+                                              const uint32_t (&alo)[4], const uint32_t (&bhi)[4],
+                                              const uint32_t (&blo)[4]) {
+  mma_tf32x3_2(c0, ahi, alo, bhi[0], bhi[1], blo[0], blo[1], c1, ahi, alo, bhi[2], bhi[3], blo[2],
+               blo[3]);
+}
+
+// delta = rowsum(dO o O) of row `ri` (0 past S), fp32 rows: the 4 lanes
+// of a quad take D / 4 columns each (16-byte loads) and every lane of the
+// quad gets the sum. dout and out point at the head's lanes of row 0.
+template <int D>
+__device__ __forceinline__ float row_delta_f32(const float* dout, const float* out, int W, int ri,
+                                               int S, int t4) {
+  float part = 0.f;
+  if (ri < S) {
+    const float4* gp = reinterpret_cast<const float4*>(dout + (size_t)ri * W + t4 * (D / 4));
+    const float4* op = reinterpret_cast<const float4*>(out + (size_t)ri * W + t4 * (D / 4));
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const float4 gv = gp[c];
+      const float4 ov = op[c];
+      part = fmaf(gv.x, ov.x, part);
+      part = fmaf(gv.y, ov.y, part);
+      part = fmaf(gv.z, ov.z, part);
+      part = fmaf(gv.w, ov.w, part);
+    }
+  }
+  return quad_sum(part);
+}
+
+// A warp's 16 x D fp32 accumulator rows, times `f`, written straight
+// from registers (8 bytes a lane) to dst[r * pitch + c] for r <
+// valid_rows: for a result whose warp has no spare tile rows to stage it.
+template <int D>
+__device__ __forceinline__ void store_frag_rows_f32(const float (&acc)[D / 8][4], float f, float* dst,
+                                                    size_t pitch, int valid_rows, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    if (g < valid_rows)
+      *reinterpret_cast<float2*>(dst + (size_t)g * pitch + nt * 8 + 2 * t) =
+          make_float2(acc[nt][0] * f, acc[nt][1] * f);
+    if (g + 8 < valid_rows)
+      *reinterpret_cast<float2*>(dst + (size_t)(g + 8) * pitch + nt * 8 + 2 * t) =
+          make_float2(acc[nt][2] * f, acc[nt][3] * f);
+  }
+}
+
+// `store_rows` for fp32: a warp's 16 x D accumulator rows, times f0 (rows
+// g) and f1 (rows g + 8), staged in the warp's own 16 rows of an fp32 tile
+// and written with 16-byte stores to dst[r * pitch + c] for r < valid_rows.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* tile_rows, const float (&acc)[D / 8][4], float f0,
+                                               float f1, float* dst, size_t pitch, int valid_rows,
+                                               int lane) {
+  constexpr int kStride = D + kPadF;
+  constexpr int kChunks = D / 4;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    *reinterpret_cast<float2*>(tile_rows + g * kStride + nt * 8 + 2 * t) =
+        make_float2(acc[nt][0] * f0, acc[nt][1] * f0);
+    *reinterpret_cast<float2*>(tile_rows + (g + 8) * kStride + nt * 8 + 2 * t) =
+        make_float2(acc[nt][2] * f1, acc[nt][3] * f1);
+  }
+  __syncwarp();
+  static_assert((16 * kChunks) % 32 == 0, "every lane stores the same number of chunks");
+#pragma unroll
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int idx = lane + it * 32;
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    if (r < valid_rows)
+      *reinterpret_cast<float4*>(dst + (size_t)r * pitch + c * 4) =
+          *reinterpret_cast<const float4*>(tile_rows + r * kStride + c * 4);
   }
 }
 

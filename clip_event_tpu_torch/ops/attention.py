@@ -28,23 +28,28 @@ reference a run on the card is held against; `impl="rounded"` runs it with
 the roundings of the kernels' tensor-core variants (below) where an input
 takes that variant.
 
-K1 and K2 each have two hand-written variants, chosen by dtype and
-head_dim alone before anything launches, by one rule (`k1_variant` and
-`headgrid_variant`; `clip_attention_variant` and `clip_attention_hg_variant`
-in the libraries): "mma" (bf16 with head_dim 16, 32, 64 or 128) runs
-every product on the tensor cores with bf16 operands and fp32
-accumulators, which rounds P to bf16 before P·V and Pᵀ·dO and dS to bf16
-before dS·K and dSᵀ·Q; "simt" (fp32, and bf16 with another head_dim) keeps
-every product in fp32 on the CUDA cores. Neither gives way to the other or
-to the plain version. The mma forward also writes each row's log-sum-exp
-[B, H, S]; `_FusedAttention` and `_HeadGridAttention` save it and the
-output beside qkv and bias (the out-projection saves the output anyway),
-so the mma backward recomputes nothing of the forward but the scores.
-Called directly without them, `fused_attention_qkv_bwd` and
-`fused_attention_qkv_headgrid_bwd` run the forward kernel first.
-`mma_rounding=True` on the plain versions rounds where the mma variant
-rounds: that is the variant's plain version proper, which tests and
-`chip_smoke.py` hold it against; nothing on a main path calls it.
+K1 has two hand-written variants and K2 three, chosen by dtype and
+head_dim alone before anything launches, each pair by its own rule
+(`k1_variant` and `headgrid_variant`; `clip_attention_variant` and
+`clip_attention_hg_variant` in the libraries): "mma" (bf16 with head_dim
+16, 32, 64 or 128, both pairs) runs every product on the tensor cores with
+bf16 operands and fp32 accumulators, which rounds P to bf16 before P·V and
+Pᵀ·dO and dS to bf16 before dS·K and dSᵀ·Q; "tf32x3" (K2 only: fp32 with
+those head dims) runs every product on the tensor cores in split TF32:
+each fp32 operand x is split as hi = tf32(x), lo = tf32(x − hi) and a·b is
+summed as lo·hi′ + hi·lo′ + hi·hi′ in fp32, within the fp32 gate; "simt"
+(everything else either pair takes: K1's fp32, and head dims no
+tensor-core tile fits) keeps every product in fp32 on the CUDA cores.
+None gives way to another or to the plain version. The tensor-core
+forwards also write each row's log-sum-exp [B, H, S]; `_FusedAttention`
+and `_HeadGridAttention` save it and the output beside qkv and bias (the
+out-projection saves the output anyway), so their backwards recompute
+nothing of the forward but the scores. Called directly without them,
+`fused_attention_qkv_bwd` and `fused_attention_qkv_headgrid_bwd` run the
+forward kernel first. `mma_rounding=True` on the plain versions rounds
+where the mma variant rounds and `tf32x3=True` splits where the tf32x3
+variant splits: each is its variant's plain version proper, which tests
+and `chip_smoke.py` hold it against; nothing on a main path calls them.
 
 `fused_ln_qkv_attention` (K6, the counterpart of the JAX function of the
 same name) computes LayerNorm → the packed QKV projection → K1's attention
@@ -72,13 +77,19 @@ HG_KERNEL = "attention_hg_fwd"
 HG_BWD_KERNEL = "attention_hg_bwd"
 # kernels a backward call launches: K1's mma variant one (every tile of a
 # head fits one block), its simt variant two (dq pass, dk/dv pass); K2 two
-# in both variants
+# in every variant
 BWD_LAUNCHES_PER_CALL = {"mma": 1, "simt": 2}
 HG_BWD_LAUNCHES_PER_CALL = 2
-# the tensor-core variants of K1 and K2: bf16 with one of these head dims
+# the tensor-core variants of K1 and K2 (bf16; K2 also fp32) take one of
+# these head dims
 MMA_HEAD_DIMS = (16, 32, 64, 128)
-VARIANTS = HG_VARIANTS = ("mma", "simt")
-# cp.async and ldmatrix move 16 bytes at a time
+VARIANTS = ("mma", "simt")
+HG_VARIANTS = ("mma", "tf32x3", "simt")
+# the libraries' variant codes (`clip_attention_variant` returns 0 or 1)
+_VARIANT_CODES = {0: "simt", 1: "mma", 2: "tf32x3"}
+# the tensor-core variants read and write through cp.async and ldmatrix,
+# 16 bytes at a time
+TENSOR_CORE_VARIANTS = ("mma", "tf32x3")
 MMA_ALIGN = 16
 # K2 takes heads in 128-lane groups, as the TPU kernel's lane blocks do
 HG_LANES = 128
@@ -124,17 +135,66 @@ def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return _wide(t.to(dtype))
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as `cvt.rna.tf32.f32` does: the low 13 bits become 0.
+    Infinities and NaNs pass unchanged; a value that rounds past the
+    largest finite one becomes infinite."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"tf32_round takes float32, got {t.dtype}")
+    bits = t.contiguous().view(torch.int32)
+    sign = bits & -(2 ** 31)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & -(2 ** 13)
+    return torch.where(torch.isfinite(t), (sign | mag).view(torch.float32), t)
+
+
+def tf32_split(t: torch.Tensor):
+    """(hi, lo) = (tf32(t), tf32(t − hi)): the two TF32 halves the tf32x3
+    variant splits each fp32 operand into; t − hi is exact in fp32."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b as the tf32x3 variant forms it: lo·hi′ + hi·lo′ + hi·hi′ over
+    the TF32 halves, each a product of TF32 values (exact in fp32) summed
+    in fp32; lo·lo′ is dropped."""
+    (ah, al), (bh, bl) = tf32_split(a.float()), tf32_split(b.float())
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def _tf32x3_scores(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float):
+    """`_split_scores` with q·kᵀ in split TF32 and the scale applied after
+    the product, as the tf32x3 variant applies it on its accumulators."""
+    B, S, W3 = qkv.shape
+    x = qkv.float().view(B, S, 3, num_heads, W3 // 3 // num_heads)
+    q, k, v = (t.transpose(1, 2) for t in x.unbind(2))
+    logits = tf32x3_matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return q, k, v, e, e.sum(dim=-1, keepdim=True)
+
+
 def fused_attention_qkv_plain(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
-    mma_rounding: bool = False,
+    mma_rounding: bool = False, tf32x3: bool = False,
 ) -> torch.Tensor:
     """softmax(q·scale·kᵀ + bias)·v per head in fp32, output in qkv.dtype
     (the math of `_fwd_kernel` / `_probs`). With `mma_rounding` the
     unnormalized probabilities are rounded to qkv.dtype before they
     multiply v and the row sum (of the unrounded values) divides after, as
-    K2's tensor-core variant does; scores, softmax and sums stay fp32."""
+    K2's tensor-core variant does; scores, softmax and sums stay fp32. With
+    `tf32x3` (fp32 inputs), as K2's tf32x3 variant: q·kᵀ (scaled after) and
+    the unnormalized probabilities times v in split TF32
+    (`tf32x3_matmul`), the row sum dividing after."""
+    if mma_rounding and tf32x3:
+        raise ValueError("mma_rounding and tf32x3 are two variants' roundings: pick one")
     B, S, W3 = qkv.shape
-    if mma_rounding:
+    if tf32x3:
+        _, _, v, e, l = _tf32x3_scores(qkv, bias, num_heads, scale)
+        out = tf32x3_matmul(e, v) / l
+    elif mma_rounding:
         _, _, v, e, l = _split_scores(qkv, bias, num_heads, scale)
         out = torch.matmul(_rounded(e, qkv.dtype), v) / l
     else:
@@ -145,7 +205,7 @@ def fused_attention_qkv_plain(
 
 def fused_attention_qkv_bwd_plain(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
-    scale: float, mma_rounding: bool = False,
+    scale: float, mma_rounding: bool = False, tf32x3: bool = False,
 ) -> torch.Tensor:
     """dqkv [B, S, 3W] in qkv.dtype from qkv and the output's cotangent `do`
     [B, S, W], in fp32 ops (the formulas of `_bwd_kernel`): recompute P,
@@ -153,8 +213,24 @@ def fused_attention_qkv_bwd_plain(
     dk = dsᵀ·q·scale. With `mma_rounding`, as K2's tensor-core variant: P is
     rounded to qkv.dtype before Pᵀ·do, ds before ds·k and dsᵀ·q, and the row
     term is rowsum(do∘out) over the forward's rounded output (equal to
-    rowsum(dp∘P) before rounding); P, dp, ds and every sum stay fp32."""
+    rowsum(dp∘P) before rounding); P, dp, ds and every sum stay fp32. With
+    `tf32x3` (fp32 inputs), as K2's tf32x3 variant: the scores, dp, dv, dq
+    and dk products in split TF32 (`tf32x3_matmul`), the row term
+    rowsum(do∘out) over the `tf32x3` forward's output."""
+    if mma_rounding and tf32x3:
+        raise ValueError("mma_rounding and tf32x3 are two variants' roundings: pick one")
     B, S, W3 = qkv.shape
+    if tf32x3:
+        q, k, v, e, l = _tf32x3_scores(qkv, bias, num_heads, scale)
+        p = e / l
+        g = do.float().view(B, S, num_heads, -1).transpose(1, 2)
+        out = fused_attention_qkv_plain(qkv, bias, num_heads, scale, tf32x3=True)
+        out = out.float().view(B, S, num_heads, -1).transpose(1, 2)
+        ds = p * (tf32x3_matmul(g, v.transpose(-1, -2)) - (g * out).sum(dim=-1, keepdim=True))
+        grads = (tf32x3_matmul(ds, k) * scale, tf32x3_matmul(ds.transpose(-1, -2), q) * scale,
+                 tf32x3_matmul(p.transpose(-1, -2), g))
+        dqkv = torch.stack([t.transpose(1, 2) for t in grads], dim=2)  # [B, S, 3, H, D]
+        return dqkv.reshape(B, S, W3).to(qkv.dtype)
     q, k, v, p = _split_probs(qkv, bias, num_heads, scale)
     g = _wide(do).view(B, S, num_heads, -1).transpose(1, 2)
     dp = torch.matmul(g, v.transpose(-1, -2))
@@ -182,29 +258,41 @@ def head_grid_supported(seq_len: int, width: int, num_heads: int) -> bool:
 
 
 def headgrid_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which of K2's two hand-written variants takes an input, by dtype and
-    head_dim alone: "mma" (tensor cores; bf16 with head_dim 16, 32, 64 or
-    128) or "simt" (CUDA cores; everything else K2 takes). The libraries'
-    `clip_attention_hg_variant` is the same rule."""
-    return "mma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS else "simt"
+    """Which of K2's three hand-written variants takes an input, by dtype
+    and head_dim alone: with head_dim 16, 32, 64 or 128, "mma" for bf16
+    and "tf32x3" for fp32 (tensor cores); "simt" (CUDA cores) for every
+    other input K2 takes. The libraries' `clip_attention_hg_variant` is the
+    same rule."""
+    if head_dim in MMA_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "mma"
+        if dtype == torch.float32:
+            return "tf32x3"
+    return "simt"
 
 
 def k1_variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which of K1's two hand-written variants takes an input, by dtype and
-    head_dim alone: K2's rule (`headgrid_variant`), "mma" for bf16 with
-    head_dim 16, 32, 64 or 128 and "simt" for everything else K1 takes.
-    The libraries' `clip_attention_variant` is the same rule."""
-    return headgrid_variant(dtype, head_dim)
+    head_dim alone: "mma" for bf16 with head_dim 16, 32, 64 or 128 and
+    "simt" for everything else K1 takes (fp32 among it). The libraries'
+    `clip_attention_variant` is the same rule."""
+    return "mma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS else "simt"
 
 
-def _check_aligned(**tensors) -> None:
-    """The mma variants copy 16 bytes at a time: every tensor they read or
-    write must start on a 16-byte boundary (a contiguous view with a
-    storage offset need not)."""
+def _variant(head_grid: bool, dtype: torch.dtype, head_dim: int) -> str:
+    """The variant of the kernel pair a launch goes to: K2's with
+    `head_grid`, else K1's."""
+    return (headgrid_variant if head_grid else k1_variant)(dtype, head_dim)
+
+
+def _check_aligned(variant: str, **tensors) -> None:
+    """The tensor-core variants copy 16 bytes at a time: every tensor they
+    read or write must start on a 16-byte boundary (a contiguous view with
+    a storage offset need not)."""
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % MMA_ALIGN:
             raise ValueError(
-                f"attention kernel (mma variant) needs {name} aligned to {MMA_ALIGN} "
+                f"attention kernel ({variant} variant) needs {name} aligned to {MMA_ALIGN} "
                 f"bytes, got data_ptr() % {MMA_ALIGN} == {t.data_ptr() % MMA_ALIGN} (a view with "
                 "a storage offset? pass a .clone())"
             )
@@ -236,8 +324,9 @@ def _check_kernel_input(
             raise ValueError(f"attention kernel takes 1 <= S <= {MAX_SEQ}, got S={S}")
         if not 1 <= D <= MAX_HEAD_DIM:
             raise ValueError(f"attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
-    if headgrid_variant(qkv.dtype, D) == "mma":
-        _check_aligned(qkv=qkv, do=do)
+    variant = _variant(head_grid, qkv.dtype, D)
+    if variant in TENSOR_CORE_VARIANTS:
+        _check_aligned(variant, qkv=qkv, do=do)
     if B < 1:
         raise ValueError("attention kernel needs B >= 1")
     if bias is not None:
@@ -280,18 +369,22 @@ def _ptr(t: Optional[torch.Tensor]):
 def library_variant(name: str, dtype: torch.dtype, head_dim: int) -> str:
     """`k1_variant` / `headgrid_variant` as the built library `name` (K1's
     or K2's forward or backward) decides it: `chip_smoke.py` checks that
-    the two agree."""
+    the two agree. The C rule returns 0 ("simt"), 1 ("mma") or, in K2's
+    libraries, 2 ("tf32x3")."""
     lib = _build.load(name)
     fn = getattr(lib, _VARIANT_SYMBOL[name])
     fn.argtypes, fn.restype = [_I, _I], _I
-    return VARIANTS[0] if fn(_DTYPES[dtype], head_dim) else VARIANTS[1]
+    code = fn(_DTYPES[dtype], head_dim)
+    if code not in _VARIANT_CODES:
+        raise RuntimeError(f"{name}: {_VARIANT_SYMBOL[name]} returned {code}")
+    return _VARIANT_CODES[code]
 
 
 def _launch_fwd(qkv, bias, num_heads, scale, with_lse: bool, head_grid: bool):
     """Check and launch K1's (K2's with `head_grid`) forward kernel on a
     CUDA tensor. Returns (out, lse): lse is the [B, H, S] fp32 row
-    log-sum-exp when `with_lse` and the input takes the mma variant, else
-    None."""
+    log-sum-exp when `with_lse` and the input takes a tensor-core variant,
+    else None."""
     _check_kernel_input(qkv, bias, num_heads, head_grid=head_grid)
     B, S, W3 = qkv.shape
     W = W3 // 3
@@ -301,8 +394,9 @@ def _launch_fwd(qkv, bias, num_heads, scale, with_lse: bool, head_grid: bool):
     lib, fn = _build.entry(name, symbol, _FWD_ARGS)
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     lse = None
-    if headgrid_variant(qkv.dtype, D) == "mma":
-        _check_aligned(out=out)
+    variant = _variant(head_grid, qkv.dtype, D)
+    if variant in TENSOR_CORE_VARIANTS:
+        _check_aligned(variant, out=out)
         if with_lse:
             lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -317,10 +411,11 @@ def _launch_fwd(qkv, bias, num_heads, scale, with_lse: bool, head_grid: bool):
 
 def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> torch.Tensor:
     """Check and launch K1's (K2's with `head_grid`) backward kernels on a
-    CUDA tensor. The mma variant reads the forward's `out` and `lse` (it
-    runs the forward kernel for them when the caller has none); K2's mma
-    variant keeps delta in the [3, B, H, S] fp32 scratch, K1's needs none.
-    The simt variants keep m, l and delta there and ignore out and lse."""
+    CUDA tensor. The tensor-core variants read the forward's `out` and
+    `lse` (they run the forward kernel for them when the caller has none);
+    K2's keep delta in the [3, B, H, S] fp32 scratch, K1's mma variant
+    needs none. The simt variants keep m, l and delta there and ignore out
+    and lse."""
     do = do.contiguous()
     _check_kernel_input(qkv, bias, num_heads, do, head_grid=head_grid)
     B, S, W3 = qkv.shape
@@ -330,11 +425,12 @@ def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> t
     name, symbol = _BWD_ENTRY[head_grid]
     lib, fn = _build.entry(name, symbol, _BWD_ARGS)
     dqkv = torch.empty_like(qkv)
-    mma = headgrid_variant(qkv.dtype, D) == "mma"
+    variant = _variant(head_grid, qkv.dtype, D)
+    tensor_cores = variant in TENSOR_CORE_VARIANTS
     stats = None
-    if head_grid or not mma:
+    if head_grid or not tensor_cores:
         stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
-    if mma:
+    if tensor_cores:
         if out is None or lse is None:
             fwd = fused_attention_qkv_headgrid_fwd if head_grid else fused_attention_qkv_fwd
             out, lse = fwd(qkv, bias, num_heads, scale, with_lse=True)
@@ -345,7 +441,7 @@ def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> t
                 f"{qkv.device}, got {tuple(out.shape)} in {out.dtype}, {tuple(lse.shape)} in {lse.dtype}"
             )
         out, lse = out.contiguous(), lse.contiguous()
-        _check_aligned(out=out, dqkv=dqkv)
+        _check_aligned(variant, out=out, dqkv=dqkv)
     else:
         out = lse = None
     with torch.cuda.device(qkv.device):
@@ -398,8 +494,9 @@ def fused_attention_qkv_headgrid_fwd(
 ):
     """K2's forward as (out, lse), outside autograd: the plain version on a
     CPU tensor (lse None), the kernel on a CUDA tensor it takes, else raise.
-    `with_lse` asks the mma variant for the [B, H, S] row log-sum-exp that
-    `fused_attention_qkv_headgrid_bwd` reads beside `out`."""
+    `with_lse` asks the tensor-core variants ("mma", "tf32x3") for the
+    [B, H, S] row log-sum-exp that `fused_attention_qkv_headgrid_bwd` reads
+    beside `out`."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, bias, num_heads, scale), None
     out, lse = _launch_fwd(qkv, bias, num_heads, scale, with_lse, head_grid=True)
@@ -415,9 +512,10 @@ def fused_attention_qkv_headgrid_bwd(
     `concatenate([dq, dk, dv], -1)` lays it out. CPU tensors take the plain
     version; any other device must be a CUDA tensor K2 takes, else raise.
     `out` and `lse` are the forward's output and row log-sum-exp, which the
-    mma variant reads (`_HeadGridAttention` saves them); without them it
-    runs the forward kernel first, counted as a forward launch. The simt
-    variant recomputes both inside its dq pass and ignores them."""
+    tensor-core variants ("mma", "tf32x3") read (`_HeadGridAttention` saves
+    them); without them they run the forward kernel first, counted as a
+    forward launch. The simt variant recomputes both inside its dq pass and
+    ignores them."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
     dqkv = _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid=True)
@@ -427,8 +525,9 @@ def fused_attention_qkv_headgrid_bwd(
 
 def _plain_rounding(impl: str, qkv: torch.Tensor, num_heads: int) -> bool:
     """Whether impl "rounded" applies the mma variants' roundings to this
-    input: only where the kernels would take that variant."""
-    return impl == "rounded" and headgrid_variant(qkv.dtype, qkv.shape[-1] // 3 // num_heads) == "mma"
+    input: only where the kernels would take that variant (K1's and K2's
+    rules agree on it)."""
+    return impl == "rounded" and k1_variant(qkv.dtype, qkv.shape[-1] // 3 // num_heads) == "mma"
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -466,9 +565,10 @@ class _FusedAttention(torch.autograd.Function):
 class _HeadGridAttention(torch.autograd.Function):
     """K2 with its gradient, the counterpart of `_hg_fwd` / `_hg_bwd`: saves
     qkv and bias, not the probabilities, so it composes with
-    `torch.utils.checkpoint`; on the mma variant also the output (which the
-    out-projection saves anyway) and the [B, H, S] row log-sum-exp, where
-    the JAX VJP recomputes both. No gradient for the bias."""
+    `torch.utils.checkpoint`; on the tensor-core variants ("mma",
+    "tf32x3") also the output (which the out-projection saves anyway) and
+    the [B, H, S] row log-sum-exp, where the JAX VJP recomputes both. No
+    gradient for the bias."""
 
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, scale):

@@ -12,9 +12,10 @@ there); here:
     D = 64; D = 32 and 128 at S = 150), the rounded version is within
     1e-2 of max|plain| of the fp32-inside version, forward and backward:
     the gate the card holds the kernel to is reachable;
-(d) `headgrid_variant` over dtypes and head dims;
+(d) `headgrid_variant` over dtypes and head dims (its fp32 variant,
+    "tf32x3", has tests of its own: `test_torch_attention_tf32x3.py`);
 (e) the wrapper refuses a qkv (or do) that is not 16-byte aligned on the
-    mma variant, and only there;
+    mma variant, and takes any alignment on the simt variants;
 (f) the same for K1 (S <= 128): `k1_variant`; its path shapes (S = 77
     causal and S = 50 without a bias at D = 64) and its tile edges (S = 1,
     16, 17, 65, 128; D = 16, 32, 128) in fp32 against the JAX K1 Pallas
@@ -123,16 +124,18 @@ def test_bf16_rounded_version_is_within_the_card_gate(S, D, causal):
 def test_headgrid_variant_rule():
     for D in (16, 32, 64, 128):
         assert TA.headgrid_variant(torch.bfloat16, D) == "mma"
-        assert TA.headgrid_variant(torch.float32, D) == "simt"
+        assert TA.headgrid_variant(torch.float32, D) == "tf32x3"
     for D in (1, 2, 4, 8):  # the other head dims that divide 128
         assert TA.headgrid_variant(torch.bfloat16, D) == "simt"
         assert TA.headgrid_variant(torch.float32, D) == "simt"
     assert TA.headgrid_variant(torch.float16, 64) == "simt"  # refused later, by dtype
-    assert TA.MMA_HEAD_DIMS == (16, 32, 64, 128) and TA.HG_VARIANTS == ("mma", "simt")
+    assert TA.MMA_HEAD_DIMS == (16, 32, 64, 128) and TA.HG_VARIANTS == ("mma", "tf32x3", "simt")
     assert TA.HG_BWD_LAUNCHES_PER_CALL == 2
-    # every head dim K2 takes has a variant, and the path shapes take mma
+    # every head dim K2 takes has a variant, and the path shapes take the
+    # tensor cores in both dtypes
     for W, H in ((1024, 16), (768, 12)):
         assert TA.head_grid_supported(257, W, H) and TA.headgrid_variant(torch.bfloat16, W // H) == "mma"
+        assert TA.headgrid_variant(torch.float32, W // H) == "tf32x3"
 
 
 def _misaligned(shape, dtype):
@@ -163,7 +166,7 @@ def test_mma_variant_refuses_a_misaligned_tensor(which):
 def test_simt_variant_and_k1_take_any_alignment():
     qkv = _misaligned((1, 130, 384), torch.float32)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        TA._check_kernel_input(qkv, None, 2, head_grid=True)  # fp32: simt
+        TA._check_kernel_input(qkv, None, 16, head_grid=True)  # fp32, head_dim 8: simt
     qkv = _misaligned((1, 130, 3 * 128), torch.bfloat16)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         TA._check_kernel_input(qkv, None, 16, head_grid=True)  # bf16, head_dim 8: simt

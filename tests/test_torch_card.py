@@ -28,6 +28,10 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
   vision shape and at a ragged causal shape, forward and backward, with
   the backward's launch count, equal bits through autograd's saved
   residuals and on a second run;
+- K2's fp32 tensor-core variant ("tf32x3", split TF32) at the three vision
+  path shapes (ViT-L/14, ViT-B/16 train and serving), forward and
+  backward, within the fp32 gates of the plain versions, with the same
+  launch counts and bit checks;
 - K1's tensor-core variant the same way, at the ViT-B/32 text tower's shape
   (S = 77, causal) and vision shape (S = 50), and at a ragged one (S = 65,
   head_dim 32): one backward launch a call;
@@ -310,7 +314,7 @@ def test_k2_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, 
     scale = (W // H) ** -0.5
     assert A.headgrid_variant(qkv.dtype, W // H) == "mma"
     assert A.library_variant(A.HG_KERNEL, qkv.dtype, W // H) == "mma"
-    assert A.library_variant(A.HG_BWD_KERNEL, torch.float32, W // H) == "simt"
+    assert A.library_variant(A.HG_BWD_KERNEL, torch.float32, W // H) == "tf32x3"
 
     A.fused_attention_qkv_headgrid.launches = A.fused_attention_qkv_headgrid_bwd.launches = 0
     leaf = qkv.detach().requires_grad_(True)
@@ -340,6 +344,42 @@ def test_k2_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, 
         diff = (got.float() - rounded).abs()
         assert diff.max().item() <= 8e-3 * top
         assert diff.mean().item() <= 5e-4 * top
+
+
+@pytest.mark.parametrize("tag,B,S,W,H", [
+    ("l14_vision", 64, 257, 1024, 16), ("b16_train_vision", 96, 197, 768, 12),
+    ("b16_serving_vision", 64, 197, 768, 12),
+])
+def test_k2_tf32x3_variant_matches_the_plain_versions(fixtures_mod, tag, B, S, W, H):
+    from clip_event_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn((B, S, 3 * W), device="cuda", generator=gen)
+    do = torch.randn((B, S, W), device="cuda", generator=gen)
+    scale = (W // H) ** -0.5
+    assert A.headgrid_variant(qkv.dtype, W // H) == "tf32x3"
+    assert A.library_variant(A.HG_KERNEL, qkv.dtype, W // H) == "tf32x3"
+    assert A.library_variant(A.HG_BWD_KERNEL, qkv.dtype, W // H) == "tf32x3"
+
+    A.fused_attention_qkv_headgrid.launches = A.fused_attention_qkv_headgrid_bwd.launches = 0
+    leaf = qkv.detach().requires_grad_(True)
+    out = A.fused_attention_qkv_headgrid(leaf, None, H, scale)
+    (grad,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    assert A.fused_attention_qkv_headgrid.launches == 1
+    assert A.fused_attention_qkv_headgrid_bwd.launches == A.HG_BWD_LAUNCHES_PER_CALL
+    # the saved out and lse give the bits of the direct call, which runs
+    # the forward kernel first; no atomics: the same bits twice
+    direct = A.fused_attention_qkv_headgrid_bwd(qkv, None, do, H, scale)
+    again = A.fused_attention_qkv_headgrid_bwd(qkv, None, do, H, scale)
+    assert A.fused_attention_qkv_headgrid.launches == 3
+    assert torch.equal(direct, grad) and torch.equal(again, grad)
+
+    # the fp32 gates (PERF.md §2) against the unsplit plain versions
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(grad).all())
+    assert (out - A.fused_attention_qkv_plain(qkv, None, H, scale)).abs().max().item() <= 1e-5
+    ref = A.fused_attention_qkv_bwd_plain(qkv, None, do, H, scale)
+    assert ((grad - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
 @pytest.mark.parametrize("tag,B,S,W,H,causal", [

@@ -24,13 +24,14 @@ Phases, each printing JSON lines:
               (K1-fwd, K2-fwd) are held at max abs error 1e-5 (fp32) / 2e-2
               (bf16); the backwards (K1-bwd, K2-bwd) at max|kernel − plain| /
               max|plain| ≤ 1e-5 (fp32) / 1e-2 (bf16); the IPOT solver (K3)
-              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32). K1 has two
-              variants, "mma" (bf16 on the tensor cores) and "simt" (fp32,
-              and bf16 with another head_dim); K2 three, "mma", "tf32x3"
-              (fp32 on the tensor cores in split TF32, held to the fp32
-              gates) and "simt" (head dims 1-8): every K1 and K2 row says
-              which, the Python rule and both libraries' rule must agree
-              with each pair's own rule, and the mma rows are also held at
+              at max|kernel − plain| / max|plain| ≤ 1e-5 (fp32). K1 and K2
+              have three variants each, by one rule: "mma" (bf16 on the
+              tensor cores), "tf32x3" (fp32 on the tensor cores in split
+              TF32, held to the fp32 gates) and "simt" (the head dims no
+              tensor-core tile takes): every K1 and K2 row says which, the
+              Python rule and both libraries' rule must agree with it, a
+              direct backward call launches what the rule says (K1's tf32x3
+              two kernels at head_dim 128), and the mma rows are also held at
               forward ≤ 1e-2 of max|plain| and, against the plain versions
               that round where the kernel rounds, at ≤ 8e-3 (worst) and
               5e-4 (mean) of max|plain|; the tf32x3 rows also give their
@@ -67,8 +68,9 @@ Phases, each printing JSON lines:
               bf16 kernel-vs-plain step, and the step with the plain
               attention beside the kernel-path step in turns
               (`plain_attention_step_ms`); one fp32 L/14 step at 16 × 3
-              (K2's tf32x3 variant, forward and backward): loss and every
-              gradient within 2e-5 of the plain step, exact launch counts,
+              (K2's and K1's tf32x3 variants, forward and backward): loss
+              and every gradient within 2e-5 of the plain step, exact
+              launch counts,
               and its ms beside the plain attention's in turns; then one
               ViT-B/16 kernel-path step
               at its bench batch (96), with the same two comparisons
@@ -92,10 +94,10 @@ Phases, each printing JSON lines:
               and texts/s beside the float phases', weight bytes on the card,
               the int8 kernel path against plain K5 under the same attention
               kernels at fp32 max abs error 1e-4, and against the int8 plain
-              path (plain attention, plain K5) at 1e-4 where the attention
-              kernel is K1, min cosine 0.999 where it is K2 (its ~1e-6 flips
-              dynamic int8 roundings), and the cosine of int8 against float
-              features (gated at >= 0.99 at ViT-B/32)
+              path (plain attention, plain K5) at min cosine 0.999 where the
+              attention kernel takes its tf32x3 variant (its ~1e-6 flips
+              dynamic int8 roundings), else at 1e-4, and the cosine of int8
+              against float features (gated at >= 0.99 at ViT-B/32)
  10. evals    the M2E2, VCR, VisualCOMET and retrieval CLIs through
               `evals.cli.run` on synthetic annotation files (tests/fixtures.py):
               VCR, VisualCOMET and retrieval at ViT-B/32 fp32, M2E2 at
@@ -197,7 +199,6 @@ from clip_event_tpu_torch.ops import ot
 from clip_event_tpu_torch.ops import quant
 from clip_event_tpu_torch.ops.attention import (
     BWD_KERNEL,
-    BWD_LAUNCHES_PER_CALL,
     HG_BWD_KERNEL,
     HG_BWD_LAUNCHES_PER_CALL,
     HG_KERNEL,
@@ -206,6 +207,7 @@ from clip_event_tpu_torch.ops.attention import (
     MEGA_KERNEL,
     MMA_HEAD_DIMS,
     TENSOR_CORE_VARIANTS,
+    bwd_launches_per_call,
     fused_attention_qkv,
     fused_attention_qkv_bwd,
     fused_attention_qkv_bwd_plain,
@@ -284,8 +286,9 @@ EDGE_SHAPES = [
     # ceil(S/16) warps, 16-key chunks): S = 16 (one warp), 17 (one row
     # past it), 64, 65, 127 and 128 (eight warps), some with a bias;
     # head_dim 16 and 32; more (b, h) blocks than a grid's y or z
-    # dimension holds (72,000); and bf16 with a head_dim the mma variant
-    # does not take (simt)
+    # dimension holds (72,000); head_dims no tensor-core tile takes (simt
+    # in both dtypes: 40, 8); head_dim 128 with a ragged 64-row split (the
+    # tf32x3 backward's two launches)
     ("edge_s16_causal", 3, 16, 256, 4, True),
     ("edge_s17", 3, 17, 256, 4, False),
     ("edge_s64", 2, 64, 256, 4, False),
@@ -297,6 +300,8 @@ EDGE_SHAPES = [
     ("edge_d32", 3, 50, 256, 8, False),
     ("edge_blocks_d16", 9000, 20, 128, 8, False),
     ("edge_d40_causal", 2, 33, 80, 2, True),
+    ("edge_d8_causal", 2, 77, 64, 8, True),
+    ("edge_s77_d128_causal", 3, 77, 384, 3, True),
 ]
 # K2: the vision towers of ViT-L/14 (train and serving batch 64) and
 # ViT-B/16 (train batch 96, serving batch 64), and edge shapes: S=129 (the
@@ -410,8 +415,9 @@ TRAIN_BATCH, NUM_POS, NUM_NEG = 384, 1, 2
 FP32_CHECK_BATCH = 64  # the fp32 kernel-vs-plain step
 # kernel step vs plain-attention step: bf16 loss (abs) and grad_norm (rel);
 # fp32 loss (abs) and each gradient tensor (rel. to its max). fp32: both
-# sides keep an fp32 softmax (the CUDA-core kernels): measured 0 and ~2e-6
-# on the H100, so 10x that margin. bf16: the tensor-core variants of K1 and
+# sides keep an fp32 softmax, the kernels' products in split TF32 (PR 8's
+# reading at ViT-L/14: loss 4.8e-7, gradients <= 5.5e-6 of their max on
+# the H100). bf16: the tensor-core variants of K1 and
 # K2 round P and dS to bf16, so the kernel step is held at 1e-3 against the
 # plain step that rounds where they round (impl "rounded"), and against the
 # fp32-P plain step at one bf16 rounding, u = 2^-8, relative to the value
@@ -539,15 +545,15 @@ def check_against_rounded(row, got, rounded, ref_max, what):
 
 # one attention kernel pair: its counter names, autograd entry point,
 # backward, forward with lse, variant rule, the path shape where two
-# backward runs must give equal bits, and its variant for fp32 inputs with
-# a head_dim a tensor-core tile takes
+# backward runs must give equal bits, and the kernels a backward call
+# launches, by (variant, head_dim)
 AttentionKernels = collections.namedtuple(
-    "AttentionKernels", "names fn bwd fwd_lse variant deterministic_at fp32_variant")
+    "AttentionKernels", "names fn bwd fwd_lse variant deterministic_at bwd_launches")
 K1 = AttentionKernels((KERNEL, BWD_KERNEL), fused_attention_qkv, fused_attention_qkv_bwd,
-                      fused_attention_qkv_fwd, k1_variant, "train_text", "simt")
+                      fused_attention_qkv_fwd, k1_variant, "train_text", bwd_launches_per_call)
 K2 = AttentionKernels((HG_KERNEL, HG_BWD_KERNEL), fused_attention_qkv_headgrid,
                       fused_attention_qkv_headgrid_bwd, fused_attention_qkv_headgrid_fwd,
-                      headgrid_variant, "l14_vision", "tf32x3")
+                      headgrid_variant, "l14_vision", lambda variant, head_dim: HG_BWD_LAUNCHES_PER_CALL)
 
 
 def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
@@ -562,15 +568,15 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
     bias = causal_mask(S, device="cuda") if causal else None
     scale = (W // H) ** -0.5
     iters = 20 if B > 64 or S > 128 else 50
-    # the Python rule and both libraries' rule pick one variant, the pair's
-    # own: the path shapes take the tensor cores (K2 in both dtypes)
+    # the Python rule and both libraries' rule pick one variant, the rule
+    # of both pairs: the path shapes take the tensor cores in both dtypes
     variant = k.variant(dtype, W // H)
     check(library_variant(fwd_name, dtype, W // H) == variant
           and library_variant(bwd_name, dtype, W // H) == variant,
           f"{fwd_name} {tag} {name}: the libraries' variant differs from {variant}")
     expected = "simt"
     if W // H in MMA_HEAD_DIMS:
-        expected = "mma" if name == "bfloat16" else k.fp32_variant
+        expected = "mma" if name == "bfloat16" else "tf32x3"
     check(variant == expected, f"{fwd_name} {tag} {name}: variant {variant}, not {expected}")
     tensor_cores = variant in TENSOR_CORE_VARIANTS
     shape = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "causal": causal, "dtype": name,
@@ -612,7 +618,13 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
     rows[fwd_name].append(row)
     emit({"phase": "kernel_check", "kernel": fwd_name, **row})
 
+    # a direct backward call: a tensor-core variant runs the forward kernel
+    # for the output and lse first
+    before = read_launches()
     dq = bwd(qkv, bias, do, H, scale)
+    launched = {n: read_launches()[n] - before[n] for n in k.names}
+    per_call = {fwd_name: int(tensor_cores), bwd_name: k.bwd_launches(variant, W // H)}
+    check(launched == per_call, f"{bwd_name} {tag} {name}: a direct call launched {launched}, not {per_call}")
     ref = fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale)
     torch.cuda.synchronize()
     check(dq.dtype == dtype and dq.shape == qkv.shape, f"{bwd_name} {tag} {name} shape/dtype")
@@ -621,7 +633,8 @@ def check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, timed):
     rel = err / max(ref.float().abs().max().item(), 1e-30)
     check(rel <= BWD_TOL[name], f"{bwd_name} {tag} {name}: rel err {rel} > {BWD_TOL[name]}")
     errs[bwd_name][name] = max(errs[bwd_name].get(name, 0.0), err)
-    row = {**shape, "max_abs_err": err, "max_rel_err": rel, "tol_rel": BWD_TOL[name]}
+    row = {**shape, "max_abs_err": err, "max_rel_err": rel, "tol_rel": BWD_TOL[name],
+           "bwd_launches_per_call": per_call[bwd_name]}
     ref_max = max(ref.float().abs().max().item(), 1e-30)
     if variant == "mma":
         rounded = fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale, mma_rounding=True)
@@ -1003,12 +1016,13 @@ def check_misaligned_view(k, B, S, W, H, dtype=torch.bfloat16):
 
 
 def check_k1(rows, errs, gen):
-    """K1's two variants, forward and backward, at the path and edge shapes."""
+    """K1's three variants, forward and backward, at the path and edge shapes."""
     timed = {"text", "vision", "train_text", "train_vision"} | {t[0] for t in NEW_K1_SHAPES}
     for tag, B, S, W, H, causal in SERVING_SHAPES + TRAIN_SHAPES + NEW_K1_SHAPES + EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             check_attention(rows, errs, K1, gen, tag, B, S, W, H, causal, dtype, tag in timed)
-    check_misaligned_view(K1, 2, 77, 512, 8)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_misaligned_view(K1, 2, 77, 512, 8, dtype)
 
 
 def check_k2(rows, errs, gen):
@@ -1344,10 +1358,11 @@ def phase_serving_int8(out_root, model, n_items, tag, float_rates, cos_gate=None
 
         # ---- kernel path vs the plain paths, fp32: plain K5 under the
         # kernel attention (K5 alone: exact by design), and plain K5 under
-        # plain attention. K1 equals its plain version bit for bit, K2 to
-        # ~1e-6, and a 1e-6 change can flip a dynamic int8 rounding, which
-        # moves a feature by ~1e-3: where K2 runs (L/14 images) the all-plain
-        # comparison is held by cosine, elsewhere at 1e-4
+        # plain attention. The tf32x3 variants of K1 and K2 (fp32 at head_dim
+        # 16-128: every tower of these models) differ from their plain
+        # version by ~1e-6, and a 1e-6 change can flip a dynamic int8
+        # rounding, which moves a feature by ~1e-3: where a tf32x3 variant
+        # runs the all-plain comparison is held by cosine, elsewhere at 1e-4
         p32 = encoders["float32"].params
         with torch.inference_mode():
             for kind, fn, x in (("images", encode_image, x_img), ("texts", encode_text, x_tok)):
@@ -1363,10 +1378,12 @@ def phase_serving_int8(out_root, model, n_items, tag, float_rates, cos_gate=None
                 summary[f"float32_{kind}_k5_vs_plain_k5_max_abs_err"] = err
                 err = (k - p).abs().max().item()
                 cos = F.cosine_similarity(k, p, dim=-1).min().item()
-                if kind == "texts" or vision_kernels(mcfg)[0] == KERNEL:
-                    check(err <= 1e-4, f"{tag} {mode} fp32 {kind}: kernel vs plain max abs err {err}")
-                else:
+                width, heads = ((mcfg.transformer_width, mcfg.transformer_heads) if kind == "texts"
+                                else (mcfg.vision_width, mcfg.vision_heads))
+                if headgrid_variant(torch.float32, width // heads) == "tf32x3":
                     check(cos >= 0.999, f"{tag} {mode} fp32 {kind}: kernel vs plain min cosine {cos}")
+                else:
+                    check(err <= 1e-4, f"{tag} {mode} fp32 {kind}: kernel vs plain max abs err {err}")
                 summary[f"float32_{kind}_kernel_vs_plain_max_abs_err"] = err
                 summary[f"float32_{kind}_kernel_vs_plain_min_cos"] = cos
 
@@ -1621,8 +1638,8 @@ def _chunks(nodes, requested):
 
 def k1_bwd_launches(width, heads, dtype=torch.bfloat16):
     """Launches of one K1 backward call (bf16: the train steps' dtype) in a
-    tower of that width: per variant."""
-    return BWD_LAUNCHES_PER_CALL[k1_variant(dtype, width // heads)]
+    tower of that width: per variant and head_dim."""
+    return bwd_launches_per_call(k1_variant(dtype, width // heads), width // heads)
 
 
 def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfloat16):
@@ -2109,11 +2126,11 @@ def phase_train_l14(out_root):
         plain_attention_step_ms=turns["plain"])
     emit({"phase": "train_l14_profile", **prof})
 
-    # fp32 steps (`compute_dtype: "float32"`): the vision tower's K2 on its
-    # tf32x3 variant, forward and backward. The train steps timed beside the
-    # plain attention in turns are the path, counted (one warm-up step and
-    # two timed ones on the kernels); then one step's loss and gradients
-    # against the plain step
+    # fp32 steps (`compute_dtype: "float32"`): the vision tower's K2 and the
+    # text tower's K1 on their tf32x3 variants, forward and backward. The
+    # train steps timed beside the plain attention in turns are the path,
+    # counted (one warm-up step and two timed ones on the kernels); then one
+    # step's loss and gradients against the plain step
     batch = _device_batch(ds, L14_FP32_BATCH)
     reset_launches()
     turns = step_ms_in_turns(mcfg, params, batch, dtype=torch.float32)
@@ -2124,6 +2141,7 @@ def phase_train_l14(out_root):
     emit({"phase": "train_l14_fp32", "model": "ViT-L/14", "batch_images": L14_FP32_BATCH,
           "descriptions_per_image": D, "compute_dtype": "float32", "remat": "full",
           "vision_attention_variant": headgrid_variant(torch.float32, mcfg.vision_width // mcfg.vision_heads),
+          "text_attention_variant": k1_variant(torch.float32, mcfg.transformer_width // mcfg.transformer_heads),
           "kernel_vs_plain": fp32, "tol": FP32_STEP_TOL, "launches": launches,
           "kernel_attention_step_ms": turns["kernel"], "plain_attention_step_ms": turns["plain"]})
     fp32_launches = launches
@@ -2246,24 +2264,29 @@ def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),))
     return out
 
 
-def ptxas_spills(log: str, needle: str) -> dict:
-    """Spill bytes (stores + loads) of every kernel whose name holds
-    `needle`, from a `-Xptxas -v` log: ptxas names a function and gives its
-    stack frame and spills on the next line."""
+def ptxas_usage(log: str, needle: str) -> dict:
+    """{kernel: (registers, spill bytes (stores + loads))} of every kernel
+    whose name holds `needle`, from a `-Xptxas -v` log: ptxas names a
+    function, gives its stack frame and spills on the next line and its
+    registers on the one after."""
     import re
 
-    spills, name = {}, None
+    usage, name, spill = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = m.group(1)
+            name, spill = m.group(1), None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name is not None:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None and spill is not None:
             if needle in name:
-                spills[name] = int(m.group(1)) + int(m.group(2))
+                usage[name] = (int(m.group(1)), spill)
             name = None
-    return spills
+    return usage
 
 
 def main(argv=None) -> int:
@@ -2292,18 +2315,18 @@ def main(argv=None) -> int:
     seconds = _build.build(sources)
     ptxas = {name: [ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines() if "Used" in ln]
              for name in sources}
-    # the tensor-core kernels ("mma", K2's "tf32x3") keep their tiles'
+    # the tensor-core kernels ("mma", "tf32x3") keep their tiles'
     # accumulators in registers: a spill would send them to local memory
-    needles = {KERNEL: ("_mma",), BWD_KERNEL: ("_mma",), HG_KERNEL: ("_mma", "_tf32x3"),
-               HG_BWD_KERNEL: ("_mma", "_tf32x3")}
-    spills = {name: {needle: ptxas_spills(_build.BUILD_LOGS.get(name, ""), needle) for needle in found}
-              for name, found in needles.items()}
+    needles = {KERNEL: ("_mma", "_tf32x3"), BWD_KERNEL: ("_mma", "_tf32x3"),
+               HG_KERNEL: ("_mma", "_tf32x3"), HG_BWD_KERNEL: ("_mma", "_tf32x3")}
+    usage = {name: {needle: ptxas_usage(_build.BUILD_LOGS.get(name, ""), needle) for needle in found}
+             for name, found in needles.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds, "ptxas": ptxas,
-          "tensor_core_kernel_spill_bytes": spills})
-    for name, by_needle in spills.items():
+          "tensor_core_kernel_registers_and_spill_bytes": usage})
+    for name, by_needle in usage.items():
         for needle, by_kernel in by_needle.items():
             check(seconds[name] == 0.0 or by_kernel, f"{name}: no {needle} kernel in the ptxas log")
-            check(not any(by_kernel.values()), f"{name}: a {needle} kernel spills: {by_kernel}")
+            check(not any(spill for _, spill in by_kernel.values()), f"{name}: a {needle} kernel spills: {by_kernel}")
 
     if args.only:
         rows = {name: [] for name in COUNTERS}
@@ -2339,6 +2362,7 @@ def main(argv=None) -> int:
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "variants": sorted({r["variant"] for r in rows[name] if "variant" in r}),
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

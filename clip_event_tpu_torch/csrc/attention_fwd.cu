@@ -10,7 +10,7 @@
 //   bias [S, S]      fp32 additive mask (may hold -inf), or null
 //   out  [B, S, W]   softmax(q*scale . k^T + bias) . v per head, heads
 //                    concatenated along the lanes, in qkv's dtype
-//   lse  [B, H, S]   fp32, optional (tensor-core variant only): each row's
+//   lse  [B, H, S]   fp32, optional (tensor-core variants only): each row's
 //                    log-sum-exp of its scaled, biased scores, natural log;
 //                    the backward reads it instead of recomputing the
 //                    softmax statistics
@@ -20,13 +20,14 @@
 // elements moved, ~2*S/3 flops per element. In bf16 on the tensor cores
 // that is far under the card's 295 flops per byte: the bound is the memory
 // rate (0.1085 ms at the B/32 train step's text call, B=1152, on the NVIDIA
-// H100 80GB HBM3). In fp32 on the CUDA cores it is the memory rate too, but
-// the CUDA-core kernel below is limited by shared-memory loads.
+// H100 80GB HBM3). In fp32 the bytes double (0.2169 ms there), which is
+// still more than the operations take at fp32 accuracy on the tensor cores
+// (three TF32 products a term at 495 TFLOP/s: 0.0848 ms).
 //
-// Two hand-written variants, chosen by dtype and head_dim alone before
-// anything launches (`clip_attention_variant`; the Python wrapper's
-// `k1_variant` mirrors it, and K2 has the same rule). Neither gives way to
-// the other.
+// Three hand-written variants, chosen by dtype and head_dim alone before
+// anything launches (`clip_attention_variant`, K2's rule; the Python
+// wrapper's `k1_variant` is the same function as K2's `headgrid_variant`).
+// None gives way to another.
 //
 // "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores
 // (mma.sync.m16n8k16 bf16, fp32 accumulators, fragments by ldmatrix; the
@@ -55,18 +56,37 @@
 //     stale: 0 x NaN would poison the products. Query rows past S are
 //     computed on zeros and neither stored nor given an lse.
 //
-// "simt": fp32 inputs, and bf16 with another head_dim, on the CUDA cores. One
+// "tf32x3": fp32 with D in {16, 32, 64, 128}, on the tensor cores in split
+// TF32 (mma.sync.m16n8k8 tf32, three products a term, lo.hi' + hi.lo' +
+// hi.hi'; helpers and the error argument in attention_mma.cuh), held to
+// the same 1e-5 as the fp32 plain version. The mma variant's block (one per
+// (b, h), ceil(S/16) warps of 16 query rows, the whole head staged once by
+// cp.async, here in fp32 tiles of D + 4 floats a row: 65 KB at S = 77,
+// D = 64). What differs:
+//   * A walk over 32-key chunks with K2's online softmax, not one pass:
+//     the loop body stays small, and a chunk's 4 score tiles (16
+//     registers, not the one-pass's 64) leave room for three blocks an SM
+//     at S = 77. A full chunk runs a copy without the key-tail guards, so
+//     its products interleave; only the last chunk is partial.
+//   * Q's fragments are reloaded and split per k-step (held, they would
+//     take 64 registers at D = 64); K's come by ldmatrix and are split per
+//     use; scale, bias and the -inf masks on the accumulators, so nothing
+//     infinite is split.
+//   * Each 8-key tile of P, split in registers, is the A operand of P.V
+//     over relabelled keys; V's B fragments by scalar shared loads.
+//   * O / l in fp32, staged in the warp's own Q rows, 16-byte stores.
+//
+// "simt": bf16 and fp32 with another head_dim, on the CUDA cores. One
 // block per (batch item, head) stages that head's K and V rows in shared
 // memory as fp32, read by stride straight out of the packed rows, and each
 // warp takes one query row at a time through logits, max, exp, sum and
 // P.V, writing its slice of the output row. The softmax runs in fp32 and q
 // is scaled before the dot product, as in _probs; every product and sum
 // accumulates in fp32 on the CUDA cores out of shared memory, so it is
-// limited by shared-memory loads. fp32 is held to 1e-5 against the plain
-// version, which rules out TF32 or bf16 operands.
+// limited by shared-memory loads.
 //
 // Limits, checked by the Python wrapper too: S <= 128, D <= 128; the mma
-// variant needs 16-byte-aligned qkv and out.
+// and tf32x3 variants need 16-byte-aligned qkv and out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -238,6 +258,194 @@ int launch_mma_d(const void* qkv, const float* bias, void* out, float* lse, int 
   return launch_mma<D, false>(qkv, bias, out, lse, B, S, H, scale, stream);
 }
 
+// ---------------------------------------------------------------- tf32x3
+
+template <int D>
+constexpr size_t fwd_tf32x3_smem_bytes(int rows) {
+  // Q, K and V fp32 tiles of `rows` padded rows
+  return (size_t)3 * rows * (D + mma::kPadF) * sizeof(float);
+}
+
+constexpr int kKeyChunkF = 32;  // keys a chunk of the tf32x3 forward's walk
+
+// Two blocks of 256 threads an SM at least: 128 registers a thread at D <= 64,
+// which also lets three blocks of 5 warps share an SM at S = 77 (4 warps of
+// 128 registers fill a sub-partition's 16,384). With the block size alone
+// ptxas spends registers on hoisted bias loads until one block of 5 warps
+// fills an SM.
+template <int D, bool HAS_BIAS>
+__global__ void __launch_bounds__(kMmaWarps * 32, D <= 64 ? 2 : 1)
+attention_fwd_kernel_tf32x3(const float* __restrict__ qkv, const float* __restrict__ bias,
+                            float* __restrict__ out, float* __restrict__ lse, int S, int H,
+                            float scale_log2e) {
+  using namespace mma;
+  constexpr int kStride = D + kPadF;
+  constexpr int kSteps = D / 8;  // k-steps of 8 over the head dim
+  constexpr int kTiles = kKeyChunkF / 8;  // 8-key n-tiles of a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = blockDim.x / 2;  // 16 per warp: S rounded up to 16
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [rows][D+4]
+  float* sK = sQ + rows * kStride;                 // [rows][D+4]
+  float* sV = sK + rows * kStride;                 // [rows][D+4]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int W = H * D;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const size_t row = 3 * (size_t)W;
+  const float* base = qkv + (size_t)b * S * row + h * D;
+
+  load_rows_f32<D>(sQ, base, row, rows, S, tid, blockDim.x);
+  load_rows_f32<D>(sK, base + W, row, rows, S, tid, blockDim.x);
+  load_rows_f32<D>(sV, base + 2 * W, row, rows, S, tid, blockDim.x);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int row_g = warp * 16 + g;  // this thread's rows: row_g, row_g + 8
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int j0 = 0; j0 < S; j0 += kKeyChunkF) {
+    const int nk = S - j0;
+    // one chunk of keys; `full` (a compile-time bool) drops the guards of
+    // the keys past S, so that a full chunk's products share one basic
+    // block and interleave; only the last chunk is partial
+    auto chunk = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+      // scores of 16 rows x the chunk's keys in split TF32; Q's fragments
+      // are reloaded and split per k-step (held, they would take 16 D
+      // registers and halve the blocks an SM holds)
+      float s[kTiles][4];
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t x[4], ah[4], al[4];
+        load_a_f32(x, sQ, kStride, warp * 16, ks * 8, lane);
+        split_frag(x, ah, al);
+#pragma unroll
+        for (int p = 0; p < kTiles / 2; ++p) {
+          if (kFull || p * 16 < nk) {
+            uint32_t fh[4], fl[4];
+            load_b_nk_f32(x, sK, kStride, j0 + p * 16, ks * 8, lane);
+            split_frag(x, fh, fl);
+            mma_tf32x3_x2(s[2 * p], s[2 * p + 1], ah, al, fh, fl);
+          }
+        }
+      }
+      // scale, bias and the key tail's mask in units of log2, on the
+      // accumulators: nothing infinite is ever split
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j0 + n * 8 + 2 * t4 + (e & 1);
+          float v = s[n][e] * scale_log2e;
+          if constexpr (HAS_BIAS) {
+            const int r = row_g + 8 * (e >> 1);
+            if (r < S && col < S) v += bias[(size_t)r * S + col] * kLog2e;
+          }
+          if (!kFull && col >= S) v = -INFINITY;
+          s[n][e] = v;
+        }
+      }
+      // online softmax per row (rows row_g and row_g + 8), as K2's: a row
+      // that has seen only -inf keeps m = -inf and takes its exponent
+      // against 0, so -inf - (-inf) never forms
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = quad_max(mx);
+        const float m_new = fmaxf(m_run[r], mx);
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2f(m_run[r] - m_safe);
+        m_run[r] = m_new;
+        float psum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n) {
+          const float p0 = exp2f(s[n][2 * r] - m_safe);
+          const float p1 = exp2f(s[n][2 * r + 1] - m_safe);
+          s[n][2 * r] = p0;
+          s[n][2 * r + 1] = p1;
+          psum += p0 + p1;
+        }
+        l_run[r] = l_run[r] * corr + psum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] *= corr;
+          o[n][2 * r + 1] *= corr;
+        }
+      }
+      // O += P . V: each 8-key tile of P, split in registers, is an A
+      // operand over relabelled keys; V's B fragments by scalar shared loads
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n) {
+        if (kFull || n * 8 < nk) {
+          uint32_t ph[4], pl[4];
+          split_acc(s[n], ph, pl);
+#pragma unroll
+          for (int dn = 0; dn < D / 8; dn += 2) {
+            uint32_t vh[2], vl[2], wh[2], wl[2];
+            load_b_kn_f32(vh, vl, sV, kStride, j0 + n * 8, dn * 8, lane);
+            load_b_kn_f32(wh, wl, sV, kStride, j0 + n * 8, dn * 8 + 8, lane);
+            mma_tf32x3_2(o[dn], ph, pl, vh[0], vh[1], vl[0], vl[1], o[dn + 1], ph, pl, wh[0], wh[1],
+                         wl[0], wl[1]);
+          }
+        }
+      }
+    };
+    if (nk >= kKeyChunkF)
+      chunk(std::true_type());
+    else
+      chunk(std::false_type());
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    inv[r] = l > 0.f ? 1.f / l : 0.f;
+    const int ri = row_g + 8 * r;
+    if (lse != nullptr && t4 == 0 && ri < S)
+      lse[(size_t)bh * S + ri] = l > 0.f ? m_run[r] * kLn2 + logf(l) : 0.f;
+  }
+  store_rows_f32<D>(sQ + warp * 16 * kStride, o, inv[0], inv[1],
+                    out + ((size_t)b * S + warp * 16) * W + h * D, (size_t)W, S - warp * 16, lane);
+}
+
+template <int D, bool HAS_BIAS>
+int launch_tf32x3(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
+                  float scale, cudaStream_t stream) {
+  static bool smem_allowed[mma::kMaxDevices] = {};
+  auto kernel = attention_fwd_kernel_tf32x3<D, HAS_BIAS>;
+  const int e = mma::allow_smem_once(kernel, fwd_tf32x3_smem_bytes<D>(16 * kMmaWarps), smem_allowed);
+  if (e) return e;
+  const long long blocks = (long long)B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int warps = (S + 15) / 16;
+  kernel<<<(unsigned)blocks, warps * 32, fwd_tf32x3_smem_bytes<D>(16 * warps), stream>>>(
+      static_cast<const float*>(qkv), bias, static_cast<float*>(out), lse, S, H, scale * mma::kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tf32x3_d(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
+                    float scale, cudaStream_t stream) {
+  if (bias != nullptr) return launch_tf32x3<D, true>(qkv, bias, out, lse, B, S, H, scale, stream);
+  return launch_tf32x3<D, false>(qkv, bias, out, lse, B, S, H, scale, stream);
+}
+
 // ---------------------------------------------------------------- simt
 
 constexpr int kWarps = 8;
@@ -360,10 +568,12 @@ int launch(const void* qkv, const float* bias, void* out, int B, int S, int H, i
 
 }  // namespace
 
-// 1 when (dtype, D) takes the tensor-core variant, 0 for the CUDA-core one.
-// dtype: 0 = fp32, 1 = bf16.
+// The variant that takes (dtype, D), K2's rule: 1 = "mma" (bf16 on the
+// tensor cores), 2 = "tf32x3" (fp32 on the tensor cores, split TF32), 0 =
+// "simt" (the CUDA cores). dtype: 0 = fp32, 1 = bf16.
 extern "C" int clip_attention_variant(int dtype, int D) {
-  return dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128) ? 1 : 0;
+  if (D != 16 && D != 32 && D != 64 && D != 128) return 0;
+  return dtype == 1 ? 1 : dtype == 0 ? 2 : 0;
 }
 
 // dtype: 0 = fp32, 1 = bf16. `lse` may be null; the CUDA-core variant does
@@ -375,16 +585,25 @@ extern "C" int clip_attention_fwd(const void* qkv, const void* bias, void* out, 
   const float* bias_f = static_cast<const float*>(bias);
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (clip_attention_variant(dtype, D)) {
-    switch (D) {
-      case 16: return launch_mma_d<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-      case 32: return launch_mma_d<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-      case 64: return launch_mma_d<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-      default: return launch_mma_d<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-    }
+  switch (clip_attention_variant(dtype, D)) {
+    case 1:
+      switch (D) {
+        case 16: return launch_mma_d<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 32: return launch_mma_d<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 64: return launch_mma_d<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        default: return launch_mma_d<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+      }
+    case 2:
+      switch (D) {
+        case 16: return launch_tf32x3_d<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 32: return launch_tf32x3_d<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 64: return launch_tf32x3_d<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        default: return launch_tf32x3_d<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+      }
+    default:
+      if (dtype == 0) return launch<float>(qkv, bias_f, out, B, S, H, D, scale, s);
+      return launch<__nv_bfloat16>(qkv, bias_f, out, B, S, H, D, scale, s);
   }
-  if (dtype == 0) return launch<float>(qkv, bias_f, out, B, S, H, D, scale, s);
-  return launch<__nv_bfloat16>(qkv, bias_f, out, B, S, H, D, scale, s);
 }
 
 extern "C" const char* clip_cuda_error_string(int code) {

@@ -305,6 +305,23 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, size
   }
 }
 
+// Rows [0, valid_rows) of a strided fp32 global matrix into `rows` padded
+// rows of an fp32 tile (row stride D + kPadF), zero-filled past
+// valid_rows, by `nthreads` threads: K1's whole-head tiles (16 rows for
+// each warp of the block, or every row of the head) and its 64-row tiles.
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, size_t pitch, int rows,
+                                              int valid_rows, int tid, int nthreads) {
+  constexpr int kChunks = D / 4;
+  constexpr int kStride = D + kPadF;
+  for (int idx = tid; idx < rows * kChunks; idx += nthreads) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + r * kStride + c * 4, src + (size_t)(ok ? r : 0) * pitch + c * 4, ok);
+  }
+}
+
 // fp32 -> tf32, round to nearest, ties away from zero; the low 13 bits
 // of the result are 0
 __device__ __forceinline__ uint32_t to_tf32(float x) {

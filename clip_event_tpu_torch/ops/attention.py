@@ -28,23 +28,22 @@ reference a run on the card is held against; `impl="rounded"` runs it with
 the roundings of the kernels' tensor-core variants (below) where an input
 takes that variant.
 
-K1 has two hand-written variants and K2 three, chosen by dtype and
-head_dim alone before anything launches, each pair by its own rule
-(`k1_variant` and `headgrid_variant`; `clip_attention_variant` and
+K1 and K2 each have three hand-written variants, chosen by dtype and
+head_dim alone before anything launches, by one rule for both pairs
+(`headgrid_variant`, alias `k1_variant`; `clip_attention_variant` and
 `clip_attention_hg_variant` in the libraries): "mma" (bf16 with head_dim
-16, 32, 64 or 128, both pairs) runs every product on the tensor cores with
-bf16 operands and fp32 accumulators, which rounds P to bf16 before P·V and
-Pᵀ·dO and dS to bf16 before dS·K and dSᵀ·Q; "tf32x3" (K2 only: fp32 with
-those head dims) runs every product on the tensor cores in split TF32:
-each fp32 operand x is split as hi = tf32(x), lo = tf32(x − hi) and a·b is
+16, 32, 64 or 128) runs every product on the tensor cores with bf16
+operands and fp32 accumulators, which rounds P to bf16 before P·V and
+Pᵀ·dO and dS to bf16 before dS·K and dSᵀ·Q; "tf32x3" (fp32 with those
+head dims) runs every product on the tensor cores in split TF32: each
+fp32 operand x is split as hi = tf32(x), lo = tf32(x − hi) and a·b is
 summed as lo·hi′ + hi·lo′ + hi·hi′ in fp32, within the fp32 gate; "simt"
-(everything else either pair takes: K1's fp32, and head dims no
-tensor-core tile fits) keeps every product in fp32 on the CUDA cores.
-None gives way to another or to the plain version. The tensor-core
-forwards also write each row's log-sum-exp [B, H, S]; `_FusedAttention`
-and `_HeadGridAttention` save it and the output beside qkv and bias (the
-out-projection saves the output anyway), so their backwards recompute
-nothing of the forward but the scores. Called directly without them,
+(the head dims no tensor-core tile fits) keeps every product in fp32 on
+the CUDA cores. None gives way to another or to the plain version. The
+tensor-core forwards also write each row's log-sum-exp [B, H, S];
+`_FusedAttention` and `_HeadGridAttention` save it and the output beside
+qkv and bias (the out-projection saves the output anyway), so their
+backwards recompute nothing of the forward but the scores. Called directly without them,
 `fused_attention_qkv_bwd` and `fused_attention_qkv_headgrid_bwd` run the
 forward kernel first. `mma_rounding=True` on the plain versions rounds
 where the mma variant rounds and `tf32x3=True` splits where the tf32x3
@@ -75,17 +74,18 @@ KERNEL = "attention_fwd"
 BWD_KERNEL = "attention_bwd"
 HG_KERNEL = "attention_hg_fwd"
 HG_BWD_KERNEL = "attention_hg_bwd"
-# kernels a backward call launches: K1's mma variant one (every tile of a
-# head fits one block), its simt variant two (dq pass, dk/dv pass); K2 two
-# in every variant
-BWD_LAUNCHES_PER_CALL = {"mma": 1, "simt": 2}
+# kernels a K2 backward call launches, in every variant (dq pass, dk/dv
+# pass); K1's: `bwd_launches_per_call`
 HG_BWD_LAUNCHES_PER_CALL = 2
-# the tensor-core variants of K1 and K2 (bf16; K2 also fp32) take one of
-# these head dims
+# the tensor-core variants of K1 and K2 (bf16 and fp32) take one of these
+# head dims
 MMA_HEAD_DIMS = (16, 32, 64, 128)
-VARIANTS = ("mma", "simt")
-HG_VARIANTS = ("mma", "tf32x3", "simt")
-# the libraries' variant codes (`clip_attention_variant` returns 0 or 1)
+VARIANTS = ("mma", "tf32x3", "simt")  # of K1 and of K2
+# K1's tf32x3 backward is one launch while the four fp32 tiles of a head
+# fit one block (270 KB at S = D = 128 do not): up to this head_dim
+TF32X3_ONE_LAUNCH_MAX_HEAD_DIM = 64
+# the libraries' variant codes (`clip_attention_variant` and
+# `clip_attention_hg_variant` return 0, 1 or 2)
 _VARIANT_CODES = {0: "simt", 1: "mma", 2: "tf32x3"}
 # the tensor-core variants read and write through cp.async and ldmatrix,
 # 16 bytes at a time
@@ -185,9 +185,9 @@ def fused_attention_qkv_plain(
     unnormalized probabilities are rounded to qkv.dtype before they
     multiply v and the row sum (of the unrounded values) divides after, as
     K2's tensor-core variant does; scores, softmax and sums stay fp32. With
-    `tf32x3` (fp32 inputs), as K2's tf32x3 variant: q·kᵀ (scaled after) and
-    the unnormalized probabilities times v in split TF32
-    (`tf32x3_matmul`), the row sum dividing after."""
+    `tf32x3` (fp32 inputs), as the tf32x3 variants of K1 and K2: q·kᵀ
+    (scaled after) and the unnormalized probabilities times v in split
+    TF32 (`tf32x3_matmul`), the row sum dividing after."""
     if mma_rounding and tf32x3:
         raise ValueError("mma_rounding and tf32x3 are two variants' roundings: pick one")
     B, S, W3 = qkv.shape
@@ -214,9 +214,9 @@ def fused_attention_qkv_bwd_plain(
     rounded to qkv.dtype before Pᵀ·do, ds before ds·k and dsᵀ·q, and the row
     term is rowsum(do∘out) over the forward's rounded output (equal to
     rowsum(dp∘P) before rounding); P, dp, ds and every sum stay fp32. With
-    `tf32x3` (fp32 inputs), as K2's tf32x3 variant: the scores, dp, dv, dq
-    and dk products in split TF32 (`tf32x3_matmul`), the row term
-    rowsum(do∘out) over the `tf32x3` forward's output."""
+    `tf32x3` (fp32 inputs), as the tf32x3 variants of K1 and K2: the
+    scores, dp, dv, dq and dk products in split TF32 (`tf32x3_matmul`), the
+    row term rowsum(do∘out) over the `tf32x3` forward's output."""
     if mma_rounding and tf32x3:
         raise ValueError("mma_rounding and tf32x3 are two variants' roundings: pick one")
     B, S, W3 = qkv.shape
@@ -258,11 +258,11 @@ def head_grid_supported(seq_len: int, width: int, num_heads: int) -> bool:
 
 
 def headgrid_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which of K2's three hand-written variants takes an input, by dtype
-    and head_dim alone: with head_dim 16, 32, 64 or 128, "mma" for bf16
-    and "tf32x3" for fp32 (tensor cores); "simt" (CUDA cores) for every
-    other input K2 takes. The libraries' `clip_attention_hg_variant` is the
-    same rule."""
+    """Which of the three hand-written variants of K2, and of K1, takes an
+    input, by dtype and head_dim alone: with head_dim 16, 32, 64 or 128,
+    "mma" for bf16 and "tf32x3" for fp32 (tensor cores); "simt" (CUDA
+    cores) for every other input. The libraries' `clip_attention_hg_variant`
+    and `clip_attention_variant` are the same rule."""
     if head_dim in MMA_HEAD_DIMS:
         if dtype == torch.bfloat16:
             return "mma"
@@ -271,18 +271,18 @@ def headgrid_variant(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
-def k1_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Which of K1's two hand-written variants takes an input, by dtype and
-    head_dim alone: "mma" for bf16 with head_dim 16, 32, 64 or 128 and
-    "simt" for everything else K1 takes (fp32 among it). The libraries'
-    `clip_attention_variant` is the same rule."""
-    return "mma" if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS else "simt"
+# K1 takes K2's rule: one function serves both pairs
+k1_variant = headgrid_variant
 
 
-def _variant(head_grid: bool, dtype: torch.dtype, head_dim: int) -> str:
-    """The variant of the kernel pair a launch goes to: K2's with
-    `head_grid`, else K1's."""
-    return (headgrid_variant if head_grid else k1_variant)(dtype, head_dim)
+def bwd_launches_per_call(variant: str, head_dim: int) -> int:
+    """Kernels one K1 backward call launches: one on a tensor-core variant
+    (every tile of a head fits one block: dq, then dk/dv, in one launch),
+    except tf32x3 above TF32X3_ONE_LAUNCH_MAX_HEAD_DIM, and two on simt
+    (dq pass, dk/dv pass)."""
+    if variant == "simt" or (variant == "tf32x3" and head_dim > TF32X3_ONE_LAUNCH_MAX_HEAD_DIM):
+        return 2
+    return 1
 
 
 def _check_aligned(variant: str, **tensors) -> None:
@@ -324,7 +324,7 @@ def _check_kernel_input(
             raise ValueError(f"attention kernel takes 1 <= S <= {MAX_SEQ}, got S={S}")
         if not 1 <= D <= MAX_HEAD_DIM:
             raise ValueError(f"attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
-    variant = _variant(head_grid, qkv.dtype, D)
+    variant = headgrid_variant(qkv.dtype, D)
     if variant in TENSOR_CORE_VARIANTS:
         _check_aligned(variant, qkv=qkv, do=do)
     if B < 1:
@@ -369,8 +369,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def library_variant(name: str, dtype: torch.dtype, head_dim: int) -> str:
     """`k1_variant` / `headgrid_variant` as the built library `name` (K1's
     or K2's forward or backward) decides it: `chip_smoke.py` checks that
-    the two agree. The C rule returns 0 ("simt"), 1 ("mma") or, in K2's
-    libraries, 2 ("tf32x3")."""
+    the two agree. The C rule returns 0 ("simt"), 1 ("mma") or 2
+    ("tf32x3")."""
     lib = _build.load(name)
     fn = getattr(lib, _VARIANT_SYMBOL[name])
     fn.argtypes, fn.restype = [_I, _I], _I
@@ -394,7 +394,7 @@ def _launch_fwd(qkv, bias, num_heads, scale, with_lse: bool, head_grid: bool):
     lib, fn = _build.entry(name, symbol, _FWD_ARGS)
     out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
     lse = None
-    variant = _variant(head_grid, qkv.dtype, D)
+    variant = headgrid_variant(qkv.dtype, D)
     if variant in TENSOR_CORE_VARIANTS:
         _check_aligned(variant, out=out)
         if with_lse:
@@ -413,9 +413,8 @@ def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> t
     """Check and launch K1's (K2's with `head_grid`) backward kernels on a
     CUDA tensor. The tensor-core variants read the forward's `out` and
     `lse` (they run the forward kernel for them when the caller has none);
-    K2's keep delta in the [3, B, H, S] fp32 scratch, K1's mma variant
-    needs none. The simt variants keep m, l and delta there and ignore out
-    and lse."""
+    K2's keep delta in the [3, B, H, S] fp32 scratch, K1's need none. The
+    simt variants keep m, l and delta there and ignore out and lse."""
     do = do.contiguous()
     _check_kernel_input(qkv, bias, num_heads, do, head_grid=head_grid)
     B, S, W3 = qkv.shape
@@ -425,7 +424,7 @@ def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> t
     name, symbol = _BWD_ENTRY[head_grid]
     lib, fn = _build.entry(name, symbol, _BWD_ARGS)
     dqkv = torch.empty_like(qkv)
-    variant = _variant(head_grid, qkv.dtype, D)
+    variant = headgrid_variant(qkv.dtype, D)
     tensor_cores = variant in TENSOR_CORE_VARIANTS
     stats = None
     if head_grid or not tensor_cores:
@@ -460,8 +459,9 @@ def fused_attention_qkv_fwd(
 ):
     """K1's forward as (out, lse), outside autograd: the plain version on a
     CPU tensor (lse None), the kernel on a CUDA tensor it takes, else raise.
-    `with_lse` asks the mma variant for the [B, H, S] row log-sum-exp that
-    `fused_attention_qkv_bwd` reads beside `out`."""
+    `with_lse` asks the tensor-core variants ("mma", "tf32x3") for the
+    [B, H, S] row log-sum-exp that `fused_attention_qkv_bwd` reads beside
+    `out`."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_plain(qkv, bias, num_heads, scale), None
     out, lse = _launch_fwd(qkv, bias, num_heads, scale, with_lse, head_grid=False)
@@ -477,14 +477,15 @@ def fused_attention_qkv_bwd(
     cotangent do [B, S, W]. CPU tensors take the plain version; any other
     device must be a CUDA tensor the kernel takes (the forward's domain, with
     do of qkv's dtype), else this raises. `out` and `lse` are the forward's
-    output and row log-sum-exp, which the mma variant reads (`_FusedAttention`
-    saves them); without them it runs the forward kernel first, counted as a
-    forward launch. The simt variant recomputes both and ignores them."""
+    output and row log-sum-exp, which the tensor-core variants ("mma",
+    "tf32x3") read (`_FusedAttention` saves them); without them they run the
+    forward kernel first, counted as a forward launch. The simt variant
+    recomputes both and ignores them."""
     if qkv.device.type == "cpu":
         return fused_attention_qkv_bwd_plain(qkv, bias, do, num_heads, scale)
     dqkv = _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid=False)
     head_dim = qkv.shape[-1] // 3 // num_heads
-    fused_attention_qkv_bwd.launches += BWD_LAUNCHES_PER_CALL[k1_variant(qkv.dtype, head_dim)]
+    fused_attention_qkv_bwd.launches += bwd_launches_per_call(k1_variant(qkv.dtype, head_dim), head_dim)
     return dqkv
 
 
@@ -525,8 +526,8 @@ def fused_attention_qkv_headgrid_bwd(
 
 def _plain_rounding(impl: str, qkv: torch.Tensor, num_heads: int) -> bool:
     """Whether impl "rounded" applies the mma variants' roundings to this
-    input: only where the kernels would take that variant (K1's and K2's
-    rules agree on it)."""
+    input: only where the kernels would take that variant (bf16; the
+    tf32x3 variant's splits are not rounded there)."""
     return impl == "rounded" and k1_variant(qkv.dtype, qkv.shape[-1] // 3 // num_heads) == "mma"
 
 
@@ -534,9 +535,9 @@ class _FusedAttention(torch.autograd.Function):
     """K1 with its gradient ("kernel"), or the plain pair at any shape
     ("plain", "rounded"): saves qkv and bias (the residuals of
     `_fused_qkv_fwd`), not the probabilities, so it composes with
-    `torch.utils.checkpoint`; on the kernels' mma variant also the output
-    (which the out-projection saves anyway) and the [B, H, S] row
-    log-sum-exp, where the JAX VJP recomputes both. No gradient for the
+    `torch.utils.checkpoint`; on the kernels' tensor-core variants ("mma",
+    "tf32x3") also the output (which the out-projection saves anyway) and
+    the [B, H, S] row log-sum-exp, where the JAX VJP recomputes both. No gradient for the
     bias, num_heads, scale or the impl (`_fused_qkv_bwd` returns None)."""
 
     @staticmethod
@@ -726,7 +727,7 @@ def fused_ln_qkv_attention(
 
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them):
-# one per forward call, BWD_LAUNCHES_PER_CALL[variant] (K2:
+# one per forward call, bwd_launches_per_call(variant, head_dim) (K2:
 # HG_BWD_LAUNCHES_PER_CALL) per backward call
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0

@@ -129,7 +129,7 @@ def test_headgrid_variant_rule():
         assert TA.headgrid_variant(torch.bfloat16, D) == "simt"
         assert TA.headgrid_variant(torch.float32, D) == "simt"
     assert TA.headgrid_variant(torch.float16, 64) == "simt"  # refused later, by dtype
-    assert TA.MMA_HEAD_DIMS == (16, 32, 64, 128) and TA.HG_VARIANTS == ("mma", "tf32x3", "simt")
+    assert TA.MMA_HEAD_DIMS == (16, 32, 64, 128) and TA.VARIANTS == ("mma", "tf32x3", "simt")
     assert TA.HG_BWD_LAUNCHES_PER_CALL == 2
     # every head dim K2 takes has a variant, and the path shapes take the
     # tensor cores in both dtypes
@@ -170,9 +170,9 @@ def test_simt_variant_and_k1_take_any_alignment():
     qkv = _misaligned((1, 130, 3 * 128), torch.bfloat16)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         TA._check_kernel_input(qkv, None, 16, head_grid=True)  # bf16, head_dim 8: simt
-    # K1's simt variant: fp32, and bf16 with a head_dim the mma variant
-    # does not take (40)
-    qkv = _misaligned((1, 13, 384), torch.float32)
+    # K1's simt variant: fp32 and bf16 with a head_dim no tensor-core
+    # variant takes (40; fp32 at head_dim 64 takes tf32x3 now)
+    qkv = _misaligned((1, 13, 240), torch.float32)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         TA._check_kernel_input(qkv, None, 2)
     qkv = _misaligned((1, 13, 240), torch.bfloat16)
@@ -210,21 +210,25 @@ K1_IDS = [f"S{S}_D{W // H}_{'causal' if c else 'nobias'}" for _, S, W, H, c in K
 def test_k1_variant_rule():
     for D in (16, 32, 64, 128):
         assert TA.k1_variant(torch.bfloat16, D) == "mma"
-        assert TA.k1_variant(torch.float32, D) == "simt"
+        assert TA.k1_variant(torch.float32, D) == "tf32x3"
     for D in (1, 8, 20, 40, 48, 96, 127):  # head dims K1 takes that no mma tile fits
         assert TA.k1_variant(torch.bfloat16, D) == "simt"
         assert TA.k1_variant(torch.float32, D) == "simt"
     assert TA.k1_variant(torch.float16, 64) == "simt"  # refused later, by dtype
-    assert TA.VARIANTS == ("mma", "simt")
+    assert TA.VARIANTS == ("mma", "tf32x3", "simt")
     # one backward launch on the tensor cores (every tile of a head fits one
-    # block), two passes on the CUDA cores
-    assert TA.BWD_LAUNCHES_PER_CALL == {"mma": 1, "simt": 2}
-    # every head dim of the K1 path shapes takes mma in bf16: the text
+    # block; tf32x3's four fp32 tiles up to head_dim 64), two passes on the
+    # CUDA cores
+    assert [TA.bwd_launches_per_call(v, 64) for v in TA.VARIANTS] == [1, 1, 2]
+    assert [TA.bwd_launches_per_call(v, 128) for v in TA.VARIANTS] == [1, 2, 2]
+    # every head dim of the K1 path shapes takes the tensor cores: the text
     # towers (512 / 8, 768 / 12) and the ViT-B/32 vision tower (768 / 12)
     for W, H in ((512, 8), (768, 12)):
         assert TA.k1_variant(torch.bfloat16, W // H) == "mma"
+        assert TA.k1_variant(torch.float32, W // H) == "tf32x3"
     for D in range(1, TA.MAX_HEAD_DIM + 1):
-        assert TA.k1_variant(torch.bfloat16, D) == TA.headgrid_variant(torch.bfloat16, D)
+        for dtype in (torch.bfloat16, torch.float32):
+            assert TA.k1_variant(dtype, D) == TA.headgrid_variant(dtype, D)
 
 
 @pytest.mark.parametrize("B,S,W,H,causal", K1_SHAPES, ids=K1_IDS)
@@ -297,7 +301,7 @@ def test_k1_function_on_the_cpu_saves_no_residuals():
 
 @pytest.mark.parametrize("dtype,W,H,rounds", [
     (torch.bfloat16, 128, 2, True),    # head_dim 64: the mma variant
-    (torch.float32, 128, 2, False),    # fp32: the simt variant
+    (torch.float32, 128, 2, False),    # fp32: the tf32x3 variant, not rounded
     (torch.bfloat16, 80, 2, False),    # head_dim 40: the simt variant
 ], ids=["bf16_d64", "fp32_d64", "bf16_d40"])
 def test_rounded_impl_rounds_where_the_kernel_rounds(dtype, W, H, rounds):

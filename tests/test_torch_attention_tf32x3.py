@@ -12,10 +12,10 @@ kernels run on the card only (`chip_smoke.py --only k2` and
     (the ViT-L/14 and ViT-B/16 vision towers), S = 150, 129 and 65, with
     and without the causal bias; and within the card's fp32 gates of the
     unsplit plain version: the design is inside them before the card runs;
-(c) the three-way rule of `headgrid_variant` and K1's unchanged two-way
-    rule, for every head dim;
+(c) the three-way rule of `headgrid_variant`, which K1 takes too, for
+    every head dim;
 (d) the wrapper refuses an fp32 qkv (or do) that is not 16-byte aligned on
-    the tf32x3 variant;
+    the tf32x3 variant, K2's and K1's;
 (e) `library_variant` decodes the libraries' codes 0 / 1 / 2."""
 
 import numpy as np
@@ -141,16 +141,18 @@ def test_headgrid_variant_is_three_way():
     for D in (1, 2, 4, 8):  # every other head dim K2 takes (dividing 128)
         assert TA.headgrid_variant(torch.float32, D) == "simt"
         assert TA.headgrid_variant(torch.bfloat16, D) == "simt"
-    assert TA.HG_VARIANTS == ("mma", "tf32x3", "simt")
+    assert TA.VARIANTS == ("mma", "tf32x3", "simt")
     assert {TA.headgrid_variant(dt, D) for dt in (torch.float32, torch.bfloat16)
-            for D in range(1, TA.MAX_HEAD_DIM + 1)} == set(TA.HG_VARIANTS)
+            for D in range(1, TA.MAX_HEAD_DIM + 1)} == set(TA.VARIANTS)
 
 
 def test_k1_keeps_its_two_way_rule_for_every_head_dim():
+    # K1's rule is K2's three-way rule now (its fp32 tensor-core variant,
+    # "tf32x3"); the name is kept from the two-way rule it pinned before
     for D in range(1, TA.MAX_HEAD_DIM + 1):
-        assert TA.k1_variant(torch.float32, D) == "simt"
+        assert TA.k1_variant(torch.float32, D) == ("tf32x3" if D in TA.MMA_HEAD_DIMS else "simt")
         assert TA.k1_variant(torch.bfloat16, D) == ("mma" if D in TA.MMA_HEAD_DIMS else "simt")
-    assert TA.VARIANTS == ("mma", "simt")
+    assert TA.VARIANTS == ("mma", "tf32x3", "simt")
 
 
 def _misaligned(shape):
@@ -172,8 +174,8 @@ def test_tf32x3_refuses_a_misaligned_tensor(which):
         TA._check_kernel_input(qkv, None, H, do, head_grid=True)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         TA._check_kernel_input(qkv.clone(), None, H, do.clone(), head_grid=True)
-    # K1 keeps fp32 on its simt variant, which takes any alignment
-    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+    # K1 takes fp32 at head_dim 64 on its tf32x3 variant too: refused alike
+    with pytest.raises(ValueError, match="tf32x3 variant\\) needs qkv aligned to 16 bytes"):
         TA._check_kernel_input(_misaligned((B, 77, 3 * W)), None, H, head_grid=False)
 
 

@@ -35,6 +35,9 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
 - K1's tensor-core variant the same way, at the ViT-B/32 text tower's shape
   (S = 77, causal) and vision shape (S = 50), and at a ragged one (S = 65,
   head_dim 32): one backward launch a call;
+- K1's fp32 tensor-core variant ("tf32x3") at the ViT-B/32 text and vision
+  shapes and at head_dim 128 (two backward launches a call), within the
+  fp32 gates, with the launch counts and bit checks;
 - `.eval_retrieval` at ViT-B/32 with `"use_pallas_attention": false`: no
   attention kernel launches, and the process-wide choice is put back."""
 
@@ -398,7 +401,7 @@ def test_k1_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, 
     assert A.k1_variant(qkv.dtype, W // H) == "mma"
     assert A.library_variant(A.KERNEL, qkv.dtype, W // H) == "mma"
     assert A.library_variant(A.BWD_KERNEL, qkv.dtype, W // H) == "mma"
-    assert A.library_variant(A.BWD_KERNEL, torch.float32, W // H) == "simt"
+    assert A.library_variant(A.BWD_KERNEL, torch.float32, W // H) == "tf32x3"
 
     A.fused_attention_qkv.launches = A.fused_attention_qkv_bwd.launches = 0
     leaf = qkv.detach().requires_grad_(True)
@@ -406,7 +409,7 @@ def test_k1_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, 
     (grad,) = torch.autograd.grad(out, leaf, do)
     torch.cuda.synchronize()
     assert A.fused_attention_qkv.launches == 1
-    assert A.fused_attention_qkv_bwd.launches == A.BWD_LAUNCHES_PER_CALL["mma"] == 1
+    assert A.fused_attention_qkv_bwd.launches == A.bwd_launches_per_call("mma", W // H) == 1
     # called directly, the backward has no saved residuals: it runs the
     # forward kernel for them and gives the same bits, twice
     direct = A.fused_attention_qkv_bwd(qkv, bias, do, H, scale)
@@ -426,6 +429,46 @@ def test_k1_mma_variant_matches_both_plain_versions(fixtures_mod, tag, B, S, W, 
         diff = (got.float() - rounded).abs()
         assert diff.max().item() <= 8e-3 * top
         assert diff.mean().item() <= 5e-4 * top
+
+
+@pytest.mark.parametrize("tag,B,S,W,H,causal", [
+    ("train_text", 96, 77, 512, 8, True), ("train_vision", 64, 50, 768, 12, False),
+    ("edge_d128_causal", 3, 77, 384, 3, True),
+])
+def test_k1_tf32x3_variant_matches_the_plain_versions(fixtures_mod, tag, B, S, W, H, causal):
+    from clip_event_tpu_torch.models.layers import causal_mask
+    from clip_event_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn((B, S, 3 * W), device="cuda", generator=gen)
+    do = torch.randn((B, S, W), device="cuda", generator=gen)
+    bias = causal_mask(S, device="cuda") if causal else None
+    scale = (W // H) ** -0.5
+    assert A.k1_variant(qkv.dtype, W // H) == "tf32x3"
+    assert A.library_variant(A.KERNEL, qkv.dtype, W // H) == "tf32x3"
+    assert A.library_variant(A.BWD_KERNEL, qkv.dtype, W // H) == "tf32x3"
+
+    A.fused_attention_qkv.launches = A.fused_attention_qkv_bwd.launches = 0
+    leaf = qkv.detach().requires_grad_(True)
+    out = A.fused_attention_qkv(leaf, bias, H, scale)
+    (grad,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    per_call = A.bwd_launches_per_call("tf32x3", W // H)
+    assert A.fused_attention_qkv.launches == 1
+    assert A.fused_attention_qkv_bwd.launches == per_call == (1 if W // H <= 64 else 2)
+    # the saved out and lse give the bits of the direct call, which runs
+    # the forward kernel first; no atomics: the same bits twice
+    direct = A.fused_attention_qkv_bwd(qkv, bias, do, H, scale)
+    again = A.fused_attention_qkv_bwd(qkv, bias, do, H, scale)
+    assert A.fused_attention_qkv.launches == 3
+    assert A.fused_attention_qkv_bwd.launches == 3 * per_call
+    assert torch.equal(direct, grad) and torch.equal(again, grad)
+
+    # the fp32 gates (PERF.md §2) against the unsplit plain versions
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(grad).all())
+    assert (out - A.fused_attention_qkv_plain(qkv, bias, H, scale)).abs().max().item() <= 1e-5
+    ref = A.fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale)
+    assert ((grad - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
 def test_eval_cli_with_plain_attention_launches_no_attention_kernel(fixtures_mod, tmp_path, monkeypatch, capsys):

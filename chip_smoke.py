@@ -10,6 +10,7 @@ component bench.
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --only k1   # device, build and K1's kernel checks
     python3 chip_smoke.py --only k2   # device, build and K2's kernel checks
+    python3 chip_smoke.py --only k5   # device, build and K5's kernel checks
 
 Phases, each printing JSON lines:
 
@@ -147,8 +148,16 @@ head_dim 32 and 20, a width that fills no k tile): max abs error 1e-4 /
 K5, the int8 GEMM, is held in phase 3 against its plain version at the
 paths' shapes (batch 64) and at edge shapes (M = 1, K = 588, K = 3, odd N,
 an all-zero row, a row with one large value), dynamic and static, fp32
-and bf16: max|kernel − plain| / max|plain| ≤ 1e-6 (fp32) / 8e-3 (bf16),
-and the int8 payload and row scales of its first launch exactly equal.
+and bf16: max|kernel − plain| / max|plain| ≤ 1e-6 (fp32) / 8e-3 (bf16)
+and, as its design promises, equal bits; the GEMM alone
+(`quant.quantized_gemm` on the row pass's output) equal to
+`quantized_gemm_plain`, and the int8 payload and row scales of the row
+pass exactly equal. It times the whole call, the GEMM alone and the row
+pass alone, beside each one's bound, `torch._int_mm` on the same operands
+and the bf16 `torch.matmul` of the same shape. The build phase prints
+K5's registers, shared memory and spills by kernel (any spill fails),
+the GEMM's blocks an SM, and checks that the GEMM's SASS holds the
+warpgroup int8 MMA (IGMMA).
 
 then the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi prints them, and a last line `{"ok": true, "device": {...}}`.
@@ -159,6 +168,7 @@ exits non-zero before printing anything.
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import math
 import os
@@ -403,7 +413,7 @@ KERNEL_FAMILIES = (
     ("megakernel (hand-written)", ("ln_qkv_attention_kernel",)),
     ("attention (hand-written)", ("attention_fwd_kernel", "attention_bwd_", "attention_hg_")),
     ("ipot (hand-written)", ("ipot_kernel",)),
-    ("int8 gemm (hand-written)", ("int8_gemm_kernel", "quant_rows_kernel")),
+    ("int8 gemm (hand-written)", ("int8_gemm_wgmma_kernel", "quant_rows_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax / loss", ("softmax",)),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -478,6 +488,26 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, needles, iters=20) -> dict:
+    """{needle: mean device time in ms a call of fn()} of the kernels whose
+    names hold each needle, by torch.profiler over `iters` warm calls: the
+    kernels' own time, without the host's time between launches that
+    `cuda_ms` reads where a call's device work is shorter than its host
+    work. None for a needle the trace shows no time for, twice."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # once more if the trace lost a kernel's records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        out = {n: sum(e.self_device_time_total for e in events if n in e.key) / iters / 1e3 for n in needles}
+        if all(out.values()):
+            return out
+    return {n: ms or None for n, ms in out.items()}
 
 
 def _attention_bound(nbytes, flops, dtype_name):
@@ -744,18 +774,40 @@ def quant_bound_ms(M, K, N, dtype_name, static):
     The larger wins."""
     elt = 4 if dtype_name == "float32" else 2
     nbytes = M * K * elt + K * N + M * N * elt + 2 * N * 4 + (4 if static else 0)
+    return _quant_bound(nbytes, 2 * M * N * K)
+
+
+def quant_gemm_bound_ms(M, K, N, dtype_name):
+    """Least time for K5's GEMM alone: the int8 rows and q read once, the
+    row and column scales and the bias read once, the output written once;
+    2·M·N·K int8 operations."""
+    elt = 4 if dtype_name == "float32" else 2
+    return _quant_bound(M * K + K * N + 4 * M + 2 * N * 4 + M * N * elt, 2 * M * N * K)
+
+
+def quant_rows_bound_ms(M, K, dtype_name):
+    """Least time for K5's row pass alone: x read once, its int8 rows and
+    the row scales written once (bytes bound: a few operations a byte)."""
+    elt = 4 if dtype_name == "float32" else 2
+    return M * (K * elt + K + 4) / PEAK_BYTES_PER_S * 1e3
+
+
+def _quant_bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2 * M * N * K / PEAK_INT8_OPS * 1e3
+    t_ops = ops / PEAK_INT8_OPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_quant(rows, errs, gen, tag, M, K, N, dtype, static, timed, edge):
     """K5 against its plain version at one shape, dtype and mode: the output
-    (QUANT_TOL, relative to max|plain|), and the row pass's int8 payload and
-    row scales exactly. Times, the bound and two yardsticks when `timed`:
-    torch._int_mm on the pre-quantised operands (the GEMM alone, where its
-    shape rules allow: M > 16, K and N multiples of 8) and the bf16
-    torch.matmul of the same shape (the float path int8 is meant to beat)."""
+    (QUANT_TOL, relative to max|plain|, and equal bits), the GEMM alone on
+    the row pass's output against `quantized_gemm_plain` (equal bits), and
+    the row pass's int8 payload and row scales exactly. Times of the whole
+    call, the GEMM alone and the row pass alone, their bounds and two
+    yardsticks when `timed`: torch._int_mm on the pre-quantised operands
+    (the GEMM alone, where its shape rules allow: M > 16, K and N multiples
+    of 8) and the bf16 torch.matmul of the same shape (the float path int8
+    is meant to beat)."""
     name = str(dtype).split(".")[-1]
     x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
     if edge:
@@ -768,13 +820,17 @@ def check_quant(rows, errs, gen, tag, M, K, N, dtype, static, timed, edge):
     w = quant.quantize_weight(w32, 0.9 * x.float().abs().max() if static else None)
     bias = torch.randn((N,), device="cuda", generator=gen)
     args = (x, w.q, w.scale, bias, w.act_scale)
+    mode = "static" if static else "dynamic"
+    what = f"{quant.KERNEL} {tag} {name} {mode}"
+    check(quant.is_k_major(w.q), f"{what}: quantize_weight stores q K-major")
     y = quant.quantized_matmul(*args)
     ref = quant.quantized_matmul_plain(*args)
     xq, rs = quant.quantize_rows(x, w.act_scale)
     pxq, prs = quant.quantize_rows_plain(x, w.act_scale)
+    gemm_args = (xq, rs, w.q, w.scale, bias, dtype)
+    g = quant.quantized_gemm(*gemm_args)
+    gref = quant.quantized_gemm_plain(*gemm_args)
     torch.cuda.synchronize()
-    mode = "static" if static else "dynamic"
-    what = f"{quant.KERNEL} {tag} {name} {mode}"
     check(y.dtype == dtype and y.shape == (M, N), f"{what} shape/dtype")
     check(bool(torch.isfinite(y).all()), f"{what} output finite")
     check(torch.equal(xq[:, :K], pxq) and not bool(xq[:, K:].any()), f"{what}: int8 payload differs")
@@ -782,16 +838,35 @@ def check_quant(rows, errs, gen, tag, M, K, N, dtype, static, timed, edge):
     err = (y.float() - ref.float()).abs().max().item()
     rel = err / max(ref.float().abs().max().item(), 1e-30)
     check(rel <= QUANT_TOL[name], f"{what}: rel err {rel} > {QUANT_TOL[name]}")
+    check(torch.equal(y, ref), f"{what}: not bit-exact against the plain version (max abs err {err})")
+    gerr = (g.float() - gref.float()).abs().max().item()
+    check(torch.equal(g, gref) and torch.equal(g, y),
+          f"{what}: the GEMM alone differs from its plain version (max abs err {gerr})")
     if edge and M > 1:
         check(torch.equal(y[0], bias.to(dtype)), f"{what}: the all-zero row yields the bias")
-    errs[quant.KERNEL][name] = max(errs[quant.KERNEL].get(name, 0.0), err)
+    errs[quant.KERNEL][name] = max(errs[quant.KERNEL].get(name, 0.0), err, gerr)
     row = {"shape": tag, "M": M, "K": K, "N": N, "dtype": name, "mode": mode, "max_abs_err": err,
-           "max_rel_err": rel, "tol_rel": QUANT_TOL[name]}
+           "max_rel_err": rel, "tol_rel": QUANT_TOL[name], "gemm_max_abs_err": gerr}
     if timed:
         iters = 10 if M * N * K > 1e10 else 30
         row["ms"] = cuda_ms(lambda: quant.quantized_matmul(*args), iters)
+        row["gemm_ms"] = cuda_ms(lambda: quant.quantized_gemm(*gemm_args), iters)
+        row["rows_ms"] = cuda_ms(lambda: quant.quantize_rows(x, w.act_scale), iters)
+        # the kernels' own times in the whole call (below ~0.05 ms the
+        # wrapper's host time sets the three wall times above); the GEMM's
+        # tile traffic from L2 (128 x 128 output tiles, 32 KB a 128-deep k
+        # step) and its share of the int8 rate
+        dev = device_ms(lambda: quant.quantized_matmul(*args), ("int8_gemm", "quant_rows"), iters)
+        row["gemm_device_ms"], row["rows_device_ms"] = dev["int8_gemm"], dev["quant_rows"]
+        if dev["int8_gemm"]:
+            tiles = -(-M // 128) * -(-N // 128) * -(-K // 128)
+            row["gemm_tile_bytes_per_s"] = tiles * 32768 / (dev["int8_gemm"] * 1e-3)
+            row["gemm_int8_rate_share"] = 2 * M * N * K / (dev["int8_gemm"] * 1e-3) / PEAK_INT8_OPS
         row["plain_ms"] = cuda_ms(lambda: quant.quantized_matmul_plain(*args), 5, warmup=1)
+        row["gemm_plain_ms"] = cuda_ms(lambda: quant.quantized_gemm_plain(*gemm_args), 5, warmup=1)
         row["bound_ms"], row["bound_by"] = quant_bound_ms(M, K, N, name, static)
+        row["gemm_bound_ms"], row["gemm_bound_by"] = quant_gemm_bound_ms(M, K, N, name)
+        row["rows_bound_ms"] = quant_rows_bound_ms(M, K, name)
         row["library_ms"] = None
         if M > 16 and K % 8 == 0 and N % 8 == 0:
             a = xq[:, :K].contiguous()
@@ -804,6 +879,36 @@ def check_quant(rows, errs, gen, tag, M, K, N, dtype, static, timed, edge):
         row["bf16_matmul_ms"] = cuda_ms(lambda: torch.matmul(xb, wb), iters)
     rows[quant.KERNEL].append(row)
     emit({"phase": "kernel_check", "kernel": quant.KERNEL, **row})
+
+
+def check_k5(rows, errs, gen):
+    for shapes, edge in ((QUANT_SHAPES, False), (QUANT_EDGE_SHAPES, True)):
+        for tag, M, K, N in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                for static in (False, True):
+                    check_quant(rows, errs, gen, tag, M, K, N, dtype, static, not edge, edge)
+
+
+def k5_sass_has_igmma() -> dict:
+    """{kernel: whether its SASS holds IGMMA, the warpgroup int8 MMA} for
+    every GEMM kernel of K5's library (`cuobjdump -sass`), so a build that
+    fell back to another MMA cannot pass unseen."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.library_path(quant.KERNEL)], capture_output=True,
+                          text=True, check=True).stdout
+    found, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if "int8_gemm" in name:
+                found[name] = False
+        elif name in found and "IGMMA" in line:
+            found[name] = True
+    return found
 
 
 def ln_bound_ms(N, W, dtype_name, streams, vectors, flops_per_elt):
@@ -1043,11 +1148,7 @@ def phase_kernels():
     check_k2(rows, errs, gen)
     for shape in OT_SHAPES:
         check_ipot(rows, errs, gen, *shape)
-    for shapes, edge in ((QUANT_SHAPES, False), (QUANT_EDGE_SHAPES, True)):
-        for tag, M, K, N in shapes:
-            for dtype in (torch.float32, torch.bfloat16):
-                for static in (False, True):
-                    check_quant(rows, errs, gen, tag, M, K, N, dtype, static, not edge, edge)
+    check_k5(rows, errs, gen)
     for shapes, edge in ((LN_SHAPES, False), (LN_EDGE_SHAPES, True)):
         for tag, N, W in shapes:
             for dtype in (torch.float32, torch.bfloat16):
@@ -1398,7 +1499,7 @@ def phase_serving_int8(out_root, model, n_items, tag, float_rates, cos_gate=None
                                "image_batch_ms": ms_img, "text_batch_ms": ms_txt,
                                "embed_stream_wall_s": wall[name]}
             enc = encoders["float32"]
-            needles = (("quant_matmul", "int8_gemm_kernel"), ("quant_rows", "quant_rows_kernel"),
+            needles = (("quant_matmul", "int8_gemm_wgmma_kernel"), ("quant_rows", "quant_rows_kernel"),
                        ("attention", "attention_"))
             for kind, fn, x, ms in (("images", enc.encode_images, x_img, rates["float32"]["image_batch_ms"]),
                                     ("texts", enc.encode_texts, x_tok, rates["float32"]["text_batch_ms"])):
@@ -2290,13 +2391,13 @@ def ptxas_usage(log: str, needle: str) -> dict:
 
 
 def main(argv=None) -> int:
-    """No arguments: every phase. `--only k1` / `--only k2`: the device and
+    """No arguments: every phase. `--only k1` / `k2` / `k5`: the device and
     build phases and that kernel's checks alone (the quick look after an
     edit to it), with a last line that says so."""
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=("k1", "k2"), default=None)
+    parser.add_argument("--only", choices=("k1", "k2", "k5"), default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2321,17 +2422,33 @@ def main(argv=None) -> int:
                HG_KERNEL: ("_mma", "_tf32x3"), HG_BWD_KERNEL: ("_mma", "_tf32x3")}
     usage = {name: {needle: ptxas_usage(_build.BUILD_LOGS.get(name, ""), needle) for needle in found}
              for name, found in needles.items()}
+    # K5: registers, shared memory and spills of each kernel, and the
+    # warpgroup int8 MMA in the GEMM's SASS
+    k5_log = _build.BUILD_LOGS.get(quant.KERNEL, "")
+    k5_usage = ptxas_usage(k5_log, "")
+    k5_sass = k5_sass_has_igmma()
+    blocks_fn = _build.entry(quant.KERNEL, "clip_quant_gemm_blocks_per_sm", [ctypes.c_int])[1]
+    k5_blocks = {name: blocks_fn(code) for name, code in (("float32", 0), ("bfloat16", 1))}
+    k5_smem = _build.entry(quant.KERNEL, "clip_quant_gemm_smem_bytes", [])[1]()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds, "ptxas": ptxas,
-          "tensor_core_kernel_registers_and_spill_bytes": usage})
+          "tensor_core_kernel_registers_and_spill_bytes": usage,
+          "k5_ptxas": [ln.strip() for ln in k5_log.splitlines() if "ptxas" in ln or "bytes" in ln],
+          "k5_registers_and_spill_bytes": k5_usage, "k5_gemm_sass_has_igmma": k5_sass,
+          "k5_gemm_blocks_per_sm": k5_blocks, "k5_gemm_dynamic_smem_bytes": k5_smem})
     for name, by_needle in usage.items():
         for needle, by_kernel in by_needle.items():
             check(seconds[name] == 0.0 or by_kernel, f"{name}: no {needle} kernel in the ptxas log")
             check(not any(spill for _, spill in by_kernel.values()), f"{name}: a {needle} kernel spills: {by_kernel}")
+    check(seconds[quant.KERNEL] == 0.0 or any("int8_gemm" in k for k in k5_usage),
+          f"{quant.KERNEL}: no GEMM kernel in the ptxas log")
+    check(not any(spill for _, spill in k5_usage.values()), f"{quant.KERNEL}: a kernel spills: {k5_usage}")
+    check(bool(k5_sass) and all(k5_sass.values()), f"{quant.KERNEL}: no IGMMA in the GEMM's SASS: {k5_sass}")
+    check(all(n >= 1 for n in k5_blocks.values()), f"{quant.KERNEL}: the GEMM fits no SM: {k5_blocks}")
 
     if args.only:
         rows = {name: [] for name in COUNTERS}
         errs = {name: {} for name in COUNTERS}
-        checks = {"k1": check_k1, "k2": check_k2}[args.only]
+        checks = {"k1": check_k1, "k2": check_k2, "k5": check_k5}[args.only]
         checks(rows, errs, torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
         print(smi, flush=True)

@@ -293,7 +293,9 @@ def sim_entity(
 
 
 class _QuantLeaf(nn.Module):
-    """An int8 QuantWeight held as buffers (`q`, `scale`, `act_scale`)."""
+    """An int8 QuantWeight held as buffers (`q`, `scale`, `act_scale`). `q`
+    keeps the QuantWeight's K-major strides: `.to()` and `load_state_dict`
+    (which copies into the buffer) preserve them, as K5 needs."""
 
     def __init__(self, w: QuantWeight):
         super().__init__()

@@ -6,7 +6,11 @@
   transformer weights)}, from symmetric per-output-channel quantization.
   It slices like a tensor (`w[i]` gives layer i's weight) and moves like
   one (`w.to(device)`), so the stacked layer loop and the param-tree
-  helpers carry it where a float weight goes.
+  helpers carry it where a float weight goes. `q` is stored K-major, as
+  the transposed view of a contiguous [..., out, in] buffer (`k_major`),
+  the layout K5's tensor-core GEMM reads; every route that builds a
+  QuantWeight gets it, and slicing, `.to()`, `torch.save` and
+  `load_state_dict` keep it.
 * `quantized_linear`: activations quantized per row by their abs-max
   (dynamic), or by the static per-tensor `act_scale` of offline
   calibration; s8 x s8 products summed exactly; float rescale and bias.
@@ -15,7 +19,9 @@
   `csrc/quant_matmul.cu` (a row-quantise launch, then an int8 GEMM
   launch), on a CUDA tensor, in the dynamic and the static mode alike, and
   raises if it cannot take the input. On a CPU tensor it runs
-  `quantized_matmul_plain`, the same steps in plain PyTorch.
+  `quantized_matmul_plain`, the same steps in plain PyTorch:
+  `quantize_rows_plain`, then `quantized_gemm_plain`. `quantize_rows` and
+  `quantized_gemm` launch each of K5's two kernels alone.
 * `quantize_params` turns every dense weight of the chosen towers into a
   `QuantWeight`; `calibrate_act_scales` runs the act-stat forwards over
   sample batches for the static scales.
@@ -39,8 +45,12 @@ from clip_event_tpu_torch.ops import _build
 KERNEL = "quant_matmul"
 # each call launches the row pass and the GEMM
 LAUNCHES_PER_CALL = 2
-# the GEMM's k tile: the int8 activation scratch is padded with zeros to it
-K_TILE = 64
+# the GEMM's k tile (bytes of K a stage): the int8 activation scratch is
+# padded with zeros to it
+K_TILE = 128
+# TMA reads a row only from a 16-byte aligned start: a weight whose rows
+# are not (K % 16 != 0) is padded with zeros to K_TILE for the call
+TMA_ALIGN = 16
 GEMM_IMPLS = ("auto", "pallas", "xla")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -51,14 +61,32 @@ def _div127(t: torch.Tensor) -> torch.Tensor:
     return t / t.new_tensor(127.0)
 
 
+def is_k_major(q: torch.Tensor) -> bool:
+    """q [..., in, out] is the transposed view of a contiguous [..., out, in]
+    buffer: each output column's `in` values lie together."""
+    return q.transpose(-1, -2).is_contiguous()
+
+
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """q [..., in, out] with the same values, stored K-major (`is_k_major`);
+    q itself if it already is (or is no matrix: a slice of one row)."""
+    if q.dim() < 2 or is_k_major(q):
+        return q
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 @dataclasses.dataclass
 class QuantWeight:
     """Symmetric per-output-channel int8 weight: w ≈ q * scale; with
-    `act_scale`, the static per-tensor activation scale of calibration."""
+    `act_scale`, the static per-tensor activation scale of calibration.
+    `q` is made K-major here, once, whichever route built the weight."""
 
-    q: torch.Tensor  # int8 [..., in, out]
+    q: torch.Tensor  # int8 [..., in, out], K-major
     scale: torch.Tensor  # float32 [..., out]
     act_scale: Optional[torch.Tensor] = None  # float32 [...]
+
+    def __post_init__(self):
+        self.q = k_major(self.q)
 
     @property
     def shape(self):
@@ -114,36 +142,37 @@ def quantize_rows_plain(x: torch.Tensor, act_scale: Optional[torch.Tensor] = Non
     return xq, s.reshape(-1).contiguous()
 
 
+def quantized_gemm_plain(
+    xq: torch.Tensor, row_scale: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None, dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K5's GEMM in plain PyTorch on pre-quantised rows xq int8 [M, K] (or
+    the row pass's [M, Kp], whose columns past K are zeros): the integer
+    product computed exactly in float64 (|sum| <= 127² K < 2⁵³; int32
+    matmul has no CUDA implementation and fp32 is exact only to 2²⁴), then
+    acc * (row_scale ⊗ scale) + bias in fp32, cast to `dtype`."""
+    acc = torch.matmul(xq[:, : q.shape[0]].double(), q.double())
+    y = acc.float() * (row_scale[:, None] * scale.float())
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
 def quantized_matmul_plain(
     x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     bias: Optional[torch.Tensor] = None, act_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K5's steps in plain PyTorch: row quantisation, the integer product
-    computed exactly in float64 (|sum| <= 127² K < 2⁵³; int32 matmul has no
-    CUDA implementation and fp32 is exact only to 2²⁴), then
-    acc * (s_row * s_col) + bias in fp32, cast to x's dtype."""
+    """K5's steps in plain PyTorch: row quantisation, then the GEMM."""
     xq, s = quantize_rows_plain(x, act_scale)
-    acc = torch.matmul(xq.double(), q.double())
-    y = acc.float() * (s[:, None] * scale.float())
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(x.dtype)
+    return quantized_gemm_plain(xq, s, q, scale, bias, x.dtype)
 
 
 # ---------------------------------------------------------------- kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_GEMM_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_MATMUL_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_GEMM_ARGS = [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]
 _ROWS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-
-
-def _fn(symbol: str, argtypes):
-    lib = _build.load(KERNEL)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fn
 
 
 def padded_k(k: int) -> int:
@@ -155,13 +184,56 @@ def _check(x: torch.Tensor, act_scale: Optional[torch.Tensor]) -> torch.Tensor:
         raise ValueError(f"K5 takes x as [M, K] with M, K >= 1, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise ValueError(f"K5 takes float32 or bfloat16 activations, got {x.dtype}")
-    if x.device.type != "cuda":
-        raise ValueError(f"K5 needs a CUDA tensor, got {x.device}")
+    _check_device(x)
     if act_scale is not None:
         if act_scale.numel() != 1 or act_scale.device != x.device:
             raise ValueError("the static act_scale must be one value on x's device")
         act_scale = act_scale.to(torch.float32).reshape(1).contiguous()
     return act_scale
+
+
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"K5 needs a CUDA tensor, got {x.device}")
+
+
+def _check_k_major(q: torch.Tensor) -> None:
+    """K5 refuses a q that is not K-major: it makes no hidden transposed copy
+    of a weight (`k_major` makes one, once). `is_k_major` for a matrix, read
+    from the strides alone (no view: this runs on every call)."""
+    if q.dim() != 2:
+        return
+    K, N = q.shape
+    if not ((q.stride(0) == 1 or K == 1) and (q.stride(1) == K or N == 1)):
+        raise ValueError(f"K5 takes q K-major (a transposed view of a contiguous [N, K] "
+                         f"buffer, as QuantWeight stores it), got strides {q.stride()}")
+
+
+def _check_weight(q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor], K: int,
+                  device: torch.device) -> int:
+    """N, after checking q int8 [K, N] and scale / bias [N] on `device`."""
+    if q.dim() != 2 or q.shape[0] != K or q.dtype != torch.int8 or q.device != device:
+        raise ValueError(f"K5 takes q as int8 [K={K}, N] on x's device, got {q.dtype} "
+                         f"{tuple(q.shape)} on {q.device}")
+    N = q.shape[1]
+    if tuple(scale.shape) != (N,) or (bias is not None and tuple(bias.shape) != (N,)):
+        raise ValueError(f"K5 takes scale and bias as [N={N}]")
+    return N
+
+
+def weight_operand(q: torch.Tensor):
+    """(a tensor holding the [N, K'] int8 rows the GEMM reads, their row
+    stride in bytes) for a K-major q [K, N]: q itself, whose buffer is those
+    rows, where they start 16-byte aligned; else a copy padded with zeros to
+    [N, padded_k(K)] (K = 588, 3, 100, ...; the zero columns add nothing to
+    the sums)."""
+    K, N = q.shape
+    ld = q.stride(1) if N > 1 else K
+    if ld % TMA_ALIGN == 0 and q.data_ptr() % TMA_ALIGN == 0:
+        return q, ld
+    padded = q.new_zeros((N, padded_k(K)))
+    padded[:, :K] = q.t()
+    return padded, padded.shape[1]
 
 
 def _stream(x: torch.Tensor):
@@ -179,12 +251,57 @@ def quantize_rows(x: torch.Tensor, act_scale: Optional[torch.Tensor] = None):
     Kp = padded_k(K)
     xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
     rs = torch.empty((M,), dtype=torch.float32, device=x.device)
-    lib, fn = _fn("clip_quant_rows", _ROWS_ARGS)
+    lib, fn = _build.entry(KERNEL, "clip_quant_rows", _ROWS_ARGS)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), None if act_scale is None else act_scale.data_ptr(),
                   xq.data_ptr(), rs.data_ptr(), M, K, Kp, _DTYPES[x.dtype], _stream(x))
     _build.check(lib, code, f"{KERNEL} row pass")
+    quantize_rows.launches += 1
     return xq, rs
+
+
+def quantized_gemm(
+    xq: torch.Tensor, row_scale: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None, dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K5's GEMM alone on pre-quantised rows: (xq · q) · (row_scale ⊗ scale)
+    + bias, [M, N] in `dtype`. xq int8 [M, K'] with K' >= K = q.shape[0]
+    (the row pass's [M, padded_k(K)], or [M, K]) whose rows start 16-byte
+    aligned; row_scale fp32 [M]; q int8 [K, N], K-major. CPU tensors take
+    `quantized_gemm_plain`; any other device must be a CUDA tensor the
+    kernel takes, else this raises."""
+    if xq.device.type == "cpu":
+        return quantized_gemm_plain(xq, row_scale, q, scale, bias, dtype)
+    if xq.dim() != 2 or xq.dtype != torch.int8 or xq.stride(-1) != 1:
+        raise ValueError(f"K5's GEMM takes xq as int8 [M, K'] rows, got {xq.dtype} "
+                         f"{tuple(xq.shape)} with strides {xq.stride()}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"K5's GEMM writes float32 or bfloat16, not {dtype}")
+    _check_k_major(q)
+    _check_device(xq)
+    M = xq.shape[0]
+    K = q.shape[0] if q.dim() == 2 else -1
+    N = _check_weight(q, scale, bias, K, xq.device)
+    lda = xq.stride(0) if M > 1 else xq.shape[1]
+    if xq.shape[1] < K or lda % TMA_ALIGN or xq.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"K5's GEMM takes xq [M, K' >= {K}] with 16-byte aligned rows "
+                         f"(the row pass's [M, {padded_k(K)}]), got {tuple(xq.shape)}")
+    if tuple(row_scale.shape) != (M,):
+        raise ValueError(f"K5's GEMM takes row_scale as [M={M}]")
+    rows, ldq = weight_operand(q)
+    row_scale = row_scale.to(device=xq.device, dtype=torch.float32).contiguous()
+    scale = scale.to(device=xq.device, dtype=torch.float32).contiguous()
+    if bias is not None:
+        bias = bias.to(device=xq.device, dtype=torch.float32).contiguous()
+    y = torch.empty((M, N), dtype=dtype, device=xq.device)
+    lib, fn = _build.entry(KERNEL, "clip_quant_gemm", _GEMM_ARGS)
+    with torch.cuda.device(xq.device):
+        code = fn(xq.data_ptr(), lda, row_scale.data_ptr(), rows.data_ptr(), ldq, scale.data_ptr(),
+                  None if bias is None else bias.data_ptr(), y.data_ptr(), M, K, N, _DTYPES[dtype],
+                  _stream(xq))
+    _build.check(lib, code, f"{KERNEL} GEMM")
+    quantized_gemm.launches += 1
+    return y
 
 
 def quantized_matmul(
@@ -192,21 +309,18 @@ def quantized_matmul(
     bias: Optional[torch.Tensor] = None, act_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """y = (rowquant(x) · q) · (row_scale ⊗ scale) + bias, [M, N] in x's
-    dtype (K5). x [M, K] fp32 or bf16; q int8 [K, N]; scale fp32 [N]; bias
-    [N] or None; act_scale None (dynamic per-row scales) or the static
-    per-tensor scale. CPU tensors take `quantized_matmul_plain`; any other
-    device must be a CUDA tensor the kernel takes, else this raises."""
+    dtype (K5). x [M, K] fp32 or bf16; q int8 [K, N], K-major; scale fp32
+    [N]; bias [N] or None; act_scale None (dynamic per-row scales) or the
+    static per-tensor scale. CPU tensors take `quantized_matmul_plain`; any
+    other device must be a CUDA tensor the kernel takes, else this raises."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, q, scale, bias, act_scale)
+    _check_k_major(q)
     act_scale = _check(x, act_scale)
     M, K = x.shape
-    if q.dim() != 2 or q.shape[0] != K or q.dtype != torch.int8 or q.device != x.device:
-        raise ValueError(f"K5 takes q as int8 [K={K}, N] on x's device, got {q.dtype} "
-                         f"{tuple(q.shape)} on {q.device}")
-    N = q.shape[1]
-    if tuple(scale.shape) != (N,) or (bias is not None and tuple(bias.shape) != (N,)):
-        raise ValueError(f"K5 takes scale and bias as [N={N}]")
-    x, q = x.contiguous(), q.contiguous()
+    N = _check_weight(q, scale, bias, K, x.device)
+    x = x.contiguous()
+    rows, ldq = weight_operand(q)
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
@@ -214,23 +328,25 @@ def quantized_matmul(
     xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
     rs = torch.empty((M,), dtype=torch.float32, device=x.device)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    vec = int(N % 4 == 0 and q.data_ptr() % 4 == 0)
-    lib, fn = _fn("clip_quant_matmul", _GEMM_ARGS)
+    lib, fn = _build.entry(KERNEL, "clip_quant_matmul", _MATMUL_ARGS)
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), None if act_scale is None else act_scale.data_ptr(), xq.data_ptr(),
-            rs.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            rs.data_ptr(), rows.data_ptr(), ldq, scale.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
-            M, K, N, Kp, _DTYPES[x.dtype], vec, _stream(x),
+            M, K, N, Kp, _DTYPES[x.dtype], _stream(x),
         )
     _build.check(lib, code, f"{KERNEL} launch")
     quantized_matmul.launches += LAUNCHES_PER_CALL
     return y
 
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it):
-# LAUNCHES_PER_CALL per call on a CUDA tensor
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): LAUNCHES_PER_CALL per `quantized_matmul` call on a CUDA tensor, one
+# per call of either kernel alone
 quantized_matmul.launches = 0
+quantize_rows.launches = 0
+quantized_gemm.launches = 0
 
 
 def quantized_linear(x: torch.Tensor, w: QuantWeight, b: Optional[torch.Tensor] = None) -> torch.Tensor:

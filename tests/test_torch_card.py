@@ -12,7 +12,11 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
   at ViT-L/14, seeded weights: unit-norm features of the right shape and
   the matching metrics of the fixture's pairs;
 - K5 (`ops.quant.quantized_matmul`) against its plain version at a few
-  shapes, dynamic and static, fp32 and bf16;
+  shapes, dynamic and static, fp32 and bf16; and at every dense-layer shape
+  of the int8 paths (batch 64) and every edge shape of `chip_smoke.py`,
+  the whole call and the GEMM alone (`quantized_gemm` on the row pass's
+  output) equal to their plain versions bit for bit, with exact launch
+  counts, the all-zero row yielding the bias;
 - `.eval_m2e2` at ViT-L/14 in int8_static with argument grounding (K2 for
   the grid features, K5 in every dense layer), `.eval_vcr`,
   `.eval_visualcomet` and `.eval_retrieval` at ViT-B/32 (the last in
@@ -170,6 +174,63 @@ def test_quant_kernel_matches_plain(fixtures_mod, m, k, n, dtype, static):
     xq, rs = quant.quantize_rows(x, w.act_scale)
     pxq, prs = quant.quantize_rows_plain(x, w.act_scale)
     assert torch.equal(xq[:, :k], pxq) and not xq[:, k:].any() and torch.equal(rs, prs)
+
+
+# K5 at the int8 paths' dense layers at batch 64, (M, K, N): per tower QKV,
+# out, MLP fc and MLP proj over B·S tokens, the patch embeds, the final
+# projections (chip_smoke.py's QUANT_SHAPES); then its edge shapes
+K5_PATH_SHAPES = [
+    (64 * S, k * W, n * W)
+    for S, W in ((50, 768), (257, 1024), (77, 512), (77, 768))
+    for k, n in ((1, 3), (1, 1), (1, 4), (4, 1))
+] + [(64 * 49, 3072, 768), (64 * 256, 588, 1024), (64, 768, 512), (64, 512, 512), (64, 1024, 768),
+     (64, 768, 768)]
+K5_EDGE_SHAPES = [(1, 768, 2304), (1, 588, 1024), (37, 3, 7), (130, 100, 131), (129, 200, 257)]
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n", K5_PATH_SHAPES + K5_EDGE_SHAPES)
+def test_quant_gemm_bit_exact(fixtures_mod, m, k, n, dtype, static):
+    from clip_event_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((m, k), device="cuda", generator=gen).to(dtype)
+    if m > 1:
+        x[0] = 0.0
+    x[-1, k // 2] = 1e3
+    w = quant.quantize_weight(torch.randn((k, n), device="cuda", generator=gen),
+                              0.9 * x.float().abs().amax() if static else None)
+    assert quant.is_k_major(w.q)
+    b = torch.randn((n,), device="cuda", generator=gen)
+    counts = (quant.quantized_matmul.launches, quant.quantize_rows.launches, quant.quantized_gemm.launches)
+    y = quant.quantized_matmul(x, w.q, w.scale, b, w.act_scale)
+    xq, rs = quant.quantize_rows(x, w.act_scale)
+    g = quant.quantized_gemm(xq, rs, w.q, w.scale, b, dtype)
+    torch.cuda.synchronize()
+    assert (quant.quantized_matmul.launches, quant.quantize_rows.launches, quant.quantized_gemm.launches) == (
+        counts[0] + quant.LAUNCHES_PER_CALL, counts[1] + 1, counts[2] + 1)
+    assert y.dtype == dtype and y.shape == (m, n) and g.dtype == dtype
+    assert torch.equal(y, quant.quantized_matmul_plain(x, w.q, w.scale, b, w.act_scale))
+    assert torch.equal(g, quant.quantized_gemm_plain(xq, rs, w.q, w.scale, b, dtype))
+    assert torch.equal(g, y)
+    if m > 1:
+        assert torch.equal(y[0], b.to(dtype))
+    # without a bias, too
+    assert torch.equal(quant.quantized_gemm(xq, rs, w.q, w.scale, None, dtype),
+                       quant.quantized_gemm_plain(xq, rs, w.q, w.scale, None, dtype))
+
+
+def test_quant_refuses_row_major_weight(fixtures_mod):
+    from clip_event_tpu_torch.ops import quant
+
+    x = torch.randn((8, 64), device="cuda")
+    w = quant.quantize_weight(torch.randn((64, 32), device="cuda"))
+    with pytest.raises(ValueError, match="K-major"):
+        quant.quantized_matmul(x, w.q.contiguous(), w.scale)
+    xq, rs = quant.quantize_rows(x)
+    with pytest.raises(ValueError, match="K-major"):
+        quant.quantized_gemm(xq, rs, w.q.contiguous(), w.scale)
 
 
 def _rates_ok(metrics):

@@ -11,6 +11,10 @@ component bench.
     python3 chip_smoke.py --only k1   # device, build and K1's kernel checks
     python3 chip_smoke.py --only k2   # device, build and K2's kernel checks
     python3 chip_smoke.py --only k5   # device, build and K5's kernel checks
+    python3 chip_smoke.py --only k3 k6   # device, build, K3's and K6's checks
+    # the same, with K3 and K6 of an earlier tree's csrc/ timed beside
+    # these in turns (built here under the names old_ipot, old_ln_qkv_attention)
+    python3 chip_smoke.py --only k3 k6 --old-csrc parent/clip_event_tpu_torch/csrc
 
 Phases, each printing JSON lines:
 
@@ -142,8 +146,17 @@ max|plain|), K4b's sum exactly equal, the backward (K4c, alone and with
 the sum's cotangent) at dx, dgamma and dbeta each <= 1e-5 / 1e-2 of
 max|plain|. K6, the LayerNorm -> QKV -> attention megakernel, at the
 component bench's two shapes and at edge shapes (B = 1, S = 1, S = 128,
-head_dim 32 and 20, a width that fills no k tile): max abs error 1e-4 /
-2e-2 against its plain version and 1e-4 / 5e-2 against the unfused chain.
+head_dim 32, 16 and 20, a width that fills no k tile, bf16 widths whose
+rows do not stay resident): max abs error 1e-4 / 2e-2 against its plain
+version and 1e-4 / 5e-2 against the unfused chain, in the variant
+(`mega_variant`: "mma", "tf32x3" or "simt") and layout (`mega_layout`:
+"resident" or "stream") each row names; the bf16 path shapes also in the
+other layout; the Python and C shared-memory counts agree; the build
+phase prints K6's registers and spills (a spill in a tensor-core kernel
+fails) and checks for HMMA in its SASS. K3 runs its "warp" variant up to
+32 entities and 32 objects and its "block" variant past them (both sides
+of the boundary are shapes), each row naming its variant, with the
+latency floor beside the roofline bound.
 
 K5, the int8 GEMM, is held in phase 3 against its plain version at the
 paths' shapes (batch 64) and at edge shapes (M = 1, K = 588, K = 3, odd N,
@@ -204,6 +217,7 @@ from clip_event_tpu_torch.models.clip import (
 from clip_event_tpu_torch.models import layers
 from clip_event_tpu_torch.models.layers import causal_mask
 from clip_event_tpu_torch.ops import _build
+from clip_event_tpu_torch.ops import attention as attention_ops
 from clip_event_tpu_torch.ops import ln
 from clip_event_tpu_torch.ops import ot
 from clip_event_tpu_torch.ops import quant
@@ -231,6 +245,9 @@ from clip_event_tpu_torch.ops.attention import (
     headgrid_variant,
     k1_variant,
     library_variant,
+    mega_layout,
+    mega_smem_bytes,
+    mega_variant,
 )
 from clip_event_tpu_torch.tools import bench_components
 from clip_event_tpu_torch.train import train
@@ -348,7 +365,9 @@ HG_EDGE_SHAPES = [
 ]
 # K3: (tag, B, M entities, N objects, k, empty_row): finetune_ot's shape
 # (16 entities, 8 object slots minus the whole image) with ragged counts,
-# k = 2, one row without entities, and larger graphs up to the kernel's cap
+# k = 2, one row without entities, and larger graphs up to the kernel's cap;
+# then the boundary of the warp variant (M <= 32 and N <= 32) from both
+# sides at B = 64, the block variant's empty row among them
 OT_SHAPES = [
     ("ot_finetune", 64, 16, 7, 1, False),
     ("ot_finetune_k2", 64, 16, 7, 2, False),
@@ -356,7 +375,14 @@ OT_SHAPES = [
     ("ot_256x16x10", 256, 16, 10, 1, False),
     ("ot_256x32x32", 256, 32, 32, 1, False),
     ("ot_256x128x128", 256, 128, 128, 1, False),
+    ("ot_m32_n32", 64, 32, 32, 1, False),
+    ("ot_m33_n32", 64, 33, 32, 1, False),
+    ("ot_m32_n33", 64, 32, 33, 1, False),
+    ("ot_m33_n32_empty_row", 64, 33, 32, 1, True),
 ]
+OT_BOUNDARY = {"ot_m32_n32", "ot_m33_n32", "ot_m32_n33", "ot_m33_n32_empty_row"}
+OT_TIMED = {"ot_finetune", "ot_finetune_k2", "ot_256x16x10", "ot_256x32x32", "ot_256x128x128",
+            "ot_m32_n32", "ot_m33_n32"}
 # K5: the dense layers of the int8 paths at batch 64, (tag, M, K, N): per
 # tower the QKV, out, MLP fc and MLP proj projections over B·S tokens; the
 # patch embeds over B·grid² patches (L/14's K = 588 = 14·14·3); the final
@@ -403,6 +429,11 @@ MEGA_EDGE_SHAPES = [
     ("mega_edge_s128", 2, 128, 128, 2, True),
     ("mega_edge_d32", 3, 40, 256, 8, False),
     ("mega_edge_w60_d20", 2, 19, 60, 3, True),
+    # head_dim 16; the L/14 text width (bf16 rows too wide to stay
+    # resident); S = 128 at 768 wide (the same, at the most rows)
+    ("mega_edge_d16", 2, 33, 128, 8, True),
+    ("mega_edge_w1024", 2, 77, 1024, 16, True),
+    ("mega_edge_s128_w768", 2, 128, 768, 12, False),
 ]
 N_ITEMS = 256  # images and token rows served at ViT-B/32
 BATCH = 64
@@ -730,21 +761,94 @@ def ot_inputs(gen, B, M, N, empty_row):
     return cost, x_n.float().clamp_min(1.0), x_pad, y_n.float().clamp_min(1.0), y_pad, joint
 
 
+# the latency floor of one IPOT solve (a model, not a measurement): cycles
+# of a dependent shuffle level, of an IEEE reciprocal and of an FMA, the SM
+# clock of the H100 SXM at its full power limit, and one kernel launch
+SHFL_CYCLES, RCP_CYCLES, FMA_CYCLES = 30, 20, 4
+SM_CLOCK_HZ = 1.98e9
+LAUNCH_MS = 0.003
+
+
 def ipot_bound_ms(B, M, N, iterations, k):
     """Least time for one IPOT solve: the cost, the pad masks and lengths
     read once and the plan written once, over the memory rate; per item
     M·N exponentials and divisions for A, then per iteration M·N for
     Q = A∘T, k × 4·M·N for the two matvecs and 2·M·N for T, over the fp32
-    peak. The larger wins."""
+    peak. The larger wins. Beside it, the latency floor: `iterations` × k
+    dependent updates, each a reduction over m (5 shuffle levels), a
+    reciprocal, a broadcast (a shuffle), a sum over n (N dependent FMAs)
+    and a reciprocal, plus a launch."""
     nbytes = 4 * (2 * B * M * N + B * (M + N) + 2 * B)
     flops = B * (2 * M * N + iterations * (3 * M * N + k * 4 * M * N))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    step = 6 * SHFL_CYCLES + 2 * RCP_CYCLES + N * FMA_CYCLES
+    floor = LAUNCH_MS + iterations * k * step / SM_CLOCK_HZ * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), floor
 
 
-def check_ipot(rows, errs, gen, tag, B, M, N, k, empty_row):
+def in_turns(old, new, iters, warmup=5):
+    """(old ms, new ms): each timed twice by `cuda_ms`, in the order old,
+    new, new, old, and averaged."""
+    t = in_turns_many({"old": old, "new": new}, iters, warmup)
+    return t["old"], t["new"]
+
+
+def in_turns_many(fns, iters, warmup=5):
+    """{name: ms} of each of `fns`, timed by `cuda_ms` in their order and
+    then in the reverse order, the two readings averaged."""
+    t = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        t[name].append(cuda_ms(fns[name], iters, warmup))
+    return {name: float(np.mean(ms)) for name, ms in t.items()}
+
+
+def build_libraries(specs):
+    """{key: library} of (key, source directory, source name, extra nvcc
+    flags) specs: each csrc `name`.cu of that directory (its headers beside
+    it) built by nvcc under the name `key`, all started together."""
+    import subprocess
+
+    procs = {}
+    for key, src_dir, name, flags in specs:
+        out = os.path.join(_build.BUILD_DIR, f"{key}-{os.getpid()}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", src_dir, "-o", out,
+               os.path.join(src_dir, name + ".cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    for key, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"{key}: nvcc failed:\n{log}")
+        libs[key] = ctypes.CDLL(out)
+    return libs
+
+
+def build_old_kernels(old_csrc):
+    """K3's and K6's sources of an earlier tree (`old_csrc`: its csrc/,
+    headers beside them), built under the names old_ipot and
+    old_ln_qkv_attention: {source name: library}."""
+    built = build_libraries([(f"old_{name}", old_csrc, name, ()) for name in (ot.KERNEL, MEGA_KERNEL)])
+    libs = {name: built[f"old_{name}"] for name in (ot.KERNEL, MEGA_KERNEL)}
+    libs[ot.KERNEL].clip_ipot.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    libs[MEGA_KERNEL].clip_ln_qkv_attention.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for lib, fn in ((libs[ot.KERNEL], "clip_ipot"), (libs[MEGA_KERNEL], "clip_ln_qkv_attention")):
+        getattr(lib, fn).restype = ctypes.c_int
+    return libs
+
+
+# the earlier tree's K3 and K6 (`--old-csrc`), timed beside these in turns
+OLD_LIBS = {}
+
+
+def check_ipot(rows, errs, gen, tag, B, M, N, k, empty_row, timed=True):
+    """K3 against the plain solver at one shape (OT_TOL relative), in the
+    variant `ot.ipot_variant` picks; times, the bound and the latency floor
+    when `timed`, the other variant's time where it takes the shape too, and
+    the earlier tree's kernel in turns (`--old-csrc`)."""
     cost, x_len, x_pad, y_len, y_pad, joint = ot_inputs(gen, B, M, N, empty_row)
+    variant = ot.ipot_variant(M, N)
     plan = ot.ipot_kernel(cost, x_len, x_pad, y_len, y_pad, k=k)
     ref = ot.ipot(cost, x_len, x_pad, y_len, y_pad, joint, 0.5, 50, k)
     torch.cuda.synchronize()
@@ -757,14 +861,56 @@ def check_ipot(rows, errs, gen, tag, B, M, N, k, empty_row):
         check(float(plan[0].abs().max()) == 0.0, f"ipot {tag}: the empty row's plan is 0")
     errs[ot.KERNEL]["float32"] = max(errs[ot.KERNEL].get("float32", 0.0), err)
     row = {"shape": tag, "B": B, "M": M, "N": N, "k": k, "iterations": 50, "empty_row": empty_row,
-           "dtype": "float32", "max_abs_err": err, "max_rel_err": rel, "tol_rel": OT_TOL["float32"]}
-    row["ms"] = cuda_ms(lambda: ot.ipot_kernel(cost, x_len, x_pad, y_len, y_pad, k=k), 50)
-    row["plain_ms"] = cuda_ms(lambda: ot.ipot(cost, x_len, x_pad, y_len, y_pad, joint, 0.5, 50, k),
-                              5, warmup=2)
-    row["library_ms"] = None  # no one PyTorch call solves IPOT
-    row["bound_ms"], row["bound_by"] = ipot_bound_ms(B, M, N, 50, k)
+           "dtype": "float32", "variant": variant, "max_abs_err": err, "max_rel_err": rel,
+           "tol_rel": OT_TOL["float32"]}
+    if timed:
+        row["ms"] = cuda_ms(lambda: ot.ipot_kernel(cost, x_len, x_pad, y_len, y_pad, k=k), 50)
+        row["plain_ms"] = cuda_ms(lambda: ot.ipot(cost, x_len, x_pad, y_len, y_pad, joint, 0.5, 50, k),
+                                  5, warmup=2)
+        row["library_ms"] = None  # no one PyTorch call solves IPOT
+        row["bound_ms"], row["bound_by"], row["latency_floor_ms"] = ipot_bound_ms(B, M, N, 50, k)
+        # the kernels alone on the wrapper's operands: this variant, the
+        # block variant where the warp one took the shape, the earlier tree's
+        # (the earlier tree's kernel reads fp32 pads, these read bytes)
+        args = [t.contiguous() for t in (cost, x_pad, y_pad, x_len, y_len)]
+        old_args = [t.float().contiguous() for t in args]
+        out = torch.empty((B, N, M), device="cuda")
+        fn = _build.load(ot.KERNEL).clip_ipot
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(f, *extra, operands=args):
+            return lambda: f(*(t.data_ptr() for t in operands), out.data_ptr(), B, M, N, 0.5, 50, k,
+                             *extra, stream)
+
+        new = call(fn, ot.IPOT_VARIANTS.index(variant))
+        if variant == "warp":
+            block = call(fn, ot.IPOT_VARIANTS.index("block"))
+            block()
+            torch.cuda.synchronize()
+            row["block_variant_max_abs_diff"] = diff = (out - plan).abs().max().item()
+            check(diff <= OT_TOL["float32"] * max(ref.abs().max().item(), 1e-30),
+                  f"ipot {tag}: the block variant is {diff} from the warp one")
+            row["block_variant_ms"], row["kernel_ms"] = in_turns(block, new, 50)
+        if ot.KERNEL in OLD_LIBS:
+            old = call(OLD_LIBS[ot.KERNEL].clip_ipot, operands=old_args)
+            old()
+            torch.cuda.synchronize()
+            row["old_max_abs_diff"] = (out - plan).abs().max().item()
+            row["old_ms"], row["kernel_ms"] = in_turns(old, new, 50)
     rows[ot.KERNEL].append(row)
     emit({"phase": "kernel_check", "kernel": ot.KERNEL, **row})
+
+
+def check_k3(rows, errs, gen):
+    """K3's two variants at every OT shape; each variant takes at least one.
+    The boundary shapes draw from a generator of their own, so that the
+    checks after K3's (K5, K4, K6) see the inputs they saw before them."""
+    boundary = torch.Generator(device="cuda").manual_seed(1)
+    for shape in OT_SHAPES:
+        g = boundary if shape[0] in OT_BOUNDARY else gen
+        check_ipot(rows, errs, g, *shape, timed=shape[0] in OT_TIMED)
+    taken = {r["variant"] for r in rows[ot.KERNEL]}
+    check(taken == set(ot.IPOT_VARIANTS), f"ipot: every variant ran, got {taken}")
 
 
 def quant_bound_ms(M, K, N, dtype_name, static):
@@ -889,26 +1035,33 @@ def check_k5(rows, errs, gen):
                     check_quant(rows, errs, gen, tag, M, K, N, dtype, static, not edge, edge)
 
 
-def k5_sass_has_igmma() -> dict:
-    """{kernel: whether its SASS holds IGMMA, the warpgroup int8 MMA} for
-    every GEMM kernel of K5's library (`cuobjdump -sass`), so a build that
-    fell back to another MMA cannot pass unseen."""
+def sass_has(source, kernel_needle, opcode) -> dict:
+    """{kernel: whether its SASS holds `opcode`} for every kernel of the
+    library built from csrc/`source`.cu whose name holds `kernel_needle`
+    (`cuobjdump -sass`), so a build that fell back to another instruction
+    cannot pass unseen."""
     import shutil
     import subprocess
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", _build.library_path(quant.KERNEL)], capture_output=True,
+    sass = subprocess.run([tool, "-sass", _build.library_path(source)], capture_output=True,
                           text=True, check=True).stdout
     found, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            if "int8_gemm" in name:
+            if kernel_needle in name:
                 found[name] = False
-        elif name in found and "IGMMA" in line:
+        elif name in found and opcode in line:
             found[name] = True
     return found
+
+
+def k5_sass_has_igmma() -> dict:
+    """{kernel: whether its SASS holds IGMMA, the warpgroup int8 MMA} for
+    every GEMM kernel of K5's library."""
+    return sass_has(quant.KERNEL, "int8_gemm", "IGMMA")
 
 
 def ln_bound_ms(N, W, dtype_name, streams, vectors, flops_per_elt):
@@ -1036,13 +1189,13 @@ def mega_bound_ms(B, S, W, H, causal, dtype_name):
     """Least time for one K6 call: x, the weight, the vectors and the bias
     read once and the output written once, over the memory rate; the
     projection's 2·B·S·W·3W flops plus the attention core's 4·B·H·S²·D over
-    the peak rate for the input type. The larger wins."""
+    the peak rate for the input type (`_attention_bound`: fp32 at three
+    TF32 products a flop, the CUDA-core bound returned beside). The larger
+    wins."""
     elt = 4 if dtype_name == "float32" else 2
     nbytes = (2 * B * S * W + 3 * W * W + 5 * W) * elt + (S * S * 4 if causal else 0)
     flops = 2 * B * S * W * 3 * W + 4 * B * H * S * S * (W // H)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _attention_bound(nbytes, flops, dtype_name)
 
 
 def check_mega(rows, errs, gen, tag, B, S, W, H, causal, dtype, timed):
@@ -1059,6 +1212,14 @@ def check_mega(rows, errs, gen, tag, B, S, W, H, causal, dtype, timed):
     bias = causal_mask(S, device="cuda") if causal else None
     scale = (W // H) ** -0.5
     args = (x, gamma, beta, qkv_w, qkv_b, bias, H, scale)
+    variant, layout = mega_variant(dtype, W // H), mega_layout(dtype, S, W, H)
+    smem = mega_smem_bytes(dtype, S, W, H, layout)
+    c_smem = _build.entry(MEGA_KERNEL, "clip_ln_qkv_attention_smem_bytes", [ctypes.c_int] * 6)[1]
+    c_smem.restype = ctypes.c_longlong
+    codes = {"simt": 0, "mma": 1, "tf32x3": 2}
+    check(c_smem(S, H, W // H, int(dtype == torch.bfloat16), codes[variant],
+                 int(layout == "stream")) == smem,
+          f"{MEGA_KERNEL} {tag} {name}: the C and Python shared-memory counts agree ({smem})")
     out = fused_ln_qkv_attention(*args)
     ref = fused_ln_qkv_attention_plain(*args)
     torch.cuda.synchronize()
@@ -1079,17 +1240,113 @@ def check_mega(rows, errs, gen, tag, B, S, W, H, causal, dtype, timed):
     check(chain_err <= MEGA_CHAIN_TOL[name],
           f"{MEGA_KERNEL} {tag} {name}: {chain_err} from the unfused chain > {MEGA_CHAIN_TOL[name]}")
     row = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "causal": causal, "dtype": name,
-           "max_abs_err": err, "tol": MEGA_TOL[name], "unfused_chain_max_abs_err": chain_err,
+           "variant": variant, "layout": layout, "smem_bytes": smem,
+           "warps": 16 if layout == "resident" and -(-S // 16) * 16 <= attention_ops.MEGA_SPLIT_MAX_ROWS
+           else 8, "max_abs_err": err,
+           "tol": MEGA_TOL[name], "unfused_chain_max_abs_err": chain_err,
            "unfused_chain_tol": MEGA_CHAIN_TOL[name]}
+    # the kernel alone on operands already in x's dtype (the wrapper casts
+    # the fp32 weights on every call otherwise): this layout, bf16's other
+    # layout where it fits (checked too), the earlier tree's kernel
+    g, b_, w, wb = (t.to(dtype).contiguous() for t in (gamma, beta, qkv_w, qkv_b))
+    cast = (x, g, b_, w, wb, bias, H, scale, 1e-5)
+    other = "stream" if layout == "resident" else "resident"
+    other_fits = (variant == "mma" and
+                  mega_smem_bytes(dtype, S, W, H, other) <= attention_ops.MEGA_SMEM_LIMIT)
+    if timed and other_fits:
+        alt = attention_ops._launch_mega(*cast, layout=other)
+        torch.cuda.synchronize()
+        alt_err = (alt.float() - ref.float()).abs().max().item()
+        check(alt_err <= MEGA_TOL[name], f"{MEGA_KERNEL} {tag} {name} {other}: max abs err {alt_err}")
+        row[f"{other}_max_abs_err"] = alt_err
     if timed:
         with torch.no_grad():
             row["ms"] = cuda_ms(lambda: fused_ln_qkv_attention(*args), 10, warmup=2)
             row["plain_ms"] = cuda_ms(lambda: fused_ln_qkv_attention_plain(*args), 10, warmup=2)
             row["unfused_chain_ms"] = cuda_ms(chain, 20)
+            new = lambda: attention_ops._launch_mega(*cast)  # noqa: E731
+            if other_fits:
+                row[f"{other}_ms"], row["kernel_ms"] = in_turns(
+                    lambda: attention_ops._launch_mega(*cast, layout=other), new, 10, warmup=2)
+            if MEGA_KERNEL in OLD_LIBS:
+                old_out = torch.empty_like(x)
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def old():
+                    OLD_LIBS[MEGA_KERNEL].clip_ln_qkv_attention(
+                        x.data_ptr(), g.data_ptr(), b_.data_ptr(), w.data_ptr(), wb.data_ptr(),
+                        None if bias is None else bias.data_ptr(), old_out.data_ptr(), B, S, H, W // H,
+                        scale, 1e-5, int(dtype == torch.bfloat16), stream)
+
+                row["old_ms"], row["kernel_ms"] = in_turns(old, new, 10, warmup=2)
+                row["old_max_abs_err"] = (old_out.float() - ref.float()).abs().max().item()
         row["library_ms"] = None
-        row["bound_ms"], row["bound_by"] = mega_bound_ms(B, S, W, H, causal, name)
+        row["bound_ms"], row["bound_by"], cuda_cores = mega_bound_ms(B, S, W, H, causal, name)
+        if cuda_cores is not None:
+            row["bound_ms_cuda_cores"] = cuda_cores
     rows[MEGA_KERNEL].append(row)
     emit({"phase": "kernel_check", "kernel": MEGA_KERNEL, **row})
+
+
+def k6_split(gen):
+    """Where K6's time goes: its tensor-core launches at the component
+    bench's shapes (both dtypes, both bf16 layouts) beside two diagnostic
+    builds of the same source, one without the attention core
+    (LN_QKV_ATTENTION_PHASES=1: LayerNorm, weight ring, projection, q, k, v
+    to shared memory), one without the projection's products
+    (LN_QKV_ATTENTION_PHASES=2), one with neither (0: the LayerNorm, the
+    ring's copies and barriers, the q, k, v stores), and the projection
+    alone and both without the ring's copies (5, 7: the products on stale
+    tiles), timed in turns."""
+    libs = build_libraries([(f"{MEGA_KERNEL}_phases{p}", _build.CSRC_DIR, MEGA_KERNEL,
+                             (f"-DLN_QKV_ATTENTION_PHASES={p}",)) for p in (0, 1, 2, 5, 7)])
+    libs["full"] = _build.load(MEGA_KERNEL)
+    for lib in libs.values():
+        lib.clip_ln_qkv_attention.argtypes = attention_ops._MEGA_ARGS
+        lib.clip_ln_qkv_attention.restype = ctypes.c_int
+    codes = {"mma": 1, "tf32x3": 2}
+    for tag, B, S, W, H, causal in MEGA_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((B, S, W), device="cuda", generator=gen).to(dtype)
+            g, b_, w, wb = (t.to(dtype) for t in (
+                1.0 + 0.1 * torch.randn((W,), device="cuda", generator=gen),
+                0.1 * torch.randn((W,), device="cuda", generator=gen),
+                torch.randn((W, 3 * W), device="cuda", generator=gen) * W ** -0.5,
+                0.1 * torch.randn((3 * W,), device="cuda", generator=gen)))
+            bias = causal_mask(S, device="cuda") if causal else None
+            out = torch.empty_like(x)
+            stream = torch.cuda.current_stream().cuda_stream
+            variant = mega_variant(dtype, W // H)
+            layouts = attention_ops.MEGA_LAYOUTS if variant == "mma" else ("stream",)
+            for layout in layouts:
+                def call(lib):
+                    return lambda: lib.clip_ln_qkv_attention(
+                        x.data_ptr(), g.data_ptr(), b_.data_ptr(), w.data_ptr(), wb.data_ptr(),
+                        None if bias is None else bias.data_ptr(), out.data_ptr(), B, S, H, W // H,
+                        (W // H) ** -0.5, 1e-5, int(dtype == torch.bfloat16), codes[variant],
+                        int(layout == "stream"), stream)
+
+                fns = {"full": call(libs["full"]), "projection_only": call(libs[f"{MEGA_KERNEL}_phases1"]),
+                       "core_only": call(libs[f"{MEGA_KERNEL}_phases2"]),
+                       "neither": call(libs[f"{MEGA_KERNEL}_phases0"]),
+                       "projection_without_copies": call(libs[f"{MEGA_KERNEL}_phases5"]),
+                       "both_without_copies": call(libs[f"{MEGA_KERNEL}_phases7"])}
+                for fn in fns.values():
+                    check(fn() == 0, f"{MEGA_KERNEL} split {tag} launch")
+                ms = in_turns_many(fns, 10, warmup=2)
+                emit({"phase": "k6_split", "shape": tag, "dtype": str(dtype).split(".")[-1],
+                      "variant": variant, "layout": layout, **{f"{k}_ms": v for k, v in ms.items()}})
+
+
+def check_k6(rows, errs, gen):
+    """K6's three variants at the component bench's shapes and the edges."""
+    for shapes, edge in ((MEGA_SHAPES, False), (MEGA_EDGE_SHAPES, True)):
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                check_mega(rows, errs, gen, *shape, dtype, not edge)
+    taken = {(r["variant"], r["layout"]) for r in rows[MEGA_KERNEL]}
+    check({("mma", "resident"), ("mma", "stream"), ("tf32x3", "stream"), ("simt", "simt")} <= taken,
+          f"{MEGA_KERNEL}: every variant and layout ran, got {taken}")
 
 
 def check_misaligned_view(k, B, S, W, H, dtype=torch.bfloat16):
@@ -1146,17 +1403,13 @@ def phase_kernels():
     errs = {name: {} for name in COUNTERS}
     check_k1(rows, errs, gen)
     check_k2(rows, errs, gen)
-    for shape in OT_SHAPES:
-        check_ipot(rows, errs, gen, *shape)
+    check_k3(rows, errs, gen)
     check_k5(rows, errs, gen)
     for shapes, edge in ((LN_SHAPES, False), (LN_EDGE_SHAPES, True)):
         for tag, N, W in shapes:
             for dtype in (torch.float32, torch.bfloat16):
                 check_ln(rows, errs, gen, tag, N, W, dtype, not edge, edge)
-    for shapes, edge in ((MEGA_SHAPES, False), (MEGA_EDGE_SHAPES, True)):
-        for shape in shapes:
-            for dtype in (torch.float32, torch.bfloat16):
-                check_mega(rows, errs, gen, *shape, dtype, not edge)
+    check_k6(rows, errs, gen)
     torch.cuda.synchronize()
     return rows, errs
 
@@ -2391,13 +2644,18 @@ def ptxas_usage(log: str, needle: str) -> dict:
 
 
 def main(argv=None) -> int:
-    """No arguments: every phase. `--only k1` / `k2` / `k5`: the device and
-    build phases and that kernel's checks alone (the quick look after an
-    edit to it), with a last line that says so."""
+    """No arguments: every phase. `--only k1` / `k2` / `k3` / `k5` / `k6`
+    (one or more): the device and build phases and those kernels' checks
+    alone (the quick look after an edit to them), with a last line that
+    says so. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    csrc/ and times them beside these in turns; `--k6-split` times K6
+    without its core and without its projection (`k6_split`)."""
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=("k1", "k2", "k5"), default=None)
+    parser.add_argument("--only", nargs="+", choices=("k1", "k2", "k3", "k5", "k6"), default=None)
+    parser.add_argument("--old-csrc", default=None)
+    parser.add_argument("--k6-split", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2419,7 +2677,8 @@ def main(argv=None) -> int:
     # the tensor-core kernels ("mma", "tf32x3") keep their tiles'
     # accumulators in registers: a spill would send them to local memory
     needles = {KERNEL: ("_mma", "_tf32x3"), BWD_KERNEL: ("_mma", "_tf32x3"),
-               HG_KERNEL: ("_mma", "_tf32x3"), HG_BWD_KERNEL: ("_mma", "_tf32x3")}
+               HG_KERNEL: ("_mma", "_tf32x3"), HG_BWD_KERNEL: ("_mma", "_tf32x3"),
+               MEGA_KERNEL: ("_tc",), ot.KERNEL: ("_warp",)}
     usage = {name: {needle: ptxas_usage(_build.BUILD_LOGS.get(name, ""), needle) for needle in found}
              for name, found in needles.items()}
     # K5: registers, shared memory and spills of each kernel, and the
@@ -2430,8 +2689,12 @@ def main(argv=None) -> int:
     blocks_fn = _build.entry(quant.KERNEL, "clip_quant_gemm_blocks_per_sm", [ctypes.c_int])[1]
     k5_blocks = {name: blocks_fn(code) for name, code in (("float32", 0), ("bfloat16", 1))}
     k5_smem = _build.entry(quant.KERNEL, "clip_quant_gemm_smem_bytes", [])[1]()
+    # K6: HMMA (mma.sync, bf16 and TF32) in every tensor-core kernel's SASS
+    k6_sass = sass_has(MEGA_KERNEL, "_tc", "HMMA")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": seconds, "ptxas": ptxas,
-          "tensor_core_kernel_registers_and_spill_bytes": usage,
+          "tensor_core_kernel_registers_and_spill_bytes": usage, "k6_sass_has_hmma": k6_sass,
+          "k3_k6_ptxas": {name: [ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines()
+                                 if "ptxas" in ln or "bytes" in ln] for name in (ot.KERNEL, MEGA_KERNEL)},
           "k5_ptxas": [ln.strip() for ln in k5_log.splitlines() if "ptxas" in ln or "bytes" in ln],
           "k5_registers_and_spill_bytes": k5_usage, "k5_gemm_sass_has_igmma": k5_sass,
           "k5_gemm_blocks_per_sm": k5_blocks, "k5_gemm_dynamic_smem_bytes": k5_smem})
@@ -2443,13 +2706,20 @@ def main(argv=None) -> int:
           f"{quant.KERNEL}: no GEMM kernel in the ptxas log")
     check(not any(spill for _, spill in k5_usage.values()), f"{quant.KERNEL}: a kernel spills: {k5_usage}")
     check(bool(k5_sass) and all(k5_sass.values()), f"{quant.KERNEL}: no IGMMA in the GEMM's SASS: {k5_sass}")
+    check(bool(k6_sass) and all(k6_sass.values()), f"{MEGA_KERNEL}: no HMMA in a tensor-core kernel: {k6_sass}")
     check(all(n >= 1 for n in k5_blocks.values()), f"{quant.KERNEL}: the GEMM fits no SM: {k5_blocks}")
 
+    if args.old_csrc:
+        OLD_LIBS.update(build_old_kernels(os.path.abspath(args.old_csrc)))
     if args.only:
         rows = {name: [] for name in COUNTERS}
         errs = {name: {} for name in COUNTERS}
-        checks = {"k1": check_k1, "k2": check_k2, "k5": check_k5}[args.only]
-        checks(rows, errs, torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for only in args.only:
+            {"k1": check_k1, "k2": check_k2, "k3": check_k3, "k5": check_k5, "k6": check_k6}[only](
+                rows, errs, gen)
+        if args.k6_split:
+            k6_split(gen)
         torch.cuda.synchronize()
         print(smi, flush=True)
         emit({"ok": True, "only": args.only, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2514,7 +2784,8 @@ def main(argv=None) -> int:
               "clip_event_tpu/ops/attention_pallas.py:421", BWD_TOL,
               head(HG_BWD_KERNEL, "l14_vision", "bfloat16", variant="mma")),
         entry(ot.KERNEL, "clip_event_tpu_torch/csrc/ipot.cu",
-              "clip_event_tpu/ops/ot_pallas.py:40", OT_TOL, head(ot.KERNEL, "ot_finetune", "float32")),
+              "clip_event_tpu/ops/ot_pallas.py:40", OT_TOL,
+              head(ot.KERNEL, "ot_finetune", "float32", variant="warp")),
         entry(quant.KERNEL, "clip_event_tpu_torch/csrc/quant_matmul.cu",
               "clip_event_tpu/ops/quant_pallas.py:64", QUANT_TOL,
               head(quant.KERNEL, "l14_vision_fc", "float32", "dynamic")),
@@ -2528,7 +2799,7 @@ def main(argv=None) -> int:
               head(ln.BWD_KERNEL, "b32_train_text", "bfloat16", variant="ln")),
         entry(MEGA_KERNEL, "clip_event_tpu_torch/csrc/ln_qkv_attention.cu",
               "clip_event_tpu/ops/attention_pallas.py:580", MEGA_TOL,
-              head(MEGA_KERNEL, "mega_text", "bfloat16")),
+              head(MEGA_KERNEL, "mega_text", "bfloat16", variant="mma")),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

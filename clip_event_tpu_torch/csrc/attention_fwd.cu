@@ -62,7 +62,8 @@
 // the same 1e-5 as the fp32 plain version. The mma variant's block (one per
 // (b, h), ceil(S/16) warps of 16 query rows, the whole head staged once by
 // cp.async, here in fp32 tiles of D + 4 floats a row: 65 KB at S = 77,
-// D = 64). What differs:
+// D = 64). Each warp's core is `mma::attend_rows_tf32x3` (attention_mma.cuh,
+// shared with K6, csrc/ln_qkv_attention.cu). What differs:
 //   * A walk over 32-key chunks with K2's online softmax, not one pass:
 //     the loop body stays small, and a chunk's 4 score tiles (16
 //     registers, not the one-pass's 64) leave room for three blocks an SM
@@ -266,8 +267,6 @@ constexpr size_t fwd_tf32x3_smem_bytes(int rows) {
   return (size_t)3 * rows * (D + mma::kPadF) * sizeof(float);
 }
 
-constexpr int kKeyChunkF = 32;  // keys a chunk of the tf32x3 forward's walk
-
 // Two blocks of 256 threads an SM at least: 128 registers a thread at D <= 64,
 // which also lets three blocks of 5 warps share an SM at S = 77 (4 warps of
 // 128 registers fill a sub-partition's 16,384). With the block size alone
@@ -280,8 +279,6 @@ attention_fwd_kernel_tf32x3(const float* __restrict__ qkv, const float* __restri
                             float scale_log2e) {
   using namespace mma;
   constexpr int kStride = D + kPadF;
-  constexpr int kSteps = D / 8;  // k-steps of 8 over the head dim
-  constexpr int kTiles = kKeyChunkF / 8;  // 8-key n-tiles of a chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows = blockDim.x / 2;  // 16 per warp: S rounded up to 16
   float* sQ = reinterpret_cast<float*>(smem_raw);  // [rows][D+4]
@@ -307,118 +304,15 @@ attention_fwd_kernel_tf32x3(const float* __restrict__ qkv, const float* __restri
   cp_async_wait<0>();
   __syncthreads();
 
-  const int row_g = warp * 16 + g;  // this thread's rows: row_g, row_g + 8
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int j0 = 0; j0 < S; j0 += kKeyChunkF) {
-    const int nk = S - j0;
-    // one chunk of keys; `full` (a compile-time bool) drops the guards of
-    // the keys past S, so that a full chunk's products share one basic
-    // block and interleave; only the last chunk is partial
-    auto chunk = [&](auto full) {
-      constexpr bool kFull = decltype(full)::value;
-      // scores of 16 rows x the chunk's keys in split TF32; Q's fragments
-      // are reloaded and split per k-step (held, they would take 16 D
-      // registers and halve the blocks an SM holds)
-      float s[kTiles][4];
-#pragma unroll
-      for (int n = 0; n < kTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        uint32_t x[4], ah[4], al[4];
-        load_a_f32(x, sQ, kStride, warp * 16, ks * 8, lane);
-        split_frag(x, ah, al);
-#pragma unroll
-        for (int p = 0; p < kTiles / 2; ++p) {
-          if (kFull || p * 16 < nk) {
-            uint32_t fh[4], fl[4];
-            load_b_nk_f32(x, sK, kStride, j0 + p * 16, ks * 8, lane);
-            split_frag(x, fh, fl);
-            mma_tf32x3_x2(s[2 * p], s[2 * p + 1], ah, al, fh, fl);
-          }
-        }
-      }
-      // scale, bias and the key tail's mask in units of log2, on the
-      // accumulators: nothing infinite is ever split
-#pragma unroll
-      for (int n = 0; n < kTiles; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j0 + n * 8 + 2 * t4 + (e & 1);
-          float v = s[n][e] * scale_log2e;
-          if constexpr (HAS_BIAS) {
-            const int r = row_g + 8 * (e >> 1);
-            if (r < S && col < S) v += bias[(size_t)r * S + col] * kLog2e;
-          }
-          if (!kFull && col >= S) v = -INFINITY;
-          s[n][e] = v;
-        }
-      }
-      // online softmax per row (rows row_g and row_g + 8), as K2's: a row
-      // that has seen only -inf keeps m = -inf and takes its exponent
-      // against 0, so -inf - (-inf) never forms
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < kTiles; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        mx = quad_max(mx);
-        const float m_new = fmaxf(m_run[r], mx);
-        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-        const float corr = exp2f(m_run[r] - m_safe);
-        m_run[r] = m_new;
-        float psum = 0.f;
-#pragma unroll
-        for (int n = 0; n < kTiles; ++n) {
-          const float p0 = exp2f(s[n][2 * r] - m_safe);
-          const float p1 = exp2f(s[n][2 * r + 1] - m_safe);
-          s[n][2 * r] = p0;
-          s[n][2 * r + 1] = p1;
-          psum += p0 + p1;
-        }
-        l_run[r] = l_run[r] * corr + psum;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          o[n][2 * r] *= corr;
-          o[n][2 * r + 1] *= corr;
-        }
-      }
-      // O += P . V: each 8-key tile of P, split in registers, is an A
-      // operand over relabelled keys; V's B fragments by scalar shared loads
-#pragma unroll
-      for (int n = 0; n < kTiles; ++n) {
-        if (kFull || n * 8 < nk) {
-          uint32_t ph[4], pl[4];
-          split_acc(s[n], ph, pl);
-#pragma unroll
-          for (int dn = 0; dn < D / 8; dn += 2) {
-            uint32_t vh[2], vl[2], wh[2], wl[2];
-            load_b_kn_f32(vh, vl, sV, kStride, j0 + n * 8, dn * 8, lane);
-            load_b_kn_f32(wh, wl, sV, kStride, j0 + n * 8, dn * 8 + 8, lane);
-            mma_tf32x3_2(o[dn], ph, pl, vh[0], vh[1], vl[0], vl[1], o[dn + 1], ph, pl, wh[0], wh[1],
-                         wl[0], wl[1]);
-          }
-        }
-      }
-    };
-    if (nk >= kKeyChunkF)
-      chunk(std::true_type());
-    else
-      chunk(std::false_type());
-  }
-
+  float o[D / 8][4], m_run[2], l[2];
+  attend_rows_tf32x3<D, HAS_BIAS>(sQ, sK, sV, bias, S, warp * 16, scale_log2e, lane, o, m_run, l);
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_run[r]);
-    inv[r] = l > 0.f ? 1.f / l : 0.f;
-    const int ri = row_g + 8 * r;
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    const int ri = warp * 16 + g + 8 * r;
     if (lse != nullptr && t4 == 0 && ri < S)
-      lse[(size_t)bh * S + ri] = l > 0.f ? m_run[r] * kLn2 + logf(l) : 0.f;
+      lse[(size_t)bh * S + ri] = l[r] > 0.f ? m_run[r] * kLn2 + logf(l[r]) : 0.f;
   }
   store_rows_f32<D>(sQ + warp * 16 * kStride, o, inv[0], inv[1],
                     out + ((size_t)b * S + warp * 16) * W + h * D, (size_t)W, S - warp * 16, lane);

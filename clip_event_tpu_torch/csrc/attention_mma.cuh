@@ -49,6 +49,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -155,6 +156,19 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16*
 __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16* tile, int stride,
                                           int k0, int n0, int lane) {
   ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + n0 + 8 * (lane >> 4));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// `load_b_kn` for one n-tile: k in [k0, k0 + 16), n in [n0, n0 + 8) (lanes
+// 0-15 give the addresses)
+__device__ __forceinline__ void load_b_kn1(uint32_t (&b)[2], const __nv_bfloat16* tile, int stride,
+                                           int k0, int n0, int lane) {
+  ldmatrix_x2_trans(b, tile + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride + n0);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -411,6 +425,140 @@ __device__ __forceinline__ void mma_tf32x3_x2(float (&c0)[4], float (&c1)[4], co
                                               const uint32_t (&blo)[4]) {
   mma_tf32x3_2(c0, ahi, alo, bhi[0], bhi[1], blo[0], blo[1], c1, ahi, alo, bhi[2], bhi[3], blo[2],
                blo[3]);
+}
+
+constexpr int kKeyChunkF = 32;  // keys a chunk of the tf32x3 forward's walk
+
+// The tf32x3 attention forward of one warp's 16 query rows [q0, q0 + 16)
+// against keys [0, S) of fp32 tiles sQ, sK, sV (row stride D + kPadF,
+// rows past S zero): K1's "tf32x3" core (csrc/attention_fwd.cu), also
+// K6's (csrc/ln_qkv_attention.cu). Leaves the unnormalized O in `o`, each
+// row's running max in units of log2 in `m_run` and its full row sum in
+// `l` (rows q0 + g and q0 + g + 8).
+//   * A walk over 32-key chunks with K2's online softmax: a chunk's 4
+//     score tiles take 16 registers. A full chunk runs a copy without the
+//     key-tail guards, so its products interleave; only the last chunk is
+//     partial.
+//   * Q's fragments are reloaded and split per k-step (held, they would
+//     take 16 D registers); K's come by ldmatrix and are split per use;
+//     scale, bias and the -inf masks on the accumulators, so nothing
+//     infinite is split.
+//   * Each 8-key tile of P, split in registers, is the A operand of P.V
+//     over relabelled keys; V's B fragments by scalar shared loads.
+template <int D, bool HAS_BIAS>
+__device__ __forceinline__ void attend_rows_tf32x3(const float* sQ, const float* sK, const float* sV,
+                                                   const float* __restrict__ bias, int S, int q0,
+                                                   float scale_log2e, int lane, float (&o)[D / 8][4],
+                                                   float (&m_run)[2], float (&l)[2]) {
+  constexpr int kStride = D + kPadF;
+  constexpr int kSteps = D / 8;  // k-steps of 8 over the head dim
+  constexpr int kTiles = kKeyChunkF / 8;  // 8-key n-tiles of a chunk
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row_g = q0 + g;  // this thread's rows: row_g, row_g + 8
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  m_run[0] = m_run[1] = -INFINITY;
+  float l_run[2] = {0.f, 0.f};
+
+  for (int j0 = 0; j0 < S; j0 += kKeyChunkF) {
+    const int nk = S - j0;
+    // one chunk of keys; `full` (a compile-time bool) drops the guards of
+    // the keys past S, so that a full chunk's products share one basic
+    // block and interleave; only the last chunk is partial
+    auto chunk = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+      // scores of 16 rows x the chunk's keys in split TF32; Q's fragments
+      // are reloaded and split per k-step (held, they would take 16 D
+      // registers and halve the blocks an SM holds)
+      float s[kTiles][4];
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t x[4], ah[4], al[4];
+        load_a_f32(x, sQ, kStride, q0, ks * 8, lane);
+        split_frag(x, ah, al);
+#pragma unroll
+        for (int p = 0; p < kTiles / 2; ++p) {
+          if (kFull || p * 16 < nk) {
+            uint32_t fh[4], fl[4];
+            load_b_nk_f32(x, sK, kStride, j0 + p * 16, ks * 8, lane);
+            split_frag(x, fh, fl);
+            mma_tf32x3_x2(s[2 * p], s[2 * p + 1], ah, al, fh, fl);
+          }
+        }
+      }
+      // scale, bias and the key tail's mask in units of log2, on the
+      // accumulators: nothing infinite is ever split
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j0 + n * 8 + 2 * t4 + (e & 1);
+          float v = s[n][e] * scale_log2e;
+          if constexpr (HAS_BIAS) {
+            const int r = row_g + 8 * (e >> 1);
+            if (r < S && col < S) v += bias[(size_t)r * S + col] * kLog2e;
+          }
+          if (!kFull && col >= S) v = -INFINITY;
+          s[n][e] = v;
+        }
+      }
+      // online softmax per row (rows row_g and row_g + 8), as K2's: a row
+      // that has seen only -inf keeps m = -inf and takes its exponent
+      // against 0, so -inf - (-inf) never forms
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = quad_max(mx);
+        const float m_new = fmaxf(m_run[r], mx);
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2f(m_run[r] - m_safe);
+        m_run[r] = m_new;
+        float psum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kTiles; ++n) {
+          const float p0 = exp2f(s[n][2 * r] - m_safe);
+          const float p1 = exp2f(s[n][2 * r + 1] - m_safe);
+          s[n][2 * r] = p0;
+          s[n][2 * r + 1] = p1;
+          psum += p0 + p1;
+        }
+        l_run[r] = l_run[r] * corr + psum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] *= corr;
+          o[n][2 * r + 1] *= corr;
+        }
+      }
+      // O += P . V: each 8-key tile of P, split in registers, is an A
+      // operand over relabelled keys; V's B fragments by scalar shared loads
+#pragma unroll
+      for (int n = 0; n < kTiles; ++n) {
+        if (kFull || n * 8 < nk) {
+          uint32_t ph[4], pl[4];
+          split_acc(s[n], ph, pl);
+#pragma unroll
+          for (int dn = 0; dn < D / 8; dn += 2) {
+            uint32_t vh[2], vl[2], wh[2], wl[2];
+            load_b_kn_f32(vh, vl, sV, kStride, j0 + n * 8, dn * 8, lane);
+            load_b_kn_f32(wh, wl, sV, kStride, j0 + n * 8, dn * 8 + 8, lane);
+            mma_tf32x3_2(o[dn], ph, pl, vh[0], vh[1], vl[0], vl[1], o[dn + 1], ph, pl, wh[0], wh[1],
+                         wl[0], wl[1]);
+          }
+        }
+      }
+    };
+    if (nk >= kKeyChunkF)
+      chunk(std::true_type());
+    else
+      chunk(std::false_type());
+  }
+  l[0] = quad_sum(l_run[0]);
+  l[1] = quad_sum(l_run[1]);
 }
 
 // delta = rowsum(dO o O) of row `ri` (0 past S), fp32 rows: the 4 lanes

@@ -55,8 +55,15 @@ same name) computes LayerNorm → the packed QKV projection → K1's attention
 core in one kernel, `csrc/ln_qkv_attention.cu`, forward only: neither the
 normalized rows nor the [B, S, 3W] projection reach device memory. It is a
 measurement vehicle (`tools/bench_components.py megakernel`), not on the
-train path. `fused_ln_qkv_attention_plain` is the same function in plain
-PyTorch, with the kernel's roundings.
+train path. Its three hand-written variants follow K1's rule
+(`mega_variant`): "mma" (bf16) and "tf32x3" (fp32) run the projection on
+the tensor cores (bf16 products, or split TF32) and K1's tf32x3 core on
+the fp32 q, k and v, one block an item; "simt" (head dims other than 16,
+32 and 64) is the first, CUDA-core kernel. `mega_layout` picks how the
+tensor-core variants hold the normalized rows: staged once an item
+("resident", bf16 where they fit) or streamed with the weight ("stream").
+`fused_ln_qkv_attention_plain` is the same function in plain PyTorch,
+with the kernel's roundings.
 """
 
 from __future__ import annotations
@@ -87,6 +94,7 @@ TF32X3_ONE_LAUNCH_MAX_HEAD_DIM = 64
 # the libraries' variant codes (`clip_attention_variant` and
 # `clip_attention_hg_variant` return 0, 1 or 2)
 _VARIANT_CODES = {0: "simt", 1: "mma", 2: "tf32x3"}
+_VARIANT_NUMBERS = {name: code for code, name in _VARIANT_CODES.items()}
 # the tensor-core variants read and write through cp.async and ldmatrix,
 # 16 bytes at a time
 TENSOR_CORE_VARIANTS = ("mma", "tf32x3")
@@ -94,10 +102,23 @@ MMA_ALIGN = 16
 # K2 takes heads in 128-lane groups, as the TPU kernel's lane blocks do
 HG_LANES = 128
 MEGA_KERNEL = "ln_qkv_attention"
-# K6 keeps a head's q, k and v in shared memory beside its tiles, and each
-# thread owns 4 neighbouring columns of the projection
+# K6 keeps a head's q, k and v in shared memory beside its tiles, and the
+# simt variant's threads own 4 neighbouring columns of the projection
 MEGA_MAX_SEQ = 128
 MEGA_MAX_HEAD_DIM = 64
+# K6's tensor-core layouts of the A operand (`mega_layout`) and what a block
+# may hold; the stages of `csrc/ln_qkv_attention.cu` (its `layout` region)
+MEGA_LAYOUTS = ("resident", "stream")
+MEGA_SMEM_LIMIT = 232_448
+# weight k-rows (and stream x columns) a stage of the ring, by element size:
+# four k-steps of the product between barriers in either dtype
+MEGA_TILE_ROWS = {2: 64, 4: 32}
+MEGA_MAX_STAGES = 6  # the ring takes as many stages as fit, up to this
+_MEGA_LAYOUT_CODES = {"resident": 0, "stream": 1, "simt": 0}
+# resident items of at most this many tile rows (16·ceil(S/16)) run with 16
+# warps: 8 on the next head's projection while 8 run the attention core
+# (`split_warps` in the kernel)
+MEGA_SPLIT_MAX_ROWS = 80
 IMPLS = ("kernel", "plain", "rounded")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -635,6 +656,58 @@ def megakernel_supported(seq_len: int, width: int, num_heads: int) -> bool:
     return seq_len <= MEGA_MAX_SEQ and d <= MEGA_MAX_HEAD_DIM and d % 4 == 0
 
 
+def mega_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which of K6's three hand-written variants takes an input: K1's rule
+    (`headgrid_variant`) on the head dims K6 takes. With head_dim 16, 32 or
+    64, "mma" for bf16 (the projection on bf16 tensor cores) and "tf32x3"
+    for fp32 (split TF32), each with the tf32x3 attention core; "simt" (the
+    CUDA-core kernel) for the other multiples of 4 up to 64."""
+    return headgrid_variant(dtype, head_dim)
+
+
+def mega_smem_bytes(dtype: torch.dtype, seq_len: int, width: int, num_heads: int,
+                    layout: str) -> int:
+    """Dynamic shared memory of a K6 launch, as the kernel's `smem_bytes`
+    counts it (the simt variant has one layout and ignores `layout`): the
+    tensor-core variants hold q, k, v as fp32 tiles of R = 16·ceil(S/16)
+    rows by D + 4, each row's mean and rstd, and a ring of as many stages as
+    fit (up to `MEGA_MAX_STAGES`) of the weight tile, MEGA_TILE_ROWS[elt] by
+    3D + 8 ("stream": and the x tile, R by that + 16 bytes);
+    "resident" adds the item's normalized rows, R by W + 8 in bf16. Where two
+    stages do not fit, the count with two (over `MEGA_SMEM_LIMIT`)."""
+    S, D = seq_len, width // num_heads
+    R = -(-S // 16) * 16
+    if mega_variant(dtype, D) == "simt":
+        return 4 * (32 * D + 32 * (R + 1) + 2 * S * D + S * (D | 1) + 8 * S + 2 * S)
+    if layout not in MEGA_LAYOUTS:
+        raise ValueError(f"K6 layout {layout!r}; options: {MEGA_LAYOUTS}")
+    elt = torch.tensor([], dtype=dtype).element_size()
+    fixed = 3 * R * (D + 4) * 4 + 2 * R * 4
+    k = MEGA_TILE_ROWS[elt]
+    stage = k * (3 * D + 8)
+    if layout == "resident":
+        fixed += R * (width + 8) * elt
+    else:
+        stage += R * (k + 16 // elt)
+    stage *= elt
+    stages = min(MEGA_MAX_STAGES, (MEGA_SMEM_LIMIT - fixed) // stage)
+    return fixed + max(stages, 2) * stage
+
+
+def mega_layout(dtype: torch.dtype, seq_len: int, width: int, num_heads: int) -> str:
+    """How K6's tensor-core variants hold the A operand: "resident" (bf16
+    whose normalized rows fit beside the rest, `MEGA_SMEM_LIMIT`: staged
+    once an item, only the weight streams) or "stream" (fp32, and larger
+    bf16 items: x streams beside the weight, normalized once a tile a
+    head); "simt" for the simt variant."""
+    if mega_variant(dtype, width // num_heads) == "simt":
+        return "simt"
+    if dtype == torch.bfloat16 and mega_smem_bytes(
+            dtype, seq_len, width, num_heads, "resident") <= MEGA_SMEM_LIMIT:
+        return "resident"
+    return "stream"
+
+
 def fused_ln_qkv_attention_plain(
     x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor, qkv_w: torch.Tensor,
     qkv_b: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
@@ -658,11 +731,21 @@ def fused_ln_qkv_attention_plain(
     return fused_attention_qkv_plain(qkv, bias, num_heads, scale).to(dt)
 
 
-_MEGA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
+_MEGA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _I, _I,
+              _P]
 
 
-def _launch_mega(x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps) -> torch.Tensor:
-    """Check and launch K6 on a CUDA tensor."""
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it at a 16-byte boundary (the tensor-core variants
+    read x, the weight, gamma and beta 16 bytes at a time)."""
+    return t if t.data_ptr() % MMA_ALIGN == 0 else t.clone()
+
+
+def _launch_mega(x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps,
+                 layout=None) -> torch.Tensor:
+    """Check and launch K6 on a CUDA tensor, in the variant `mega_variant`
+    and the layout `mega_layout` choose (`layout` names another one the
+    variant takes: `chip_smoke.py` times both)."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, S, W], got {tuple(x.shape)}")
     B, S, W = x.shape
@@ -684,9 +767,16 @@ def _launch_mega(x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"{name} must be {shape} on {x.device}, got {tuple(t.shape)} on {t.device}")
-    x = x.contiguous()
+    variant = mega_variant(x.dtype, W // num_heads)
+    layout = layout or mega_layout(x.dtype, S, W, num_heads)
+    takes = {"simt": ("simt",), "tf32x3": ("stream",), "mma": MEGA_LAYOUTS}[variant]
+    if layout not in takes or mega_smem_bytes(x.dtype, S, W, num_heads, layout) > MEGA_SMEM_LIMIT:
+        raise ValueError(f"K6's {variant} variant does not take the {layout} layout at S={S} W={W} "
+                         f"H={num_heads}")
+    x = _aligned(x.contiguous())
     # the JAX wrapper casts these to x's dtype before its kernel too
     g, b, w, wb = (t.detach().to(x.dtype).contiguous() for t in (ln_scale, ln_bias, qkv_w, qkv_b))
+    g, b, w = _aligned(g), _aligned(b), _aligned(w)
     bias = _kernel_bias(bias)
     lib, fn = _build.entry(MEGA_KERNEL, "clip_ln_qkv_attention", _MEGA_ARGS)
     out = torch.empty_like(x)
@@ -695,7 +785,7 @@ def _launch_mega(x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps
         code = fn(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), wb.data_ptr(), _ptr(bias),
             out.data_ptr(), B, S, num_heads, W // num_heads, float(scale), float(eps),
-            _DTYPES[x.dtype], stream,
+            _DTYPES[x.dtype], _VARIANT_NUMBERS[variant], _MEGA_LAYOUT_CODES[layout], stream,
         )
     _build.check(lib, code, f"{MEGA_KERNEL} launch")
     return out

@@ -12,10 +12,13 @@ The solver comes in two forms: `ipot`, plain PyTorch (a Python loop of
 `iterations × k` batched updates, fp32), and `ipot_kernel`, which on a
 CUDA tensor launches K3, the hand-written kernel of `csrc/ipot.cu` (one
 launch for the whole solve), raises if the kernel cannot take the input,
-and on a CPU tensor runs `ipot`. `use_pallas` (the config key
-`use_pallas_ot`) picks between them: True means `ipot_kernel`, False
-means `ipot`, "auto" means `ipot_kernel` when both node axes reach
-`AUTO_MIN_NODES`.
+and on a CPU tensor runs `ipot`. K3 has two variants, chosen by shape
+(`ipot_variant`): "warp" (one warp an item, everything in registers, for
+up to `WARP_MAX_ENTITIES` entities and `WARP_MAX_OBJECTS` objects) and
+"block" (one block an item, A and T in shared memory, up to `MAX_NODES`).
+`use_pallas` (the config key `use_pallas_ot`) picks between the solvers:
+True means `ipot_kernel`, False means `ipot`, "auto" means `ipot_kernel`
+when both node axes reach `AUTO_MIN_NODES`.
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ from clip_event_tpu_torch.ops import _build
 
 MASK_BIG = 1e4  # reference model_ot.py:52-53
 KERNEL = "ipot"
-MAX_NODES = 128  # the kernel holds two [N, M] fp32 matrices in shared memory
+MAX_NODES = 128  # the block variant holds two [N, M] fp32 matrices in shared memory
+# the warp variant: one lane an entity, and a lane's registers hold its
+# entity's column of A and of T for every object
+WARP_MAX_ENTITIES = 32
+WARP_MAX_OBJECTS = 32
+IPOT_VARIANTS = ("block", "warp")  # the C entry's variant codes 0 and 1
 # "auto" takes the kernel from this many nodes on both axes. On an NVIDIA
 # H100 80GB HBM3 (700 W) the kernel beat the plain solver at every shape
 # chip_smoke.py times, from finetune_ot's (64, 16, 7) (0.08 ms against
@@ -84,6 +92,16 @@ def ipot(
     return torch.where(joint_pad_t, zero, T)
 
 
+def ipot_variant(num_entities: int, num_objects: int) -> str:
+    """Which of K3's two hand-written variants solves graphs of M entities
+    and N objects: "warp" while one warp's lanes hold the entities and its
+    registers the objects (M <= WARP_MAX_ENTITIES, N <= WARP_MAX_OBJECTS),
+    else "block"."""
+    if num_entities <= WARP_MAX_ENTITIES and num_objects <= WARP_MAX_OBJECTS:
+        return "warp"
+    return "block"
+
+
 def _check_kernel_input(cost, x_len, x_pad, y_len, y_pad):
     if cost.dim() != 3:
         raise ValueError(f"cost must be [B, M, N], got {tuple(cost.shape)}")
@@ -117,24 +135,28 @@ def ipot_kernel(
     """K3, the drop-in for `ipot` (JAX `ipot_pallas`): cost [B, M, N] →
     plan [B, N, M] fp32, pads True at padded nodes. A CPU tensor runs the
     plain `ipot`; any other device must be a CUDA tensor the kernel takes
-    (M, N <= 128), else this raises."""
+    (M, N <= 128), else this raises. The variant is `ipot_variant(M, N)`."""
     if cost.device.type == "cpu":
         joint_pad = x_pad[:, :, None] | y_pad[:, None, :]
         return ipot(cost, x_len, x_pad, y_len, y_pad, joint_pad, beta, iterations, k)
     _check_kernel_input(cost, x_len, x_pad, y_len, y_pad)
     B, M, N = cost.shape
-    args = [t.float().contiguous() for t in (cost, x_pad, y_pad, x_len, y_len)]
+    # the kernel reads the pads as bytes (a bool mask as it is) and the
+    # rest as fp32
+    args = [cost.float().contiguous(), x_pad.to(torch.bool).contiguous(),
+            y_pad.to(torch.bool).contiguous(), x_len.float().contiguous(), y_len.float().contiguous()]
     plan = torch.empty((B, N, M), dtype=torch.float32, device=cost.device)
     lib = _build.load(KERNEL)
     fn = lib.clip_ipot
     if fn.argtypes is None:
         _P, _I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _P]
+        fn.argtypes = [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
         fn.restype = ctypes.c_int
+    variant = IPOT_VARIANTS.index(ipot_variant(M, N))
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         code = fn(*(t.data_ptr() for t in args), plan.data_ptr(), B, M, N, float(beta),
-                  int(iterations), int(k), stream)
+                  int(iterations), int(k), variant, stream)
     _build.check(lib, code, "ipot launch")
     ipot_kernel.launches += 1
     return plan

@@ -23,7 +23,12 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
   int8): every metric finite and in [0, 1] where it is a rate;
 - K4 (`ops.ln`: the fused LayerNorm forward, the add + LayerNorm forward
   and their shared backward) and K6 (`ops.attention.fused_ln_qkv_attention`)
-  against their plain versions at a few shapes, fp32 and bf16;
+  against their plain versions at a few shapes, fp32 and bf16 (K6 in its
+  tensor-core variants at head_dim 64 and 32, S = 1 and 128, and in its
+  simt variant at head_dim 20);
+- K3 (`ops.ot.ipot_kernel`) against the plain solver in its warp variant
+  (up to 32 entities and 32 objects) and its block variant, on both sides
+  of that boundary, with a row without entities (its plan 0);
 - `python -m clip_event_tpu_torch.train` at ViT-B/32 with
   `use_pallas_ln: true`: K4a, K4b and K4c launched in every residual block
   of every step, finite losses, and the LayerNorm choice put back;
@@ -307,7 +312,8 @@ def test_layer_norm_kernels_match_plain(fixtures_mod, n, w, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("b,s,w,h,causal", [(64, 77, 512, 8, True), (16, 50, 768, 12, False),
-                                            (2, 19, 60, 3, True)])
+                                            (2, 19, 60, 3, True), (2, 1, 128, 2, False),
+                                            (2, 128, 128, 2, True), (3, 40, 256, 8, False)])
 def test_megakernel_matches_plain(fixtures_mod, b, s, w, h, causal, dtype):
     from clip_event_tpu_torch.models.layers import causal_mask
     from clip_event_tpu_torch.ops import attention as A
@@ -332,6 +338,41 @@ def test_megakernel_matches_plain(fixtures_mod, b, s, w, h, causal, dtype):
     with pytest.raises(ValueError, match="megakernel takes"):
         A.fused_ln_qkv_attention(torch.zeros((1, 129, 64), device="cuda"), gamma[:64], beta[:64],
                                  qkv_w[:64, :192], qkv_b[:192], None, 1, 1.0)
+
+
+@pytest.mark.parametrize("B,M,N,empty_row,variant", [
+    (64, 16, 7, False, "warp"), (64, 16, 7, True, "warp"), (64, 32, 32, False, "warp"),
+    (64, 33, 32, False, "block"), (64, 32, 33, False, "block"), (64, 33, 32, True, "block"),
+    (4, 128, 128, False, "block"),
+])
+def test_ipot_kernel_variants_match_plain(fixtures_mod, B, M, N, empty_row, variant):
+    """K3 against the plain solver on each side of the warp variant's
+    boundary (M, N <= 32), with a row without entities."""
+    from clip_event_tpu_torch.ops import ot
+
+    assert ot.ipot_variant(M, N) == variant
+    gen = torch.Generator(device="cuda").manual_seed(M * 1000 + N)
+    x = torch.randn((B, M, 64), device="cuda", generator=gen)
+    y = torch.randn((B, N, 64), device="cuda", generator=gen)
+    x_n = torch.randint(1, M + 1, (B,), device="cuda", generator=gen)
+    y_n = torch.randint(1, N + 1, (B,), device="cuda", generator=gen)
+    if empty_row:
+        x_n[0] = 0
+    x_pad = torch.arange(M, device="cuda")[None] >= x_n[:, None]
+    y_pad = torch.arange(N, device="cuda")[None] >= y_n[:, None]
+    joint = x_pad[:, :, None] | y_pad[:, None, :]
+    cost = ot.cost_matrix_cosine(x, y).masked_fill(joint, 0.0)
+    x_len, y_len = x_n.float().clamp_min(1.0), y_n.float().clamp_min(1.0)
+    launches = ot.ipot_kernel.launches
+    plan = ot.ipot_kernel(cost, x_len, x_pad, y_len, y_pad)
+    ref = ot.ipot(cost, x_len, x_pad, y_len, y_pad, joint, 0.5, 50, 1)
+    torch.cuda.synchronize()
+    assert ot.ipot_kernel.launches == launches + 1
+    assert plan.shape == (B, N, M) and bool(torch.isfinite(plan).all())
+    rel = ((plan - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-5, rel
+    if empty_row:
+        assert float(plan[0].abs().max()) == 0.0
 
 
 def test_train_cli_vit_b32_with_ln_kernels(voa, tmp_path):

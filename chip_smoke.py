@@ -15,6 +15,10 @@ component bench.
     # the same, with K3 and K6 of an earlier tree's csrc/ timed beside
     # these in turns (built here under the names old_ipot, old_ln_qkv_attention)
     python3 chip_smoke.py --only k3 k6 --old-csrc parent/clip_event_tpu_torch/csrc
+    python3 chip_smoke.py --only graph   # device, build, the graphed B/32 step
+    python3 chip_smoke.py --only b1      # device, build, the wrappers' host cost
+    # the same for an earlier tree's package unpacked under DIR
+    python3 chip_smoke.py --only b1 --package-root DIR
 
 Phases, each printing JSON lines:
 
@@ -49,6 +53,9 @@ Phases, each printing JSON lines:
               in fp32 and in bf16, then evaluate_matching; the launch counts
               of that run, checks of the features against a plain-attention
               run of the same model, and images/s and texts/s at batch 64
+  3b. b1     the host microseconds a call of each kernel wrapper takes
+              (K1, K2 forward and backward, K4a/b/c, K3, K5; the median of
+              7 runs of 200 enqueued calls)
   5. train    full-width ViT-B/32 from seed 0 through the train loop
               (`clip_event_tpu_torch.train.train`: loader → prefetch → step →
               metrics) on the bench workload: 384 uint8 images × 3
@@ -60,17 +67,35 @@ Phases, each printing JSON lines:
               the kernels' roundings, 2^-8 relative against the fp32-P
               one; fp32 at B=64); the step with the plain attention
               beside the kernel-path step in turns; a profile of one step
+  5a. train_graph  phase 5's workload through the train loop with
+              `steps_per_dispatch` 4: the step captured once as a CUDA graph
+              and replayed (`make_multi_step`), exact launch counts (a
+              replay adds what its capture counted); a 4-step dispatch
+              against 4 eager steps bit for bit (params, optimizer state,
+              metrics), twice (the first dispatch: one eager step, the
+              capture, 3 replays; the second: 4 replays); the eager step
+              against a 10-step dispatch (the bench's call) in turns: ms a
+              step, the device busy ms of an eager step and of one replay
+              (torch.profiler, whose count of the hand kernels in the
+              replay by name must equal the wrappers' counts), idle shares,
+              peak memory and what stays reserved
   6. serving_l14  full-width ViT-L/14 from seed 0 (24 + 12 layers; vision
               S=257 through K2, text through K1): embed_stream over 128
               images and 128 token rows at batch 64, fp32 and bf16; launch
               counts, features against a plain-attention run, images/s and
               texts/s, and one bf16 image batch with the plain attention
               beside the kernel path's, in turns
-  7. train_l14  7 full-width ViT-L/14 steps through the train loop at the
+  7. train_l14  12 full-width ViT-L/14 steps through the train loop at the
               bench's L/14 workload (64 uint8 images × 3 descriptions, bf16,
-              full remat, Adam at lr 1e-6): exact K1/K2 launch counts, losses
-              near chance, moved params, pairs/s, step ms, peak memory and a
-              bf16 kernel-vs-plain step, and the step with the plain
+              the bench's "attn" remat policy, 4 steps a dispatch through
+              the graph, Adam at lr 1e-6): exact K1/K2 launch counts (K2's
+              forward 24 a step, K1's 12: once a block), losses near
+              chance, moved params, pairs/s, step ms, peak memory; the
+              "attn" step against full remat (loss and grad_norm within
+              1e-3, bit equality reported; ms in turns, peak memory, exact
+              counts); the eager "attn" step against a 10-step graph
+              dispatch (as phase 5a); under full remat a bf16
+              kernel-vs-plain step, and the step with the plain
               attention beside the kernel-path step in turns
               (`plain_attention_step_ms`); one fp32 L/14 step at 16 × 3
               (K2's and K1's tf32x3 variants, forward and backward): loss
@@ -87,7 +112,9 @@ Phases, each printing JSON lines:
               step, the K1 counts of the nested chunk- and block-level
               checkpoints, pairs/s, step ms, peak memory, a profile of one
               step, and kernel-vs-plain steps (plain attention and plain
-              IPOT; bf16 at B=64 and fp32 at B=16)
+              IPOT; bf16 at B=64 and fp32 at B=16); then the graphed step
+              as in phase 5a: 4-step dispatches against eager steps bit for
+              bit, and the eager step against a 10-step dispatch
   9. serving_int8  ViT-L/14, then ViT-B/32, from seed 0 through
               `evals.cli.load_model_from_cfg` in three modes: "int8",
               "int8_static" (synthetic calibration, 2 batches) and
@@ -129,7 +156,9 @@ Phases, each printing JSON lines:
               features) and bf16 (cosine 0.999); K4a and K4b once a block,
               no K4c; batch ms with and without the kernels
  11. bench_tools  `clip_event_tpu_torch.bench` at full width (ViT-B/32,
-              384 x 3) with the plain LayerNorm and with `--ln pallas`, then
+              384 x 3; its protocol, 10 steps a call through the graphed
+              step, one warm-up call and here one timed call) with the
+              plain LayerNorm and with `--ln pallas`, then
               with `--images uint8` and `--images float32` in turns, and
               the `ln` and `megakernel` sections of
               `clip_event_tpu_torch.tools.bench_components` at their default
@@ -194,6 +223,11 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+
+if __name__ == "__main__" and "--package-root" in sys.argv:
+    # `--only b1 --package-root DIR`: the wrappers of another tree's package
+    # (an earlier commit unpacked under DIR), timed by this script
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--package-root") + 1]))
 
 from clip_event_tpu_torch import bench as port_bench
 from clip_event_tpu_torch.config import validate_config
@@ -468,6 +502,21 @@ BF16_STEP_TOL = 1e-3
 BF16_ROUNDING_TOL = 2 ** -8
 FP32_STEP_TOL = 2e-5
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+# the graphed train step (`make_multi_step`, `steps_per_dispatch`): steps a
+# dispatch in the train loops (one warm-up dispatch, GRAPH_TIMED_DISPATCHES
+# timed), in the bit-for-bit check against eager steps (two dispatches), and
+# in the eager-against-graph timing (the JAX bench's 10 steps a call)
+GRAPH_LOOP_K, GRAPH_TIMED_DISPATCHES = 4, 2
+GRAPH_CHECK_K = 4
+GRAPH_TIMING_K = 10
+# kernel names a profile counts for each counter (K4a and K4b run one
+# kernel, K4c two, K1's and K2's backwards one or two)
+PROFILE_NEEDLES = {
+    KERNEL: ("attention_fwd_kernel",), BWD_KERNEL: ("attention_bwd_",),
+    HG_KERNEL: ("attention_hg_fwd_kernel",), HG_BWD_KERNEL: ("attention_hg_bwd_",),
+    "ipot": ("ipot_kernel",), "layer_norm+add_layer_norm": ("layer_norm_fwd_kernel",),
+    "layer_norm_bwd": ("layer_norm_bwd_",),
+}
 # ViT-L/14 (bench.py's L/14 workload) and ViT-B/16 (its bench batch)
 L14_BATCH, B16_BATCH = 64, 96
 L14_FP32_BATCH = 16  # the fp32 L/14 step (kernel vs plain, in turns)
@@ -1976,10 +2025,7 @@ class _OTPairs(_BenchPairs):
 
 def _device_batch(ds, b):
     """The first b examples of `ds` as one batch on the card."""
-    ex = [ds[i][0] for i in range(b)]
-    batch = {k: np.stack([e[k] for e in ex]) for k in ex[0]}
-    batch = ds.finalize_batch({**batch, **ds.batch_extras(b)})
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in batch.items()}
+    return _device_batches(ds, b, 1)[0]
 
 
 def _chunks(nodes, requested):
@@ -1996,10 +2042,12 @@ def k1_bwd_launches(width, heads, dtype=torch.bfloat16):
     return bwd_launches_per_call(k1_variant(dtype, width // heads), width // heads)
 
 
-def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfloat16):
+def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfloat16, remat="full"):
     """Launches per kernel for `steps` train steps (bf16, or `dtype`) under
-    full remat.
-    Each block's attention forward runs twice (forward, block recompute)
+    full remat, or under the "attn" policy with `remat="attn"`.
+    Each block's attention forward runs twice (forward, block recompute;
+    once under "attn", which keeps the core's output and lse across the
+    recompute)
     and its backward once (K1: `k1_bwd_launches`, one on the tensor-core
     variant; K2: HG_BWD_LAUNCHES_PER_CALL in every variant); the recompute
     saves the output and log-sum-exp a tensor-core backward reads, so no
@@ -2010,9 +2058,11 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfl
     and entity encodes run in chunks (`sim_entity`), each chunk under its
     own checkpoint around the per-block ones: a block inside a chunk runs
     its forward three times (forward, chunk recompute, block recompute)
-    when there is more than one chunk, twice when there is one; and one
-    IPOT solve per step (tests/test_torch_ot_train.py pins the rule on the
-    CPU)."""
+    when there is more than one chunk, twice when there is one (one fewer
+    under "attn"); and one IPOT solve per step (tests/test_torch_ot_train.py
+    pins the rule on the CPU)."""
+    check(remat in ("full", "attn"), f"train_launches: remat {remat!r}")
+    fwd_per_block = 1 if remat == "attn" else 2
     vis_f, vis_b = vision_kernels(mcfg)
     if vis_b == HG_BWD_KERNEL:
         vis_bwd_launches = HG_BWD_LAUNCHES_PER_CALL
@@ -2021,15 +2071,15 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfl
     text_bwd_launches = k1_bwd_launches(mcfg.transformer_width, mcfg.transformer_heads, dtype)
     Lv, Lt = mcfg.vision_layers, mcfg.transformer_layers
     out = dict.fromkeys(COUNTERS, 0)
-    out[vis_f] += 2 * Lv
+    out[vis_f] += fwd_per_block * Lv
     out[vis_b] += vis_bwd_launches * Lv
-    out[KERNEL] += 2 * Lt
+    out[KERNEL] += fwd_per_block * Lt
     out[BWD_KERNEL] += text_bwd_launches * Lt
     if alignment:
         for kf, kb, n, L, c in (
                 (vis_f, vis_b, vis_bwd_launches, Lv, _chunks(OT_OBJECTS, OT_CHUNKS)),
                 (KERNEL, BWD_KERNEL, text_bwd_launches, Lt, _chunks(OT_ENTITIES, OT_CHUNKS))):
-            out[kf] += (3 if c > 1 else 2) * c * L
+            out[kf] += (fwd_per_block + (c > 1)) * c * L
             out[kb] += n * c * L
         out[ot.KERNEL] += 1
     if fused_ln:
@@ -2038,12 +2088,27 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfl
     return {k: v * steps for k, v in out.items()}
 
 
+def loop_steps(k=1):
+    """(warm-up steps, all steps) of a train-loop phase: WARMUP_STEPS +
+    TIMED_STEPS eager steps, or with `k` steps a dispatch one warm-up
+    dispatch (the eager first step, the capture, k - 1 replays) and
+    GRAPH_TIMED_DISPATCHES timed ones."""
+    if k == 1:
+        return WARMUP_STEPS, WARMUP_STEPS + TIMED_STEPS
+    return k, k * (1 + GRAPH_TIMED_DISPATCHES)
+
+
 def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
     """The main path of a train phase, counted: `train.train` over `ds` for
-    warm-up + timed steps (bf16, full remat, Adam at lr 1e-6). Checks the
-    step count, finite losses, the launch counts and that the params moved;
-    returns what the phase reports."""
-    n_steps = WARMUP_STEPS + TIMED_STEPS
+    warm-up + timed steps (bf16, full remat or `cfg_extra`'s, Adam at lr
+    1e-6), one step a dispatch or `steps_per_dispatch` (the CUDA graph of
+    the step, `loop_steps`). Checks the step count, finite losses, the
+    launch counts and that the params moved; returns what the phase
+    reports. A step's ms is the mean over the timed steps, between CUDA
+    events recorded as each step's metrics arrive (with K steps a dispatch,
+    K at a time: `step_ms` then lists each timed dispatch's ms / K)."""
+    k = int(cfg_extra.get("steps_per_dispatch", 1))
+    warmup, n_steps = loop_steps(k)
     cfg = validate_config({
         "task": f"chip_smoke_{tag}", "constrastive_loss": "ce", "batch_size": batch,
         "lr": 1e-6, "optimizer": "adam", "lr_scheduler": "none", "max_epoch": 1,
@@ -2051,6 +2116,7 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
         "seed": 0, "print_freq": n_steps + 1, "num_workers": 8, "prefetch": 2,
         "ckpt_dir": os.path.join(out_root, f"ckpt_{tag}"), **cfg_extra,
     })
+    remat = layers.remat_policy(cfg["remat"])
     watch = params["visual"]["transformer"]["attn"]["qkv_w"].detach().clone()
     metrics, events = {}, {}
 
@@ -2068,7 +2134,7 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(sorted(metrics) == list(range(n_steps)), f"{tag} steps {sorted(metrics)}")
-    expected = train_launches(mcfg, n_steps, cfg["alignment"], cfg["use_pallas_ln"])
+    expected = train_launches(mcfg, n_steps, cfg["alignment"], cfg["use_pallas_ln"], remat=remat)
     check(launches == expected, f"{tag} launches {launches} != {expected}")
     check(layers._resolve_ln() == "xla", f"{tag}: the train loop put the LayerNorm choice back")
     values = {k: [float(metrics[i][k]) for i in range(n_steps)]
@@ -2076,12 +2142,13 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
     check(all(np.isfinite(values["loss"])), f"{tag} losses finite {values['loss']}")
     moved = (state.params["visual"]["transformer"]["attn"]["qkv_w"].detach() - watch).abs().max().item()
     check(moved > 0, f"{tag}: the params changed")
-    step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(WARMUP_STEPS, n_steps)]
-    emit({"phase": f"{tag}_launches", **{f"{k}_launches": v for k, v in launches.items()},
-          "expected": expected, "steps": n_steps,
-          "per_step": {k: v // n_steps for k, v in expected.items()}})
+    step_ms = [events[i - k].elapsed_time(events[i]) / k for i in range(warmup - 1 + k, n_steps, k)]
+    emit({"phase": f"{tag}_launches", **{f"{name}_launches": v for name, v in launches.items()},
+          "expected": expected, "steps": n_steps, "steps_per_dispatch": k, "remat": remat,
+          "per_step": {name: v // n_steps for name, v in expected.items()}})
     return {"state": state, "values": values, "step_ms": step_ms, "mean_ms": float(np.mean(step_ms)),
-            "loop_s": loop_s, "peak_gib": peak_gib, "launches": launches, "n_steps": n_steps}
+            "loop_s": loop_s, "peak_gib": peak_gib, "launches": launches, "n_steps": n_steps,
+            "timed_steps": n_steps - warmup, "steps_per_dispatch": k, "remat": remat}
 
 
 def _chance(batch, D):
@@ -2202,11 +2269,242 @@ def profile_step(mcfg, params, batch, mean_ms, fused_ln=False, **step_kwargs):
     return prof
 
 
+def _device_batches(ds, b, n):
+    """n batches of b consecutive examples of `ds` each, on the card."""
+    out = []
+    for j in range(n):
+        ex = [ds[j * b + i][0] for i in range(b)]
+        batch = {k: np.stack([e[k] for e in ex]) for k in ex[0]}
+        batch = ds.finalize_batch({**batch, **ds.batch_extras(b)})
+        out.append({k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in batch.items()})
+    return out
+
+
+def _state_equal(a, b) -> list:
+    """The leaves of two train states' params and optimizer state whose
+    bits differ, by index."""
+    la = tree_leaves(a.params) + tree_leaves(a.opt_state)
+    lb = tree_leaves(b.params) + tree_leaves(b.opt_state)
+    return [i for i, (x, y) in enumerate(zip(la, lb)) if not torch.equal(x, y)]
+
+
+def graph_equals_eager(mcfg, params, batches, **step_kwargs):
+    """Two GRAPH_CHECK_K-step dispatches of `make_multi_step` (the first:
+    its eager first step, the capture and K - 1 replays; the second: K
+    replays) against 2K eager steps of `make_train_step` on the same
+    batches from equal states (bf16, Adam at lr 1e-6): params, optimizer
+    state and every metric equal bit for bit after each dispatch, and the
+    per-step launch counts of a replay equal an eager step's. Where the
+    bits differ it first asks whether two eager runs agree (the step's own
+    determinism), then fails."""
+    from clip_event_tpu_torch.engine.train_step import make_multi_step
+
+    K = GRAPH_CHECK_K
+    check(len(batches) == 2 * K, f"graph_equals_eager: {len(batches)} batches")
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    kw = dict(compute_dtype=torch.bfloat16, remat=True, **step_kwargs)
+    step = make_train_step(mcfg, opt, **kw)
+    many, _ = make_multi_step(mcfg, opt, K, **kw)
+    eager, graph = create_train_state(params, opt), create_train_state(params, opt)
+    out = {"steps_per_dispatch": K, "dispatches": 2}
+    for d in range(2):
+        chunk = batches[d * K:(d + 1) * K]
+        reset_launches()
+        rows = []
+        for b in chunk:
+            eager, m = step(eager, b)
+            rows.append(m)
+        eager_launches = read_launches()
+        reset_launches()
+        graph, mk = many(graph, {k: torch.stack([b[k] for b in chunk]) for k in chunk[0]})
+        graph_launches = read_launches()
+        torch.cuda.synchronize()
+        differ = _state_equal(eager, graph)
+        metrics_differ = [k for k in rows[0] if not torch.equal(mk[k], torch.stack([m[k] for m in rows]))]
+        if differ or metrics_differ:
+            again = create_train_state(params, opt)
+            for b in batches[:(d + 1) * K]:
+                again, _ = step(again, b)
+            emit({"phase": "graph_equals_eager_diagnosis", "dispatch": d, "leaves_differ": differ,
+                  "metrics_differ": metrics_differ,
+                  "eager_rerun_leaves_differ": _state_equal(eager, again),
+                  "loss_graph": mk["loss"].tolist(), "loss_eager": [float(m["loss"]) for m in rows]})
+        check(not differ and not metrics_differ,
+              f"graph dispatch {d} vs eager steps: leaves {differ}, metrics {metrics_differ} differ")
+        check(graph_launches == eager_launches,
+              f"graph dispatch {d} launches {graph_launches} != eager {eager_launches}")
+        out[f"dispatch_{d}"] = {"loss": mk["loss"].tolist(), "launches": graph_launches}
+        out["graph_launches"] = {k: out.get("graph_launches", {}).get(k, 0) + v
+                                 for k, v in graph_launches.items()}
+    out["bit_equal"] = True
+    graph_obj = next(iter(many.graphs.values()))
+    out["launches_per_replay"] = {k: v for k, v in graph_obj.launches.items() if v}
+    del eager, graph, many, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_replay(graph_obj):
+    """One replay of a captured step under torch.profiler: the device busy
+    ms of the replay and its kernel launches by name, held against the
+    wrappers' counts the capture recorded (`launches`: PROFILE_NEEDLES)."""
+    graph_obj.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph_obj.replay()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    check(bool(rows), "the profiler shows no kernel of a graph replay")
+    counted = graph_obj.launches
+    want = {KERNEL: counted["attention_fwd"], BWD_KERNEL: counted["attention_bwd"],
+            HG_KERNEL: counted["attention_hg_fwd"], HG_BWD_KERNEL: counted["attention_hg_bwd"],
+            "ipot": counted["ipot"], "layer_norm+add_layer_norm": counted["layer_norm"] + counted["add_layer_norm"],
+            "layer_norm_bwd": counted["layer_norm_bwd"]}
+    seen = {name: sum(c for key, _, c in rows if any(n in key for n in needles))
+            for name, needles in PROFILE_NEEDLES.items()}
+    check(seen == want, f"profiled replay's kernels {seen} != the wrappers' counts {want}")
+    return {"replay_busy_ms": sum(r[1] for r in rows), "replay_kernel_launches": sum(r[2] for r in rows),
+            "replay_hand_kernels_by_profile": seen}
+
+
+def graph_vs_eager(mcfg, params, batch, **step_kwargs):
+    """The eager step against a GRAPH_TIMING_K-step graph dispatch
+    (`make_multi_step`'s `many_fixed`, the bench's call) on one resident bf16
+    batch, each from a fresh state (Adam at lr 1e-6; full remat unless
+    `step_kwargs` say otherwise): the peak memory of each one's first K
+    steps (the graph's: its eager first step, the capture, K - 1 replays)
+    above what was allocated before, and what stays reserved after (the
+    graph's pool); the launch counts of those K steps, equal; ms a step in
+    turns (eager, graph, graph, eager: host clock around synchronised runs
+    of K steps); the device busy ms of one eager step and of one replay
+    (torch.profiler), and each one's idle share against its ms a step; the
+    replay's kernels by name against the wrappers' counts."""
+    from clip_event_tpu_torch.engine.train_step import make_multi_step
+
+    K = GRAPH_TIMING_K
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    kw = dict(compute_dtype=torch.bfloat16, remat=True)
+    kw.update(step_kwargs)
+    step = make_train_step(mcfg, opt, **kw)
+    _, fixed = make_multi_step(mcfg, opt, K, **kw)
+    st = {}
+
+    def run_eager():
+        for _ in range(K):
+            st["eager"], _ = step(st["eager"], batch)
+
+    def run_graph():
+        st["graph"], _ = fixed(st["graph"], batch)
+
+    runs = {"eager": run_eager, "graph": run_graph}
+    memory, launches = {}, {}
+    for mode in ("eager", "graph"):
+        st[mode] = create_train_state(params, opt)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        runs[mode]()
+        torch.cuda.synchronize()
+        launches[mode] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        memory[mode] = {"peak_gib": peak / 2**30, "peak_above_start_gib": (peak - start) / 2**30,
+                        "reserved_after_gib": torch.cuda.memory_reserved() / 2**30}
+    check(launches["graph"] == launches["eager"],
+          f"graph launches {launches['graph']} != eager {launches['eager']} over {K} steps")
+    graph_obj = next(iter(fixed.graphs.values()))
+    per_step = {k: v // K for k, v in launches["eager"].items()}
+    ms = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[mode]()
+        torch.cuda.synchronize()
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / K)
+    eager_prof = profile_one(lambda: step(st["eager"], batch), float(np.mean(ms["eager"])))
+    replay = profile_replay(graph_obj)
+    graph_ms = float(np.mean(ms["graph"]))
+    out = {"steps_per_dispatch": K, "step_ms": ms,
+           "graph_to_eager_step_ms": graph_ms / float(np.mean(ms["eager"])),
+           "eager_device_busy_ms": eager_prof.get("device_busy_ms"),
+           "eager_device_idle_share": eager_prof.get("device_idle_share"),
+           "eager_kernel_launches": eager_prof.get("kernel_launches"),
+           **replay, "graph_device_idle_share": max(0.0, 1.0 - replay["replay_busy_ms"] / graph_ms),
+           "memory": memory, "launches_per_step": per_step}
+    del st, step, fixed, graph_obj
+    torch.cuda.empty_cache()
+    return out
+
+
+def policy_compare(mcfg, params, batch):
+    """The bf16 step under full remat against the "attn" policy from one
+    state and batch: the loss and every gradient (loss within BF16_STEP_TOL,
+    grad_norm within BF16_STEP_TOL relative; whether each is bit-equal is
+    reported); the peak memory of a first step from a fresh state above
+    what was allocated before it, in turns (full, attn, attn, full), with
+    exact launch counts; then the step's ms in turns (host clock around
+    synchronised steps, after one warm-up step of each)."""
+    out = {"loss": {}, "grad_norm": {}, "step_ms": {"full": [], "attn": []}, "memory": {}}
+    grads = {}
+    for policy in ("full", "attn"):
+        st = create_train_state(params, build_optimizer("adam", build_schedule("none", 1e-6, 1)))
+        total, _ = loss_fn(st.params, batch, mcfg, compute_dtype=torch.bfloat16, remat=policy)
+        grads[policy] = torch.autograd.grad(total, tree_leaves(st.params))
+        out["loss"][policy] = total.item()
+        out["grad_norm"][policy] = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads[policy]])).item()
+        del st, total
+    out["loss_bit_equal"] = out["loss"]["full"] == out["loss"]["attn"]
+    out["gradients_bit_equal"] = all(torch.equal(a, b) for a, b in zip(grads["full"], grads["attn"]))
+    out["max_grad_rel_diff"] = max(((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+                                   for a, b in zip(grads["attn"], grads["full"]))
+    del grads
+    dl = abs(out["loss"]["attn"] - out["loss"]["full"])
+    dg = abs(out["grad_norm"]["attn"] - out["grad_norm"]["full"]) / out["grad_norm"]["full"]
+    check(dl <= BF16_STEP_TOL and dg <= BF16_STEP_TOL,
+          f"'attn' vs full remat: loss differs by {dl}, grad_norm by {dg} (relative)")
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    steps = {policy: make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=policy)
+             for policy in ("full", "attn")}
+    for policy in ("full", "attn", "attn", "full"):
+        st = create_train_state(params, opt)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps[policy](st, batch)
+        torch.cuda.synchronize()
+        expected = train_launches(mcfg, 1, remat=policy)
+        check(read_launches() == expected, f"{policy} step launches {read_launches()} != {expected}")
+        out["memory"].setdefault(policy, []).append(
+            {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "peak_above_start_gib": (torch.cuda.max_memory_allocated() - start) / 2**30})
+        out[f"launches_{policy}"] = expected
+        del st
+    states = {policy: create_train_state(params, opt) for policy in ("full", "attn")}
+    for policy in ("full", "attn"):
+        steps[policy](states[policy], batch)
+    for policy in ("full", "attn", "attn", "full"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps[policy](states[policy], batch)
+        torch.cuda.synchronize()
+        out["step_ms"][policy].append((time.perf_counter() - t0) * 1e3)
+    del steps, states
+    torch.cuda.empty_cache()
+    return out
+
+
 def _train_report(tag, model, run, batch, D, init_s, **extra):
     pairs = batch * D
     emit({"phase": tag, "model": model, "seed": 0, "init_s": init_s, "batch_images": batch,
-          "descriptions_per_image": D, "tokens": 77, "compute_dtype": "bfloat16", "remat": "full",
-          "optimizer": "adam", "lr": 1e-6, "steps": run["n_steps"], "timed_steps": TIMED_STEPS,
+          "descriptions_per_image": D, "tokens": 77, "compute_dtype": "bfloat16", "remat": run["remat"],
+          "steps_per_dispatch": run["steps_per_dispatch"],
+          "optimizer": "adam", "lr": 1e-6, "steps": run["n_steps"], "timed_steps": run["timed_steps"],
           "losses": run["values"], "step_ms": run["step_ms"], "step_ms_mean": run["mean_ms"],
           "contrastive_pairs_per_sec_per_chip": pairs / run["mean_ms"] * 1e3,
           "loop_wall_s": run["loop_s"], "max_memory_allocated_gib": run["peak_gib"], **extra})
@@ -2238,6 +2536,110 @@ def phase_train(out_root):
                   kernel_attention_step_ms=turns["kernel"], plain_attention_step_ms=turns["plain"])
     emit({"phase": "train_profile", **prof})
     return run["launches"], run["mean_ms"], prof
+
+
+def phase_train_graph(out_root):
+    """`phase_train`'s workload (ViT-B/32, 384 x 3, bf16, full remat)
+    through the train loop with `steps_per_dispatch` GRAPH_LOOP_K (a CUDA
+    graph of the step, replayed), counted; a GRAPH_CHECK_K-step dispatch
+    against as many eager steps, bit for bit, twice; the eager step against
+    a GRAPH_TIMING_K-step dispatch in turns (`graph_vs_eager`)."""
+    mcfg = VIT_B32
+    D = NUM_POS + NUM_NEG
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _, n_steps = loop_steps(GRAPH_LOOP_K)
+    check(n_steps >= 2 * GRAPH_CHECK_K, f"the loop's {n_steps} batches serve the bit-for-bit check")
+    ds = _BenchPairs(n_steps * TRAIN_BATCH, mcfg.image_resolution, mcfg.context_length, mcfg.vocab_size)
+    run = run_train_loop("train_graph", mcfg, params, ds, TRAIN_BATCH, out_root,
+                         steps_per_dispatch=GRAPH_LOOP_K)
+    first = run["values"]["loss"][0]
+    check(abs(first - _chance(TRAIN_BATCH, D)) < 0.5,
+          f"graph loop first loss {first} vs chance {_chance(TRAIN_BATCH, D)}")
+    del run["state"]
+    torch.cuda.empty_cache()
+    equal = graph_equals_eager(mcfg, params, _device_batches(ds, TRAIN_BATCH, 2 * GRAPH_CHECK_K))
+    timing = graph_vs_eager(mcfg, params, _device_batch(ds, TRAIN_BATCH))
+    _train_report("train_graph", "ViT-B/32", run, TRAIN_BATCH, D, init_s, graph_equals_eager=equal,
+                  graph_vs_eager=timing)
+    del params, ds
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def only_graph():
+    """`--only graph`: `phase_train_graph` alone (the quick look after an
+    edit to the train step or the graph), in a directory of its own."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_root:
+        phase_train_graph(out_root)
+
+
+B1_CALLS, B1_REPEATS = 200, 7
+
+
+def wrapper_host_us(fn, calls=B1_CALLS, repeats=B1_REPEATS, warmup=20) -> float:
+    """Host microseconds a call of fn() takes to return, after a warm-up:
+    the calls are only enqueued (no synchronise among them, fewer launches
+    than the launch queue holds), so this is the wrapper's host time. The
+    median of `repeats` runs of `calls` calls: the host is shared, and one
+    run can read a neighbour's load."""
+    for _ in range(warmup):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def phase_b1():
+    """Host microseconds a call of each kernel wrapper (ROADMAP B1) at a
+    serving or train shape of its path, bf16 unless named: K1 forward (with
+    lse) and backward (with the saved out and lse) at the B/32 text batch
+    (64 x 77, W 512, 8 heads, causal); K2's at the L/14 image batch (64 x
+    257, W 1024, 16 heads); K4a, K4b and K4c at the B/32 text rows (4928 x
+    512); K3 at finetune_ot's shape (64 x 16 x 7, fp32); K5 at the B/32 int8
+    image batch's qkv projection (3200 x 768 -> 2304, fp32, dynamic). With
+    `--package-root` the wrappers are another tree's."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    us = {}
+    qkv = torch.randn((64, 77, 3 * 512), device="cuda", generator=gen).to(bf)
+    bias = causal_mask(77, "cuda")
+    out, lse = fused_attention_qkv_fwd(qkv, bias, 8, 64 ** -0.5, with_lse=True)
+    do = torch.randn_like(out)
+    us["K1-fwd"] = wrapper_host_us(lambda: fused_attention_qkv_fwd(qkv, bias, 8, 64 ** -0.5, with_lse=True))
+    us["K1-bwd"] = wrapper_host_us(lambda: fused_attention_qkv_bwd(qkv, bias, do, 8, 64 ** -0.5, out, lse))
+    qkv = torch.randn((64, 257, 3 * 1024), device="cuda", generator=gen).to(bf)
+    out, lse = fused_attention_qkv_headgrid_fwd(qkv, None, 16, 64 ** -0.5, with_lse=True)
+    do = torch.randn_like(out)
+    us["K2-fwd"] = wrapper_host_us(
+        lambda: fused_attention_qkv_headgrid_fwd(qkv, None, 16, 64 ** -0.5, with_lse=True))
+    us["K2-bwd"] = wrapper_host_us(
+        lambda: fused_attention_qkv_headgrid_bwd(qkv, None, do, 16, 64 ** -0.5, out, lse))
+    del qkv, out, lse, do
+    x = torch.randn((64 * 77, 512), device="cuda", generator=gen).to(bf)
+    delta, dy = torch.randn_like(x), torch.randn_like(x)
+    gamma = torch.randn((512,), device="cuda", generator=gen)
+    beta = torch.randn((512,), device="cuda", generator=gen)
+    us["K4a"] = wrapper_host_us(lambda: ln._ln_fwd(x, gamma, beta, 1e-5))
+    us["K4b"] = wrapper_host_us(lambda: ln._add_ln_fwd(x, delta, gamma, beta, 1e-5))
+    us["K4c"] = wrapper_host_us(lambda: ln.fused_layer_norm_bwd(x, gamma, dy))
+    cost, x_len, x_pad, y_len, y_pad, _ = ot_inputs(gen, OT_BATCH, 16, 7, False)
+    us["K3"] = wrapper_host_us(lambda: ot.ipot_kernel(cost, x_len, x_pad, y_len, y_pad))
+    xq = torch.randn((64 * 50, 768), device="cuda", generator=gen)
+    w = quant.quantize_weight(torch.randn((768, 2304), device="cuda", generator=gen))
+    wb = torch.randn((2304,), device="cuda", generator=gen)
+    us["K5"] = wrapper_host_us(lambda: quant.quantized_matmul(xq, w.q, w.scale, wb, None))
+    emit({"phase": "wrapper_host_cost", "package": os.path.dirname(os.path.dirname(_build.CSRC_DIR)),
+          "calls": B1_CALLS, "repeats": B1_REPEATS, "us_per_call_median": us})
+    return us
 
 
 def phase_train_ln(out_root, plain_ln_ms, plain_ln_prof):
@@ -2375,7 +2777,9 @@ def phase_serving_ln():
 
 
 def phase_bench_tools():
-    """The port's bench entry point at full width (ViT-B/32, 384 x 3), with
+    """The port's bench entry point at full width (ViT-B/32, 384 x 3; its
+    protocol, 10 steps a call through the graphed step after one warm-up
+    call, here with one timed call), with
     the plain LayerNorm and with `--ln pallas` (twice each, in turns), and
     the `ln` and `megakernel`
     sections of the component bench at their default shapes (B = 256, D = 3,
@@ -2389,6 +2793,7 @@ def phase_bench_tools():
         with contextlib.redirect_stdout(io.StringIO()) as out:
             check(main_fn(argv) == 0, f"{main_fn.__module__} {argv} exit code")
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # a bench run's graph pool goes with its graph
         return out.getvalue().splitlines(), read_launches()
 
     all_launches = dict.fromkeys(COUNTERS, 0)
@@ -2397,17 +2802,18 @@ def phase_bench_tools():
     # within one run, and the host's share of a step drifts
     results = {"xla": [], "pallas": []}
     for impl in ("xla", "pallas", "pallas", "xla"):
-        lines, launches = run_main(port_bench.main, ["--ln", impl])
+        lines, launches = run_main(port_bench.main, ["--ln", impl, "--calls", "1"])
         check(len(lines) == 1, f"bench --ln {impl}: one line, got {len(lines)}")
         result = json.loads(lines[0])
         check(result["metric"] == "contrastive_pairs_per_sec_per_chip"
               and math.isfinite(result["value"]) and result["value"] > 0
               and result["device"]["nvidia_smi"] and "vs_baseline" not in result,
               f"bench --ln {impl}: {result}")
-        steps = result["steps"]
+        steps = result["steps"] + result["warmup_steps"]
         per_step = train_launches(VIT_B32, 1, fused_ln=impl == "pallas")
-        check(launches == {k: v * steps for k, v in per_step.items()},
-              f"bench --ln {impl} launches {launches} over {steps} timed steps")
+        check(launches == {k: v * steps for k, v in per_step.items()}
+              and result["launches_per_step"] == {k: per_step[k] for k in result["launches_per_step"]},
+              f"bench --ln {impl} launches {launches} over {steps} steps")
         results[impl].append(result)
         for k in COUNTERS:
             all_launches[k] += launches[k]
@@ -2420,11 +2826,12 @@ def phase_bench_tools():
     # (uint8 pixels normalized on the device), in turns
     by_images = {"uint8": [], "float32": []}
     for images in ("uint8", "float32", "float32", "uint8"):
-        lines, launches = run_main(port_bench.main, ["--images", images])
+        lines, launches = run_main(port_bench.main, ["--images", images, "--calls", "1"])
         result = json.loads(lines[0])
         check(len(lines) == 1 and result["images"] == images and math.isfinite(result["value"])
               and result["value"] > 0, f"bench --images {images}: {result}")
-        check(launches == {k: v * result["steps"] for k, v in train_launches(VIT_B32, 1).items()},
+        steps = result["steps"] + result["warmup_steps"]
+        check(launches == {k: v * steps for k, v in train_launches(VIT_B32, 1).items()},
               f"bench --images {images} launches {launches}")
         by_images[images].append(result["step_ms"])
         for k in COUNTERS:
@@ -2455,30 +2862,45 @@ def phase_bench_tools():
 
 
 def phase_train_l14(out_root):
-    """ViT-L/14 through the train loop at bench.py's L/14 workload, then one
-    ViT-B/16 kernel-path step at its bench batch. bench.py runs L/14 with
-    the "attn" remat policy, which the port does not have yet: full remat."""
+    """ViT-L/14 through the train loop at bench.py's L/14 workload, with its
+    remat policy ("attn") and GRAPH_LOOP_K steps a dispatch (the CUDA graph
+    of the step), counted: K2's forward once a vision block a step (24),
+    K1's once a text block (12); the step under "attn" against full remat
+    (`policy_compare`) and the eager "attn" step against a graph dispatch
+    (`graph_vs_eager`); the full-remat kernel step against the plain
+    attention (the gates of the earlier phases, in turns); then one
+    ViT-B/16 kernel-path step at its bench batch."""
     D = NUM_POS + NUM_NEG
-    n_steps = WARMUP_STEPS + TIMED_STEPS
+    _, n_steps = loop_steps(GRAPH_LOOP_K)
     mcfg = VIT_L14
     t0 = time.perf_counter()
     params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     ds = _BenchPairs(n_steps * L14_BATCH, mcfg.image_resolution, mcfg.context_length, mcfg.vocab_size)
-    run = run_train_loop("train_l14", mcfg, params, ds, L14_BATCH, out_root)
+    per_step = train_launches(mcfg, 1, remat="attn")
+    check(per_step[HG_KERNEL] == 24 and per_step[KERNEL] == 12
+          and per_step[HG_BWD_KERNEL] == train_launches(mcfg, 1)[HG_BWD_KERNEL]
+          and per_step[BWD_KERNEL] == train_launches(mcfg, 1)[BWD_KERNEL],
+          f"L/14 'attn' launches a step {per_step}")
+    run = run_train_loop("train_l14", mcfg, params, ds, L14_BATCH, out_root, remat="attn",
+                         steps_per_dispatch=GRAPH_LOOP_K)
     first = run["values"]["loss"][0]
     check(abs(first - _chance(L14_BATCH, D)) < 0.5,
           f"L/14 first loss {first} vs chance {_chance(L14_BATCH, D)}")
     del run["state"]
-    compare = {"bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, L14_BATCH))}
-    turns = step_ms_in_turns(mcfg, params, _device_batch(ds, L14_BATCH))
-    prof = profile_step(mcfg, params, _device_batch(ds, L14_BATCH), run["mean_ms"])
-    _train_report("train_l14", "ViT-L/14", run, L14_BATCH, D, init_s, remat_note=(
-        "full remat; bench.py runs L/14 with the 'attn' policy, not ported yet"),
-        kernel_vs_plain=compare, kernel_attention_step_ms=turns["kernel"],
-        plain_attention_step_ms=turns["plain"])
-    emit({"phase": "train_l14_profile", **prof})
+    torch.cuda.empty_cache()
+    batch = _device_batch(ds, L14_BATCH)
+    policies = policy_compare(mcfg, params, batch)
+    timing = graph_vs_eager(mcfg, params, batch, remat="attn")
+    compare = {"bfloat16": compare_bf16_step(mcfg, params, batch)}
+    turns = step_ms_in_turns(mcfg, params, batch)
+    prof = profile_step(mcfg, params, batch, run["mean_ms"])
+    _train_report("train_l14", "ViT-L/14", run, L14_BATCH, D, init_s, full_vs_attn=policies,
+                  graph_vs_eager=timing, kernel_vs_plain=compare,
+                  full_remat_kernel_attention_step_ms=turns["kernel"],
+                  full_remat_plain_attention_step_ms=turns["plain"])
+    emit({"phase": "train_l14_profile", "remat": "full", **prof})
 
     # fp32 steps (`compute_dtype: "float32"`): the vision tower's K2 and the
     # text tower's K1 on their tf32x3 variants, forward and backward. The
@@ -2556,12 +2978,20 @@ def phase_train_ot(out_root):
           f"finetune_ot.json's settings {ot_cfg}")
     ot_cfg["alignment_chunks"] = OT_CHUNKS  # the config default, which finetune_ot.json keeps
     run = run_train_loop("train_ot", mcfg, params, ds, OT_BATCH, out_root, **ot_cfg)
+    del run["state"]
+    torch.cuda.empty_cache()
+    graph_kw = {"alignment": True, "alignment_chunks": OT_CHUNKS, "use_pallas_ot": True}
+    check_ds = _OTPairs(2 * GRAPH_CHECK_K * OT_BATCH, mcfg.image_resolution, mcfg.context_length,
+                        mcfg.vocab_size)
+    equal = graph_equals_eager(mcfg, params, _device_batches(check_ds, OT_BATCH, 2 * GRAPH_CHECK_K),
+                               **graph_kw)
+    del check_ds
+    timing = graph_vs_eager(mcfg, params, _device_batch(ds, OT_BATCH), **graph_kw)
     loss_ot = run["values"]["loss_ot"]
     check(all(np.isfinite(loss_ot)) and min(loss_ot) > 0, f"loss_ot finite and > 0: {loss_ot}")
     contrastive = run["values"]["loss_i"][0] + run["values"]["loss_t"][0]
     check(abs(contrastive - _chance(OT_BATCH, D)) < 0.5,
           f"OT first contrastive loss {contrastive} vs chance {_chance(OT_BATCH, D)}")
-    del run["state"]
     step_kwargs = {"alignment": True, "alignment_chunks": OT_CHUNKS}
     compare = {
         "bfloat16": compare_bf16_step(mcfg, params, _device_batch(ds, OT_BATCH),
@@ -2572,11 +3002,12 @@ def phase_train_ot(out_root):
     prof = profile_step(mcfg, params, _device_batch(ds, OT_BATCH), run["mean_ms"],
                         use_pallas_ot=True, **step_kwargs)
     _train_report("train_ot", "ViT-B/32", run, OT_BATCH, D, init_s, objects=OT_OBJECTS,
-                  entities=OT_ENTITIES, alignment_chunks=OT_CHUNKS, kernel_vs_plain=compare)
+                  entities=OT_ENTITIES, alignment_chunks=OT_CHUNKS, kernel_vs_plain=compare,
+                  graph_equals_eager=equal, graph_vs_eager=timing)
     emit({"phase": "train_ot_profile", **prof})
     del params, ds
     torch.cuda.empty_cache()
-    return run["launches"]
+    return run["launches"], equal["graph_launches"]
 
 
 def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
@@ -2647,13 +3078,18 @@ def main(argv=None) -> int:
     """No arguments: every phase. `--only k1` / `k2` / `k3` / `k5` / `k6`
     (one or more): the device and build phases and those kernels' checks
     alone (the quick look after an edit to them), with a last line that
-    says so. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    says so; `b1` the wrappers' host cost (`--package-root DIR`: another
+    tree's package), `graph` the graphed B/32 train step
+    (`phase_train_graph`). `--old-csrc DIR` builds K3 and K6 from an earlier tree's
     csrc/ and times them beside these in turns; `--k6-split` times K6
     without its core and without its projection (`k6_split`)."""
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", nargs="+", choices=("k1", "k2", "k3", "k5", "k6"), default=None)
+    parser.add_argument("--only", nargs="+", choices=("k1", "k2", "k3", "k5", "k6", "b1", "graph"),
+                        default=None)
+    parser.add_argument("--package-root", default=None,
+                        help="with --only b1: time the wrappers of the package under this directory")
     parser.add_argument("--old-csrc", default=None)
     parser.add_argument("--k6-split", action="store_true")
     args = parser.parse_args(argv)
@@ -2716,8 +3152,8 @@ def main(argv=None) -> int:
         errs = {name: {} for name in COUNTERS}
         gen = torch.Generator(device="cuda").manual_seed(0)
         for only in args.only:
-            {"k1": check_k1, "k2": check_k2, "k3": check_k3, "k5": check_k5, "k6": check_k6}[only](
-                rows, errs, gen)
+            {"k1": check_k1, "k2": check_k2, "k3": check_k3, "k5": check_k5, "k6": check_k6,
+             "b1": lambda *_: phase_b1(), "graph": lambda *_: only_graph()}[only](rows, errs, gen)
         if args.k6_split:
             k6_split(gen)
         torch.cuda.synchronize()
@@ -2727,16 +3163,18 @@ def main(argv=None) -> int:
         return 0
 
     rows, errs = phase_kernels()
+    phase_b1()
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_root:
         paths["serving"], float_rates = phase_serving(out_root)
         paths["train"], train_ms, train_prof = phase_train(out_root)
+        paths["train_graph"] = phase_train_graph(out_root)
         paths["train_ln"], paths["train_ln_l14"] = phase_train_ln(out_root, train_ms, train_prof)
         paths["serving_ln"] = phase_serving_ln()
         paths["serving_l14"], l14_rates = phase_serving(out_root, "ViT-L/14", L14_SERVING_ITEMS,
                                                         matching=False, tag="serving_l14")
         paths["train_l14"], paths["train_b16"], paths["train_l14_fp32"] = phase_train_l14(out_root)
-        paths["train_ot"] = phase_train_ot(out_root)
+        paths["train_ot"], paths["train_ot_graph"] = phase_train_ot(out_root)
         paths["serving_int8_l14"] = phase_serving_int8(out_root, "ViT-L/14", L14_SERVING_ITEMS,
                                                        "serving_int8_l14", l14_rates)
         paths["serving_int8_b32"] = phase_serving_int8(out_root, "ViT-B/32", L14_SERVING_ITEMS,

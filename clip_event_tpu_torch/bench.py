@@ -7,26 +7,28 @@ Measures the train step (forward of both towers + contrastive loss +
 backward + clipped Adam) at the reference workload shape: D = 3
 descriptions per image (1 positive + 2 hard negatives), uint8 images at the
 model's resolution normalized on the device, 77-token texts, bf16 compute,
-full remat, Adam at lr 1e-6; batch 384 (ViT-B/32), 96 (ViT-B/16) or 64
-(ViT-L/14) images. The batch is made once from seed 0 and stays on the
-device; after the warm-up steps the timed steps run back to back and the
-clock stops after a device synchronize. It reports contrastive pairs/s per
-chip, pairs = images × descriptions scored.
+Adam at lr 1e-6; batch 384 (ViT-B/32), 96 (ViT-B/16) or 64 (ViT-L/14)
+images, and the JAX bench's remat policy for each preset: full remat at
+ViT-B/32, "attn" at ViT-B/16 and ViT-L/14 (`DEFAULT_REMAT`, the JAX
+bench's table). The protocol is the JAX bench's: 10 steps a call through
+`make_multi_step`'s `many_fixed` (on the card a CUDA graph of the step,
+replayed 10 times), one warm-up call, then 3 timed calls back to back;
+the clock stops at a float fetch of the last call's last loss. The batch
+is made once from seed 0 and stays on the device. It reports contrastive
+pairs/s per chip, pairs = images × descriptions scored.
 
 `--images uint8` (the default) feeds the train loop's input
 (`device_normalize: true`: uint8 pixels, normalized on the device);
 `--images float32` feeds the JAX bench's input, N(0, 1) float32 images that
 skip the normalize and move four times the bytes. The line says which.
 
-The JAX bench runs ViT-B/16 and ViT-L/14 with the selective "attn" remat
-policy. The port has full remat only, so those presets run full remat and
-the output says so.
-
 Environment, as in the JAX bench: `BENCH_MODEL` (a preset name, or a JSON
 object with `CLIPConfig`'s fields for a small model), `BENCH_BATCH`,
 `BENCH_LN=pallas` (the fused LayerNorm kernels in every residual block),
-`BENCH_REMAT` (`0` turns remat off), `BENCH_CONTEXT_CAP`; and
-`BENCH_STEPS`, `BENCH_WARMUP`, `BENCH_IMAGES`. The flags of the same names override them.
+`BENCH_REMAT` (`0` off, `1` full, or a policy name: "full", "dots",
+"dots_nobatch", "attn"), `BENCH_CONTEXT_CAP`; and `BENCH_STEPS` (steps a
+call), `BENCH_CALLS` (timed calls), `BENCH_WARMUP` (warm-up calls),
+`BENCH_IMAGES`. The flags of the same names override them.
 
 Prints exactly one JSON line. On the card the metric is
 `contrastive_pairs_per_sec_per_chip` and the line carries the card's name
@@ -51,28 +53,22 @@ import torch
 from clip_event_tpu_torch.config import model_config
 from clip_event_tpu_torch.data.labels import build_label_layout
 from clip_event_tpu_torch.engine.optim import build_optimizer, build_schedule
-from clip_event_tpu_torch.engine.train_step import create_train_state, make_train_step
+from clip_event_tpu_torch.engine.train_step import create_train_state, make_multi_step
 from clip_event_tpu_torch.models import layers
 from clip_event_tpu_torch.models.clip import init_params
-from clip_event_tpu_torch.ops import attention, ln
+from clip_event_tpu_torch.ops import counters
 from clip_event_tpu_torch.platform import resolve_device
 
 DEFAULT_BATCH = {"ViT-B/32": 384, "ViT-B/16": 96, "ViT-L/14": 64}
-# presets the JAX bench runs with the "attn" remat policy
-ATTN_REMAT_PRESETS = ("ViT-B/16", "ViT-L/14")
+# the JAX bench's remat policy by preset (`bench.py:41-48`): "1" is full
+DEFAULT_REMAT = {"ViT-B/32": "1", "ViT-B/16": "attn", "ViT-L/14": "attn"}
+REMAT_CHOICES = ("0", "1") + layers.REMAT_POLICIES
 NUM_POS, NUM_NEG = 1, 2
-WARMUP_STEPS, MEASURE_STEPS = 3, 10
+STEPS_PER_CALL, MEASURE_CALLS, WARMUP_CALLS = 10, 3, 1
 IMAGE_INPUTS = ("uint8", "float32")
-
-_COUNTERS = {
-    "attention_fwd": attention.fused_attention_qkv,
-    "attention_bwd": attention.fused_attention_qkv_bwd,
-    "attention_hg_fwd": attention.fused_attention_qkv_headgrid,
-    "attention_hg_bwd": attention.fused_attention_qkv_headgrid_bwd,
-    "layer_norm": ln.fused_layer_norm,
-    "add_layer_norm": ln.fused_add_layer_norm,
-    "layer_norm_bwd": ln.fused_layer_norm_bwd,
-}
+# the train step's kernels, whose launches a step the line reports
+_COUNTED = ("attention_fwd", "attention_bwd", "attention_hg_fwd", "attention_hg_bwd",
+            "layer_norm", "add_layer_norm", "layer_norm_bwd")
 
 
 def nvidia_smi() -> str:
@@ -111,62 +107,68 @@ def bench_batch(mcfg, batch: int, seq: int, device, images: str = "uint8") -> di
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
 
 
-def run(model="ViT-B/32", batch=None, ln_impl="xla", remat=True, context_cap=0,
-        steps=MEASURE_STEPS, warmup=WARMUP_STEPS, device="cuda", images="uint8") -> dict:
-    """Time the train step and return the result line as a dict."""
+def remat_setting(value: str):
+    """A `--remat` / `BENCH_REMAT` value as the train step takes it: "0"
+    False, "1" True (full), a policy name as it is."""
+    if value not in REMAT_CHOICES:
+        raise ValueError(f"remat {value!r}; options: {REMAT_CHOICES}")
+    return {"0": False, "1": True}.get(value, value)
+
+
+def run(model="ViT-B/32", batch=None, ln_impl="xla", remat=None, context_cap=0,
+        steps=STEPS_PER_CALL, warmup=WARMUP_CALLS, device="cuda", images="uint8",
+        calls=MEASURE_CALLS) -> dict:
+    """Time `calls` dispatches of `steps` train steps each (after `warmup`
+    dispatches) and return the result line as a dict. `remat` None takes
+    the preset's `DEFAULT_REMAT` ("1" for a custom model)."""
     device = resolve_device(device)
     mcfg = model_config({"model": model})
     name = model if isinstance(model, str) else "custom"
     batch = int(batch or DEFAULT_BATCH.get(name, 64))
     seq = int(context_cap) or mcfg.context_length
     D = NUM_POS + NUM_NEG
+    if remat is None:
+        remat = remat_setting(DEFAULT_REMAT.get(name, "1"))
+    policy = layers.remat_policy(remat) or "off"
 
     params = init_params(torch.Generator().manual_seed(0), mcfg, device)
     data = bench_batch(mcfg, batch, seq, device, images)
     optimizer = build_optimizer("adam", build_schedule("none", 1e-6, 30))
     state = create_train_state(params, optimizer)
-    step = make_train_step(mcfg, optimizer, loss_type="ce", overbatch=True,
-                           compute_dtype=torch.bfloat16, remat=remat)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    _, run_k = make_multi_step(mcfg, optimizer, steps, loss_type="ce", overbatch=True,
+                               compute_dtype=torch.bfloat16, remat=remat)
 
     with layers.ln_impl(ln_impl):
         for _ in range(warmup):
-            state, metrics = step(state, data)
-        sync()
-        for fn in _COUNTERS.values():
-            fn.launches = 0
+            state, metrics = run_k(state, data)
+            float(metrics["loss"][-1])
+        start = counters.snapshot()
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state, metrics = step(state, data)
-        sync()
-        dt = (time.perf_counter() - t0) / steps
-    loss = float(metrics["loss"])
+        for _ in range(calls):
+            state, metrics = run_k(state, data)
+        loss = float(metrics["loss"][-1])  # the sync: a host fetch of the last loss
+        dt = (time.perf_counter() - t0) / (calls * steps)
+        end = counters.snapshot()
     if not math.isfinite(loss):
         raise RuntimeError("non-finite loss in benchmark")
 
     on_card = device.type == "cuda"
-    out = {
+    return {
         "metric": "contrastive_pairs_per_sec_per_chip" if on_card else "contrastive_pairs_per_sec_cpu",
         "value": batch * D / dt,
         "unit": "pairs/s/chip" if on_card else "pairs/s",
         "model": name, "batch_images": batch, "descriptions_per_image": D, "tokens": seq,
-        "images": images, "compute_dtype": "bfloat16", "remat": "full" if remat else "off", "ln": ln_impl,
-        "optimizer": "adam", "steps": steps, "warmup_steps": warmup, "step_ms": dt * 1e3,
+        "images": images, "compute_dtype": "bfloat16", "remat": policy, "ln": ln_impl,
+        "optimizer": "adam", "steps_per_call": steps, "calls": calls, "warmup_calls": warmup,
+        "steps": calls * steps, "warmup_steps": warmup * steps, "step_ms": dt * 1e3,
         "loss": loss,
-        "launches_per_step": {k: fn.launches // steps for k, fn in _COUNTERS.items()},
+        "launches_per_step": {k: (end[k] - start[k]) // (calls * steps) for k in _COUNTED},
         "device": {
             "platform": "gpu" if on_card else "cpu",
             "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
             "nvidia_smi": nvidia_smi() if on_card else None,
         },
     }
-    if name in ATTN_REMAT_PRESETS and remat:
-        out["remat_note"] = ("full remat; the JAX bench runs this preset with the 'attn' "
-                             "policy, which is not ported")
-    return out
 
 
 def main(argv=None) -> int:
@@ -177,16 +179,22 @@ def main(argv=None) -> int:
                         help="a preset name or a JSON object of CLIPConfig fields")
     parser.add_argument("--batch", type=int, default=int(env.get("BENCH_BATCH", 0)) or None)
     parser.add_argument("--ln", default=env.get("BENCH_LN", "xla"), choices=layers.LN_IMPLS)
-    parser.add_argument("--remat", default=env.get("BENCH_REMAT", "1"), choices=("0", "1"))
+    parser.add_argument("--remat", default=env.get("BENCH_REMAT"), choices=REMAT_CHOICES,
+                        help="0, 1 (full) or a policy name; default: the preset's DEFAULT_REMAT")
     parser.add_argument("--context-cap", type=int, default=int(env.get("BENCH_CONTEXT_CAP", 0)))
-    parser.add_argument("--steps", type=int, default=int(env.get("BENCH_STEPS", MEASURE_STEPS)))
-    parser.add_argument("--warmup", type=int, default=int(env.get("BENCH_WARMUP", WARMUP_STEPS)))
+    parser.add_argument("--steps", type=int, default=int(env.get("BENCH_STEPS", STEPS_PER_CALL)),
+                        help="train steps a call (one dispatch)")
+    parser.add_argument("--calls", type=int, default=int(env.get("BENCH_CALLS", MEASURE_CALLS)),
+                        help="timed calls")
+    parser.add_argument("--warmup", type=int, default=int(env.get("BENCH_WARMUP", WARMUP_CALLS)),
+                        help="warm-up calls")
     parser.add_argument("--images", default=env.get("BENCH_IMAGES", "uint8"), choices=IMAGE_INPUTS,
                         help="uint8 pixels normalized on the device, or the JAX bench's float32")
     args = parser.parse_args(argv)
     model = json.loads(args.model) if args.model.lstrip().startswith("{") else args.model
-    result = run(model, args.batch, args.ln, args.remat == "1", args.context_cap,
-                 args.steps, args.warmup, args.device, args.images)
+    remat = None if args.remat is None else remat_setting(args.remat)
+    result = run(model, args.batch, args.ln, remat, args.context_cap,
+                 args.steps, args.warmup, args.device, args.images, args.calls)
     print(json.dumps(result), flush=True)
     return 0
 

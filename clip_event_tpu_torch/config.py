@@ -5,9 +5,11 @@ The same keys, defaults and checks as the JAX package's `validate_config`
 (including the original `constrastive_*` spellings), for the keys this
 port carries. A key of a part not ported yet raises `ConfigError` naming
 its ROADMAP item when it is set to anything but its default: the model,
-tensor, pipeline and data parallelism keys, the multiattention branch and
-its SR data channel, the image cache, K-step fused dispatch and the
-selective remat policies. The ResNet presets are not ported either.
+tensor, pipeline and data parallelism keys (A6), the multiattention branch
+and its SR data channel (A4) and the image cache (A7). The ResNet presets
+are not ported either (A2). `remat` takes false, true or a policy name of
+`models.layers.REMAT_POLICIES`, checked here as the JAX package's
+`transformer` checks it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import json
 from typing import Any, Dict
 
 from clip_event_tpu_torch.models.clip import VIT_B16, VIT_B32, VIT_L14, CLIPConfig
+from clip_event_tpu_torch.models.layers import remat_policy
 
 PRESETS = {"ViT-B/32": VIT_B32, "ViT-B/16": VIT_B16, "ViT-L/14": VIT_L14}
 
@@ -114,9 +117,9 @@ _DEFAULTS: Dict[str, Any] = {
 
 # keys of parts not ported yet: the ROADMAP item that brings each
 _UNPORTED = {
-    "tp": "A11", "pp": "A11", "sp": "A11", "dcn_dp": "A11", "zero": "A11", "fsdp": "A11",
-    "load_sr": "A8", "multiattention": "A8", "dedupe_sr_texts": "A8",
-    "image_cache": "A9",
+    "tp": "A6", "pp": "A6", "sp": "A6", "dcn_dp": "A6", "zero": "A6", "fsdp": "A6",
+    "load_sr": "A4", "multiattention": "A4", "dedupe_sr_texts": "A4",
+    "image_cache": "A7",
 }
 
 
@@ -136,16 +139,10 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
     for key, item in _UNPORTED.items():
         if out[key] not in (_DEFAULTS[key], None, False, 0):
             raise ConfigError(f"{key}={out[key]!r} is not ported yet (ROADMAP {item})")
-    if int(out["steps_per_dispatch"]) > 1:
-        raise ConfigError(
-            "steps_per_dispatch>1 (K-step fused dispatch, make_multi_step) is not "
-            "ported yet (ROADMAP A2)"
-        )
-    if out["remat"] not in (True, False, "full"):
-        raise ConfigError(
-            f"remat={out['remat']!r}: only true/'full' and false are ported "
-            "(the selective policies: ROADMAP A2)"
-        )
+    try:
+        remat_policy(out["remat"])
+    except ValueError as err:
+        raise ConfigError(str(err)) from None
 
     for key, choices in _CHOICES.items():
         if out.get(key) is not None and out[key] not in choices:
@@ -174,10 +171,11 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
                 f"length_buckets widths must be in [2, {eff}) — the "
                 "effective full width is an implicit final bucket"
             )
-        if out["grad_accum_steps"] > 1:
+        if int(out.get("steps_per_dispatch", 1)) > 1 or out["grad_accum_steps"] > 1:
             raise ConfigError(
                 "length_buckets needs one static width per dispatch: "
-                "incompatible with grad_accum_steps>1 (stacked batches must share a shape)"
+                "incompatible with steps_per_dispatch>1 / grad_accum_steps>1 "
+                "(stacked batches must share a shape)"
             )
     v = out["dedupe_texts"]
     if not isinstance(v, int) or isinstance(v, bool) or v < 0:
@@ -186,6 +184,12 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         raise ConfigError("begin_epoch must be ≤ max_epoch")
     if not isinstance(out["grad_accum_steps"], int) or out["grad_accum_steps"] < 1:
         raise ConfigError("grad_accum_steps must be a positive int")
+    if out["grad_accum_steps"] > 1 and int(out.get("steps_per_dispatch", 1)) > 1:
+        raise ConfigError(
+            "grad_accum_steps>1 and steps_per_dispatch>1 are mutually "
+            "exclusive (one accumulates microbatches into one optimizer "
+            "step, the other fuses K optimizer steps into one dispatch)"
+        )
 
     loss = out["constrastive_loss"]
     if loss == "bce" and out["constrastive_overbatch"]:
@@ -212,11 +216,11 @@ def load_config(path: str) -> Dict[str, Any]:
 
 def model_config(cfg: Dict[str, Any]) -> CLIPConfig:
     """Resolve the model spec: a preset name or an explicit dict (ViT only;
-    the ResNet towers are ROADMAP A6)."""
+    the ResNet towers are ROADMAP A2)."""
     spec = cfg.get("model", "ViT-B/32")
     if isinstance(spec, str):
         if spec in ("RN50", "RN101", "RN50x4"):
-            raise ConfigError(f"model {spec!r}: the ResNet towers are not ported yet (ROADMAP A6)")
+            raise ConfigError(f"model {spec!r}: the ResNet towers are not ported yet (ROADMAP A2)")
         if spec not in PRESETS:
             raise ConfigError(f"unknown model preset {spec!r}; options: {list(PRESETS)}")
         return PRESETS[spec]
@@ -226,6 +230,6 @@ def model_config(cfg: Dict[str, Any]) -> CLIPConfig:
             spec = dict(spec, vision_layers=tuple(vl))
         mcfg = CLIPConfig(**spec)
         if not mcfg.is_vit:
-            raise ConfigError("the ResNet towers are not ported yet (ROADMAP A6)")
+            raise ConfigError("the ResNet towers are not ported yet (ROADMAP A2)")
         return mcfg
     raise ConfigError("model must be a preset name or a CLIPConfig dict")

@@ -9,7 +9,7 @@
 descriptions per image, static label layouts, length buckets and
 dedupe-encode fields, plus the object-crop channel and the text-IE channel
 of the OT alignment loss, ragged axes padded to static caps with masks. The
-SR/bbox channel is not ported yet (ROADMAP A8).
+SR/bbox channel is not ported yet (ROADMAP A4).
 
 Data artifacts consumed (same contracts as the reference):
   * image_caption_mapping.json: {doc_id: {idx: {url, cap}}}
@@ -153,7 +153,7 @@ class VOADescriptionDataset(ExampleDataset):
         load_sr: bool = False,
     ):
         if load_sr:
-            raise NotImplementedError("load_sr is not ported yet (ROADMAP A8)")
+            raise NotImplementedError("load_sr is not ported yet (ROADMAP A4)")
         self.image_size = image_size
         self.uint8_images = bool(uint8_images)
         self.contrastive_loss = contrastive_loss

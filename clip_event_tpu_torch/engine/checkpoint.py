@@ -11,7 +11,7 @@ state_dict, perf, optimizer}, with the params as an OpenAI-named state dict
 without loading the tensors. A mid-epoch save (`save_steps`, `max_steps`,
 SIGTERM) overwrites the epoch's file: the latest state is what a resume
 wants. Every write is synchronous; the JAX package's orbax directories are
-not read (ROADMAP A4).
+not read (ROADMAP A9: not to do, orbax imports JAX).
 """
 
 from __future__ import annotations

@@ -20,8 +20,10 @@ moment (`b1 * mu`) is taken in that type, b1 itself rounded to it (optax
 multiplies by a weakly typed Python float, which JAX casts to the array's
 type: b1 = 0.9 acts as 0.8984375 on a bf16 moment), and the rest in fp32. The step
 count and every scalar of the update stay on the device, so an update
-needs no host sync. Schedules are functions of the step count computed in
-fp32, as the JAX ones are traced.
+needs no host sync, and no tensor is made from host data inside one (the
+constants are Python scalars), so a CUDA graph can capture it. Schedules
+are functions of the step count computed in fp32, as the JAX ones are
+traced.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ _INT32_MAX = 2**31 - 1
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _rounded_to(x: float, dtype: torch.dtype) -> float:
+    """x rounded to `dtype`, as a Python float: the value a weakly typed
+    Python scalar takes when JAX multiplies an array of that type by it."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 def build_schedule(
@@ -64,8 +72,10 @@ def build_schedule(
         return torch.where(e < warmup_epochs, linear, torch.ones_like(linear))
 
     def decay_at(e):
-        ms = torch.tensor(milestones, dtype=torch.float32, device=e.device)
-        return lr_gamma ** (ms <= e).sum().float()
+        # the milestones passed <= e, counted against Python scalars: no
+        # tensor made from host data inside a step (a CUDA graph replays it)
+        passed = sum((e >= float(m)).float() for m in milestones)
+        return lr_gamma ** passed
 
     if name == "none":
         return lambda step: torch.full_like(_f32(step), base_lr)
@@ -145,12 +155,16 @@ class Optimizer:
         if name not in ("adam", "sgd"):
             raise ValueError(f"invalid optimizer {name!r}")
         self.name = name
-        self.schedule = schedule if callable(schedule) else (lambda _step, lr=schedule: _f32(lr))
+        self.schedule = schedule if callable(schedule) else (
+            lambda step, lr=schedule: torch.full_like(_f32(step), lr))
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.grad_clip_norm = grad_clip_norm
         self.moment_dtype = getattr(torch, moment_dtype) if moment_dtype else torch.float32
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
+        # the decays of the stored moment, rounded to its type once here
+        self._stored_b1 = _rounded_to(self.b1, self.moment_dtype)
+        self._stored_momentum = _rounded_to(momentum, self.moment_dtype)
 
     def init(self, params: dict) -> Dict[str, object]:
         leaves = tree_leaves(params)
@@ -168,10 +182,9 @@ class Optimizer:
         return state
 
     def _decayed(self, stored: List[torch.Tensor], decay: float) -> List[torch.Tensor]:
-        """decay·stored in the stored type, decay rounded to it, back in
-        fp32 (JAX's weak-type promotion)."""
-        d = torch.tensor(decay, dtype=self.moment_dtype, device=stored[0].device)
-        return [t.float() for t in torch._foreach_mul(stored, d)]
+        """decay·stored in the stored type, `decay` already rounded to it
+        (`_rounded_to`), back in fp32 (JAX's weak-type promotion)."""
+        return [t.float() for t in torch._foreach_mul(stored, decay)]
 
     def update(
         self, grads: dict, state: Dict[str, object], params: dict
@@ -190,7 +203,7 @@ class Optimizer:
         new_state: Dict[str, object] = {"count": count + 1}
         if self.name == "adam":
             mu = torch._foreach_add(
-                self._decayed(tree_leaves(state["mu"]), self.b1),
+                self._decayed(tree_leaves(state["mu"]), self._stored_b1),
                 torch._foreach_mul(g, 1.0 - self.b1),
             )
             nu = torch._foreach_add(
@@ -205,7 +218,7 @@ class Optimizer:
             new_state["mu"] = tree_unflatten(params, [t.to(self.moment_dtype) for t in mu])
             new_state["nu"] = tree_unflatten(params, nu)
         elif self.momentum:
-            trace = torch._foreach_add(self._decayed(tree_leaves(state["trace"]), self.momentum), g)
+            trace = torch._foreach_add(self._decayed(tree_leaves(state["trace"]), self._stored_momentum), g)
             upd = trace
             new_state["trace"] = tree_unflatten(params, [t.to(self.moment_dtype) for t in trace])
         else:

@@ -10,20 +10,24 @@ non-finite loss keeps the old params and optimizer state (`torch.where` on
 the device), so the host loop can read the flag whenever it next syncs and
 abort from an intact state; no step forces a host sync.
 
-The step updates `state.params` in place (the same leaf tensors stay the
-model's parameters from step to step) and returns the new state.
+The step updates `state.params` and `state.opt_state` in place (the same
+tensors stay the model's parameters and the optimizer's state from step to
+step) and returns the new state. `make_multi_step` runs K steps in one
+dispatch, on the card as a CUDA graph of the step replayed K times.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from clip_event_tpu_torch.engine.losses import contrastive_loss
 from clip_event_tpu_torch.engine.optim import Optimizer, global_norm, tree_leaves, tree_unflatten
 from clip_event_tpu_torch.models import clip as clip_model
+from clip_event_tpu_torch.models import layers
 from clip_event_tpu_torch.models.clip import CLIPConfig
+from clip_event_tpu_torch.ops import counters
 from clip_event_tpu_torch.ops.ot import alignment_loss
 
 
@@ -112,16 +116,15 @@ def _apply_update(
         grad_tree = tree_unflatten(state.params, grads)
         new_params, new_opt = optimizer.update(grad_tree, state.opt_state, state.params)
         finite = torch.isfinite(total)
+        # every leaf of the state, the step count included, is written in
+        # place: a CUDA graph replay reads the buffers the last one wrote
         for p, new in zip(tree_leaves(state.params), new_params):
             p.copy_(torch.where(finite, new, p))
-        opt_state = {}
-        for key, new in new_opt.items():
-            old = state.opt_state[key]
-            if isinstance(new, dict):
-                kept = [torch.where(finite, n, o) for n, o in zip(tree_leaves(new), tree_leaves(old))]
-                opt_state[key] = tree_unflatten(new, kept)
-            else:
-                opt_state[key] = torch.where(finite, new, old)
+        for key, old in state.opt_state.items():
+            new = new_opt[key]
+            pairs = zip(tree_leaves(old), tree_leaves(new)) if isinstance(old, dict) else [(old, new)]
+            for o, n in pairs:
+                o.copy_(torch.where(finite, n, o))
         # pre-clip global gradient norm, the training-health signal
         metrics = {
             "loss": total.detach(),
@@ -129,7 +132,7 @@ def _apply_update(
             "grad_norm": global_norm(grads),
             **{k: v.detach() for k, v in loss_dict.items()},
         }
-    return TrainState(state.params, opt_state, state.step + 1), metrics
+    return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
 
 def make_train_step(
@@ -155,6 +158,115 @@ def make_train_step(
         return _apply_update(state, _grads(total, state.params), total, loss_dict, optimizer)
 
     return train_step
+
+
+def make_multi_step(cfg: CLIPConfig, optimizer: Optimizer, num_steps: int, **step_kwargs):
+    """K = `num_steps` training steps in one dispatch (JAX's
+    `make_multi_step`, a `lax.scan` there). Returns `(many, many_fixed)`:
+    `many(state, batches)` takes a stack whose fields have a leading [K]
+    axis (or one batch, which every step then takes, as JAX's `stacked`
+    check decides by that axis), `many_fixed(state, batch)` runs K steps on
+    one batch. Both return `(state, metrics)`, each metric stacked as [K],
+    and run `make_train_step`'s step function with these `step_kwargs`: the
+    same loss surface (`alignment` too) and the same metrics.
+
+    On the CPU that is K calls of the step. On a CUDA device the step is a
+    CUDA graph (`_CapturedStep`) replayed K times: each replay copies its
+    batch into the graph's input buffers, replays the whole step (forward,
+    `autograd.grad`, clip, update, non-finite freeze) on the state's own
+    tensors and copies the step's metrics into row j of the outputs, with
+    no host sync. A graph is captured on the first dispatch of each key
+    (the per-step batch's fields, shapes, dtypes and device, the state's
+    tensors, the process-wide LayerNorm choice): that dispatch runs its
+    first step eagerly, which warms up what a capture must not do for the
+    first time, then captures, then replays K - 1 times. A capture or
+    replay that fails raises; nothing falls back to the eager step."""
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    step_fn = make_train_step(cfg, optimizer, **step_kwargs)
+    graphs: Dict[tuple, _CapturedStep] = {}
+
+    def run(state: TrainState, batches: Dict[str, torch.Tensor], stacked: bool):
+        def batch_at(j):
+            return {k: v[j] for k, v in batches.items()} if stacked else batches
+
+        if tree_leaves(state.params)[0].device.type != "cuda":
+            rows = []
+            for j in range(num_steps):
+                state, m = step_fn(state, batch_at(j))
+                rows.append(m)
+            return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
+        first = batch_at(0)
+        key = _graph_key(state, first)
+        graph, j0, out = graphs.get(key), 0, None
+        if graph is None:
+            state, m = step_fn(state, first)
+            out = {k: v.new_empty((num_steps,) + tuple(v.shape)) for k, v in m.items()}
+            for k, v in m.items():
+                out[k][0].copy_(v)
+            graph = graphs[key] = _CapturedStep(step_fn, state, first)
+            j0 = 1
+        metrics = graph.metrics
+        if out is None:
+            out = {k: v.new_empty((num_steps,) + tuple(v.shape)) for k, v in metrics.items()}
+        for j in range(j0, num_steps):
+            graph.replay(batch_at(j) if stacked or j == j0 else None)
+            for k, v in metrics.items():
+                out[k][j].copy_(v)
+        return state._replace(step=state.step + num_steps - j0), out
+
+    def many(state: TrainState, batches: Dict[str, torch.Tensor]):
+        if batches is None:
+            raise ValueError("pass a [K, ...] batch stack or a single batch")
+        stacked = next(iter(batches.values())).shape[0] == num_steps
+        return run(state, batches, stacked)
+
+    def many_fixed(state: TrainState, batch: Dict[str, torch.Tensor]):
+        return run(state, batch, False)
+
+    # the captured steps by key, for a caller that replays or profiles one
+    many.graphs = many_fixed.graphs = graphs
+    return many, many_fixed
+
+
+def _graph_key(state: TrainState, batch: Dict[str, torch.Tensor]) -> tuple:
+    """What a captured step is valid for: the batch's fields, shapes, dtypes
+    and device, the state's tensors (a graph writes the ones it captured)
+    and the process-wide LayerNorm choice (`transformer` reads it)."""
+    fields = tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items()))
+    buffers = tuple(t.data_ptr() for t in tree_leaves(state.params) + tree_leaves(state.opt_state))
+    return fields, buffers, layers._resolve_ln()
+
+
+class _CapturedStep:
+    """One train step captured as a CUDA graph (`torch.cuda.graph`, its own
+    memory pool) over input buffers of the batch's shape, on the tensors of
+    the state it was captured with. `metrics` are the graph's output
+    tensors, which each replay rewrites. The kernel wrappers count during
+    the capture, which launches nothing: those counts are taken as one
+    replay's launches (`launches`), put back after the capture, and added
+    to the counts once a replay (`ops.counters`)."""
+
+    def __init__(self, step_fn, state: TrainState, batch: Dict[str, torch.Tensor]):
+        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        before = counters.snapshot()
+        with torch.cuda.graph(self.graph):
+            _, self.metrics = step_fn(state, self.inputs)
+        after = counters.snapshot()
+        counters.restore(before)
+        self.launches = {k: after[k] - before[k] for k in after}
+
+    def replay(self, batch: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """Copy `batch` (None: the last one stays) into the inputs and run
+        the step once; returns the metrics tensors."""
+        if batch is not None:
+            for k, v in batch.items():
+                self.inputs[k].copy_(v)
+        self.graph.replay()
+        counters.add(self.launches)
+        return self.metrics
 
 
 def make_accum_step(

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -121,6 +121,19 @@ def cast_params(params: dict, dtype=torch.bfloat16) -> dict:
     return cast(params, False)
 
 
+_NORMALIZE_CONSTANTS: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _normalize_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CLIP's mean and std on `device`, copied there once: a train step
+    makes no tensor from host data, so a CUDA graph can capture it."""
+    consts = _NORMALIZE_CONSTANTS.get(device)
+    if consts is None:
+        consts = _NORMALIZE_CONSTANTS[device] = (
+            torch.as_tensor(CLIP_MEAN, device=device), torch.as_tensor(CLIP_STD, device=device))
+    return consts
+
+
 def encode_image(
     params: dict,
     cfg: CLIPConfig,
@@ -136,8 +149,7 @@ def encode_image(
     fp32, the exact ops of `data.transform.normalize`."""
     _require_vit(cfg)
     if images.dtype == torch.uint8:
-        mean = torch.as_tensor(CLIP_MEAN, device=images.device)
-        std = torch.as_tensor(CLIP_STD, device=images.device)
+        mean, std = _normalize_constants(images.device)
         images = (images.float() / 255.0 - mean) / std
     return vit_encode(
         params["visual"], images, cfg.vision_patch_size, cfg.vision_heads,
@@ -279,7 +291,8 @@ def sim_entity(
         outs = []
         for i in range(c):
             xc = x[:, i * k : (i + 1) * k].reshape((B * k,) + tuple(x.shape[2:]))
-            outs.append(checkpoint(encode_fn, xc, use_reentrant=False) if recompute else encode_fn(xc))
+            outs.append(checkpoint(encode_fn, xc, use_reentrant=False, preserve_rng_state=False)
+                        if recompute else encode_fn(xc))
         out = torch.stack(outs).reshape(c, B, k, -1)  # [c, B, k, E]
         return out.transpose(0, 1).reshape(B, node_axis_len, -1)
 

@@ -24,10 +24,24 @@ einsum path; in bf16 the plain versions keep the probabilities in fp32 as
 the JAX kernel path does, the tensor-core variants of K1 and K2 round them
 to bf16 before P·V as the JAX einsum path does.
 
-`remat` (the JAX package's `transformer(..., remat=)`): True or "full"
+`remat` (the JAX package's `transformer(..., remat=)`, its
+`_REMAT_POLICIES`): False saves every activation; True or "full"
 recomputes each block in the backward pass (`torch.utils.checkpoint`, the
-counterpart of `jax.checkpoint(..., nothing_saveable)`); False saves every
-activation. The selective policies of the JAX package are not ported yet.
+counterpart of `jax.checkpoint(..., nothing_saveable)`); "dots" keeps the
+outputs of the matmul ops (mm, addmm, bmm, baddbmm) across the recompute
+and "dots_nobatch" only the unbatched ones (mm, addmm: the projections),
+through `create_selective_checkpoint_contexts` (`dots_saveable`,
+`dots_with_no_batch_dims_saveable`); the attention kernels are
+`autograd.Function`s launched through ctypes, not dispatcher ops, so they
+are recomputed there, as JAX recomputes a `pallas_call` under its dot
+policies. "attn" keeps only each block's attention-core output (JAX's
+`save_only_these_names("attn_core_out")`) and the [B, H, S] log-sum-exp
+the tensor-core backwards read: `_AttentionSaved` keeps the block input,
+that output and the lse, and its backward recomputes `ln_1` and the QKV
+projection from the input and runs the core's backward on them
+(`ops.attention.attention_core_bwd`); the rest of the block is
+checkpointed from (input, attention output). The attention forward runs
+once a step there, twice under "full". An unknown name raises ValueError.
 
 `ln` selects the LayerNorm of a residual block's two norms (the JAX
 package's `transformer(..., ln=)`): "xla" (the default) runs `layer_norm`
@@ -51,18 +65,25 @@ abs-max of every dense input for static int8 calibration.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from clip_event_tpu_torch.ops import attention as A
 from clip_event_tpu_torch.ops import ln as LN
 from clip_event_tpu_torch.ops.attention import IMPLS
 from clip_event_tpu_torch.ops.quant import QuantWeight, quantized_linear
 
-# the JAX package's selective remat policies (`layers.py:470-475`)
-_UNPORTED_REMAT = ("attn", "dots", "dots_nobatch")
+# the JAX package's remat policies (`layers.py:465-475`); "dots" and
+# "dots_nobatch" keep the outputs of these ops across the recompute
+REMAT_POLICIES = ("full", "dots", "dots_nobatch", "attn")
+_aten = torch.ops.aten
+_SAVED_OPS = {
+    "dots": [_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default],
+    "dots_nobatch": [_aten.mm.default, _aten.addmm.default],
+}
 
 
 def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -125,7 +146,7 @@ def set_ln_impl(impl: str, mesh=None) -> None:
     if impl not in LN_IMPLS:
         raise ValueError("ln impl must be 'xla' or 'pallas'")
     if mesh is not None:
-        raise NotImplementedError("set_ln_impl(mesh=...) is not ported yet (ROADMAP A11)")
+        raise NotImplementedError("set_ln_impl(mesh=...) is not ported yet (ROADMAP A6)")
     _LN_IMPL = impl
 
 
@@ -238,16 +259,9 @@ def attention_core(
     if impl != "kernel":
         return A.attend(qkv, attn_bias, num_heads, scale, impl)
     B, S, W3 = qkv.shape
-    W = W3 // 3
-    if S <= A.MAX_SEQ and W // num_heads <= A.MAX_HEAD_DIM:
+    if A.core_kernel(S, W3 // 3, num_heads) == "k1":
         return A.fused_attention_qkv(qkv, attn_bias, num_heads, scale)
-    if A.head_grid_supported(S, W, num_heads):
-        return A.fused_attention_qkv_headgrid(qkv, attn_bias, num_heads, scale)
-    raise ValueError(
-        f"no attention kernel takes S={S}, W={W}, H={num_heads}: K1 needs S <= {A.MAX_SEQ} "
-        f"and head_dim <= {A.MAX_HEAD_DIM}; K2 needs W % {A.HG_LANES} == 0 and head_dim "
-        f"dividing {A.HG_LANES} (impl='plain' runs any shape)"
-    )
+    return A.fused_attention_qkv_headgrid(qkv, attn_bias, num_heads, scale)
 
 
 def residual_block(
@@ -275,6 +289,13 @@ def residual_block(
     a = multi_head_attention(
         _ln_apply(x, params["ln_1"], ln_plan), params["attn"], num_heads, attn_bias, impl, attn_stats
     )
+    return _block_tail(x, a, params, ln_plan, mlp_stats)
+
+
+def _block_tail(x: torch.Tensor, a: torch.Tensor, params: dict, ln_plan: str,
+                mlp_stats: Optional[dict] = None) -> torch.Tensor:
+    """A block after its attention (`a`, out-projected): the residual add +
+    `ln_2`, then the QuickGELU MLP and its residual add."""
     x, h = _add_ln_apply(x, a, params["ln_2"], ln_plan)
     if mlp_stats is not None:
         mlp_stats["fc_w"] = _absmax(h)
@@ -284,24 +305,87 @@ def residual_block(
     return x + linear(h, params["mlp"]["proj_w"], params["mlp"]["proj_b"])
 
 
+def _project(x, ln_scale, ln_bias, qkv_w, qkv_b, ln_plan: str) -> torch.Tensor:
+    """ln_1 → the packed QKV projection of one block."""
+    return linear(_ln_apply(x, {"scale": ln_scale, "bias": ln_bias}, ln_plan), qkv_w, qkv_b)
+
+
+class _AttentionSaved(torch.autograd.Function):
+    """ln_1 → QKV projection → attention core of one block under remat
+    "attn": saves the block input, the ln_1 and projection params, the
+    core's output and its lse (`ops.attention.attention_core_fwd`), not the
+    [B, S, 3W] projection. The backward recomputes ln_1 and the projection
+    from the input with autograd on, runs the core's backward on the saved
+    output and lse (`attention_core_bwd`; the plain backward for impl
+    "plain" and "rounded") and takes the projection's and ln_1's gradients
+    from there. The attention forward runs once."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, attn_bias, num_heads, impl, ln_plan):
+        ctx.num_heads, ctx.impl, ctx.ln_plan = num_heads, impl, ln_plan
+        ctx.scale = (x.shape[-1] // num_heads) ** -0.5
+        qkv = _project(x, ln_scale, ln_bias, qkv_w, qkv_b, ln_plan)
+        out, lse = A.attention_core_fwd(qkv, attn_bias, num_heads, ctx.scale, impl)
+        ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, attn_bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        x, ln_scale, ln_bias, qkv_w, qkv_b, attn_bias, out, lse = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((x, ln_scale, ln_bias, qkv_w, qkv_b), needs)]
+        with torch.enable_grad():
+            qkv = _project(*inputs, ctx.ln_plan)
+        dqkv = A.attention_core_bwd(qkv.detach(), attn_bias, do, ctx.num_heads, ctx.scale,
+                                    out, lse, ctx.impl)
+        wanted = [t for t, need in zip(inputs, needs) if need]
+        grads = iter(torch.autograd.grad(qkv, wanted, dqkv) if wanted else ())
+        return (*(next(grads) if need else None for need in needs), None, None, None, None)
+
+
+def _attn_tail(x, out, params, ln_plan):
+    """The block from (input, attention-core output) on."""
+    a = linear(out, params["attn"]["out_w"], params["attn"]["out_b"])
+    return _block_tail(x, a, params, ln_plan)
+
+
+def _remat_block(x, params, num_heads, attn_bias, impl, ln, policy: Optional[str]):
+    """One residual block under a `remat_policy` (None: no recompute)."""
+    if policy is None:
+        return residual_block(x, params, num_heads, attn_bias, impl, None, ln)
+    if policy == "attn":
+        plan = _block_ln_plan(ln, None)
+        out = _AttentionSaved.apply(
+            x, params["ln_1"]["scale"], params["ln_1"]["bias"], params["attn"]["qkv_w"],
+            params["attn"]["qkv_b"], attn_bias, num_heads, impl, plan)
+        return checkpoint(_attn_tail, x, out, params, plan, use_reentrant=False,
+                          preserve_rng_state=False)
+    kw = {}
+    if policy in _SAVED_OPS:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _SAVED_OPS[policy])
+    # nothing in a block draws random numbers: no RNG state to keep (and a
+    # CUDA graph capture may not read the generator's)
+    return checkpoint(residual_block, x, params, num_heads, attn_bias, impl, None, ln,
+                      use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer i of a stacked param tree; a QuantWeight slices its q, scale
     and act_scale ([L] → one scalar)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _remat_enabled(remat) -> bool:
-    """False for no remat, True for full per-block recompute; raises for the
-    JAX package's selective policies, which are not ported yet."""
-    if remat in (False, None, 0):
-        return False
-    if remat is True or remat == "full":
-        return True
-    if remat in _UNPORTED_REMAT:
-        raise NotImplementedError(
-            f"remat policy {remat!r} is not ported yet (ROADMAP A2): use true/'full' or false"
-        )
-    raise ValueError(f"remat mode {remat!r}; options: True, 'full', False")
+def remat_policy(remat) -> Optional[str]:
+    """None for no remat (a false value), else the policy's name: True is
+    "full"; a name not in REMAT_POLICIES raises ValueError (JAX
+    `layers.py:549-552`)."""
+    if not remat:
+        return None
+    mode = "full" if remat is True else str(remat)
+    if mode not in REMAT_POLICIES:
+        raise ValueError(f"remat mode {mode!r}; options: {list(REMAT_POLICIES)}")
+    return mode
 
 
 def transformer(
@@ -314,17 +398,18 @@ def transformer(
     ln: Optional[str] = None,
 ) -> torch.Tensor:
     """Run the stack of residual blocks over the leading L axis of the params,
-    each block recomputed in the backward pass when `remat` is on and
-    autograd is recording. `ln` None takes `set_ln_impl`'s choice, `impl`
-    None `set_attention_impl`'s."""
+    each block under the `remat` policy (module docstring) when autograd is
+    recording. `ln` None takes `set_ln_impl`'s choice, `impl` None
+    `set_attention_impl`'s."""
     if ln is None:
         ln = _resolve_ln()
     impl = _resolve_attention(impl)
-    recompute = _remat_enabled(remat) and torch.is_grad_enabled()
+    policy = remat_policy(remat)
+    if not torch.is_grad_enabled():
+        policy = None
     n_layers = stacked_params["attn"]["qkv_w"].shape[0]
     for i in range(n_layers):
-        args = (x, _layer(stacked_params, i), num_heads, attn_bias, impl, None, ln)
-        x = checkpoint(residual_block, *args, use_reentrant=False) if recompute else residual_block(*args)
+        x = _remat_block(x, _layer(stacked_params, i), num_heads, attn_bias, impl, ln, policy)
     return x
 
 

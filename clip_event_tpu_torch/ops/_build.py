@@ -11,13 +11,16 @@ imports every module on a machine with no `nvcc`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE, "csrc")
@@ -33,6 +36,9 @@ HEADER_SUFFIX = ".cuh"
 # spills per kernel, from -Xptxas -v)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
+# (name, symbol) → (library, entry point with its argument types set)
+_ENTRIES: Dict[Tuple[str, str], tuple] = {}
+_NO_CONTEXT = contextlib.nullcontext()
 
 
 def _nvcc() -> str:
@@ -100,13 +106,27 @@ def load(name: str) -> ctypes.CDLL:
 
 def entry(name: str, symbol: str, argtypes):
     """(library, C entry point `symbol` of `csrc/<name>.cu`) with its
-    argument types set: every entry point returns a CUDA error code."""
-    lib = load(name)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, fn
+    argument types set: every entry point returns a CUDA error code.
+    Resolved once; later calls read it from a table (a wrapper asks on every
+    launch)."""
+    found = _ENTRIES.get((name, symbol))
+    if found is None:
+        lib = load(name)
+        fn = getattr(lib, symbol)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        found = _ENTRIES[name, symbol] = (lib, fn)
+    return found
+
+
+def on_device(device: torch.device):
+    """The context a launch on CUDA `device` needs: `torch.cuda.device` where
+    another device is current, else none (entering it costs host time on
+    every call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _NO_CONTEXT
+    return torch.cuda.device(device)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

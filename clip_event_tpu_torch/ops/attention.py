@@ -420,7 +420,7 @@ def _launch_fwd(qkv, bias, num_heads, scale, with_lse: bool, head_grid: bool):
         _check_aligned(variant, out=out)
         if with_lse:
             lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
+    with _build.on_device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = fn(
             qkv.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
@@ -464,7 +464,7 @@ def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> t
         _check_aligned(variant, out=out, dqkv=dqkv)
     else:
         out = lse = None
-    with torch.cuda.device(qkv.device):
+    with _build.on_device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         code = fn(
             qkv.data_ptr(), _ptr(bias), do.data_ptr(), _ptr(out), _ptr(lse), dqkv.data_ptr(),
@@ -632,6 +632,62 @@ def fused_attention_qkv_headgrid(
     return _HeadGridAttention.apply(qkv, bias, num_heads, float(scale))
 
 
+def core_kernel(seq_len: int, width: int, num_heads: int) -> str:
+    """Which kernel pair takes the attention core at this shape, by shape
+    alone (JAX `layers.py:285-311`): "k1" where S <= 128 and head_dim <=
+    128, else "k2" where `head_grid_supported`, else a ValueError naming
+    the shape. The JAX package sends that last case to its einsum path;
+    here it raises on every device, so a CPU run shows what a card run
+    would do. No CLIP preset reaches it."""
+    if seq_len <= MAX_SEQ and width // num_heads <= MAX_HEAD_DIM:
+        return "k1"
+    if head_grid_supported(seq_len, width, num_heads):
+        return "k2"
+    raise ValueError(
+        f"no attention kernel takes S={seq_len}, W={width}, H={num_heads}: K1 needs S <= {MAX_SEQ} "
+        f"and head_dim <= {MAX_HEAD_DIM}; K2 needs W % {HG_LANES} == 0 and head_dim "
+        f"dividing {HG_LANES} (impl='plain' runs any shape)"
+    )
+
+
+def attention_core_fwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
+    impl: str = "kernel",
+):
+    """The attention core's forward outside autograd, as (out, lse): with
+    impl "kernel" the forward of the pair `core_kernel` picks, asked for
+    its lse (`fused_attention_qkv_fwd` / `fused_attention_qkv_headgrid_fwd`
+    with `with_lse`); with "plain" or "rounded" the plain version (lse
+    None). `attention_core_bwd` takes both back: the split of remat "attn"
+    (`models.layers`), which keeps them across the block's recompute."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    if impl != "kernel":
+        return fused_attention_qkv_plain(
+            qkv, bias, num_heads, scale, mma_rounding=_plain_rounding(impl, qkv, num_heads)), None
+    fwd = fused_attention_qkv_fwd if core_kernel(qkv.shape[1], qkv.shape[2] // 3, num_heads) == "k1" \
+        else fused_attention_qkv_headgrid_fwd
+    return fwd(qkv, bias, num_heads, scale, with_lse=True)
+
+
+def attention_core_bwd(
+    qkv: torch.Tensor, bias: Optional[torch.Tensor], do: torch.Tensor, num_heads: int,
+    scale: float, out: torch.Tensor, lse: Optional[torch.Tensor], impl: str = "kernel",
+) -> torch.Tensor:
+    """dqkv of the attention core from `attention_core_fwd`'s (out, lse):
+    the backward of the same pair, which reads them on its tensor-core
+    variants (`fused_attention_qkv_bwd` / `fused_attention_qkv_headgrid_bwd`),
+    or the plain backward for "plain" and "rounded"."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    if impl != "kernel":
+        return fused_attention_qkv_bwd_plain(
+            qkv, bias, do, num_heads, scale, mma_rounding=_plain_rounding(impl, qkv, num_heads))
+    bwd = fused_attention_qkv_bwd if core_kernel(qkv.shape[1], qkv.shape[2] // 3, num_heads) == "k1" \
+        else fused_attention_qkv_headgrid_bwd
+    return bwd(qkv, bias, do, num_heads, scale, out, lse)
+
+
 def attend(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int, scale: float,
     impl: str = "kernel",
@@ -780,7 +836,7 @@ def _launch_mega(x, ln_scale, ln_bias, qkv_w, qkv_b, bias, num_heads, scale, eps
     bias = _kernel_bias(bias)
     lib, fn = _build.entry(MEGA_KERNEL, "clip_ln_qkv_attention", _MEGA_ARGS)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), wb.data_ptr(), _ptr(bias),

@@ -167,7 +167,7 @@ def _launch_fwd(x, delta, scale, bias, eps):
     y = torch.empty_like(x)
     xsum = None if delta is None else torch.empty_like(x)
     g, b = _vec(scale), _vec(bias)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), _ptr(delta), g.data_ptr(), b.data_ptr(), _ptr(xsum), y.data_ptr(),
                   x.numel() // w, w, float(eps), _DTYPES[x.dtype], stream)
@@ -198,7 +198,7 @@ def _launch_bwd(x, scale, dy, dx_out, eps):
     partial = torch.empty((blocks, 2, w), dtype=torch.float32, device=x.device)
     dgb = torch.empty((2, w), dtype=torch.float32, device=x.device)
     g = _vec(scale)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), g.data_ptr(), dy.data_ptr(), _ptr(dx_out), dx.data_ptr(),
                   partial.data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),

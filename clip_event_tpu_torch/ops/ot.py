@@ -37,6 +37,10 @@ MAX_NODES = 128  # the block variant holds two [N, M] fp32 matrices in shared me
 WARP_MAX_ENTITIES = 32
 WARP_MAX_OBJECTS = 32
 IPOT_VARIANTS = ("block", "warp")  # the C entry's variant codes 0 and 1
+# clip_ipot(cost, x_pad, y_pad, x_len, y_len, plan, B, M, N, beta, iterations,
+# k, variant, stream)
+_IPOT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p]
 # "auto" takes the kernel from this many nodes on both axes. On an NVIDIA
 # H100 80GB HBM3 (700 W) the kernel beat the plain solver at every shape
 # chip_smoke.py times, from finetune_ot's (64, 16, 7) (0.08 ms against
@@ -146,14 +150,9 @@ def ipot_kernel(
     args = [cost.float().contiguous(), x_pad.to(torch.bool).contiguous(),
             y_pad.to(torch.bool).contiguous(), x_len.float().contiguous(), y_len.float().contiguous()]
     plan = torch.empty((B, N, M), dtype=torch.float32, device=cost.device)
-    lib = _build.load(KERNEL)
-    fn = lib.clip_ipot
-    if fn.argtypes is None:
-        _P, _I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
-        fn.restype = ctypes.c_int
+    lib, fn = _build.entry(KERNEL, "clip_ipot", _IPOT_ARGS)
     variant = IPOT_VARIANTS.index(ipot_variant(M, N))
-    with torch.cuda.device(cost.device):
+    with _build.on_device(cost.device):
         stream = torch.cuda.current_stream(cost.device).cuda_stream
         code = fn(*(t.data_ptr() for t in args), plan.data_ptr(), B, M, N, float(beta),
                   int(iterations), int(k), variant, stream)

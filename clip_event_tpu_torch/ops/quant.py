@@ -252,7 +252,7 @@ def quantize_rows(x: torch.Tensor, act_scale: Optional[torch.Tensor] = None):
     xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
     rs = torch.empty((M,), dtype=torch.float32, device=x.device)
     lib, fn = _build.entry(KERNEL, "clip_quant_rows", _ROWS_ARGS)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         code = fn(x.data_ptr(), None if act_scale is None else act_scale.data_ptr(),
                   xq.data_ptr(), rs.data_ptr(), M, K, Kp, _DTYPES[x.dtype], _stream(x))
     _build.check(lib, code, f"{KERNEL} row pass")
@@ -295,7 +295,7 @@ def quantized_gemm(
         bias = bias.to(device=xq.device, dtype=torch.float32).contiguous()
     y = torch.empty((M, N), dtype=dtype, device=xq.device)
     lib, fn = _build.entry(KERNEL, "clip_quant_gemm", _GEMM_ARGS)
-    with torch.cuda.device(xq.device):
+    with _build.on_device(xq.device):
         code = fn(xq.data_ptr(), lda, row_scale.data_ptr(), rows.data_ptr(), ldq, scale.data_ptr(),
                   None if bias is None else bias.data_ptr(), y.data_ptr(), M, K, N, _DTYPES[dtype],
                   _stream(xq))
@@ -329,7 +329,7 @@ def quantized_matmul(
     rs = torch.empty((M,), dtype=torch.float32, device=x.device)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib, fn = _build.entry(KERNEL, "clip_quant_matmul", _MATMUL_ARGS)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         code = fn(
             x.data_ptr(), None if act_scale is None else act_scale.data_ptr(), xq.data_ptr(),
             rs.data_ptr(), rows.data_ptr(), ldq, scale.data_ptr(),

@@ -6,8 +6,9 @@ single device:
 The config is the JAX CLI's (`config.py`). It trains from a random init
 (`seed`), from an OpenAI / reference `.pth` (`jit: true` + `begin_ckpt`), or
 resumes a checkpoint of this port (`begin_ckpt`), mid-epoch resumes
-included. Length buckets, dedupe-encode, gradient accumulation,
-`max_steps`, `save_steps`, `use_pallas_ln`, the SIGTERM checkpoint, the NaN abort with its
+included. Length buckets, dedupe-encode, gradient accumulation, K steps a
+dispatch (`steps_per_dispatch`: a CUDA graph of the step on the card),
+the remat policies, `max_steps`, `save_steps`, `use_pallas_ln`, the SIGTERM checkpoint, the NaN abort with its
 `nan_debug_step*.json` artifact and per-epoch zero-shot matching
 validation work as in the JAX CLI; `config.json` and `scalars.jsonl` are
 written beside the logs. The default device is the card; with no card and
@@ -42,6 +43,7 @@ from clip_event_tpu_torch.engine.train_step import (
     TrainState,
     create_train_state,
     make_accum_step,
+    make_multi_step,
     make_train_step,
 )
 from clip_event_tpu_torch.models import layers
@@ -68,8 +70,8 @@ def train(
     """Run the epochs `begin_epoch .. max_epoch` of a validated config over
     `dataset`, from `params` (and a restored `opt_state` at `resume_step`).
     `on_step(global_step, metrics)` is called after each optimizer step is
-    dispatched, with the metrics still on the device. Returns the final
-    state."""
+    dispatched (with `steps_per_dispatch` K, K times after each dispatch),
+    with the metrics still on the device. Returns the final state."""
     device = resolve_device(device)
     task, ckpt_dir = cfg["task"], cfg["ckpt_dir"]
     begin_epoch = cfg["begin_epoch"] if begin_epoch is None else begin_epoch
@@ -106,10 +108,18 @@ def train(
     state = create_train_state(params, optimizer)
     if opt_state is not None:
         state = state._replace(opt_state=opt_state, step=resume_step)
-    if grad_accum > 1:
+    steps_per_dispatch = max(int(cfg["steps_per_dispatch"]), 1)
+    if steps_per_dispatch > 1:
+        # K optimizer steps in one dispatch: on the card a CUDA graph of the
+        # step, replayed K times over a stack of K loader batches
+        multi_step, _ = make_multi_step(mcfg, optimizer, steps_per_dispatch, **step_kwargs)
+    elif grad_accum > 1:
         accum_step = make_accum_step(mcfg, optimizer, grad_accum, **step_kwargs)
     else:
         train_step = make_train_step(mcfg, optimizer, **step_kwargs)
+    # loader batches stacked into one dispatch: K steps, or K microbatches
+    # of one step; a trailing partial stack is dropped, as in the JAX CLI
+    group = steps_per_dispatch if steps_per_dispatch > 1 else grad_accum
 
     global_step = resume_step
     resume_in_epoch = 0
@@ -209,19 +219,27 @@ def train(
                 recent_meta.append(
                     (global_step + len(buffer), [mm.get("image_id") for mm in meta])
                 )
-                if grad_accum > 1:
+                if group > 1:
                     buffer.append(batch)
-                    if len(buffer) < grad_accum:
+                    if len(buffer) < group:
                         continue
                     stacked = {k: torch.stack([b[k] for b in buffer]) for k in buffer[0]}
                     buffer = []
-                    state, metrics = accum_step(state, stacked)
+                    if steps_per_dispatch > 1:
+                        state, metrics_k = multi_step(state, stacked)
+                        dispatched = [{k: v[j] for k, v in metrics_k.items()}
+                                      for j in range(steps_per_dispatch)]
+                    else:
+                        state, metrics = accum_step(state, stacked)
+                        dispatched = [metrics]
                 else:
                     state, metrics = train_step(state, batch)
-                pending.append((global_step, metrics))
-                if on_step is not None:
-                    on_step(global_step, metrics)
-                global_step += 1
+                    dispatched = [metrics]
+                for metrics in dispatched:
+                    pending.append((global_step, metrics))
+                    if on_step is not None:
+                        on_step(global_step, metrics)
+                    global_step += 1
                 if len(pending) >= max(cfg["print_freq"], 1):
                     drain()
                 if step_hooks():

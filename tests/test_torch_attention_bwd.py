@@ -151,8 +151,21 @@ def test_remat_gives_the_same_gradients(impl):
 
 @pytest.mark.parametrize("policy", ["attn", "dots", "dots_nobatch"])
 def test_unported_remat_policies_raise(policy):
-    x = torch.zeros(1, 3, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.transformer(x, _stack(np.random.default_rng(0), 1, 64), 1, remat=policy)
+    """The selective policies, once refused, now run: the same output
+    as the saved-activation run and the same gradients within 1e-6 of each
+    one's largest element ("attn" takes the projection's gradient through a
+    second autograd pass, which sums in another order); an unknown name
+    still raises (tests/test_torch_remat.py holds each against JAX)."""
+    rng = np.random.default_rng(5)
+    params = _stack(rng, 2, 64)
+    leaf = params["attn"]["qkv_w"].requires_grad_(True)
+    x = torch.from_numpy(rng.normal(size=(3, 13, 64)).astype(np.float32)).requires_grad_(True)
+    runs = []
+    for remat in (False, policy):
+        out = TL.transformer(x, params, 2, TL.causal_mask(13, device="cpu"), remat=remat)
+        runs.append((out.detach(), torch.autograd.grad(out.square().sum(), [x, leaf])))
+    np.testing.assert_array_equal(runs[1][0].numpy(), runs[0][0].numpy())
+    for a, b in zip(runs[1][1], runs[0][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6 * np.abs(b.numpy()).max(), rtol=0)
     with pytest.raises(ValueError, match="remat mode"):
         TL.transformer(x, _stack(np.random.default_rng(0), 1, 64), 1, remat="everything")

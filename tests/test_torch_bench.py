@@ -73,9 +73,9 @@ def test_bench_images_option(capsys, images):
 def test_bench_module_reads_the_environment():
     """`BENCH_MODEL`, `BENCH_BATCH`, `BENCH_LN=pallas`, `BENCH_STEPS`,
     `BENCH_WARMUP`, `BENCH_REMAT` and `BENCH_CONTEXT_CAP`, as the JAX bench
-    reads them."""
+    reads them, and `BENCH_CALLS`."""
     env = dict(os.environ, BENCH_MODEL=MODEL, BENCH_BATCH="2", BENCH_LN="pallas", BENCH_STEPS="1",
-               BENCH_WARMUP="0", BENCH_REMAT="0", BENCH_CONTEXT_CAP="8")
+               BENCH_WARMUP="0", BENCH_REMAT="0", BENCH_CONTEXT_CAP="8", BENCH_CALLS="1")
     proc = subprocess.run([sys.executable, "-m", "clip_event_tpu_torch.bench", "--device", "cpu"],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -86,10 +86,23 @@ def test_bench_module_reads_the_environment():
     assert result["metric"] == "contrastive_pairs_per_sec_cpu" and result["value"] > 0
 
 
-def test_bench_presets_and_remat_note():
+def test_bench_presets_and_remat_note(capsys):
+    """The JAX bench's presets, remat policies and protocol (10 steps a
+    call, 3 timed calls after 1 warm-up call); `--remat` takes a policy
+    name and the line reports it by name, with no note."""
     assert bench.DEFAULT_BATCH == {"ViT-B/32": 384, "ViT-B/16": 96, "ViT-L/14": 64}
     assert (bench.NUM_POS, bench.NUM_NEG) == (1, 2)
-    assert bench.ATTN_REMAT_PRESETS == ("ViT-B/16", "ViT-L/14")
+    assert bench.DEFAULT_REMAT == {"ViT-B/32": "1", "ViT-B/16": "attn", "ViT-L/14": "attn"}
+    assert (bench.STEPS_PER_CALL, bench.MEASURE_CALLS, bench.WARMUP_CALLS) == (10, 3, 1)
+    assert bench.REMAT_CHOICES == ("0", "1", "full", "dots", "dots_nobatch", "attn")
+    assert bench.main(TINY + ["--remat", "attn", "--calls", "2"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[0])
+    assert (result["remat"], result["steps_per_call"], result["calls"], result["warmup_calls"]) == \
+        ("attn", 1, 2, 1)
+    assert (result["steps"], result["warmup_steps"]) == (2, 1)
+    assert not any("note" in k for k in result)
+    with pytest.raises(SystemExit):
+        bench.main(TINY + ["--remat", "offload"])
 
 
 def test_bench_needs_a_card_by_default():

@@ -242,7 +242,7 @@ def test_set_ln_impl_validates_resets_and_feeds_transformer():
     assert TL._resolve_ln() == "xla"
     with pytest.raises(ValueError, match="'xla' or 'pallas'"):
         TL.set_ln_impl("triton")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A6"):
         TL.set_ln_impl("pallas", mesh=object())
     assert TL._resolve_ln() == "xla"
     with pytest.raises(ValueError, match="ln impl"):
@@ -399,7 +399,7 @@ def test_use_pallas_ln_is_a_config_key():
     assert validate_config(BASE_CFG)["use_pallas_ln"] is False
     on = validate_config(dict(BASE_CFG, use_pallas_ln=True))
     assert on["use_pallas_ln"] is True and on == JC.validate_config(dict(BASE_CFG, use_pallas_ln=True))
-    with pytest.raises(ConfigError, match="ROADMAP A11"):  # the refusals that stay
+    with pytest.raises(ConfigError, match="ROADMAP A6"):  # the refusals that stay
         validate_config(dict(BASE_CFG, use_pallas_ln=True, tp=2))
 
 

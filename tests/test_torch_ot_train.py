@@ -252,7 +252,7 @@ def test_config_accepts_finetune_ot_and_refuses_the_rest():
     for key in ("use_pallas_ot", "max_objects", "max_entities", "max_events", "object_topk",
                 "object_detection_threshold", "alignment_chunks"):
         assert ours[key] == ref[key], key
-    for key, value, item in [("multiattention", True, "A8"), ("load_sr", True, "A8")]:
+    for key, value, item in [("multiattention", True, "A4"), ("load_sr", True, "A4")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(raw, **{key: value}))
     for bad in ({"load_object": False}, {"load_ie": False}, {"object_ontology_file": None}):

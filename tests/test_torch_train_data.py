@@ -21,6 +21,7 @@ from clip_event_tpu_torch.data.prefetch import device_prefetch  # noqa: E402
 from clip_event_tpu_torch.data.voa import VOADescriptionDataset  # noqa: E402
 from clip_event_tpu_torch.engine import checkpoint as CK  # noqa: E402
 from clip_event_tpu_torch.engine.optim import build_optimizer, tree_leaves  # noqa: E402
+from clip_event_tpu_torch.models import layers  # noqa: E402
 from clip_event_tpu_torch.models.clip import CLIPConfig, init_params  # noqa: E402
 from tests.fixtures import make_voa_fixture  # noqa: E402
 
@@ -63,7 +64,7 @@ def test_unported_channels_raise(voa):
     """The SR/bbox channel is the one not ported yet (the object and IE
     channels are held against JAX in tests/test_torch_ot_train.py)."""
     args = (voa["descriptions_json"], [voa["mapping_json"]], [voa["image_dir"]])
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         VOADescriptionDataset(*args, load_sr=True)
 
 
@@ -118,16 +119,26 @@ def test_config_defaults_and_refusals():
             "optimizer": "adam", "max_epoch": 1}
     ours, ref = TC.validate_config(base), JC.validate_config(base)
     assert ours == ref
-    for key, value, item in [("tp", 2, "A11"), ("pp", 2, "A11"), ("dcn_dp", 2, "A11"),
-                             ("zero", True, "A11"), ("fsdp", True, "A11"),
-                             ("multiattention", True, "A8"),
-                             ("image_cache", "/c", "A9"),
-                             ("load_sr", True, "A8"), ("dedupe_sr_texts", 8, "A8"), ("steps_per_dispatch", 4, "A2"),
-                             ("remat", "attn", "A2")]:
+    # the ROADMAP items that bring each refused part: multi-device A6, the
+    # SR channel and multiattention A4, the image cache A7, ResNet A2
+    for key, value, item in [("tp", 2, "A6"), ("pp", 2, "A6"), ("dcn_dp", 2, "A6"),
+                             ("zero", True, "A6"), ("fsdp", True, "A6"),
+                             ("multiattention", True, "A4"),
+                             ("image_cache", "/c", "A7"),
+                             ("load_sr", True, "A4"), ("dedupe_sr_texts", 8, "A4")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(base, **{key: value}))
-    with pytest.raises(TC.ConfigError, match="ROADMAP A6"):
+    with pytest.raises(TC.ConfigError, match="ROADMAP A2"):
         TC.model_config({"model": "RN50"})
+    with pytest.raises(TC.ConfigError, match="ROADMAP A2"):
+        TC.model_config({"model": {"embed_dim": 64, "image_resolution": 32, "vision_layers": [1, 1, 1, 1],
+                                   "vision_width": 64, "vision_patch_size": None, "context_length": 77,
+                                   "vocab_size": 512, "transformer_width": 64,
+                                   "transformer_heads": 1, "transformer_layers": 1}})
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        layers.set_ln_impl("xla", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        VOADescriptionDataset("d.json", [], [], load_sr=True)
     for bad in ({"constrastive_loss": "bce"}, {"batch_size": 0}, {"length_buckets": [80]},
                 {"lr_scheduler": "linear"}):
         with pytest.raises(TC.ConfigError):

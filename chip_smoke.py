@@ -3,9 +3,11 @@
 NVIDIA GPU: ViT-B/32 zero-shot serving and contrastive fine-tuning (with
 the plain LayerNorm and with the fused LayerNorm kernels of
 `use_pallas_ln`), ViT-L/14 serving and fine-tuning (and one ViT-B/16 step),
-the OT graph-alignment fine-tuning of `configs/finetune_ot.json` at
-ViT-B/32, int8 serving, the zero-shot evals, and the bench entry point and
-component bench.
+the OT graph-alignment fine-tuning of `configs/finetune_ot.json` and the
+full CLIP-Event fine-tuning of `configs/clip_event_full.json` (OT and
+local attention) at ViT-B/32, RN50 and RN50x4 serving and RN50
+fine-tuning, int8 serving, the zero-shot evals (GSR among them), and the
+bench entry point and component bench.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --only k1   # device, build and K1's kernel checks
@@ -17,6 +19,9 @@ component bench.
     python3 chip_smoke.py --only k3 k6 --old-csrc parent/clip_event_tpu_torch/csrc
     python3 chip_smoke.py --only graph   # device, build, the graphed B/32 step
     python3 chip_smoke.py --only b1      # device, build, the wrappers' host cost
+    # device, build, then those phases alone (any of train_full,
+    # serving_rn50, train_rn50, evals)
+    python3 chip_smoke.py --only train_full serving_rn50 train_rn50 evals
     # the same for an earlier tree's package unpacked under DIR
     python3 chip_smoke.py --only b1 --package-root DIR
 
@@ -115,6 +120,27 @@ Phases, each printing JSON lines:
               IPOT; bf16 at B=64 and fp32 at B=16); then the graphed step
               as in phase 5a: 4-step dispatches against eager steps bit for
               bit, and the eager step against a 10-step dispatch
+  8b. train_full  configs/clip_event_full.json's settings at ViT-B/32 full
+              width (64 images × 3 descriptions, finetune_ot's object and
+              entity channels, 8 boxes an image with role descriptions and
+              labels deduped to 256 unique rows, multiattention "desc_type"
+              with attention pooling; bf16, full remat, Adam at lr 1e-6)
+              through the train loop with 4 steps a dispatch: losses finite
+              (loss_ot, loss_bbox, loss_arg > 0), exact K1 and K3 launch
+              counts (the image batch encoded twice, the role texts twice),
+              a 4-step dispatch bit for bit against 4 eager steps with the
+              ms of each, a bf16 kernel step against the all-plain steps
+  8c. serving_rn50  RN50 and RN50x4 from seed 0 through the CLI's loader:
+              one batch of 64 images and of 64 token rows in fp32 and
+              bf16, exact counts (K1 12 a text batch, none an image
+              batch), text features against the plain attention's, image
+              features equal to them, images/s and texts/s; RN50 in int8:
+              K5 on the text tower's 49 dense layers, the image tower float,
+              cosine 0.999 against the all-plain path
+  8d. train_rn50  RN50 at 128 × 3 (the bench's batch), bf16, through the
+              train loop with 4 steps a dispatch, counted; a 4-step
+              dispatch bit for bit against 4 eager steps; a `sync_bn` step
+              (batch statistics) beside a frozen one, counted; pairs/s
   9. serving_int8  ViT-L/14, then ViT-B/32, from seed 0 through
               `evals.cli.load_model_from_cfg` in three modes: "int8",
               "int8_static" (synthetic calibration, 2 batches) and
@@ -137,7 +163,10 @@ Phases, each printing JSON lines:
               through K2, every dense layer through K5); metrics finite and
               in [0, 1], the expected keys, exact launch counts; then
               retrieval again with `"use_pallas_attention": false`: no
-              attention kernel launches, equal metrics, the choice put back
+              attention kernel launches, equal metrics, the choice put back;
+              GSR at ViT-B/32 with the value metrics (6 grounded roles, 6
+              frames), counted, and again with the plain attention: equal
+              metrics
 
   5b. train_ln  phase 5's workload through the train loop with
               `use_pallas_ln: true`: exact launch counts of K1 and of K4a,
@@ -240,6 +269,7 @@ from clip_event_tpu_torch.evals.cli import load_model_from_cfg
 from clip_event_tpu_torch.evals.common import Encoders
 from clip_event_tpu_torch.evals.matching import evaluate_matching, matching_metrics
 from clip_event_tpu_torch.models.clip import (
+    RN50,
     VIT_B16,
     VIT_B32,
     VIT_L14,
@@ -248,7 +278,7 @@ from clip_event_tpu_torch.models.clip import (
     init_params,
     l2_normalize,
 )
-from clip_event_tpu_torch.models import layers
+from clip_event_tpu_torch.models import layers, resnet
 from clip_event_tpu_torch.models.layers import causal_mask
 from clip_event_tpu_torch.ops import _build
 from clip_event_tpu_torch.ops import attention as attention_ops
@@ -1488,7 +1518,10 @@ def _read_shards(out_dir, entry):
 
 def vision_kernels(mcfg):
     """The attention kernels of the vision tower: K2 when its sequence
-    (grid² + CLS) is longer than K1's MAX_SEQ, else K1."""
+    (grid² + CLS) is longer than K1's MAX_SEQ, else K1; none in a ResNet
+    tower."""
+    if not mcfg.is_vit:
+        return None, None
     if mcfg.grid_size ** 2 + 1 > MAX_SEQ:
         return HG_KERNEL, HG_BWD_KERNEL
     return KERNEL, BWD_KERNEL
@@ -1498,7 +1531,8 @@ def serving_launches(mcfg, image_batches, text_batches):
     """Launches per kernel for encoding that many image and text batches:
     one forward per block of each tower per batch."""
     out = dict.fromkeys(COUNTERS, 0)
-    out[vision_kernels(mcfg)[0]] += mcfg.vision_layers * image_batches
+    if mcfg.is_vit:
+        out[vision_kernels(mcfg)[0]] += mcfg.vision_layers * image_batches
     out[KERNEL] += mcfg.transformer_layers * text_batches
     return out
 
@@ -1673,7 +1707,10 @@ def int8_launches(mcfg, image_batches, text_batches, float_towers=()):
     patch embed and the projection in the vision tower, the projection in
     the text tower), LAUNCHES_PER_CALL launches each."""
     out = serving_launches(mcfg, image_batches, text_batches)
-    dense = {"image": 4 * mcfg.vision_layers + 2, "text": 4 * mcfg.transformer_layers + 1}
+    # (a ResNet tower has no dense layer that quantizes: its convolutions
+    # and attention pool stay float)
+    dense = {"image": 4 * mcfg.vision_layers + 2 if mcfg.is_vit else 0,
+             "text": 4 * mcfg.transformer_layers + 1}
     calls = dense["image"] * image_batches
     if "text" not in float_towers:
         calls += dense["text"] * text_batches
@@ -1684,6 +1721,8 @@ def int8_launches(mcfg, image_batches, text_batches, float_towers=()):
 def weight_bytes(params) -> int:
     if isinstance(params, dict):
         return sum(weight_bytes(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(weight_bytes(v) for v in params)
     if isinstance(params, quant.QuantWeight):
         return sum(t.numel() * t.element_size() for t in (params.q, params.scale, params.act_scale)
                    if t is not None)
@@ -1839,15 +1878,15 @@ def _encoder_batches(n_items, batch):
 
 
 def phase_evals(out_root):
-    """The M2E2, VCR, VisualCOMET and retrieval CLIs through `evals.cli.run`
-    on synthetic annotation files: metrics finite and in [0, 1] (rates),
+    """The M2E2, VCR, VisualCOMET, retrieval and GSR CLIs through
+    `evals.cli.run` on synthetic annotation files: metrics finite and in [0, 1] (rates),
     the expected keys, and exact launch counts (Encoders pads every call to
     its fixed batch; M2E2 encodes the grid of each loader batch once more,
     unpadded)."""
     import contextlib
     import io
 
-    from clip_event_tpu_torch import eval_m2e2, eval_retrieval, eval_vcr, eval_visualcomet
+    from clip_event_tpu_torch import eval_gsr, eval_m2e2, eval_retrieval, eval_vcr, eval_visualcomet
     from clip_event_tpu_torch.evals.cli import run
 
     fx = _load_fixtures()
@@ -1948,6 +1987,27 @@ def phase_evals(out_root):
     check(layers._resolve_attention() == "kernel", "the eval put the attention choice back")
     check(results["eval_retrieval_plain_attention"]["metrics"] == results["eval_retrieval"]["metrics"],
           "retrieval metrics with the plain attention equal the kernel path's")
+    # GSR at ViT-B/32 with the noun value metrics: 6 images of 2 verbs, 6
+    # role rows an image (2 annotated, 1 with a gold box), 2 noun glosses;
+    # per loader batch the image encode, the grid encode and the role texts,
+    # then the nouns and the candidate verbs; again with the plain attention
+    p = fx.make_swig_fixture(os.path.join(root, "swig"))
+    sizes = _loader_batches(6, B)
+    gsr_cfg = {"model": "ViT-B/32", "anno_json": p["anno_json"], "image_dir": p["image_dir"],
+               "ontology_json": p["ontology_json"]}
+    gsr_keys = {"verb_top1", "verb_top5", "num_images", "grounding_acc", "grounded_args", "value",
+                "value_all", "grounded_value", "grounded_value_all", "value_roles", "value_frames"}
+    run_cli("eval_gsr", eval_gsr, gsr_cfg,
+            launches_for(VIT_B32, sum(_encoder_batches(b, B) for b in sizes) + len(sizes),
+                         1 + sum(_encoder_batches(6 * b, B) for b in sizes) + 1),
+            gsr_keys)
+    gsr = results["eval_gsr"]["metrics"]
+    check(gsr["num_images"] == 6 and gsr["grounded_args"] == 6 and gsr["value_frames"] == 6
+          and gsr["value_roles"] == 12, f"GSR counts {gsr}")
+    run_cli("eval_gsr_plain_attention", eval_gsr, dict(gsr_cfg, use_pallas_attention=False),
+            dict.fromkeys(COUNTERS, 0), gsr_keys)
+    check(results["eval_gsr_plain_attention"]["metrics"] == gsr,
+          "GSR metrics with the plain attention equal the kernel path's")
     emit({"phase": "evals", "batch_size": B, **results})
     return all_launches
 
@@ -2042,7 +2102,8 @@ def k1_bwd_launches(width, heads, dtype=torch.bfloat16):
     return bwd_launches_per_call(k1_variant(dtype, width // heads), width // heads)
 
 
-def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfloat16, remat="full"):
+def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfloat16, remat="full",
+                   multiattention=None):
     """Launches per kernel for `steps` train steps (bf16, or `dtype`) under
     full remat, or under the "attn" policy with `remat="attn"`.
     Each block's attention forward runs twice (forward, block recompute;
@@ -2060,21 +2121,28 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfl
     its forward three times (forward, chunk recompute, block recompute)
     when there is more than one chunk, twice when there is one (one fewer
     under "attn"); and one IPOT solve per step (tests/test_torch_ot_train.py
-    pins the rule on the CPU)."""
+    pins the rule on the CPU). With `multiattention` the image batch is
+    encoded once more (its grid tokens) and the role texts once ("desc")
+    or twice (descriptions and labels, "desc_type" and
+    "desc_type_text"), each encode counted as the towers' own. A ResNet
+    tower launches no kernel (its `vision_layers` is a tuple of stages)."""
     check(remat in ("full", "attn"), f"train_launches: remat {remat!r}")
     fwd_per_block = 1 if remat == "attn" else 2
     vis_f, vis_b = vision_kernels(mcfg)
     if vis_b == HG_BWD_KERNEL:
         vis_bwd_launches = HG_BWD_LAUNCHES_PER_CALL
-    else:
+    elif mcfg.is_vit:
         vis_bwd_launches = k1_bwd_launches(mcfg.vision_width, mcfg.vision_heads, dtype)
     text_bwd_launches = k1_bwd_launches(mcfg.transformer_width, mcfg.transformer_heads, dtype)
-    Lv, Lt = mcfg.vision_layers, mcfg.transformer_layers
+    Lv, Lt = (mcfg.vision_layers if mcfg.is_vit else 0), mcfg.transformer_layers
+    image_encodes = 2 if multiattention else 1
+    text_encodes = 1 + {None: 0, "desc": 1}.get(multiattention, 2)
     out = dict.fromkeys(COUNTERS, 0)
-    out[vis_f] += fwd_per_block * Lv
-    out[vis_b] += vis_bwd_launches * Lv
-    out[KERNEL] += fwd_per_block * Lt
-    out[BWD_KERNEL] += text_bwd_launches * Lt
+    if mcfg.is_vit:
+        out[vis_f] += fwd_per_block * Lv * image_encodes
+        out[vis_b] += vis_bwd_launches * Lv * image_encodes
+    out[KERNEL] += fwd_per_block * Lt * text_encodes
+    out[BWD_KERNEL] += text_bwd_launches * Lt * text_encodes
     if alignment:
         for kf, kb, n, L, c in (
                 (vis_f, vis_b, vis_bwd_launches, Lv, _chunks(OT_OBJECTS, OT_CHUNKS)),
@@ -2117,7 +2185,16 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
         "ckpt_dir": os.path.join(out_root, f"ckpt_{tag}"), **cfg_extra,
     })
     remat = layers.remat_policy(cfg["remat"])
-    watch = params["visual"]["transformer"]["attn"]["qkv_w"].detach().clone()
+    # a transformer weight the step must move: the vision tower's (ViT) or
+    # the text tower's (ResNet)
+    tower = ("visual", "transformer") if mcfg.is_vit else ("text_transformer",)
+
+    def watched(p):
+        for key in tower:
+            p = p[key]
+        return p["attn"]["qkv_w"].detach()
+
+    watch = watched(params).clone()
     metrics, events = {}, {}
 
     def on_step(step, m):
@@ -2134,13 +2211,14 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(sorted(metrics) == list(range(n_steps)), f"{tag} steps {sorted(metrics)}")
-    expected = train_launches(mcfg, n_steps, cfg["alignment"], cfg["use_pallas_ln"], remat=remat)
+    expected = train_launches(mcfg, n_steps, cfg["alignment"], cfg["use_pallas_ln"], remat=remat,
+                              multiattention=cfg["multiattention"])
     check(launches == expected, f"{tag} launches {launches} != {expected}")
     check(layers._resolve_ln() == "xla", f"{tag}: the train loop put the LayerNorm choice back")
     values = {k: [float(metrics[i][k]) for i in range(n_steps)]
               for k in metrics[0] if k != "finite"}
     check(all(np.isfinite(values["loss"])), f"{tag} losses finite {values['loss']}")
-    moved = (state.params["visual"]["transformer"]["attn"]["qkv_w"].detach() - watch).abs().max().item()
+    moved = (watched(state.params) - watch).abs().max().item()
     check(moved > 0, f"{tag}: the params changed")
     step_ms = [events[i - k].elapsed_time(events[i]) / k for i in range(warmup - 1 + k, n_steps, k)]
     emit({"phase": f"{tag}_launches", **{f"{name}_launches": v for name, v in launches.items()},
@@ -2157,14 +2235,20 @@ def _chance(batch, D):
     return math.log(batch * D) + math.log(batch)
 
 
-def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, **step_kwargs):
+def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, summed_keys=(),
+                      **step_kwargs):
     """One bf16 step on the kernel path and two on plain paths (plain
     attention as it is and with the kernels' roundings, "rounded"; with
     alignment the plain IPOT solver; the plain LayerNorm; the kernel path
     takes the LayerNorm kernels when `fused_ln`) from one state and batch:
     against "rounded", each of `keys` within BF16_STEP_TOL (abs) and
     grad_norm within BF16_STEP_TOL (relative); against "plain", each within
-    BF16_ROUNDING_TOL relative (of max(1, |plain|) for `keys`)."""
+    BF16_ROUNDING_TOL relative (of max(1, |plain|) for `keys`).
+    `summed_keys` are losses summed over the batch's images (the
+    local-attention terms, and a total that holds them): each is held at
+    the same tolerances relative to max(1, |reference|) against both
+    references. Every difference is emitted before a failed check
+    raises."""
     sched = build_schedule("none", 1e-6, 1)
     metrics = {}
     for impl in ("kernel", "rounded", "plain"):
@@ -2179,15 +2263,22 @@ def compare_bf16_step(mcfg, params, batch, keys=("loss",), fused_ln=False, **ste
     out = {"batch": batch["image"].shape[0], **metrics, "tol": BF16_STEP_TOL,
            "rounding_tol": BF16_ROUNDING_TOL}
     kernel = metrics["kernel"]
+    failed = []
     for ref, tol in (("rounded", BF16_STEP_TOL), ("plain", BF16_ROUNDING_TOL)):
-        for key in keys:
+        for key in tuple(keys) + tuple(summed_keys):
             diff = abs(kernel[key] - metrics[ref][key])
-            bound = tol if ref == "rounded" else tol * max(1.0, abs(metrics[ref][key]))
-            check(diff <= bound, f"bf16 step: kernel vs {ref} {key} differs by {diff} > {bound}")
+            relative = ref == "plain" or key in summed_keys
+            bound = tol * max(1.0, abs(metrics[ref][key])) if relative else tol
+            if diff > bound:
+                failed.append(f"kernel vs {ref} {key} differs by {diff} > {bound}")
             out[f"{key}_abs_diff_vs_{ref}"] = diff
         dg = abs(kernel["grad_norm"] - metrics[ref]["grad_norm"]) / metrics[ref]["grad_norm"]
-        check(dg <= tol, f"bf16 step: kernel vs {ref} grad_norm differs by {dg} (relative) > {tol}")
+        if dg > tol:
+            failed.append(f"kernel vs {ref} grad_norm differs by {dg} (relative) > {tol}")
         out[f"grad_norm_rel_diff_vs_{ref}"] = dg
+    if failed:
+        emit({"phase": "compare_bf16_step_failed", **out})
+    check(not failed, f"bf16 step: {failed}")
     return out
 
 
@@ -2288,37 +2379,46 @@ def _state_equal(a, b) -> list:
     return [i for i, (x, y) in enumerate(zip(la, lb)) if not torch.equal(x, y)]
 
 
-def graph_equals_eager(mcfg, params, batches, **step_kwargs):
-    """Two GRAPH_CHECK_K-step dispatches of `make_multi_step` (the first:
-    its eager first step, the capture and K - 1 replays; the second: K
-    replays) against 2K eager steps of `make_train_step` on the same
+def graph_equals_eager(mcfg, params, batches, dispatches=2, **step_kwargs):
+    """`dispatches` GRAPH_CHECK_K-step dispatches of `make_multi_step` (the
+    first: its eager first step, the capture and K - 1 replays; a second: K
+    replays) against as many eager steps of `make_train_step` on the same
     batches from equal states (bf16, Adam at lr 1e-6): params, optimizer
     state and every metric equal bit for bit after each dispatch, and the
-    per-step launch counts of a replay equal an eager step's. Where the
-    bits differ it first asks whether two eager runs agree (the step's own
-    determinism), then fails."""
+    per-step launch counts of a replay equal an eager step's; the ms of
+    each dispatch and of its eager steps (host clock, synchronised). Where
+    the bits differ it first asks whether two eager runs agree (the step's
+    own determinism), then fails."""
     from clip_event_tpu_torch.engine.train_step import make_multi_step
 
     K = GRAPH_CHECK_K
-    check(len(batches) == 2 * K, f"graph_equals_eager: {len(batches)} batches")
+    check(len(batches) == dispatches * K, f"graph_equals_eager: {len(batches)} batches")
     opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
     kw = dict(compute_dtype=torch.bfloat16, remat=True, **step_kwargs)
     step = make_train_step(mcfg, opt, **kw)
     many, _ = make_multi_step(mcfg, opt, K, **kw)
     eager, graph = create_train_state(params, opt), create_train_state(params, opt)
-    out = {"steps_per_dispatch": K, "dispatches": 2}
-    for d in range(2):
+    out = {"steps_per_dispatch": K, "dispatches": dispatches, "eager_ms": [], "dispatch_ms": []}
+    for d in range(dispatches):
         chunk = batches[d * K:(d + 1) * K]
         reset_launches()
         rows = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for b in chunk:
             eager, m = step(eager, b)
             rows.append(m)
+        torch.cuda.synchronize()
+        out["eager_ms"].append((time.perf_counter() - t0) * 1e3)
         eager_launches = read_launches()
         reset_launches()
-        graph, mk = many(graph, {k: torch.stack([b[k] for b in chunk]) for k in chunk[0]})
-        graph_launches = read_launches()
+        stacked = {k: torch.stack([b[k] for b in chunk]) for k in chunk[0]}
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph, mk = many(graph, stacked)
+        torch.cuda.synchronize()
+        out["dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+        graph_launches = read_launches()
         differ = _state_equal(eager, graph)
         metrics_differ = [k for k in rows[0] if not torch.equal(mk[k], torch.stack([m[k] for m in rows]))]
         if differ or metrics_differ:
@@ -3010,6 +3110,306 @@ def phase_train_ot(out_root):
     return run["launches"], equal["graph_launches"]
 
 
+# configs/clip_event_full.json at ViT-B/32: finetune_ot's channels (batch
+# 64, 8 object slots, 16 entity and 8 event rows) plus the bbox channel of
+# load_sr (8 boxes an image) whose role texts are deduped to 256 unique rows
+# a batch; the boxes' labels are drawn from FULL_LABELS synthetic labels
+FULL_BATCH, FULL_BBOXES, FULL_DEDUPE, FULL_LABELS = 64, 8, 256, 40
+RN_SERVING_ITEMS = 64
+RN_TRAIN_BATCH = 128  # the bench's RN50 batch (the JAX bench's table)
+
+
+class _FullPairs(_OTPairs):
+    """configs/clip_event_full.json's workload as a dataset: the channels of
+    `_OTPairs` plus the bbox channel of `load_sr`, from seed 2: per image a
+    ragged count (0 to FULL_BBOXES) of normalized xyxy boxes, each with the
+    token rows of a role description and of a role-type label (one of
+    FULL_LABELS synthetic labels), zero past the count, as
+    `VOADescriptionDataset._sr_channel` pads them; `finalize_batch` dedupes
+    both role-text channels to FULL_DEDUPE unique rows, strictly (a graph
+    dispatch takes one shape), as `dedupe_sr_texts` does."""
+
+    def __init__(self, n, res, context, vocab, seed=0):
+        super().__init__(n, res, context, vocab, seed)
+        rng = np.random.default_rng(seed + 2)
+        R = FULL_BBOXES
+        self.bbox_n = rng.integers(0, R + 1, n)
+        lo = rng.uniform(0, 0.7, size=(n, R, 2))
+        hi = np.minimum(lo + rng.uniform(0.1, 0.6, size=(n, R, 2)), 1.0)
+        self.bbox = np.concatenate([lo, hi], -1).astype(np.float32)
+        self.label_of = rng.integers(0, FULL_LABELS, size=(n, R))
+
+        def rows(longest):
+            tok = np.zeros((FULL_LABELS, context), np.int32)
+            for i in range(FULL_LABELS):
+                eot = int(rng.integers(3, longest))
+                tok[i, 0] = SOT
+                tok[i, 1:eot] = rng.integers(1, SOT, eot - 1)
+                tok[i, eot] = EOT
+            return tok
+
+        self.desc_rows, self.label_rows = rows(12), rows(6)
+
+    def __getitem__(self, i):
+        tensors, meta = super().__getitem__(i)
+        mask = (np.arange(FULL_BBOXES) < self.bbox_n[i]).astype(np.int32)
+        tensors["bbox"] = self.bbox[i] * mask[:, None]
+        tensors["bbox_mask"] = mask
+        tensors["bbox_desc_text"] = self.desc_rows[self.label_of[i]] * mask[:, None]
+        tensors["bbox_label_text"] = self.label_rows[self.label_of[i]] * mask[:, None]
+        return tensors, meta
+
+    def finalize_batch(self, tensors):
+        from clip_event_tpu_torch.data.dedupe import dedupe_rows
+
+        tensors = super().finalize_batch(tensors)
+        for field, prefix in (("bbox_desc_text", "bbox_desc"), ("bbox_label_text", "bbox_label")):
+            rows = tensors.pop(field)
+            tensors[f"{prefix}_unique"], tensors[f"{prefix}_inverse"] = dedupe_rows(
+                rows.reshape(-1, rows.shape[-1]), FULL_DEDUPE, strict=True, tag=field)
+        return tensors
+
+
+def phase_train_full(out_root):
+    """configs/clip_event_full.json's settings at ViT-B/32 full width through
+    the train loop with GRAPH_LOOP_K steps a dispatch (the CUDA graph of the
+    step): the OT branch and the local-attention branch ("desc_type",
+    attention pooling) over the object, IE and bbox channels, bf16, full
+    remat, Adam at lr 1e-6, counted (K1 in every encode: the image batch
+    twice, the role descriptions and labels once each; K3 once a step); a
+    GRAPH_CHECK_K-step dispatch against as many eager steps bit for bit,
+    with the ms of each; the bf16 kernel step against the all-plain ones."""
+    mcfg = VIT_B32
+    D = NUM_POS + NUM_NEG
+    with open(os.path.join(REPO, "configs", "clip_event_full.json")) as fh:
+        full = json.load(fh)
+    full_cfg = {k: full[k] for k in (
+        "alignment", "multiattention", "multiattention_pooling", "load_object", "load_ie", "load_sr",
+        "object_ontology_file", "max_objects", "max_entities", "max_events", "max_bboxes",
+        "dedupe_sr_texts")}
+    check(full_cfg == {**full_cfg, "alignment": True, "load_sr": True, "max_objects": OT_OBJECTS,
+                       "max_entities": OT_ENTITIES, "max_events": OT_EVENTS,
+                       "max_bboxes": FULL_BBOXES, "dedupe_sr_texts": FULL_DEDUPE}
+          and full["batch_size"] == FULL_BATCH and full["lr"] == 1e-6,
+          f"clip_event_full.json's settings {full_cfg}")
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    k = GRAPH_LOOP_K
+    ds = _FullPairs(loop_steps(k)[1] * FULL_BATCH, mcfg.image_resolution, mcfg.context_length,
+                    mcfg.vocab_size)
+    run = run_train_loop("train_full", mcfg, params, ds, FULL_BATCH, out_root, steps_per_dispatch=k,
+                         **full_cfg)
+    del run["state"]
+    torch.cuda.empty_cache()
+    for key in ("loss_ot", "loss_bbox", "loss_arg"):
+        check(all(np.isfinite(run["values"][key])) and min(run["values"][key]) > 0,
+              f"train_full {key} finite and > 0: {run['values'][key]}")
+    contrastive = run["values"]["loss_i"][0] + run["values"]["loss_t"][0]
+    check(abs(contrastive - _chance(FULL_BATCH, D)) < 0.5,
+          f"train_full first contrastive loss {contrastive} vs chance {_chance(FULL_BATCH, D)}")
+    step_kwargs = {"alignment": True, "alignment_chunks": OT_CHUNKS,
+                   "multiattention": full["multiattention"],
+                   "multiattention_pooling": full["multiattention_pooling"]}
+    check_ds = _FullPairs(GRAPH_CHECK_K * FULL_BATCH, mcfg.image_resolution, mcfg.context_length,
+                          mcfg.vocab_size, seed=1)
+    equal = graph_equals_eager(mcfg, params, _device_batches(check_ds, FULL_BATCH, GRAPH_CHECK_K),
+                               dispatches=1, use_pallas_ot=True, **step_kwargs)
+    del check_ds
+    compare = compare_bf16_step(mcfg, params, _device_batch(ds, FULL_BATCH),
+                                keys=("loss_i", "loss_t", "loss_ot"),
+                                summed_keys=("loss", "loss_bbox", "loss_arg"), **step_kwargs)
+    eager_ms = equal["eager_ms"][0] / GRAPH_CHECK_K
+    graph_ms = equal["dispatch_ms"][0] / GRAPH_CHECK_K  # with the eager first step and the capture
+    _train_report("train_full", "ViT-B/32", run, FULL_BATCH, D, init_s, objects=OT_OBJECTS,
+                  entities=OT_ENTITIES, bboxes=FULL_BBOXES, dedupe_sr_texts=FULL_DEDUPE,
+                  multiattention=full["multiattention"], pooling=full["multiattention_pooling"],
+                  kernel_vs_plain={"bfloat16": compare}, graph_equals_eager=equal,
+                  eager_step_ms=eager_ms, first_dispatch_step_ms=graph_ms,
+                  graph_step_ms=run["mean_ms"],
+                  per_step_launches={name: v // run["n_steps"] for name, v in run["launches"].items()})
+    del params, ds
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def phase_serving_rn50(out_root):
+    """RN50, then RN50x4, from seed 0 through the CLI's `load_model_from_cfg`
+    and the eval encoders: one batch of 64 images and one of 64 token rows
+    in fp32 and in bf16, counted (K1 once a text-tower block a text batch,
+    nothing in the ResNet tower); the kernel path against the plain
+    attention's (texts: fp32 1e-4, bf16 cosine 0.999; images: equal bits);
+    images/s and texts/s. Then RN50 in int8 (the text tower's dense layers
+    through K5; the convolutions and the attention pool stay float),
+    counted, against the all-plain path (plain attention, plain K5) at
+    cosine 0.999."""
+    all_launches = dict.fromkeys(COUNTERS, 0)
+    for model in ("RN50", "RN50x4"):
+        t0 = time.perf_counter()
+        model_obj, mcfg = load_model_from_cfg({"model": model, "seed": 0})
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(not mcfg.is_vit and model_obj.device.type == "cuda", f"{model} on the card")
+        images, tokens = serving_inputs(mcfg, RN_SERVING_ITEMS)
+        x_img, x_tok = torch.from_numpy(images).cuda(), torch.from_numpy(tokens).cuda()
+        encoders = {"float32": Encoders(model_obj, mcfg, batch_size=BATCH),
+                    "bfloat16": Encoders(model_obj, mcfg, batch_size=BATCH, compute_dtype=torch.bfloat16)}
+        reset_launches()
+        feats = {name: {"images": enc.images(images), "texts": enc.texts(tokens)}
+                 for name, enc in encoders.items()}
+        torch.cuda.synchronize()
+        launches = read_launches()
+        batches = _encoder_batches(RN_SERVING_ITEMS, BATCH) * len(encoders)
+        expected = serving_launches(mcfg, batches, batches)
+        check(launches == expected, f"serving {model} launches {launches} != {expected}")
+        all_launches = {k: all_launches[k] + launches[k] for k in COUNTERS}
+        summary = {}
+        for name, by_kind in feats.items():
+            for kind, f in by_kind.items():
+                check(f.shape == (RN_SERVING_ITEMS, mcfg.embed_dim) and bool(np.isfinite(f).all()),
+                      f"{model} {name} {kind}: shape {f.shape}, finite")
+                err = float(np.abs(np.linalg.norm(f, axis=1) - 1.0).max())
+                check(err <= (1e-4 if name == "float32" else 1e-2), f"{model} {name} {kind} unit norm {err}")
+        params = encoders["float32"].params
+        with torch.inference_mode():
+            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                ki, pi = (encode_image(params, mcfg, x_img, compute_dtype=dtype, impl=impl)
+                          for impl in ("kernel", "plain"))
+                check(torch.equal(ki, pi), f"{model} {name} images: no kernel in the ResNet tower")
+                k = l2_normalize(encode_text(params, mcfg, x_tok, compute_dtype=dtype, impl="kernel")).float()
+                p = l2_normalize(encode_text(params, mcfg, x_tok, compute_dtype=dtype, impl="plain")).float()
+                if name == "float32":
+                    err = (k - p).abs().max().item()
+                    check(err <= 1e-4, f"{model} fp32 texts: kernel vs plain max abs err {err}")
+                    summary["float32_texts_kernel_vs_plain_max_abs_err"] = err
+                else:
+                    cos = F.cosine_similarity(k, p, dim=-1).min().item()
+                    check(cos >= 0.999, f"{model} bf16 texts: kernel vs plain min cosine {cos}")
+                    summary["bfloat16_texts_kernel_vs_plain_min_cos"] = cos
+                    fp32 = torch.from_numpy(feats["float32"]["images"]).cuda()
+                    summary["bfloat16_images_vs_float32_min_cos"] = F.cosine_similarity(
+                        torch.from_numpy(feats["bfloat16"]["images"]).cuda(), fp32, dim=-1).min().item()
+            rates = {}
+            for name, enc in encoders.items():
+                ms_img = cuda_ms(lambda: enc.encode_images(x_img), iters=20, warmup=3)
+                ms_txt = cuda_ms(lambda: enc.encode_texts(x_tok), iters=20, warmup=3)
+                rates[name] = {"images_per_s": BATCH / ms_img * 1e3, "texts_per_s": BATCH / ms_txt * 1e3,
+                               "image_batch_ms": ms_img, "text_batch_ms": ms_txt}
+        emit({"phase": "serving_rn50", "model": model, "seed": 0, "init_s": init_s,
+              "images": RN_SERVING_ITEMS, "texts": RN_SERVING_ITEMS, "batch": BATCH,
+              "image_resolution": mcfg.image_resolution, "launches": launches,
+              "per_batch": {"image": serving_launches(mcfg, 1, 0), "text": serving_launches(mcfg, 0, 1)},
+              "throughput": rates, **summary})
+        if model == "RN50":
+            # where an image batch's time goes: cuDNN's convolutions, the
+            # BatchNorm and ReLU elementwise kernels, the pools
+            with torch.inference_mode():
+                for name, enc in encoders.items():
+                    emit({"phase": "serving_rn50_profile", "model": model, "dtype": name, "tower": "images",
+                          **profile_one(lambda: enc.encode_images(x_img), rates[name]["image_batch_ms"],
+                                        kernels=(("conv", "conv"), ("gemm", "gemm")))})
+        del encoders, model_obj, params
+        torch.cuda.empty_cache()
+
+    # RN50 in int8 (the CLI's "int8": dynamic activation scales)
+    model_obj, mcfg = load_model_from_cfg({"model": "RN50", "seed": 0, "quantize": "int8"})
+    params = model_obj.params()
+    check(isinstance(params["text_projection"], quant.QuantWeight)
+          and not quant.is_quantized(params["visual"]), "RN50 int8: the text tower quantized, the image tower float")
+    images, tokens = serving_inputs(mcfg, RN_SERVING_ITEMS)
+    x_img, x_tok = torch.from_numpy(images).cuda(), torch.from_numpy(tokens).cuda()
+    enc = Encoders(model_obj, mcfg, batch_size=BATCH)
+    reset_launches()
+    feats = {"images": enc.images(images), "texts": enc.texts(tokens)}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = int8_launches(mcfg, 1, 1)
+    check(launches == expected, f"serving RN50 int8 launches {launches} != {expected}")
+    all_launches = {k: all_launches[k] + launches[k] for k in COUNTERS}
+    summary = {"weight_bytes": weight_bytes(params)}
+    p32 = enc.params
+    with torch.inference_mode():
+        k = torch.from_numpy(feats["texts"]).cuda()
+        quant.set_gemm_impl("xla")
+        try:
+            p = l2_normalize(encode_text(p32, mcfg, x_tok, impl="plain")).float()
+        finally:
+            quant.set_gemm_impl("auto")
+        cos = F.cosine_similarity(k, p, dim=-1).min().item()
+        check(cos >= 0.999, f"RN50 int8 texts: kernel vs all-plain min cosine {cos}")
+        summary["float32_texts_kernel_vs_plain_min_cos"] = cos
+        ms_img = cuda_ms(lambda: enc.encode_images(x_img), iters=20, warmup=3)
+        ms_txt = cuda_ms(lambda: enc.encode_texts(x_tok), iters=20, warmup=3)
+    emit({"phase": "serving_rn50", "model": "RN50", "mode": "int8", "seed": 0, "launches": launches,
+          "per_batch": {"image": int8_launches(mcfg, 1, 0), "text": int8_launches(mcfg, 0, 1)},
+          "throughput": {"float32": {"images_per_s": BATCH / ms_img * 1e3, "texts_per_s": BATCH / ms_txt * 1e3,
+                                     "image_batch_ms": ms_img, "text_batch_ms": ms_txt}}, **summary})
+    del enc, model_obj, params, p32
+    torch.cuda.empty_cache()
+    return all_launches
+
+
+def phase_train_rn50(out_root):
+    """RN50 at the bench's batch (128 images × 3 descriptions), bf16, full
+    remat of the text tower (the ResNet tower takes none), Adam at lr 1e-6,
+    through the train loop with GRAPH_LOOP_K steps a dispatch, counted (K1
+    in the text tower alone); a GRAPH_CHECK_K-step dispatch against as many
+    eager steps bit for bit; one `sync_bn` step (the batch's BatchNorm
+    statistics) beside a frozen one from one state and batch, counted, with
+    their ms; pairs/s."""
+    mcfg = RN50
+    D = NUM_POS + NUM_NEG
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    k = GRAPH_LOOP_K
+    ds = _BenchPairs(loop_steps(k)[1] * RN_TRAIN_BATCH, mcfg.image_resolution, mcfg.context_length,
+                     mcfg.vocab_size)
+    run = run_train_loop("train_rn50", mcfg, params, ds, RN_TRAIN_BATCH, out_root, steps_per_dispatch=k)
+    del run["state"]
+    torch.cuda.empty_cache()
+    first = run["values"]["loss"][0]
+    check(abs(first - _chance(RN_TRAIN_BATCH, D)) < 0.5,
+          f"RN50 first loss {first} vs chance {_chance(RN_TRAIN_BATCH, D)}")
+    equal = graph_equals_eager(mcfg, params, _device_batches(ds, RN_TRAIN_BATCH, GRAPH_CHECK_K),
+                               dispatches=1)
+    batch = _device_batch(ds, RN_TRAIN_BATCH)
+    sync_bn = {}
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    step = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True)
+    for mode in ("frozen", "batch", "batch", "frozen"):
+        st = create_train_state(params, opt)
+        with resnet.bn_mode(mode):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            _, m = step(st, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        check(read_launches() == train_launches(mcfg, 1), f"RN50 {mode} step launches {read_launches()}")
+        row = sync_bn.setdefault(mode, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                        "step_ms": []})
+        row["step_ms"].append(ms)
+        check(math.isfinite(row["loss"]) and row["loss"] == float(m["loss"]), f"RN50 {mode} step: loss {m['loss']}")
+        del st
+    check(resnet.get_bn_mode() == "frozen", "the BatchNorm mode put back")
+    check(sync_bn["batch"]["loss"] != sync_bn["frozen"]["loss"], "sync_bn takes the batch's statistics")
+    del step
+    _train_report("train_rn50", "RN50", run, RN_TRAIN_BATCH, D, init_s, graph_equals_eager=equal,
+                  sync_bn_vs_frozen=sync_bn,
+                  per_step_launches={name: v // run["n_steps"] for name, v in run["launches"].items()})
+    del params, ds, batch
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+# the phases `--only` runs alone (after the device and build phases)
+PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn50,
+                "train_rn50": phase_train_rn50, "evals": phase_evals}
+
+
 def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
     """Device time of one warm `run()` by kernel (torch.profiler): the busy
     time summed over the kernels themselves (not the aten ops that launch
@@ -3080,14 +3480,15 @@ def main(argv=None) -> int:
     alone (the quick look after an edit to them), with a last line that
     says so; `b1` the wrappers' host cost (`--package-root DIR`: another
     tree's package), `graph` the graphed B/32 train step
-    (`phase_train_graph`). `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    (`phase_train_graph`); `train_full`, `serving_rn50`, `train_rn50` or
+    `evals` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
     csrc/ and times them beside these in turns; `--k6-split` times K6
     without its core and without its projection (`k6_split`)."""
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", nargs="+", choices=("k1", "k2", "k3", "k5", "k6", "b1", "graph"),
-                        default=None)
+    parser.add_argument("--only", nargs="+", choices=("k1", "k2", "k3", "k5", "k6", "b1", "graph")
+                        + tuple(PHASES_ALONE), default=None)
     parser.add_argument("--package-root", default=None,
                         help="with --only b1: time the wrappers of the package under this directory")
     parser.add_argument("--old-csrc", default=None)
@@ -3152,6 +3553,10 @@ def main(argv=None) -> int:
         errs = {name: {} for name in COUNTERS}
         gen = torch.Generator(device="cuda").manual_seed(0)
         for only in args.only:
+            if only in PHASES_ALONE:
+                with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_root:
+                    PHASES_ALONE[only](out_root)
+                continue
             {"k1": check_k1, "k2": check_k2, "k3": check_k3, "k5": check_k5, "k6": check_k6,
              "b1": lambda *_: phase_b1(), "graph": lambda *_: only_graph()}[only](rows, errs, gen)
         if args.k6_split:
@@ -3175,6 +3580,9 @@ def main(argv=None) -> int:
                                                         matching=False, tag="serving_l14")
         paths["train_l14"], paths["train_b16"], paths["train_l14_fp32"] = phase_train_l14(out_root)
         paths["train_ot"], paths["train_ot_graph"] = phase_train_ot(out_root)
+        paths["train_full"] = phase_train_full(out_root)
+        paths["serving_rn50"] = phase_serving_rn50(out_root)
+        paths["train_rn50"] = phase_train_rn50(out_root)
         paths["serving_int8_l14"] = phase_serving_int8(out_root, "ViT-L/14", L14_SERVING_ITEMS,
                                                        "serving_int8_l14", l14_rates)
         paths["serving_int8_b32"] = phase_serving_int8(out_root, "ViT-B/32", L14_SERVING_ITEMS,

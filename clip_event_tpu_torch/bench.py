@@ -7,10 +7,10 @@ Measures the train step (forward of both towers + contrastive loss +
 backward + clipped Adam) at the reference workload shape: D = 3
 descriptions per image (1 positive + 2 hard negatives), uint8 images at the
 model's resolution normalized on the device, 77-token texts, bf16 compute,
-Adam at lr 1e-6; batch 384 (ViT-B/32), 96 (ViT-B/16) or 64 (ViT-L/14)
-images, and the JAX bench's remat policy for each preset: full remat at
-ViT-B/32, "attn" at ViT-B/16 and ViT-L/14 (`DEFAULT_REMAT`, the JAX
-bench's table). The protocol is the JAX bench's: 10 steps a call through
+Adam at lr 1e-6; batch 384 (ViT-B/32), 96 (ViT-B/16), 64 (ViT-L/14) or
+128 (RN50, RN101, RN50x4) images, and the JAX bench's remat policy for
+each preset: full remat at ViT-B/32, RN50 and RN50x4, "attn" at ViT-B/16,
+ViT-L/14 and RN101 (`DEFAULT_REMAT`, the JAX bench's table). The protocol is the JAX bench's: 10 steps a call through
 `make_multi_step`'s `many_fixed` (on the card a CUDA graph of the step,
 replayed 10 times), one warm-up call, then 3 timed calls back to back;
 the clock stops at a float fetch of the last call's last loss. The batch
@@ -59,9 +59,12 @@ from clip_event_tpu_torch.models.clip import init_params
 from clip_event_tpu_torch.ops import counters
 from clip_event_tpu_torch.platform import resolve_device
 
-DEFAULT_BATCH = {"ViT-B/32": 384, "ViT-B/16": 96, "ViT-L/14": 64}
-# the JAX bench's remat policy by preset (`bench.py:41-48`): "1" is full
-DEFAULT_REMAT = {"ViT-B/32": "1", "ViT-B/16": "attn", "ViT-L/14": "attn"}
+DEFAULT_BATCH = {"ViT-B/32": 384, "ViT-B/16": 96, "ViT-L/14": 64,
+                 "RN50": 128, "RN101": 128, "RN50x4": 128}
+# the JAX bench's remat policy by preset (`bench.py:41-48`): "1" is full;
+# it applies to the transformer towers (the ResNet tower takes none)
+DEFAULT_REMAT = {"ViT-B/32": "1", "ViT-B/16": "attn", "ViT-L/14": "attn",
+                 "RN50": "1", "RN101": "attn", "RN50x4": "1"}
 REMAT_CHOICES = ("0", "1") + layers.REMAT_POLICIES
 NUM_POS, NUM_NEG = 1, 2
 STEPS_PER_CALL, MEASURE_CALLS, WARMUP_CALLS = 10, 3, 1

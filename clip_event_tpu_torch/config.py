@@ -5,22 +5,34 @@ The same keys, defaults and checks as the JAX package's `validate_config`
 (including the original `constrastive_*` spellings), for the keys this
 port carries. A key of a part not ported yet raises `ConfigError` naming
 its ROADMAP item when it is set to anything but its default: the model,
-tensor, pipeline and data parallelism keys (A6), the multiattention branch
-and its SR data channel (A4) and the image cache (A7). The ResNet presets
-are not ported either (A2). `remat` takes false, true or a policy name of
+tensor, pipeline and data parallelism keys (A6) and the image cache (A7).
+`remat` takes false, true or a policy name of
 `models.layers.REMAT_POLICIES`, checked here as the JAX package's
-`transformer` checks it.
+`transformer` checks it. `model` is one of the ViT and ResNet presets or a
+`CLIPConfig` dict.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 from typing import Any, Dict
 
-from clip_event_tpu_torch.models.clip import VIT_B16, VIT_B32, VIT_L14, CLIPConfig
+from clip_event_tpu_torch.models.clip import (
+    RN50,
+    RN50X4,
+    RN101,
+    VIT_B16,
+    VIT_B32,
+    VIT_L14,
+    CLIPConfig,
+)
 from clip_event_tpu_torch.models.layers import remat_policy
 
-PRESETS = {"ViT-B/32": VIT_B32, "ViT-B/16": VIT_B16, "ViT-L/14": VIT_L14}
+PRESETS = {
+    "ViT-B/32": VIT_B32, "ViT-B/16": VIT_B16, "ViT-L/14": VIT_L14,
+    "RN50": RN50, "RN101": RN101, "RN50x4": RN50X4,
+}
 
 _CHOICES = {
     "constrastive_loss": ("ce", "bce", "kl"),
@@ -118,7 +130,6 @@ _DEFAULTS: Dict[str, Any] = {
 # keys of parts not ported yet: the ROADMAP item that brings each
 _UNPORTED = {
     "tp": "A6", "pp": "A6", "sp": "A6", "dcn_dp": "A6", "zero": "A6", "fsdp": "A6",
-    "load_sr": "A4", "multiattention": "A4", "dedupe_sr_texts": "A4",
     "image_cache": "A7",
 }
 
@@ -177,9 +188,15 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
                 "incompatible with steps_per_dispatch>1 / grad_accum_steps>1 "
                 "(stacked batches must share a shape)"
             )
-    v = out["dedupe_texts"]
-    if not isinstance(v, int) or isinstance(v, bool) or v < 0:
-        raise ConfigError("dedupe_texts must be an int ≥ 0 (0 = off, else the unique-row cap)")
+    for key in ("dedupe_texts", "dedupe_sr_texts"):
+        v = out[key]
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            raise ConfigError(f"{key} must be an int ≥ 0 (0 = off, else the unique-row cap)")
+    if out["dedupe_sr_texts"] and not (out["load_sr"] or out["multiattention"]):
+        raise ConfigError(
+            "dedupe_sr_texts dedupes the bbox text channels: set load_sr=true "
+            "or multiattention"
+        )
     if out["begin_epoch"] > out["max_epoch"]:
         raise ConfigError("begin_epoch must be ≤ max_epoch")
     if not isinstance(out["grad_accum_steps"], int) or out["grad_accum_steps"] < 1:
@@ -203,7 +220,34 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         )
     if out["load_object"] and not out["object_ontology_file"]:
         raise ConfigError("load_object=true requires object_ontology_file")
-    out["multiattention"] = None
+
+    # multiattention: a bool (true → "desc") or one of the contrast modes
+    ma = out["multiattention"]
+    if ma is True:
+        out["multiattention"] = "desc"
+    elif ma in (False, None):
+        out["multiattention"] = None
+    elif ma not in ("desc", "desc_type", "desc_type_text"):
+        raise ConfigError(
+            "multiattention must be bool or one of desc/desc_type/desc_type_text"
+        )
+    if out["multiattention"]:
+        if not (out["load_sr"] or out["load_object"]):
+            raise ConfigError(
+                "multiattention needs a bbox channel: set load_sr=true or load_object=true"
+            )
+        # the loss reads the bbox channel, which the dataset emits under
+        # load_sr (from the detections load_object reads too)
+        if not out["load_sr"]:
+            if "load_sr" in cfg and cfg["load_sr"] in (False, 0):
+                raise ConfigError(
+                    "multiattention requires the bbox channel: load_sr was "
+                    "explicitly false — remove it or set load_sr=true"
+                )
+            logging.getLogger(__name__).warning(
+                "multiattention set: enabling load_sr=true (bbox channel)"
+            )
+            out["load_sr"] = True
     if out["multiattention_pooling"] not in ("mean", "attention"):
         raise ConfigError("multiattention_pooling must be 'mean' or 'attention'")
     return out
@@ -215,12 +259,9 @@ def load_config(path: str) -> Dict[str, Any]:
 
 
 def model_config(cfg: Dict[str, Any]) -> CLIPConfig:
-    """Resolve the model spec: a preset name or an explicit dict (ViT only;
-    the ResNet towers are ROADMAP A2)."""
+    """Resolve the model spec: a preset name or an explicit dict."""
     spec = cfg.get("model", "ViT-B/32")
     if isinstance(spec, str):
-        if spec in ("RN50", "RN101", "RN50x4"):
-            raise ConfigError(f"model {spec!r}: the ResNet towers are not ported yet (ROADMAP A2)")
         if spec not in PRESETS:
             raise ConfigError(f"unknown model preset {spec!r}; options: {list(PRESETS)}")
         return PRESETS[spec]
@@ -228,8 +269,5 @@ def model_config(cfg: Dict[str, Any]) -> CLIPConfig:
         vl = spec.get("vision_layers")
         if isinstance(vl, list):
             spec = dict(spec, vision_layers=tuple(vl))
-        mcfg = CLIPConfig(**spec)
-        if not mcfg.is_vit:
-            raise ConfigError("the ResNet towers are not ported yet (ROADMAP A2)")
-        return mcfg
+        return CLIPConfig(**spec)
     raise ConfigError("model must be a preset name or a CLIPConfig dict")

@@ -8,8 +8,8 @@
 (`dataset_voa.py:371-688`): one positive and G hard-negative event/argument
 descriptions per image, static label layouts, length buckets and
 dedupe-encode fields, plus the object-crop channel and the text-IE channel
-of the OT alignment loss, ragged axes padded to static caps with masks. The
-SR/bbox channel is not ported yet (ROADMAP A4).
+of the OT alignment loss and the SR/bbox channel of the local-attention
+loss, ragged axes padded to static caps with masks.
 
 Data artifacts consumed (same contracts as the reference):
   * image_caption_mapping.json: {doc_id: {idx: {url, cap}}}
@@ -23,6 +23,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+from operator import itemgetter
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -44,6 +45,7 @@ from clip_event_tpu_torch.data.common import (
 )
 from clip_event_tpu_torch.data.dedupe import dedupe_rows, identity_layout
 from clip_event_tpu_torch.data.labels import build_label_layout
+from clip_event_tpu_torch.ops.bbox import normalize_bbox
 from clip_event_tpu_torch.tokenizer import CONTEXT_LENGTH, tokenize
 
 log = logging.getLogger(__name__)
@@ -124,8 +126,17 @@ class VOADescriptionDataset(ExampleDataset):
     slot 0, padded to `max_objects`, default `object_topk + 1`) and
     `object_mask`, and makes `image` the float32 slot-0 crop whatever
     `uint8_images` says. `load_ie` adds `entity_text` / `event_text` (token
-    rows padded to `max_entities` / `max_events`) and their masks. Only the
-    description channel is bucketed or deduped."""
+    rows padded to `max_entities` / `max_events`) and their masks.
+
+    `load_sr` adds the bbox channel of the local-attention loss, from the
+    detections `load_object` reads: `bbox` (normalized xyxy, the
+    detections that pass the ontology and the threshold, best score first,
+    padded to `max_bboxes`), `bbox_mask`, and per box the token rows of
+    "An image of {label}." (`bbox_desc_text`) and of the label
+    (`bbox_label_text`). Only the description channel is bucketed; it is
+    deduped under `dedupe_texts`, the two bbox text channels under
+    `dedupe_sr_texts` (`bbox_desc_unique` / `bbox_desc_inverse`,
+    `bbox_label_unique` / `bbox_label_inverse`)."""
 
     def __init__(
         self,
@@ -151,16 +162,19 @@ class VOADescriptionDataset(ExampleDataset):
         max_entities: int = 16,
         max_events: int = 8,
         load_sr: bool = False,
+        max_bboxes: int = 8,
+        dedupe_sr_texts: int = 0,
     ):
-        if load_sr:
-            raise NotImplementedError("load_sr is not ported yet (ROADMAP A4)")
         self.image_size = image_size
         self.uint8_images = bool(uint8_images)
         self.contrastive_loss = contrastive_loss
         self.overbatch = overbatch
         self.context = int(context_cap) or CONTEXT_LENGTH
         self.dedupe_texts = int(dedupe_texts)
+        self.dedupe_sr_texts = int(dedupe_sr_texts)
         self.dedupe_strict = bool(dedupe_strict)
+        self.load_sr = bool(load_sr)
+        self.max_bboxes = max_bboxes
 
         self._descriptions_json = posneg_descriptions_json
         with open(posneg_descriptions_json) as fh:
@@ -201,7 +215,7 @@ class VOADescriptionDataset(ExampleDataset):
             )
 
         self.load_object = bool(load_object)
-        if self.load_object:
+        if self.load_object or self.load_sr:
             self.object_threshold = object_detection_threshold
             self.object_topk = object_topk
             self.max_objects = max_objects or (object_topk + 1)
@@ -335,7 +349,40 @@ class VOADescriptionDataset(ExampleDataset):
                 tensors[f"{field}_mask"] = mask
             meta["entity_names"] = ent_names
             meta["event_names"] = evt_names
+        if self.load_sr:
+            tensors.update(self._sr_channel(path, image_id))
         return tensors, meta
+
+    def _sr_channel(self, path: str, image_id: str) -> dict:
+        """Normalized detection boxes and their label texts, padded to
+        `max_bboxes`."""
+        R = self.max_bboxes
+        bboxes = np.zeros((R, 4), np.float32)
+        mask = np.zeros(R, np.int32)
+        desc_tok = np.zeros((R, self.context), np.int32)
+        label_tok = np.zeros((R, self.context), np.int32)
+        dets = [
+            d for d in sorted(self.object_results.get(image_id, []), key=itemgetter("score"),
+                              reverse=True)
+            if d["label"] in self.object_labels and d["score"] >= self.object_threshold
+        ][:R]
+        if dets:
+            if "bbox_normalized" in dets[0]:
+                boxes = [list(d["bbox_normalized"]) for d in dets]
+            else:
+                from PIL import Image
+
+                with Image.open(path) as img:
+                    width, height = img.size
+                boxes = [list(normalize_bbox(d["bbox"], width, height)) for d in dets]
+            labels = [self.object_labels[d["label"]] for d in dets]
+            bboxes[: len(dets)] = np.asarray(boxes, np.float32)
+            mask[: len(dets)] = 1
+            desc_tok[: len(dets)] = tokenize([f"An image of {lb.lower()}." for lb in labels],
+                                             self.context)
+            label_tok[: len(dets)] = tokenize([lb.lower() for lb in labels], self.context)
+        return {"bbox": bboxes, "bbox_mask": mask, "bbox_desc_text": desc_tok,
+                "bbox_label_text": label_tok}
 
     def batch_extras(self, batch_size: int):
         layout = build_label_layout(
@@ -351,9 +398,18 @@ class VOADescriptionDataset(ExampleDataset):
         # flatten descriptions: [B, D, S] → [B·D, S] (dataset_voa.py:605-612)
         tensors["text"] = tensors["text"].reshape(-1, tensors["text"].shape[-1])
         if self.dedupe_texts:
-            rows = tensors.pop("text")
-            out = dedupe_rows(rows, self.dedupe_texts, strict=self.dedupe_strict, tag="text")
-            tensors["text_unique"], tensors["text_inverse"] = (
-                identity_layout(rows) if out is None else out
-            )
+            self._dedupe_field(tensors, "text", "text", self.dedupe_texts)
+        if self.dedupe_sr_texts and self.load_sr:
+            self._dedupe_field(tensors, "bbox_desc_text", "bbox_desc", self.dedupe_sr_texts)
+            self._dedupe_field(tensors, "bbox_label_text", "bbox_label", self.dedupe_sr_texts)
         return tensors
+
+    def _dedupe_field(self, tensors: dict, field: str, prefix: str, cap: int) -> None:
+        """Replace `field` by `{prefix}_unique` + `{prefix}_inverse`; a
+        non-strict overflow takes the undeduped layout, a new shape."""
+        rows = tensors.pop(field)
+        rows = rows.reshape(-1, rows.shape[-1])
+        out = dedupe_rows(rows, cap, strict=self.dedupe_strict, tag=field)
+        tensors[f"{prefix}_unique"], tensors[f"{prefix}_inverse"] = (
+            identity_layout(rows) if out is None else out
+        )

@@ -38,10 +38,17 @@ def _ckpt_path(ckpt_dir: str, task: str, epoch: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), task, f"{task}_{epoch}")
 
 
-def _to_cpu(tree):
+def _map(fn, tree):
+    """`fn` on every leaf of a nested dict (and list) of tensors."""
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _to_cpu(tree):
+    return _map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t, tree)
 
 
 def save_checkpoint(
@@ -108,10 +115,20 @@ def restore_checkpoint(path: str, device="cpu") -> Tuple[dict, dict, dict, CLIPC
     meta = load_meta(path)
     meta.update({k: obj[k] for k in ("epoch", "perf", "step", "mid_epoch") if k in obj})
 
-    def to_dev(t):
-        return {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict) else t.to(device)
+    # the optimizer walks its moments leaf by leaf beside the params: give
+    # each param-shaped tree the restored params' key order
+    opt_state = {k: _ordered_like(v, params) if isinstance(v, dict) else v
+                 for k, v in obj["optimizer"].items()}
+    return params, _map(lambda t: t.to(device), opt_state), meta, cfg
 
-    return params, to_dev(obj["optimizer"]), meta, cfg
+
+def _ordered_like(tree, like):
+    """`tree` with the dict key order of `like` (the same nesting)."""
+    if isinstance(like, dict):
+        return {k: _ordered_like(tree[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        return [_ordered_like(t, v) for t, v in zip(tree, like)]
+    return tree
 
 
 def latest_checkpoint(ckpt_dir: str, task: str) -> Optional[str]:

@@ -109,20 +109,26 @@ def build_schedule(
 # ------------------------------------------------------------ param trees
 
 
-def tree_leaves(tree: dict) -> List[torch.Tensor]:
-    """The tensors of a nested dict, depth first in key order."""
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict, depth first in key order; a list (a
+    ResNet stage's blocks) in its own order."""
     out = []
-    for v in tree.values():
-        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        out.extend(tree_leaves(v) if isinstance(v, (dict, list)) else [v])
     return out
 
 
-def tree_unflatten(like: dict, leaves) -> dict:
-    """A nested dict shaped like `like` holding `leaves` in `tree_leaves` order."""
+def tree_unflatten(like, leaves):
+    """A nested dict (and list) shaped like `like` holding `leaves` in
+    `tree_leaves` order."""
     it = iter(leaves)
 
     def build(t):
-        return {k: build(v) if isinstance(v, dict) else next(it) for k, v in t.items()}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        return next(it)
 
     return build(like)
 

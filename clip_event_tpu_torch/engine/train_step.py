@@ -3,7 +3,9 @@ reference hot loop, `engine.py:16-112`).
 
 One step: forward (image + text towers, each block recomputed in the
 backward pass under `remat`), contrastive loss, the optional OT alignment
-branch (object crops and entity mentions re-encoded, IPOT), backward,
+branch (object crops and entity mentions re-encoded, IPOT), the optional
+local-attention branch (`multiattention`: the image encoded once more for
+its grid tokens, the role texts encoded, `models/local_attention.py`), backward,
 global-norm clip, optimizer update, single device. The NaN abort
 (`engine.py:79-82`) becomes a `finite` flag in the returned metrics, and a
 non-finite loss keeps the old params and optimizer state (`torch.where` on
@@ -25,8 +27,9 @@ import torch
 from clip_event_tpu_torch.engine.losses import contrastive_loss
 from clip_event_tpu_torch.engine.optim import Optimizer, global_norm, tree_leaves, tree_unflatten
 from clip_event_tpu_torch.models import clip as clip_model
-from clip_event_tpu_torch.models import layers
+from clip_event_tpu_torch.models import layers, resnet
 from clip_event_tpu_torch.models.clip import CLIPConfig
+from clip_event_tpu_torch.models.local_attention import local_attention_loss
 from clip_event_tpu_torch.ops import counters
 from clip_event_tpu_torch.ops.ot import alignment_loss
 
@@ -59,10 +62,16 @@ def loss_fn(
     alignment: bool = False,
     use_pallas_ot="auto",
     alignment_chunks: int = 1,
+    multiattention: Optional[str] = None,
+    multiattention_pooling: str = "mean",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {loss_i, loss_t[, loss_ot]}) of one batch, in fp32.
-    With `alignment` the batch carries `object_image`, `object_mask`,
-    `entity_text` and `entity_mask`, and `loss_ot` joins the total."""
+    """(total loss, {loss_i, loss_t[, loss_ot][, loss_bbox, loss_arg]}) of
+    one batch, in fp32. With `alignment` the batch carries `object_image`,
+    `object_mask`, `entity_text` and `entity_mask`, and `loss_ot` joins the
+    total. With `multiattention` ("desc", "desc_type" or "desc_type_text")
+    it carries `bbox`, `bbox_mask` and the role texts (`bbox_desc_text`,
+    `bbox_label_text`, or their deduped `*_unique` / `*_inverse`), and
+    `loss_bbox` and `loss_arg` join the total."""
     kw = dict(compute_dtype=compute_dtype, impl=impl, remat=remat)
     if "text_unique" in batch:
         # dedupe-encode: encode each unique token row once and gather the
@@ -94,6 +103,15 @@ def loss_fn(
             entity_feats, object_feats, batch["entity_mask"], batch["object_mask"],
             use_pallas=use_pallas_ot,
         )
+    if multiattention:
+        loss_dict.update(local_attention_loss(
+            params, cfg, batch["image"], batch["bbox"], batch["bbox_mask"],
+            batch.get("bbox_desc_text"), label_tokens=batch.get("bbox_label_text"),
+            train_arg=multiattention, pooling=multiattention_pooling,
+            desc_unique=batch.get("bbox_desc_unique"), desc_inverse=batch.get("bbox_desc_inverse"),
+            label_unique=batch.get("bbox_label_unique"),
+            label_inverse=batch.get("bbox_label_inverse"), **kw,
+        ))
     return sum(loss_dict.values()), loss_dict
 
 
@@ -146,14 +164,17 @@ def make_train_step(
     alignment: bool = False,
     use_pallas_ot="auto",
     alignment_chunks: int = 1,
+    multiattention: Optional[str] = None,
+    multiattention_pooling: str = "mean",
 ):
     """Returns `train_step(state, batch) -> (state, metrics)`; metrics are
-    device tensors (loss, finite, grad_norm, loss_i, loss_t[, loss_ot])."""
+    device tensors (loss, finite, grad_norm, loss_i, loss_t[, loss_ot][,
+    loss_bbox, loss_arg])."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         total, loss_dict = loss_fn(
             state.params, batch, cfg, loss_type, overbatch, compute_dtype, remat, impl,
-            alignment, use_pallas_ot, alignment_chunks,
+            alignment, use_pallas_ot, alignment_chunks, multiattention, multiattention_pooling,
         )
         return _apply_update(state, _grads(total, state.params), total, loss_dict, optimizer)
 
@@ -168,7 +189,8 @@ def make_multi_step(cfg: CLIPConfig, optimizer: Optimizer, num_steps: int, **ste
     check decides by that axis), `many_fixed(state, batch)` runs K steps on
     one batch. Both return `(state, metrics)`, each metric stacked as [K],
     and run `make_train_step`'s step function with these `step_kwargs`: the
-    same loss surface (`alignment` too) and the same metrics.
+    same loss surface (`alignment` and `multiattention` too) and the same
+    metrics.
 
     On the CPU that is K calls of the step. On a CUDA device the step is a
     CUDA graph (`_CapturedStep`) replayed K times: each replay copies its
@@ -177,7 +199,7 @@ def make_multi_step(cfg: CLIPConfig, optimizer: Optimizer, num_steps: int, **ste
     tensors and copies the step's metrics into row j of the outputs, with
     no host sync. A graph is captured on the first dispatch of each key
     (the per-step batch's fields, shapes, dtypes and device, the state's
-    tensors, the process-wide LayerNorm choice): that dispatch runs its
+    tensors, the process-wide LayerNorm and BatchNorm choices): that dispatch runs its
     first step eagerly, which warms up what a capture must not do for the
     first time, then captures, then replays K - 1 times. A capture or
     replay that fails raises; nothing falls back to the eager step."""
@@ -233,10 +255,11 @@ def make_multi_step(cfg: CLIPConfig, optimizer: Optimizer, num_steps: int, **ste
 def _graph_key(state: TrainState, batch: Dict[str, torch.Tensor]) -> tuple:
     """What a captured step is valid for: the batch's fields, shapes, dtypes
     and device, the state's tensors (a graph writes the ones it captured)
-    and the process-wide LayerNorm choice (`transformer` reads it)."""
+    and the process-wide LayerNorm and BatchNorm choices (`transformer` and
+    `resnet.batch_norm` read them)."""
     fields = tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items()))
     buffers = tuple(t.data_ptr() for t in tree_leaves(state.params) + tree_leaves(state.opt_state))
-    return fields, buffers, layers._resolve_ln()
+    return fields, buffers, layers._resolve_ln(), resnet.get_bn_mode()
 
 
 class _CapturedStep:
@@ -281,6 +304,8 @@ def make_accum_step(
     alignment: bool = False,
     use_pallas_ot="auto",
     alignment_chunks: int = 1,
+    multiattention: Optional[str] = None,
+    multiattention_pooling: str = "mean",
 ):
     """ONE optimizer step from K microbatches (gradient accumulation).
 
@@ -303,7 +328,8 @@ def make_accum_step(
             micro = {key: v[k] for key, v in batches.items()}
             total, loss_dict = loss_fn(
                 state.params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl,
-                alignment, use_pallas_ot, alignment_chunks,
+                alignment, use_pallas_ot, alignment_chunks, multiattention,
+                multiattention_pooling,
             )
             grads = _grads(total, state.params)
             metrics = {"loss": total.detach(), **{n: v.detach() for n, v in loss_dict.items()}}

@@ -1,11 +1,12 @@
-"""CLIP dual encoder (counterpart of `clip_event_tpu/models/clip.py`, ViT
-towers; the ResNet towers are not ported yet).
+"""CLIP dual encoder (counterpart of `clip_event_tpu/models/clip.py`): a
+ViT or ModifiedResNet vision tower and the causal text tower.
 
 The functional core mirrors the JAX package: `encode_image(params, cfg,
 images)`, `encode_text`, `forward`, on a nested dict of tensors with the
-JAX pytree's names and layouts. `VisionTower`, `TextTower` and `CLIP` are
-`nn.Module`s holding those tensors as registered parameters and calling the
-same functions.
+JAX pytree's names and layouts, a ResNet stage being a list of block
+dicts as in JAX (its conv weights OIHW, `models/resnet.py`). `VisionTower`,
+`TextTower` and `CLIP` are `nn.Module`s holding those tensors as
+registered parameters and calling the same functions.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from clip_event_tpu_torch.data.transform import CLIP_MEAN, CLIP_STD
 from clip_event_tpu_torch.models import layers as L
+from clip_event_tpu_torch.models.resnet import init_resnet, resnet_encode
 from clip_event_tpu_torch.models.vit import init_vit, vit_encode
 from clip_event_tpu_torch.ops.quant import QuantWeight
 from clip_event_tpu_torch.platform import resolve_device
@@ -58,6 +60,9 @@ class CLIPConfig:
 VIT_B32 = CLIPConfig(512, 224, 12, 768, 32, 77, 49408, 512, 8, 12)
 VIT_B16 = CLIPConfig(512, 224, 12, 768, 16, 77, 49408, 512, 8, 12)
 VIT_L14 = CLIPConfig(768, 224, 24, 1024, 14, 77, 49408, 768, 12, 12)
+RN50 = CLIPConfig(1024, 224, (3, 4, 6, 3), 64, None, 77, 49408, 512, 8, 12)
+RN101 = CLIPConfig(512, 224, (3, 4, 23, 3), 64, None, 77, 49408, 512, 8, 12)
+RN50X4 = CLIPConfig(640, 288, (4, 6, 10, 6), 80, None, 77, 49408, 640, 10, 12)
 
 TEXT_KEYS = (
     "token_embedding", "positional_embedding", "text_transformer", "ln_final",
@@ -65,32 +70,32 @@ TEXT_KEYS = (
 )
 
 
-def _require_vit(cfg: CLIPConfig) -> None:
-    if not cfg.is_vit:
-        raise NotImplementedError("the ResNet towers are not ported yet")
-
-
-def tree_to(tree: dict, device=None, dtype=None) -> dict:
-    """Move (and optionally cast) every tensor of a nested param dict; a
-    QuantWeight moves and keeps its int8 and fp32 tensors."""
-    return {
-        k: tree_to(v, device, dtype) if isinstance(v, dict) else v.to(device=device, dtype=dtype)
-        for k, v in tree.items()
-    }
+def tree_to(tree, device=None, dtype=None):
+    """Move (and optionally cast) every tensor of a nested param dict (a
+    list of a ResNet stage's blocks too); a QuantWeight moves and keeps its
+    int8 and fp32 tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype)
 
 
 def init_params(gen: torch.Generator, cfg: CLIPConfig, device="cuda") -> dict:
     """Random init following the JAX package's scheme (reference
     `model_clip.py:348-375`), drawn on the CPU from `gen`, then moved to
     `device`. The numbers differ from JAX's for the same seed."""
-    _require_vit(cfg)
     dev = resolve_device(device)
     W, E = cfg.transformer_width, cfg.embed_dim
-    params = {
-        "visual": init_vit(
+    if cfg.is_vit:
+        visual = init_vit(
             gen, cfg.image_resolution, cfg.vision_patch_size, cfg.vision_width,
             cfg.vision_layers, E,
-        ),
+        )
+    else:
+        visual = init_resnet(gen, cfg.vision_layers, cfg.vision_width, cfg.image_resolution, E)
+    params = {
+        "visual": visual,
         "token_embedding": 0.02 * torch.randn((cfg.vocab_size, W), generator=gen),
         "positional_embedding": 0.01 * torch.randn((cfg.context_length, W), generator=gen),
         "text_transformer": L.init_transformer(gen, cfg.transformer_layers, W),
@@ -107,10 +112,12 @@ def cast_params(params: dict, dtype=torch.bfloat16) -> dict:
     bf16 instead of fp16); an int8 QuantWeight stays as it is."""
 
     def cast(tree, in_norm):
+        if isinstance(tree, list):
+            return [cast(v, in_norm) for v in tree]
         out = {}
         for k, v in tree.items():
             norm = in_norm or k.startswith("ln") or k.startswith("bn")
-            if isinstance(v, dict):
+            if isinstance(v, (dict, list)):
                 out[k] = cast(v, norm)
             elif norm or k == "logit_scale" or "mean" in k or "var" in k or isinstance(v, QuantWeight):
                 out[k] = v
@@ -143,17 +150,24 @@ def encode_image(
     impl: Optional[str] = None,
     remat=False,
 ) -> torch.Tensor:
-    """[B, H, W, 3] → [B, E], or [B, grid²+1, E] when use_grid.
+    """[B, H, W, 3] → [B, E], or [B, grid²+1, E] when use_grid (ViT only).
 
     uint8 inputs are CLIP-normalized on the device, `(x/255 - mean)/std` in
-    fp32, the exact ops of `data.transform.normalize`."""
-    _require_vit(cfg)
+    fp32, the exact ops of `data.transform.normalize`. The ResNet tower
+    takes no `impl` (it has no attention kernel) and no `remat`, as in
+    JAX."""
     if images.dtype == torch.uint8:
         mean, std = _normalize_constants(images.device)
         images = (images.float() / 255.0 - mean) / std
-    return vit_encode(
-        params["visual"], images, cfg.vision_patch_size, cfg.vision_heads,
-        use_grid=use_grid, compute_dtype=compute_dtype, impl=impl, remat=remat,
+    if cfg.is_vit:
+        return vit_encode(
+            params["visual"], images, cfg.vision_patch_size, cfg.vision_heads,
+            use_grid=use_grid, compute_dtype=compute_dtype, impl=impl, remat=remat,
+        )
+    if use_grid:
+        raise ValueError("grid features require the ViT tower")
+    return resnet_encode(
+        params["visual"], images, cfg.vision_layers, cfg.vision_heads, compute_dtype=compute_dtype
     )
 
 
@@ -320,18 +334,25 @@ class _QuantLeaf(nn.Module):
         return QuantWeight(self.q, self.scale, self.act_scale)
 
 
+def _subtree(v) -> nn.Module:
+    if isinstance(v, dict):
+        return _ParamTree(v)
+    if isinstance(v, list):
+        return _ParamList(v)
+    return _QuantLeaf(v)
+
+
 class _ParamTree(nn.Module):
     """A nested param dict held as frozen registered parameters whose names
-    mirror the JAX pytree (`visual.transformer.attn.qkv_w`, ...); a
-    QuantWeight leaf becomes a `_QuantLeaf` of buffers."""
+    mirror the JAX pytree (`visual.transformer.attn.qkv_w`, ...); a list (a
+    ResNet stage's blocks) becomes a `_ParamList` (`visual.layer1.0.conv1_w`)
+    and a QuantWeight leaf a `_QuantLeaf` of buffers."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for k, v in tree.items():
-            if isinstance(v, dict):
-                self.add_module(k, _ParamTree(v))
-            elif isinstance(v, QuantWeight):
-                self.add_module(k, _QuantLeaf(v))
+            if isinstance(v, (dict, list, QuantWeight)):
+                self.add_module(k, _subtree(v))
             else:
                 self.register_parameter(k, nn.Parameter(v, requires_grad=False))
 
@@ -339,6 +360,16 @@ class _ParamTree(nn.Module):
         out = dict(self._parameters)
         out.update((k, m.tree()) for k, m in self._modules.items())
         return out
+
+
+class _ParamList(nn.ModuleList):
+    """A list of param subtrees; `tree()` gives the list back."""
+
+    def __init__(self, items: list):
+        super().__init__([_subtree(v) for v in items])
+
+    def tree(self) -> list:
+        return [m.tree() for m in self]
 
 
 class VisionTower(_ParamTree):
@@ -366,7 +397,6 @@ class CLIP(nn.Module):
 
     def __init__(self, cfg: CLIPConfig, params: dict):
         super().__init__()
-        _require_vit(cfg)
         self.cfg = cfg
         self.visual = VisionTower(cfg, params["visual"])
         self.text = TextTower(cfg, {k: params[k] for k in TEXT_KEYS})

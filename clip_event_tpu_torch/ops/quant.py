@@ -394,12 +394,15 @@ def quantize_params(params: Any, act_stats: Any = None, towers=None) -> Any:
 
     def walk(node, stats, active):
         # `active` is None only at the root, where the tower filter applies
-        # per top-level key; below that it propagates as it is
+        # per top-level key; below that it propagates as it is. A list (a
+        # ResNet stage) holds conv blocks, which stay float
+        if isinstance(node, list):
+            return [walk(v, None, active) for v in node]
         out = {}
         for k, v in node.items():
             act = (allowed is None or k in allowed) if active is None else active
             s = stats.get(k) if isinstance(stats, dict) else None
-            if isinstance(v, dict):
+            if isinstance(v, (dict, list)):
                 out[k] = walk(v, s, act)
             elif act and k in _DENSE_KEYS and isinstance(v, torch.Tensor) and v.dim() >= 2:
                 out[k] = quantize_weight(v, act_absmax=s)
@@ -448,4 +451,6 @@ def is_quantized(params: Any) -> bool:
         return True
     if isinstance(params, dict):
         return any(is_quantized(v) for v in params.values())
+    if isinstance(params, list):
+        return any(is_quantized(v) for v in params)
     return False

@@ -6,9 +6,13 @@ single device:
 The config is the JAX CLI's (`config.py`). It trains from a random init
 (`seed`), from an OpenAI / reference `.pth` (`jit: true` + `begin_ckpt`), or
 resumes a checkpoint of this port (`begin_ckpt`), mid-epoch resumes
-included. Length buckets, dedupe-encode, gradient accumulation, K steps a
-dispatch (`steps_per_dispatch`: a CUDA graph of the step on the card),
-the remat policies, `max_steps`, `save_steps`, `use_pallas_ln`, the SIGTERM checkpoint, the NaN abort with its
+included. Any model of `config.py` (the ViT and ResNet presets or a model
+dict; `sync_bn` takes the ResNet tower's BatchNorm statistics from the
+batch), the OT alignment and local-attention (`multiattention`, with the
+SR/bbox data channel) branches, length buckets, dedupe-encode, gradient
+accumulation, K steps a dispatch (`steps_per_dispatch`: a CUDA graph of
+the step on the card), the remat policies, `max_steps`, `save_steps`,
+`use_pallas_ln`, the SIGTERM checkpoint, the NaN abort with its
 `nan_debug_step*.json` artifact and per-epoch zero-shot matching
 validation work as in the JAX CLI; `config.json` and `scalars.jsonl` are
 written beside the logs. The default device is the card; with no card and
@@ -46,7 +50,7 @@ from clip_event_tpu_torch.engine.train_step import (
     make_multi_step,
     make_train_step,
 )
-from clip_event_tpu_torch.models import layers
+from clip_event_tpu_torch.models import layers, resnet
 from clip_event_tpu_torch.models.clip import CLIPConfig
 from clip_event_tpu_torch.platform import resolve_device
 
@@ -103,7 +107,8 @@ def train(
         compute_dtype=torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else torch.float32,
         remat=cfg["remat"], impl="kernel" if cfg["use_pallas_attention"] else "plain",
         alignment=cfg["alignment"], alignment_chunks=cfg["alignment_chunks"],
-        use_pallas_ot=cfg["use_pallas_ot"],
+        use_pallas_ot=cfg["use_pallas_ot"], multiattention=cfg["multiattention"],
+        multiattention_pooling=cfg["multiattention_pooling"],
     )
     state = create_train_state(params, optimizer)
     if opt_state is not None:
@@ -151,6 +156,11 @@ def train(
     old_ln = layers._resolve_ln()
     if cfg["use_pallas_ln"]:
         layers.set_ln_impl("pallas")
+    # sync_bn: the ResNet tower's BatchNorm takes the batch's statistics
+    # (single device: the whole batch's) for the length of this run
+    old_bn = resnet.get_bn_mode()
+    if cfg["sync_bn"] and not mcfg.is_vit:
+        resnet.set_bn_mode("batch")
     try:
         for epoch in range(begin_epoch, cfg["max_epoch"]):
             log.info("=> Epoch[%d]: train start", epoch)
@@ -280,6 +290,7 @@ def train(
                             best_perf, step=state.step)
     finally:
         layers.set_ln_impl(old_ln)
+        resnet.set_bn_mode(old_bn)
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
     return state
@@ -345,15 +356,19 @@ def build_dataset(cfg: dict, mcfg: CLIPConfig):
         input_events=cfg["input_events"],
         max_entities=cfg["max_entities"],
         max_events=cfg["max_events"],
+        load_sr=cfg["load_sr"],
+        max_bboxes=cfg["max_bboxes"],
         contrastive_loss=cfg["constrastive_loss"],
         overbatch=cfg["constrastive_overbatch"],
         image_size=mcfg.image_resolution,
         uint8_images=cfg["device_normalize"],
         context_cap=cfg["context_cap"],
         dedupe_texts=cfg["dedupe_texts"],
+        dedupe_sr_texts=cfg["dedupe_sr_texts"],
         # an overflow falls back to a differently shaped batch, which a
-        # stack of accumulated microbatches cannot take: raise there instead
-        dedupe_strict=int(cfg["grad_accum_steps"]) > 1,
+        # stack of K steps or of accumulated microbatches cannot take:
+        # raise there instead
+        dedupe_strict=int(cfg["steps_per_dispatch"]) > 1 or int(cfg["grad_accum_steps"]) > 1,
     )
 
 

@@ -90,9 +90,11 @@ def test_bench_presets_and_remat_note(capsys):
     """The JAX bench's presets, remat policies and protocol (10 steps a
     call, 3 timed calls after 1 warm-up call); `--remat` takes a policy
     name and the line reports it by name, with no note."""
-    assert bench.DEFAULT_BATCH == {"ViT-B/32": 384, "ViT-B/16": 96, "ViT-L/14": 64}
+    assert bench.DEFAULT_BATCH == {"ViT-B/32": 384, "ViT-B/16": 96, "ViT-L/14": 64,
+                                   "RN50": 128, "RN101": 128, "RN50x4": 128}
     assert (bench.NUM_POS, bench.NUM_NEG) == (1, 2)
-    assert bench.DEFAULT_REMAT == {"ViT-B/32": "1", "ViT-B/16": "attn", "ViT-L/14": "attn"}
+    assert bench.DEFAULT_REMAT == {"ViT-B/32": "1", "ViT-B/16": "attn", "ViT-L/14": "attn",
+                                   "RN50": "1", "RN101": "attn", "RN50x4": "1"}
     assert (bench.STEPS_PER_CALL, bench.MEASURE_CALLS, bench.WARMUP_CALLS) == (10, 3, 1)
     assert bench.REMAT_CHOICES == ("0", "1", "full", "dots", "dots_nobatch", "attn")
     assert bench.main(TINY + ["--remat", "attn", "--calls", "2"]) == 0

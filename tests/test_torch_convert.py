@@ -87,5 +87,11 @@ def test_torch_checkpoint_file_loads(tmp_path, np_params):
 
 
 def test_resnet_is_refused():
-    with pytest.raises(NotImplementedError):
-        TC.config_from_state_dict({"visual.layer1.0.conv1.weight": np.zeros((64, 64, 1, 1))})
+    """Since the ResNet half of convert.py is ported, a ResNet state dict is
+    read (tests/test_torch_resnet.py holds it against JAX); one without its
+    attention pool is refused, by both packages alike."""
+    sd = {"visual.layer1.0.conv1.weight": np.zeros((64, 64, 1, 1))}
+    with pytest.raises(KeyError, match="attnpool"):
+        TC.config_from_state_dict(sd)
+    with pytest.raises(KeyError, match="attnpool"):
+        JC.config_from_state_dict(sd)

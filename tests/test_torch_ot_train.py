@@ -252,7 +252,12 @@ def test_config_accepts_finetune_ot_and_refuses_the_rest():
     for key in ("use_pallas_ot", "max_objects", "max_entities", "max_events", "object_topk",
                 "object_detection_threshold", "alignment_chunks"):
         assert ours[key] == ref[key], key
-    for key, value, item in [("multiattention", True, "A4"), ("load_sr", True, "A4")]:
+    # the local-attention branch (A4) is accepted beside the OT branch, as
+    # in JAX; the parts still refused are multi-device (A6) and the image
+    # cache (A7)
+    for extra in ({"multiattention": True}, {"load_sr": True, "dedupe_sr_texts": 16}):
+        assert TC.validate_config(dict(raw, **extra)) == JC.validate_config(dict(raw, **extra))
+    for key, value, item in [("tp", 2, "A6"), ("image_cache", "/c", "A7")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(raw, **{key: value}))
     for bad in ({"load_object": False}, {"load_ie": False}, {"object_ontology_file": None}):

@@ -6,6 +6,8 @@ bucketed batch plans, the config defaults and the keys this port refuses,
 `device_prefetch` on the CPU, and the checkpoint file's round trip. Every
 comparison is exact: the same numpy ops run on both sides."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -60,12 +62,23 @@ def test_dataset_examples_and_batches_match(voa, uint8, monkeypatch):
     np.testing.assert_array_equal(ours.instance_widths(), ref.instance_widths())
 
 
-def test_unported_channels_raise(voa):
-    """The SR/bbox channel is the one not ported yet (the object and IE
-    channels are held against JAX in tests/test_torch_ot_train.py)."""
+def test_unported_channels_raise(voa, monkeypatch):
+    """Every data channel is ported: the SR/bbox channel (`load_sr`) is
+    accepted and carries JAX's fields (held bit for bit in
+    tests/test_torch_local_attention.py; the object and IE channels in
+    tests/test_torch_ot_train.py). What stays refused is the multi-process
+    batch assembly (`dist_rank` / `dist_world`, ROADMAP A6)."""
+    monkeypatch.setenv("CLIP_EVENT_NATIVE", "0")
     args = (voa["descriptions_json"], [voa["mapping_json"]], [voa["image_dir"]])
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        VOADescriptionDataset(*args, load_sr=True)
+    ours = VOADescriptionDataset(*args, load_sr=True, max_bboxes=3, image_size=32,
+                                 object_pickles=[voa["object_pickle"]],
+                                 object_ontology_file=voa["ontology_csv"])
+    ref = JaxVOA(*args, load_sr=True, max_bboxes=3, image_size=32,
+                 object_pickles=[voa["object_pickle"]], object_ontology_file=voa["ontology_csv"])
+    _equal(ours[0][0], ref[0][0])
+    assert ours[0][0]["bbox_mask"].tolist() == [1, 1, 0]
+    with pytest.raises(TypeError, match="dist_world"):
+        VOADescriptionDataset(*args, dist_world=2)
 
 
 @pytest.mark.parametrize("kw", [
@@ -120,25 +133,28 @@ def test_config_defaults_and_refusals():
     ours, ref = TC.validate_config(base), JC.validate_config(base)
     assert ours == ref
     # the ROADMAP items that bring each refused part: multi-device A6, the
-    # SR channel and multiattention A4, the image cache A7, ResNet A2
+    # image cache A7
     for key, value, item in [("tp", 2, "A6"), ("pp", 2, "A6"), ("dcn_dp", 2, "A6"),
                              ("zero", True, "A6"), ("fsdp", True, "A6"),
-                             ("multiattention", True, "A4"),
-                             ("image_cache", "/c", "A7"),
-                             ("load_sr", True, "A4"), ("dedupe_sr_texts", 8, "A4")]:
+                             ("image_cache", "/c", "A7")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(base, **{key: value}))
-    with pytest.raises(TC.ConfigError, match="ROADMAP A2"):
-        TC.model_config({"model": "RN50"})
-    with pytest.raises(TC.ConfigError, match="ROADMAP A2"):
-        TC.model_config({"model": {"embed_dim": 64, "image_resolution": 32, "vision_layers": [1, 1, 1, 1],
-                                   "vision_width": 64, "vision_patch_size": None, "context_length": 77,
-                                   "vocab_size": 512, "transformer_width": 64,
-                                   "transformer_heads": 1, "transformer_layers": 1}})
+    # the SR channel, multiattention (A4) and the ResNet towers (A2) are
+    # accepted, as the JAX package accepts them
+    for extra in ({"multiattention": True, "load_object": True, "object_ontology_file": "o.csv"},
+                  {"load_sr": True, "dedupe_sr_texts": 8}):
+        assert TC.validate_config(dict(base, **extra)) == JC.validate_config(dict(base, **extra))
+    rn_dict = {"embed_dim": 64, "image_resolution": 32, "vision_layers": [1, 1, 1, 1],
+               "vision_width": 64, "vision_patch_size": None, "context_length": 77,
+               "vocab_size": 512, "transformer_width": 64, "transformer_heads": 1,
+               "transformer_layers": 1}
+    for spec in ("RN50", "RN101", "RN50x4", rn_dict):
+        ours, ref = TC.model_config({"model": spec}), JC.model_config({"model": spec})
+        assert not ours.is_vit and dataclasses.asdict(ours) == dataclasses.asdict(ref)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         layers.set_ln_impl("xla", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        VOADescriptionDataset("d.json", [], [], load_sr=True)
+    with pytest.raises(TypeError, match="dist_rank"):
+        VOADescriptionDataset("d.json", [], [], dist_rank=1)
     for bad in ({"constrastive_loss": "bce"}, {"batch_size": 0}, {"length_buckets": [80]},
                 {"lr_scheduler": "linear"}):
         with pytest.raises(TC.ConfigError):

@@ -6,8 +6,9 @@ the plain LayerNorm and with the fused LayerNorm kernels of
 the OT graph-alignment fine-tuning of `configs/finetune_ot.json` and the
 full CLIP-Event fine-tuning of `configs/clip_event_full.json` (OT and
 local attention) at ViT-B/32, RN50 and RN50x4 serving and RN50
-fine-tuning, int8 serving, the zero-shot evals (GSR among them), and the
-bench entry point and component bench.
+fine-tuning, int8 serving, the serving bundle (`torch.export` programs
+serving through the kernels' custom ops), the zero-shot evals (GSR among
+them), and the bench entry point and component bench.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --only k1   # device, build and K1's kernel checks
@@ -22,6 +23,7 @@ bench entry point and component bench.
     # device, build, then those phases alone (any of train_full,
     # serving_rn50, train_rn50, evals)
     python3 chip_smoke.py --only train_full serving_rn50 train_rn50 evals
+    python3 chip_smoke.py --only serving_bundle   # the serving bundle alone
     # the same for an earlier tree's package unpacked under DIR
     python3 chip_smoke.py --only b1 --package-root DIR
 
@@ -156,6 +158,20 @@ Phases, each printing JSON lines:
               attention kernel takes its tf32x3 variant (its ~1e-6 flips
               dynamic int8 roundings), else at 1e-4, and the cosine of int8
               against float features (gated at >= 0.99 at ViT-B/32)
+  9b. serving_bundle  `engine/export.py` at full width from seed 0: a
+              ViT-B/32 bundle in fp32, bf16 and int8 and a ViT-L/14 int8
+              bundle (the fp32 and int8 B/32 ones exported on the CPU), each
+              loaded in a fresh process (load seconds; `models.clip` and the
+              layers must stay out of its sys.modules) and here, then
+              serving batches of 1, 7 and 64 on the card, counted: K1 12 a
+              tower batch, K2 24 an L/14 image batch, K5 100 / 98 (B/32) and
+              196 / 98 (L/14) an image / text batch, equal to the live
+              model's a batch; features against the live model (fp32 max abs
+              1e-5, bf16 cosine 0.999, int8 1e-4; bit equality reported) and
+              the batch of 7 against the same bundle served on the CPU
+              through the ops' plain versions (fp32 1e-4, else cosine
+              0.999); export and load seconds, bundle bytes, images/s and
+              texts/s at batch 64, bundle and live in turns
  10. evals    the M2E2, VCR, VisualCOMET and retrieval CLIs through
               `evals.cli.run` on synthetic annotation files (tests/fixtures.py):
               VCR, VisualCOMET and retrieval at ViT-B/32 fp32, M2E2 at
@@ -230,7 +246,8 @@ K5's registers, shared memory and spills by kernel (any spill fails),
 the GEMM's blocks an SM, and checks that the GEMM's SASS holds the
 warpgroup int8 MMA (IGMMA).
 
-then the `{"kernels": [...]}` line, the card's name and power limit as
+Every phase line carries `t_s`, the seconds since the script started.
+Then the `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi prints them, and a last line `{"ok": true, "device": {...}}`.
 Any failed check raises, so the script exits non-zero. With no card it
 exits non-zero before printing anything.
@@ -243,6 +260,7 @@ import ctypes
 import json
 import math
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -261,6 +279,7 @@ if __name__ == "__main__" and "--package-root" in sys.argv:
 from clip_event_tpu_torch import bench as port_bench
 from clip_event_tpu_torch.config import validate_config
 from clip_event_tpu_torch.data.common import ExampleDataset
+from clip_event_tpu_torch.data.transform import CLIP_MEAN, CLIP_STD
 from clip_event_tpu_torch.data.labels import build_label_layout
 from clip_event_tpu_torch.embed import embed_stream
 from clip_event_tpu_torch.engine.optim import build_optimizer, build_schedule, tree_leaves
@@ -317,6 +336,7 @@ from clip_event_tpu_torch.tools import bench_components
 from clip_event_tpu_torch.train import train
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 # the card's published peaks (H100 SXM data sheet, dense): memory, fp32 on
 # the CUDA cores, bf16 and TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -578,7 +598,8 @@ def read_launches() -> dict:
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started (`t_s`)."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -873,12 +894,15 @@ def in_turns(old, new, iters, warmup=5):
     return t["old"], t["new"]
 
 
-def in_turns_many(fns, iters, warmup=5):
+def in_turns_many(fns, iters, warmup=5, readings=None):
     """{name: ms} of each of `fns`, timed by `cuda_ms` in their order and
-    then in the reverse order, the two readings averaged."""
+    then in the reverse order, the two readings averaged; `readings`, a
+    dict, receives both readings of each."""
     t = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
         t[name].append(cuda_ms(fns[name], iters, warmup))
+    if readings is not None:
+        readings.update(t)
     return {name: float(np.mean(ms)) for name, ms in t.items()}
 
 
@@ -3405,9 +3429,194 @@ def phase_train_rn50(out_root):
     return run["launches"]
 
 
+BUNDLES = (  # (tag, model, compute dtype, quantize, the device the export traces on)
+    ("b32_fp32", "ViT-B/32", torch.float32, None, "cpu"),
+    ("b32_bf16", "ViT-B/32", torch.bfloat16, None, "cuda"),
+    ("b32_int8", "ViT-B/32", torch.float32, "int8", "cpu"),
+    ("l14_int8", "ViT-L/14", torch.float32, "int8", "cuda"),
+)
+BUNDLE_MODELS = {"ViT-B/32": VIT_B32, "ViT-L/14": VIT_L14}
+BUNDLE_BATCHES = (1, 7, 64)
+BUNDLE_PLAIN_BATCH = 7  # the batch served again on the CPU's plain versions
+# the bundle against the live model on the card (max abs error, or min
+# cosine for bf16), and the bundle on the card against the same bundle on
+# the CPU (the plain versions; min cosine, but fp32 max abs error)
+BUNDLE_LIVE_TOL = {"float32": 1e-5, "int8": 1e-4}
+BUNDLE_COS = 0.999
+BUNDLE_PLAIN_TOL = 1e-4
+# a fresh process loads a bundle on the card and serves one batch: the
+# load's seconds, and whether the model code stayed out of sys.modules
+BUNDLE_LOAD_CHECK = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from clip_event_tpu_torch.engine.export import load_serving_bundle
+torch.cuda.init()
+torch.zeros(1, device="cuda")
+t1 = time.perf_counter()
+model = load_serving_bundle(sys.argv[1], device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+res, ctx = model.meta["image_resolution"], model.meta["context_length"]
+f = model.encode_image(torch.zeros((1, res, res, 3), device="cuda"))
+t = model.encode_text(torch.ones((1, ctx), dtype=torch.int32, device="cuda"))
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+code = ("clip_event_tpu_torch.models.clip", "clip_event_tpu_torch.models.layers",
+        "clip_event_tpu_torch.models.vit", "clip_event_tpu_torch.models.resnet")
+print(json.dumps({"import_and_cuda_init_s": t1 - t0, "load_s": t2 - t1, "first_batch_s": t3 - t2,
+                  "finite": bool(torch.isfinite(f).all() and torch.isfinite(t).all()),
+                  "model_code_in_sys_modules": [m for m in code if m in sys.modules]}))
+"""
+
+
+def bundle_inputs(mcfg, n):
+    """fp32 images (serving_inputs' uint8 images, CLIP-normalised on the
+    host) and token rows, on the card."""
+    images, tokens = serving_inputs(mcfg, n)
+    x = (images.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+    return torch.from_numpy(x).cuda(), torch.from_numpy(tokens).cuda()
+
+
+def _compare(got, ref, gate, what):
+    """max abs error, min cosine and bit equality of two feature batches;
+    `gate` is ("abs", tol) or ("cos", min)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    err = (got - ref).abs().max().item()
+    cos = F.cosine_similarity(got, ref, dim=-1).min().item()
+    kind, bar = gate
+    check(err <= bar if kind == "abs" else cos >= bar, f"{what}: max abs err {err}, min cosine {cos} ({gate})")
+    return {"max_abs_err": err, "min_cos": cos, "bit_equal": bool(torch.equal(got, ref))}
+
+
+def phase_serving_bundle(out_root):
+    """The serving bundle (`engine/export.py`) at full width from seed 0:
+    ViT-B/32 in fp32, bf16 and int8 and ViT-L/14 in int8, the fp32 and int8
+    B/32 bundles exported on the CPU, the others on the card. Each bundle is
+    loaded in a fresh process (load seconds; the model code must stay out of
+    its sys.modules) and here, then serves batches of 1, 7 and 64 on the
+    card, counted: K1 12 a tower batch (K2 24 an L/14 image batch), K5 once
+    a dense layer of an int8 tower, the live model's counts. The features
+    are held against the live model (fp32 1e-5, bf16 cosine 0.999, int8
+    1e-4), and the batch of 7 against the same bundle served on the CPU
+    through the ops' plain versions (fp32 1e-4, else cosine 0.999); export
+    and load seconds, bundle bytes, and images/s and texts/s at batch 64,
+    bundle and live in turns."""
+    from clip_event_tpu_torch.engine.export import load_serving_bundle, save_serving_bundle
+    from clip_event_tpu_torch.models.clip import tree_to
+    from clip_event_tpu_torch.ops.quant import quantize_params
+
+    all_launches = dict.fromkeys(COUNTERS, 0)
+    for tag, model, dtype, quantize, export_device in BUNDLES:
+        t_bundle = time.perf_counter()
+        mcfg = BUNDLE_MODELS[model]
+        dtype_name = str(dtype).replace("torch.", "")
+        live_params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+        export_params = tree_to(live_params, export_device)
+        if quantize:
+            live_params = quantize_params(live_params)
+        out_dir = os.path.join(out_root, "serving_bundle", tag)
+        t0 = time.perf_counter()
+        save_serving_bundle(out_dir, export_params, mcfg, compute_dtype=dtype, quantize=quantize)
+        export_s = time.perf_counter() - t0
+        del export_params
+        files = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+
+        # ---- a fresh process loads it on the card, without the model code
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", BUNDLE_LOAD_CHECK, out_dir], cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"{tag}: loading in a fresh process failed:\n{proc.stderr[-3000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        fresh["process_s"] = time.perf_counter() - t0
+        check(fresh["finite"], f"{tag}: fresh process features finite")
+        check(not fresh["model_code_in_sys_modules"],
+              f"{tag}: loading imported the model code {fresh['model_code_in_sys_modules']}")
+
+        t0 = time.perf_counter()
+        bundle = load_serving_bundle(out_dir, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        x_img, x_tok = bundle_inputs(mcfg, max(BUNDLE_BATCHES))
+
+        # ---- the main path, counted: batches of 1, 7 and 64 through both programs
+        reset_launches()
+        served = {}
+        for b in BUNDLE_BATCHES:
+            served[b] = (bundle.encode_image(x_img[:b]), bundle.encode_text(x_tok[:b]))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        per_batch = int8_launches(mcfg, 1, 1) if quantize else serving_launches(mcfg, 1, 1)
+        n = len(BUNDLE_BATCHES)
+        expected = {k: v * n for k, v in per_batch.items()}
+        check(launches == expected, f"{tag} launches {launches} != {expected}")
+        all_launches = {k: all_launches[k] + launches[k] for k in COUNTERS}
+
+        # ---- the live model: its launches a batch, its features
+        def live_image(x):
+            return l2_normalize(encode_image(live_params, mcfg, x, compute_dtype=dtype, impl="kernel")).float()
+
+        def live_text(t):
+            return l2_normalize(encode_text(live_params, mcfg, t, compute_dtype=dtype, impl="kernel")).float()
+
+        with torch.inference_mode():
+            reset_launches()
+            live64 = (live_image(x_img), live_text(x_tok))
+            torch.cuda.synchronize()
+            live_launches = read_launches()
+            check(live_launches == per_batch, f"{tag}: the live model's launches a batch {live_launches} "
+                                              f"!= the bundle's {per_batch}")
+            gate = ("cos", BUNDLE_COS) if dtype == torch.bfloat16 else (
+                "abs", BUNDLE_LIVE_TOL["int8" if quantize else "float32"])
+            vs_live = {}
+            for b in BUNDLE_BATCHES:
+                live = live64 if b == max(BUNDLE_BATCHES) else (live_image(x_img[:b]), live_text(x_tok[:b]))
+                for kind, got, ref in zip(("images", "texts"), served[b], live):
+                    check(got.shape == (b, mcfg.embed_dim) and got.dtype == torch.float32
+                          and bool(torch.isfinite(got).all()), f"{tag} {kind} batch {b}: shape / finite")
+                    vs_live[f"{kind}_b{b}"] = _compare(got, ref, gate, f"{tag} {kind} batch {b} vs live")
+
+        # ---- the same bundle on the CPU: the ops' plain versions
+        t0 = time.perf_counter()
+        on_cpu = load_serving_bundle(out_dir, device="cpu")
+        cpu_load_s = time.perf_counter() - t0
+        b = BUNDLE_PLAIN_BATCH
+        plain = (on_cpu.encode_image(x_img[:b].cpu()), on_cpu.encode_text(x_tok[:b].cpu()))
+        gate = ("abs", BUNDLE_PLAIN_TOL) if dtype == torch.float32 and not quantize else ("cos", BUNDLE_COS)
+        vs_plain = {kind: _compare(got, ref, gate, f"{tag} {kind} card vs CPU plain")
+                    for kind, got, ref in zip(("images", "texts"), served[b], plain)}
+        cpu_plain_s = time.perf_counter() - t0
+        del on_cpu, plain
+
+        # ---- throughput at batch 64, bundle and live in turns
+        iters = 20 if mcfg.vision_layers <= 12 else 8
+        readings = {}
+        with torch.inference_mode():
+            ms = in_turns_many({
+                "bundle_image": lambda: bundle.encode_image(x_img), "live_image": lambda: live_image(x_img),
+                "bundle_text": lambda: bundle.encode_text(x_tok), "live_text": lambda: live_text(x_tok),
+            }, iters, warmup=3, readings=readings)
+        B = max(BUNDLE_BATCHES)
+        rates = {who: {"images_per_s": B / ms[f"{who}_image"] * 1e3, "texts_per_s": B / ms[f"{who}_text"] * 1e3,
+                       "image_batch_ms": ms[f"{who}_image"], "text_batch_ms": ms[f"{who}_text"]}
+                 for who in ("bundle", "live")}
+        emit({"phase": "serving_bundle", "bundle": tag, "model": model, "compute_dtype": dtype_name,
+              "quantize": quantize, "seed": 0, "exported_on": export_device, "served_on": "cuda",
+              "export_s": export_s, "load_s": load_s, "cpu_load_s": cpu_load_s, "fresh_process": fresh,
+              "cpu_plain_s": cpu_plain_s, "phase_s": time.perf_counter() - t_bundle,
+              "bundle_bytes": sum(files.values()), "files": files, "batches": list(BUNDLE_BATCHES),
+              "launches": launches, "per_batch": per_batch, "live_per_batch": live_launches,
+              "vs_live": vs_live, "vs_cpu_plain": vs_plain, "throughput_b64": rates,
+              "batch_ms_readings_in_turns": readings})
+        del bundle, live_params, served, live64
+        torch.cuda.empty_cache()
+    return all_launches
+
+
 # the phases `--only` runs alone (after the device and build phases)
 PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn50,
-                "train_rn50": phase_train_rn50, "evals": phase_evals}
+                "train_rn50": phase_train_rn50, "evals": phase_evals,
+                "serving_bundle": phase_serving_bundle}
 
 
 def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
@@ -3481,7 +3690,7 @@ def main(argv=None) -> int:
     says so; `b1` the wrappers' host cost (`--package-root DIR`: another
     tree's package), `graph` the graphed B/32 train step
     (`phase_train_graph`); `train_full`, `serving_rn50`, `train_rn50` or
-    `evals` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    `evals` or `serving_bundle` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
     csrc/ and times them beside these in turns; `--k6-split` times K6
     without its core and without its projection (`k6_split`)."""
     import argparse
@@ -3563,8 +3772,8 @@ def main(argv=None) -> int:
             k6_split(gen)
         torch.cuda.synchronize()
         print(smi, flush=True)
-        emit({"ok": True, "only": args.only, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                                  "count": torch.cuda.device_count()}})
+        print(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
     rows, errs = phase_kernels()
@@ -3587,6 +3796,7 @@ def main(argv=None) -> int:
                                                        "serving_int8_l14", l14_rates)
         paths["serving_int8_b32"] = phase_serving_int8(out_root, "ViT-B/32", L14_SERVING_ITEMS,
                                                        "serving_int8_b32", float_rates, cos_gate=0.99)
+        paths["serving_bundle"] = phase_serving_bundle(out_root)
         paths["evals"] = phase_evals(out_root)
         paths["bench_tools"] = phase_bench_tools()
 
@@ -3616,7 +3826,7 @@ def main(argv=None) -> int:
     # modes, K4c's two variants)
     for name in COUNTERS:
         check(sum(counts[name] for counts in paths.values()) > 0, f"{name} launched on the main paths")
-    emit({"kernels": [
+    print(json.dumps({"kernels": [
         entry(KERNEL, "clip_event_tpu_torch/csrc/attention_fwd.cu",
               "clip_event_tpu/ops/attention_pallas.py:93", TOL,
               head(KERNEL, "train_text", "bfloat16", variant="mma")),
@@ -3646,10 +3856,11 @@ def main(argv=None) -> int:
         entry(MEGA_KERNEL, "clip_event_tpu_torch/csrc/ln_qkv_attention.cu",
               "clip_event_tpu/ops/attention_pallas.py:580", MEGA_TOL,
               head(MEGA_KERNEL, "mega_text", "bfloat16", variant="mma")),
-    ]})
+    ]}), flush=True)
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    # the last line, exactly these keys
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -27,7 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from clip_event_tpu_torch.models.clip import TEXT_KEYS, CLIPConfig, tree_to
+from clip_event_tpu_torch.models.clip_config import TEXT_KEYS, CLIPConfig
 from clip_event_tpu_torch.ops.quant import QuantWeight
 from clip_event_tpu_torch.platform import resolve_device
 
@@ -294,9 +294,10 @@ def params_from_jax(np_params: dict, cfg: CLIPConfig, device="cuda") -> dict:
     want = {"visual", "logit_scale", *TEXT_KEYS}
     if set(np_params) != want:
         raise ValueError(f"param tree keys {sorted(np_params)} are not {sorted(want)}")
+    dev = resolve_device(device)
 
     def tensor(v):
-        return None if v is None else torch.from_numpy(np.array(v))
+        return None if v is None else torch.from_numpy(np.array(v)).to(dev)
 
     def leaf(v):
         if all(hasattr(v, a) for a in ("q", "scale", "act_scale")):
@@ -311,12 +312,12 @@ def params_from_jax(np_params: dict, cfg: CLIPConfig, device="cuda") -> dict:
             if isinstance(v, (dict, list)):
                 out[k] = to_tensors(v, conv or (k == "visual" and not cfg.is_vit))
             elif conv and k.endswith("_w") and np.ndim(v) == 4:
-                out[k] = torch.from_numpy(np.ascontiguousarray(np.transpose(v, (3, 2, 0, 1))))  # HWIO → OIHW
+                out[k] = tensor(np.ascontiguousarray(np.transpose(v, (3, 2, 0, 1))))  # HWIO → OIHW
             else:
                 out[k] = leaf(v)
         return out
 
-    return tree_to(to_tensors(np_params, False), resolve_device(device))
+    return to_tensors(np_params, False)
 
 
 def load_torch_checkpoint(path: str) -> StateDict:

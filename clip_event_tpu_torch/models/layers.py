@@ -72,6 +72,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from clip_event_tpu_torch.ops import attention as A
+from clip_event_tpu_torch.ops import library
 from clip_event_tpu_torch.ops import ln as LN
 from clip_event_tpu_torch.ops.attention import IMPLS
 from clip_event_tpu_torch.ops.quant import QuantWeight, quantized_linear
@@ -254,10 +255,14 @@ def attention_core(
     einsum path; here it raises on every device, so a CPU run shows what a
     card run would do. No CLIP preset reaches it. `impl="plain"` (or
     "rounded") runs the plain versions at any shape; None takes
-    `set_attention_impl`'s choice."""
+    `set_attention_impl`'s choice. While `torch.export` traces, "kernel"
+    is the custom op `ops.library.attention_core` (forward only), which
+    makes the same choice when the exported program runs."""
     impl = _resolve_attention(impl)
     if impl != "kernel":
         return A.attend(qkv, attn_bias, num_heads, scale, impl)
+    if torch.compiler.is_exporting():
+        return library.attention_core(qkv, attn_bias, num_heads, float(scale))
     B, S, W3 = qkv.shape
     if A.core_kernel(S, W3 // 3, num_heads) == "k1":
         return A.fused_attention_qkv(qkv, attn_bias, num_heads, scale)

@@ -353,12 +353,19 @@ def quantized_linear(x: torch.Tensor, w: QuantWeight, b: Optional[torch.Tensor] 
     """y = dequant(quant(x) @ w.q) (+ b). x: [..., in]; returns [..., out]
     in x's dtype. Static per-tensor activation scale when `w.act_scale` is
     set, dynamic per-row abs-max otherwise. K5 on the card unless
-    `set_gemm_impl("xla")` asked for the plain composition."""
+    `set_gemm_impl("xla")` asked for the plain composition. While
+    `torch.export` traces, the custom op `ops.library.quantized_linear`
+    (K5 on the card, the plain composition on the CPU, whatever
+    `set_gemm_impl` says)."""
     if w.q.dim() != 2:
         raise ValueError(f"quantized_linear takes one layer's [in, out] weight, got {tuple(w.q.shape)}")
     k, n = w.q.shape
     x2 = x.reshape(-1, k)
-    if _GEMM_IMPL == "xla":
+    if torch.compiler.is_exporting():
+        from clip_event_tpu_torch.ops import library
+
+        y = library.quantized_linear(x2, w.q, w.scale, w.act_scale, b)
+    elif _GEMM_IMPL == "xla":
         y = quantized_matmul_plain(x2, w.q, w.scale, b, w.act_scale)
     else:
         y = quantized_matmul(x2, w.q, w.scale, b, w.act_scale)

@@ -1,8 +1,8 @@
 """The port stands alone: no file of clip_event_tpu_torch, nor chip_smoke.py,
 imports JAX or the JAX package, and importing every module of the port
 (the int8 serving path, the zero-shot evals, the LayerNorm kernels' module,
-the bench entry point and the component bench among them) leaves JAX out of
-sys.modules."""
+the bench entry point, the component bench and the serving bundle among
+them) leaves JAX out of sys.modules."""
 
 import ast
 import os
@@ -23,6 +23,12 @@ INT8_AND_EVAL_MODULES = {
 # the fused LayerNorm kernels, the bench entry point, the component bench
 LN_AND_BENCH_MODULES = {
     f"clip_event_tpu_torch.{m}" for m in ("ops.ln", "bench", "tools", "tools.bench_components")
+}
+# the serving bundle: the kernels as custom ops, the export, its CLI, and
+# the model config its loader reads without the model code
+EXPORT_MODULES = {
+    f"clip_event_tpu_torch.{m}" for m in ("ops.library", "engine.export", "export_serving",
+                                          "models.clip_config")
 }
 
 
@@ -65,7 +71,7 @@ def test_importing_the_port_leaves_jax_out():
         "missing = sorted(set(%r) - set(names))\n"
         "assert not missing, missing\n"
         "print(len(names))\n"
-    ) % (sorted(FORBIDDEN), sorted(INT8_AND_EVAL_MODULES | LN_AND_BENCH_MODULES))
+    ) % (sorted(FORBIDDEN), sorted(INT8_AND_EVAL_MODULES | LN_AND_BENCH_MODULES | EXPORT_MODULES))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env,

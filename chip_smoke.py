@@ -24,6 +24,7 @@ them), and the bench entry point and component bench.
     # serving_rn50, train_rn50, evals)
     python3 chip_smoke.py --only train_full serving_rn50 train_rn50 evals
     python3 chip_smoke.py --only serving_bundle   # the serving bundle alone
+    python3 chip_smoke.py --only train_dp   # the data-parallel step alone
     # the same for an earlier tree's package unpacked under DIR
     python3 chip_smoke.py --only b1 --package-root DIR
 
@@ -86,6 +87,21 @@ Phases, each printing JSON lines:
               (torch.profiler, whose count of the hand kernels in the
               replay by name must equal the wrappers' counts), idle shares,
               peak memory and what stays reserved
+  5d. train_dp  the data-parallel path at a world of one, on the card's
+              NCCL: torchrun's environment (RANK 0, WORLD_SIZE 1,
+              LOCAL_RANK 0, MASTER_ADDR 127.0.0.1, a free port) through
+              `parallel.mesh.initialize_distributed`, backend "nccl" and
+              device cuda:0 checked; phase 5's workload (ViT-B/32, 384 x 3,
+              bf16, seed 0, its batches) through the train loop with the
+              mesh, counted (K1-fwd 48 and K1-bwd 24 a step, as without
+              one); 4 eager steps of the mesh's step and one 4-step graph
+              dispatch of it (the gather, the gradient all-reduce and the
+              rest captured) each bit for bit against 4 steps without a
+              mesh (params, optimizer state, metrics); the mesh's step
+              against the plain step in turns, ms a step, and the NCCL
+              kernels' calls and device ms in one profiled step (read, not
+              gated); the matching eval through `resolve_shard` equal to
+              the unsharded call; the process group destroyed at the end
   6. serving_l14  full-width ViT-L/14 from seed 0 (24 + 12 layers; vision
               S=257 through K2, text through K1): embed_stream over 128
               images and 128 token rows at batch 64, fp32 and bf16; launch
@@ -120,8 +136,9 @@ Phases, each printing JSON lines:
               checkpoints, pairs/s, step ms, peak memory, a profile of one
               step, and kernel-vs-plain steps (plain attention and plain
               IPOT; bf16 at B=64 and fp32 at B=16); then the graphed step
-              as in phase 5a: 4-step dispatches against eager steps bit for
-              bit, and the eager step against a 10-step dispatch
+              as in phase 5a, at less depth (its eager step takes ~1 s):
+              one 4-step dispatch against eager steps bit for bit, and the
+              eager step against a 4-step dispatch
   8b. train_full  configs/clip_event_full.json's settings at ViT-B/32 full
               width (64 images × 3 descriptions, finetune_ot's object and
               entity channels, 8 boxes an image with role descriptions and
@@ -559,6 +576,9 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 GRAPH_LOOP_K, GRAPH_TIMED_DISPATCHES = 4, 2
 GRAPH_CHECK_K = 4
 GRAPH_TIMING_K = 10
+# the data-parallel phase: synchronised steps a turn, and the matching
+# eval's pairs
+DP_TIMING_STEPS, DP_EVAL_ITEMS = 3, 256
 # kernel names a profile counts for each counter (K4a and K4b run one
 # kernel, K4c two, K1's and K2's backwards one or two)
 PROFILE_NEEDLES = {
@@ -574,6 +594,9 @@ L14_SERVING_ITEMS = 128
 # finetune_ot.json: batch 64, 8 object slots (the whole image at slot 0),
 # 16 entity and 8 event rows per image, alignment_chunks 4
 OT_BATCH, OT_OBJECTS, OT_ENTITIES, OT_EVENTS, OT_CHUNKS = 64, 8, 16, 8, 4
+# steps a dispatch in train_ot's graph-against-eager timing (the script's
+# time limit: its eager steps take ~1 s each)
+OT_GRAPH_TIMING_K = 4
 OT_FP32_CHECK_BATCH = 16
 # every kernel's launch counter, by the kernel's source name (K4b shares
 # K4a's source)
@@ -2190,7 +2213,7 @@ def loop_steps(k=1):
     return k, k * (1 + GRAPH_TIMED_DISPATCHES)
 
 
-def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
+def run_train_loop(tag, mcfg, params, ds, batch, out_root, mesh=None, **cfg_extra):
     """The main path of a train phase, counted: `train.train` over `ds` for
     warm-up + timed steps (bf16, full remat or `cfg_extra`'s, Adam at lr
     1e-6), one step a dispatch or `steps_per_dispatch` (the CUDA graph of
@@ -2229,7 +2252,7 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, **cfg_extra):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    state = train(cfg, mcfg, ds, params, "cuda", on_step=on_step)
+    state = train(cfg, mcfg, ds, params, mesh.device if mesh else "cuda", on_step=on_step, mesh=mesh)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     launches = read_launches()
@@ -2492,9 +2515,9 @@ def profile_replay(graph_obj):
             "replay_hand_kernels_by_profile": seen}
 
 
-def graph_vs_eager(mcfg, params, batch, **step_kwargs):
-    """The eager step against a GRAPH_TIMING_K-step graph dispatch
-    (`make_multi_step`'s `many_fixed`, the bench's call) on one resident bf16
+def graph_vs_eager(mcfg, params, batch, k=GRAPH_TIMING_K, **step_kwargs):
+    """The eager step against a `k`-step graph dispatch (`make_multi_step`'s
+    `many_fixed`; GRAPH_TIMING_K, the bench's call) on one resident bf16
     batch, each from a fresh state (Adam at lr 1e-6; full remat unless
     `step_kwargs` say otherwise): the peak memory of each one's first K
     steps (the graph's: its eager first step, the capture, K - 1 replays)
@@ -2506,7 +2529,7 @@ def graph_vs_eager(mcfg, params, batch, **step_kwargs):
     replay's kernels by name against the wrappers' counts."""
     from clip_event_tpu_torch.engine.train_step import make_multi_step
 
-    K = GRAPH_TIMING_K
+    K = k
     opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
     kw = dict(compute_dtype=torch.bfloat16, remat=True)
     kw.update(step_kwargs)
@@ -2701,6 +2724,167 @@ def only_graph():
 
 
 B1_CALLS, B1_REPEATS = 200, 7
+
+
+class _CaptionPairs(_BenchPairs):
+    """`_BenchPairs` with one caption an image (its first description
+    row): the matching eval's dataset."""
+
+    def __getitem__(self, i):
+        tensors, meta = super().__getitem__(i)
+        return {"image": tensors["image"], "text": tensors["text"][0]}, meta
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_equals_plain(mcfg, params, batches, mesh):
+    """GRAPH_CHECK_K steps of the mesh's step, eagerly and as one graphed
+    dispatch (`make_multi_step`), each against as many steps without a
+    mesh on the same batches from equal states (bf16, Adam at lr 1e-6):
+    params, optimizer state and every metric bit for bit, and the eager
+    steps' launch counts equal the plain steps'."""
+    from clip_event_tpu_torch.engine.train_step import make_multi_step
+
+    K = GRAPH_CHECK_K
+    check(len(batches) == K, f"dp_equals_plain: {len(batches)} batches")
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    kw = dict(compute_dtype=torch.bfloat16, remat=True)
+    plain, dp = make_train_step(mcfg, opt, **kw), make_train_step(mcfg, opt, mesh=mesh, **kw)
+    many, _ = make_multi_step(mcfg, opt, K, mesh=mesh, **kw)
+    states = {m: create_train_state(params, opt) for m in ("plain", "dp", "graph")}
+    rows, launches = {"plain": [], "dp": []}, {}
+    for mode, step in (("plain", plain), ("dp", dp)):
+        reset_launches()
+        for b in batches:
+            states[mode], m = step(states[mode], b)
+            rows[mode].append(m)
+        torch.cuda.synchronize()
+        launches[mode] = read_launches()
+    reset_launches()
+    states["graph"], mk = many(states["graph"], {k: torch.stack([b[k] for b in batches]) for k in batches[0]})
+    torch.cuda.synchronize()
+    launches["graph"] = read_launches()
+    want = {k: torch.stack([m[k] for m in rows["plain"]]) for k in rows["plain"][0]}
+    out = {"steps": K, "loss": want["loss"].tolist()}
+    for mode, metrics in (("dp", {k: torch.stack([m[k] for m in rows["dp"]]) for k in want}),
+                          ("graph", mk)):
+        differ = _state_equal(states["plain"], states[mode])
+        metrics_differ = [k for k in want if not torch.equal(metrics[k], want[k])]
+        check(not differ and not metrics_differ,
+              f"train_dp {mode} vs the plain steps: leaves {differ}, metrics {metrics_differ} differ")
+        check(launches[mode] == launches["plain"],
+              f"train_dp {mode} launches {launches[mode]} != plain {launches['plain']}")
+        out[f"{mode}_bit_equal"] = True
+    out["launches_per_step"] = {k: v // K for k, v in launches["plain"].items() if v}
+    del states, many, plain, dp
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_step_timing(mcfg, params, batch, mesh):
+    """The mesh's step against the step without one on one resident batch,
+    in turns (plain, dp, dp, plain: host clock around DP_TIMING_STEPS
+    synchronised steps, after one warm-up step each), and one profiled
+    step of each: device busy ms and the NCCL kernels' calls and ms."""
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    kw = dict(compute_dtype=torch.bfloat16, remat=True)
+    steps = {"plain": make_train_step(mcfg, opt, **kw), "dp": make_train_step(mcfg, opt, mesh=mesh, **kw)}
+    st = {m: create_train_state(params, opt) for m in steps}
+    for m in steps:
+        st[m], _ = steps[m](st[m], batch)
+    ms = {"plain": [], "dp": []}
+    for mode in ("plain", "dp", "dp", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMING_STEPS):
+            st[mode], _ = steps[mode](st[mode], batch)
+        torch.cuda.synchronize()
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / DP_TIMING_STEPS)
+    prof = {}
+    for mode in ("plain", "dp"):
+        def one():
+            st[mode], _ = steps[mode](st[mode], batch)
+
+        p = profile_one(one, float(np.mean(ms[mode])), kernels=(("nccl", "nccl"),))
+        prof[mode] = {k: p.get(k) for k in ("device_busy_ms", "device_idle_share", "kernel_launches",
+                                              "nccl_kernel_calls", "nccl_kernel_ms")}
+        prof[mode]["top"] = p.get("top", [])[:5]
+    del st, steps
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "dp_to_plain_step_ms": float(np.mean(ms["dp"]) / np.mean(ms["plain"])),
+            "profile": prof}
+
+
+def phase_train_dp(out_root):
+    """Phase 5d (module docstring): the data-parallel path at a world of
+    one on NCCL."""
+    import torch.distributed as dist
+
+    from clip_event_tpu_torch.evals.common import resolve_shard
+    from clip_event_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        spec = initialize_distributed("cuda")
+        mesh = make_mesh("cuda")
+        init_group_s = time.perf_counter() - t0
+        check(spec is not None and spec.source == "torchrun", f"train_dp: cluster {spec}")
+        check(dist.get_backend() == "nccl", f"train_dp: backend {dist.get_backend()}")
+        check(mesh.device == torch.device("cuda", 0) and (mesh.rank, mesh.world_size) == (0, 1),
+              f"train_dp: mesh {mesh}")
+        check(resolve_shard(None, None) == (0, 1), "train_dp: the eval shard of a world of one")
+        mcfg = VIT_B32
+        D = NUM_POS + NUM_NEG
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_steps = WARMUP_STEPS + TIMED_STEPS
+        ds = _BenchPairs(n_steps * TRAIN_BATCH, mcfg.image_resolution, mcfg.context_length,
+                         mcfg.vocab_size)
+        run = run_train_loop("train_dp", mcfg, params, ds, TRAIN_BATCH, out_root, mesh=mesh)
+        per_step = {k: v // run["n_steps"] for k, v in run["launches"].items()}
+        check((per_step[KERNEL], per_step[BWD_KERNEL]) == (48, 24),
+              f"train_dp: K1 a step {per_step[KERNEL]} / {per_step[BWD_KERNEL]}, not 48 / 24")
+        first = run["values"]["loss"][0]
+        check(abs(first - _chance(TRAIN_BATCH, D)) < 0.5,
+              f"train_dp first loss {first} vs chance {_chance(TRAIN_BATCH, D)}")
+        del run["state"]
+        torch.cuda.empty_cache()
+        equal = dp_equals_plain(mcfg, params, _device_batches(ds, TRAIN_BATCH, GRAPH_CHECK_K), mesh)
+        timing = dp_step_timing(mcfg, params, _device_batch(ds, TRAIN_BATCH), mesh)
+        captions = _CaptionPairs(DP_EVAL_ITEMS, mcfg.image_resolution, mcfg.context_length,
+                                 mcfg.vocab_size)
+        sharded = evaluate_matching(params, mcfg, captions, batch_size=64, device=mesh.device)
+        single = evaluate_matching(params, mcfg, captions, batch_size=64, device=mesh.device,
+                                   rank=0, world_size=1)
+        check(sharded == single, f"train_dp: sharded matching {sharded} != unsharded {single}")
+        _train_report("train_dp", "ViT-B/32", run, TRAIN_BATCH, D, init_s, backend=dist.get_backend(),
+                      device=str(mesh.device), world_size=mesh.world_size,
+                      init_process_group_s=init_group_s, launches_per_step=per_step,
+                      dp_equals_plain=equal, dp_vs_plain=timing, matching_sharded_equal=True,
+                      matching=sharded)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del params, ds
+    torch.cuda.empty_cache()
+    return run["launches"]
 
 
 def wrapper_host_us(fn, calls=B1_CALLS, repeats=B1_REPEATS, warmup=20) -> float:
@@ -3105,12 +3289,12 @@ def phase_train_ot(out_root):
     del run["state"]
     torch.cuda.empty_cache()
     graph_kw = {"alignment": True, "alignment_chunks": OT_CHUNKS, "use_pallas_ot": True}
-    check_ds = _OTPairs(2 * GRAPH_CHECK_K * OT_BATCH, mcfg.image_resolution, mcfg.context_length,
+    check_ds = _OTPairs(GRAPH_CHECK_K * OT_BATCH, mcfg.image_resolution, mcfg.context_length,
                         mcfg.vocab_size)
-    equal = graph_equals_eager(mcfg, params, _device_batches(check_ds, OT_BATCH, 2 * GRAPH_CHECK_K),
-                               **graph_kw)
+    equal = graph_equals_eager(mcfg, params, _device_batches(check_ds, OT_BATCH, GRAPH_CHECK_K),
+                               dispatches=1, **graph_kw)
     del check_ds
-    timing = graph_vs_eager(mcfg, params, _device_batch(ds, OT_BATCH), **graph_kw)
+    timing = graph_vs_eager(mcfg, params, _device_batch(ds, OT_BATCH), k=OT_GRAPH_TIMING_K, **graph_kw)
     loss_ot = run["values"]["loss_ot"]
     check(all(np.isfinite(loss_ot)) and min(loss_ot) > 0, f"loss_ot finite and > 0: {loss_ot}")
     contrastive = run["values"]["loss_i"][0] + run["values"]["loss_t"][0]
@@ -3616,7 +3800,7 @@ def phase_serving_bundle(out_root):
 # the phases `--only` runs alone (after the device and build phases)
 PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn50,
                 "train_rn50": phase_train_rn50, "evals": phase_evals,
-                "serving_bundle": phase_serving_bundle}
+                "serving_bundle": phase_serving_bundle, "train_dp": phase_train_dp}
 
 
 def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
@@ -3646,6 +3830,7 @@ def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),))
     for label, needle in kernels:
         ms = sum(k[1] for k in rows if needle in k[0])
         out[f"{label}_kernel_ms"] = ms
+        out[f"{label}_kernel_calls"] = sum(k[2] for k in rows if needle in k[0])
         out[f"{label}_kernel_share_of_busy"] = ms / busy_ms
     families = {}
     for key, ms, calls in rows:
@@ -3689,8 +3874,8 @@ def main(argv=None) -> int:
     alone (the quick look after an edit to them), with a last line that
     says so; `b1` the wrappers' host cost (`--package-root DIR`: another
     tree's package), `graph` the graphed B/32 train step
-    (`phase_train_graph`); `train_full`, `serving_rn50`, `train_rn50` or
-    `evals` or `serving_bundle` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    (`phase_train_graph`); `train_full`, `serving_rn50`, `train_rn50`,
+    `evals`, `serving_bundle` or `train_dp` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
     csrc/ and times them beside these in turns; `--k6-split` times K6
     without its core and without its projection (`k6_split`)."""
     import argparse
@@ -3783,6 +3968,7 @@ def main(argv=None) -> int:
         paths["serving"], float_rates = phase_serving(out_root)
         paths["train"], train_ms, train_prof = phase_train(out_root)
         paths["train_graph"] = phase_train_graph(out_root)
+        paths["train_dp"] = phase_train_dp(out_root)
         paths["train_ln"], paths["train_ln_l14"] = phase_train_ln(out_root, train_ms, train_prof)
         paths["serving_ln"] = phase_serving_ln()
         paths["serving_l14"], l14_rates = phase_serving(out_root, "ViT-L/14", L14_SERVING_ITEMS,

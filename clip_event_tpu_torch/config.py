@@ -4,8 +4,11 @@
 The same keys, defaults and checks as the JAX package's `validate_config`
 (including the original `constrastive_*` spellings), for the keys this
 port carries. A key of a part not ported yet raises `ConfigError` naming
-its ROADMAP item when it is set to anything but its default: the model,
-tensor, pipeline and data parallelism keys (A6) and the image cache (A7).
+its ROADMAP item when it is set to anything but its default: the sharded
+optimizer state and params (`zero`, `fsdp`: A6(b)), the tensor, sequence,
+pipeline and multi-slice keys (`tp`, `sp`, `pp`, `dcn_dp`: A6(c)) and the
+image cache (A7). Data parallelism (A6(a)) needs no key: it follows the
+launch (`torchrun`, `mpirun`, `srun`), with `batch_size` per process.
 `remat` takes false, true or a policy name of
 `models.layers.REMAT_POLICIES`, checked here as the JAX package's
 `transformer` checks it. `model` is one of the ViT and ResNet presets or a
@@ -129,7 +132,7 @@ _DEFAULTS: Dict[str, Any] = {
 
 # keys of parts not ported yet: the ROADMAP item that brings each
 _UNPORTED = {
-    "tp": "A6", "pp": "A6", "sp": "A6", "dcn_dp": "A6", "zero": "A6", "fsdp": "A6",
+    "tp": "A6(c)", "pp": "A6(c)", "sp": "A6(c)", "dcn_dp": "A6(c)", "zero": "A6(b)", "fsdp": "A6(b)",
     "image_cache": "A7",
 }
 

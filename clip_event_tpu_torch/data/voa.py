@@ -136,7 +136,13 @@ class VOADescriptionDataset(ExampleDataset):
     (`bbox_label_text`). Only the description channel is bucketed; it is
     deduped under `dedupe_texts`, the two bbox text channels under
     `dedupe_sr_texts` (`bbox_desc_unique` / `bbox_desc_inverse`,
-    `bbox_label_unique` / `bbox_label_inverse`)."""
+    `bbox_label_unique` / `bbox_label_inverse`).
+
+    Data parallel (`dist_rank` of `dist_world`): the labels index the
+    global batch's rows and this process emits its rank's block of them
+    (`data/labels.py`); a deduped channel holds the rank's cap / world
+    unique rows, its inverse index offset by rank · cap / world
+    (`data/dedupe.py`), and an overflow raises."""
 
     def __init__(
         self,
@@ -164,6 +170,8 @@ class VOADescriptionDataset(ExampleDataset):
         load_sr: bool = False,
         max_bboxes: int = 8,
         dedupe_sr_texts: int = 0,
+        dist_rank: int = 0,
+        dist_world: int = 1,
     ):
         self.image_size = image_size
         self.uint8_images = bool(uint8_images)
@@ -172,7 +180,14 @@ class VOADescriptionDataset(ExampleDataset):
         self.context = int(context_cap) or CONTEXT_LENGTH
         self.dedupe_texts = int(dedupe_texts)
         self.dedupe_sr_texts = int(dedupe_sr_texts)
-        self.dedupe_strict = bool(dedupe_strict)
+        self.dist_rank = int(dist_rank)
+        self.dist_world = int(dist_world)
+        # an overflow's fallback changes the batch shape, which the ranks'
+        # blocks of the global unique rows cannot take: strict then
+        self.dedupe_strict = bool(dedupe_strict) or self.dist_world > 1
+        for cap in (self.dedupe_texts, self.dedupe_sr_texts):
+            if cap and cap % self.dist_world:
+                raise ValueError(f"dedupe cap {cap} must divide by world size {self.dist_world}")
         self.load_sr = bool(load_sr)
         self.max_bboxes = max_bboxes
 
@@ -386,7 +401,8 @@ class VOADescriptionDataset(ExampleDataset):
 
     def batch_extras(self, batch_size: int):
         layout = build_label_layout(
-            batch_size, self.num_pos, self.num_neg, self.contrastive_loss, self.overbatch
+            batch_size, self.num_pos, self.num_neg, self.contrastive_loss, self.overbatch,
+            rank=self.dist_rank, world_size=self.dist_world,
         )
         return {
             "labels_per_image": layout.labels_per_image,
@@ -409,7 +425,8 @@ class VOADescriptionDataset(ExampleDataset):
         non-strict overflow takes the undeduped layout, a new shape."""
         rows = tensors.pop(field)
         rows = rows.reshape(-1, rows.shape[-1])
-        out = dedupe_rows(rows, cap, strict=self.dedupe_strict, tag=field)
+        out = dedupe_rows(rows, cap, rank=self.dist_rank, world=self.dist_world,
+                          strict=self.dedupe_strict, tag=field)
         tensors[f"{prefix}_unique"], tensors[f"{prefix}_inverse"] = (
-            identity_layout(rows) if out is None else out
+            identity_layout(rows, rank=self.dist_rank) if out is None else out
         )

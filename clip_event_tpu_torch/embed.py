@@ -4,7 +4,11 @@
 Streams a corpus (image files and/or text lines) through the normalized
 encoders and writes sharded `.npz` files of unit-norm float32 features plus
 their ids, and a `manifest.json`. Host threads decode the next batches
-while the card encodes the current one; batches have a fixed size.
+while the card encodes the current one; batches have a fixed size. Under a
+multi-process launch each rank encodes its rank-strided slice and writes
+rank-tagged shards (`<kind>-rNN-NNNNN.npz`); the loader's wrap-around rows
+are dropped, the ranks' manifests are merged, and rank 0 writes the one
+`manifest.json`.
 
 CLI: `python -m clip_event_tpu_torch.embed --cfg <json> [--device cpu]`,
 with the config keys of `run_embed` plus the model keys (`ckpt` or
@@ -57,9 +61,9 @@ class ImageFilesDataset(ExampleDataset):
         return {"image": image}, {"id": self.ids[idx], "path": path}
 
 
-def _write_shard(out_dir: str, kind: str, shard_idx: int,
+def _write_shard(out_dir: str, kind: str, tag: str, shard_idx: int,
                  ids: List[str], feats: List[np.ndarray]) -> str:
-    path = os.path.join(out_dir, f"{kind}-{shard_idx:05d}.npz")
+    path = os.path.join(out_dir, f"{kind}-{tag}{shard_idx:05d}.npz")
     np.savez_compressed(
         path,
         ids=np.asarray(ids),
@@ -70,37 +74,48 @@ def _write_shard(out_dir: str, kind: str, shard_idx: int,
 
 def embed_stream(dataset, enc, field: str, kind: str, out_dir: str,
                  shard_size: int, batch_size: int, num_workers: int = 8,
-                 id_key: str = "id") -> Dict:
+                 id_key: str = "id", rank: int = 0, world_size: int = 1) -> Dict:
     """Encode `dataset` and write `<kind>-NNNNN.npz` shards of (ids, features).
 
-    Constant host memory: at most one shard of features is resident.
-    Returns the manifest entry for this stream."""
+    Constant host memory: at most one shard of features is resident. With
+    `world_size` > 1 this rank encodes its rank-strided slice and writes
+    `<kind>-rNN-NNNNN.npz` shards, without the loader's wrap-around rows
+    (no gather: the export is embarrassingly parallel). Returns this
+    rank's manifest entry for the stream."""
+    from clip_event_tpu_torch.evals.common import genuine_rows
+
     os.makedirs(out_dir, exist_ok=True)
     loader = DataLoader(
         dataset, batch_size=min(batch_size, len(dataset)), shuffle=False, drop_last=False,
-        num_workers=num_workers,
+        num_workers=num_workers, rank=rank, world_size=world_size,
     )
+    tag = f"r{rank:02d}-" if world_size > 1 else ""
     encode = enc.images if kind == "image" else enc.texts
     ids: List[str] = []
     feats: List[np.ndarray] = []
     shards: List[str] = []
     count = 0
     dim = None
+    offset = 0
     for batch, metas in loader:
         f = encode(np.asarray(batch[field]))
         dim = f.shape[-1]
+        genuine = genuine_rows(rank, world_size, offset, f.shape[0], len(dataset))
+        offset += f.shape[0]
+        f = f[genuine]
+        metas = [m for m, g in zip(metas, genuine) if g]
         feats.append(f)
         ids.extend(str(m[id_key]) for m in metas)
         count += f.shape[0]
         while len(ids) >= shard_size:
             buf = np.concatenate(feats)
             shards.append(
-                _write_shard(out_dir, kind, len(shards), ids[:shard_size], [buf[:shard_size]])
+                _write_shard(out_dir, kind, tag, len(shards), ids[:shard_size], [buf[:shard_size]])
             )
             rest = buf[shard_size:]
             ids, feats = ids[shard_size:], ([rest] if rest.size else [])
     if ids:
-        shards.append(_write_shard(out_dir, kind, len(shards), ids, feats))
+        shards.append(_write_shard(out_dir, kind, tag, len(shards), ids, feats))
     return {
         "kind": kind, "count": count, "dim": int(dim or 0),
         "shards": [os.path.basename(s) for s in shards],
@@ -120,12 +135,14 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
                             narrowest listed static width that fits its
                             EOT (lossless; shards are width-tagged
                             text-wNN-*.npz)
+      rank / world_size     the shard of this process (default: its place
+                            in the process group; (0, 1) without one)
     """
     from clip_event_tpu_torch.data.text import TextDataset
-    from clip_event_tpu_torch.evals.common import Encoders
+    from clip_event_tpu_torch.evals.common import Encoders, resolve_shard
+    from clip_event_tpu_torch.parallel.collectives import all_gather_objects
 
-    if int(cfg.get("world_size") or 1) > 1:
-        raise NotImplementedError("multi-process embedding is not ported yet")
+    rank, world_size = resolve_shard(cfg.get("rank"), cfg.get("world_size"))
     out_dir = cfg["output_dir"]
     batch = cfg.get("batch_size", 64)
     shard = cfg.get("shard_size", 50000)
@@ -142,7 +159,8 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
     if image_dirs or image_files:
         ds = ImageFilesDataset(image_dirs, image_files, mcfg.image_resolution)
         log.info("embedding %d images", len(ds))
-        manifests["images"] = embed_stream(ds, enc, "image", "image", out_dir, shard, batch, workers)
+        manifests["images"] = embed_stream(ds, enc, "image", "image", out_dir, shard, batch, workers,
+                                           rank=rank, world_size=world_size)
 
     texts = list(cfg.get("texts", []))
     if cfg.get("text_file"):
@@ -173,7 +191,7 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
             log.info("embedding %d texts (width %s)", len(ds), cap or "full")
             m = embed_stream(
                 ds, enc, "text", f"text-w{cap}" if cap else "text",
-                out_dir, shard, batch, workers, id_key="text",
+                out_dir, shard, batch, workers, id_key="text", rank=rank, world_size=world_size,
             )
             if merged is None:
                 merged = m
@@ -185,8 +203,19 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
 
     if not manifests:
         raise ValueError("nothing to embed: give image_dir/image_files, text_file, or texts")
-    with open(os.path.join(out_dir, "manifest.json"), "w") as fh:
-        json.dump(manifests, fh, indent=2)
+    if world_size > 1:
+        # the ranks' manifests merged: every rank returns the global one
+        merged_all: Dict[str, Dict] = {}
+        for rank_manifests in all_gather_objects(manifests):
+            for k, m in rank_manifests.items():
+                if k not in merged_all:
+                    merged_all[k] = dict(m, count=0, shards=[])
+                merged_all[k]["count"] += m["count"]
+                merged_all[k]["shards"] += m["shards"]
+        manifests = merged_all
+    if rank == 0:
+        with open(os.path.join(out_dir, "manifest.json"), "w") as fh:
+            json.dump(manifests, fh, indent=2)
     return {k: {"count": m["count"], "shards": len(m["shards"]), "dim": m["dim"]}
             for k, m in manifests.items()}
 

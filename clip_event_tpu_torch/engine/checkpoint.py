@@ -11,7 +11,11 @@ state_dict, perf, optimizer}, with the params as an OpenAI-named state dict
 without loading the tensors. A mid-epoch save (`save_steps`, `max_steps`,
 SIGTERM) overwrites the epoch's file: the latest state is what a resume
 wants. Every write is synchronous; the JAX package's orbax directories are
-not read (ROADMAP A9: not to do, orbax imports JAX).
+not read (ROADMAP A9: not to do, orbax imports JAX). Under data
+parallelism the save is collective: every rank calls it, rank 0 (whose
+state every rank shares) writes the file and the meta, and every rank
+waits at a barrier until the write is done; a resume loads the file on
+every rank.
 """
 
 from __future__ import annotations
@@ -63,9 +67,20 @@ def save_checkpoint(
     mid_epoch: bool = False,
 ) -> Optional[str]:
     """Save the state; errors are logged, not raised (engine.py:215-218).
-    Returns the path, or None if the write failed. The file is written to a
-    temporary name and renamed, so a crash mid-write never leaves a path
-    that `latest_checkpoint` would pick up."""
+    Returns the path, or None if the write failed or on a rank other than
+    0. The file is written to a temporary name and renamed, so a crash
+    mid-write never leaves a path that `latest_checkpoint` would pick up.
+    Collective under data parallelism (module docstring)."""
+    from clip_event_tpu_torch.parallel.collectives import comm
+
+    out = None
+    if comm.is_main_process:
+        out = _write(ckpt_dir, task, epoch, params, opt_state, cfg, perf, step, mid_epoch)
+    comm.synchronize()
+    return out
+
+
+def _write(ckpt_dir, task, epoch, params, opt_state, cfg, perf, step, mid_epoch) -> Optional[str]:
     path = _ckpt_path(ckpt_dir, task, epoch)
     meta = {
         "epoch": epoch, "model": task, "perf": float(perf), "step": int(step),

@@ -1,11 +1,13 @@
 """Training metrics & logging (counterpart of `clip_event_tpu/engine/metrics.py`;
-reference `SmoothedValue`/`MetricLogger`, `utils.py:18-295`), single process.
+reference `SmoothedValue`/`MetricLogger`, `utils.py:18-295`).
 
 The step returns device tensors and the loop converts them to floats only
 when it drains a window of steps, so timing needs no per-step device sync.
 `ScalarWriter` appends `scalars.jsonl` ({"tag", "value", "step"} per line),
 the JAX CLI's plain-file scalar stream; the TensorBoard writers are not
-ported.
+ported. Under data parallelism the step's losses are already global (the
+same on every rank); `synchronize_between_processes` makes the host-side
+meters' global averages global too (reference `utils.py:36-47`).
 """
 
 from __future__ import annotations
@@ -53,6 +55,17 @@ class SmoothedValue:
     def value(self) -> float:
         return self.deque[-1] if self.deque else 0.0
 
+    def synchronize_between_processes(self):
+        """All-reduce count and total, so `global_avg` is the global one
+        (reference `SmoothedValue.synchronize_between_processes`,
+        `utils.py:36-47`). The window stats (median, avg, value) stay
+        local, as in the reference."""
+        from clip_event_tpu_torch.parallel.collectives import reduce_dict
+
+        t = reduce_dict({"count": float(self.count), "total": self.total}, average=False)
+        self.count = int(t["count"])
+        self.total = t["total"]
+
     def __str__(self):
         return self.fmt.format(
             median=self.median, avg=self.avg, global_avg=self.global_avg, value=self.value,
@@ -67,6 +80,13 @@ class MetricLogger:
     def update(self, **kwargs):
         for name, value in kwargs.items():
             self.meters[name].update(float(value))
+
+    def synchronize_between_processes(self):
+        """Sync every meter's global stats across processes (the host-side
+        ones, such as data and iteration time, differ by process). Every
+        rank holds the same meters: they are updated from the same steps."""
+        for name in sorted(self.meters):
+            self.meters[name].synchronize_between_processes()
 
     def __getattr__(self, name):
         if name in self.meters:

@@ -6,11 +6,27 @@ backward pass under `remat`), contrastive loss, the optional OT alignment
 branch (object crops and entity mentions re-encoded, IPOT), the optional
 local-attention branch (`multiattention`: the image encoded once more for
 its grid tokens, the role texts encoded, `models/local_attention.py`), backward,
-global-norm clip, optimizer update, single device. The NaN abort
-(`engine.py:79-82`) becomes a `finite` flag in the returned metrics, and a
-non-finite loss keeps the old params and optimizer state (`torch.where` on
-the device), so the host loop can read the flag whenever it next syncs and
-abort from an intact state; no step forces a host sync.
+global-norm clip, optimizer update. The NaN abort (`engine.py:79-82`)
+becomes a `finite` flag in the returned metrics, and a non-finite loss
+keeps the old params and optimizer state (`torch.where` on the device), so
+the host loop can read the flag whenever it next syncs and abort from an
+intact state; no step forces a host sync.
+
+Data parallel (`mesh`, `parallel/mesh.py`): each rank holds its rows of the
+global batch and the step computes the JAX package's global loss. The
+image and text features are all-gathered before the contrastive loss,
+which every rank computes whole over the global rows (with the labels
+gathered too; `index_pos` is the global table already); the gather keeps
+each rank's own slice of the cotangent and the logit scale's gradient
+stays on rank 0 (`parallel/collectives.py`). The OT and local-attention
+losses are sums over the batch and stay local (`LOCAL_SUM_TERMS`). Inside
+the step, after accumulation and before the clip, one all-reduce a dtype
+sums the ranks' gradients together with those local sums, so the clip,
+the non-finite freeze and the optimizer see the global gradient, and the
+metrics (global loss terms, global grad norm) are the same on every rank.
+No DDP wrapper: the whole step, its collectives included, is what a CUDA
+graph captures. At a world of one the gather and the sum are copies, and
+the step is bit for bit the step without a mesh.
 
 The step updates `state.params` and `state.opt_state` in place (the same
 tensors stay the model's parameters and the optimizer's state from step to
@@ -32,6 +48,11 @@ from clip_event_tpu_torch.models.clip import CLIPConfig
 from clip_event_tpu_torch.models.local_attention import local_attention_loss
 from clip_event_tpu_torch.ops import counters
 from clip_event_tpu_torch.ops.ot import alignment_loss
+from clip_event_tpu_torch.parallel import collectives
+
+# loss terms that are sums over the batch: each rank's is the sum over its
+# rows, and the global term is their sum across ranks
+LOCAL_SUM_TERMS = ("loss_ot", "loss_bbox", "loss_arg")
 
 
 class TrainState(NamedTuple):
@@ -64,6 +85,7 @@ def loss_fn(
     alignment_chunks: int = 1,
     multiattention: Optional[str] = None,
     multiattention_pooling: str = "mean",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, {loss_i, loss_t[, loss_ot][, loss_bbox, loss_arg]}) of
     one batch, in fp32. With `alignment` the batch carries `object_image`,
@@ -71,28 +93,56 @@ def loss_fn(
     total. With `multiattention` ("desc", "desc_type" or "desc_type_text")
     it carries `bbox`, `bbox_mask` and the role texts (`bbox_desc_text`,
     `bbox_label_text`, or their deduped `*_unique` / `*_inverse`), and
-    `loss_bbox` and `loss_arg` join the total."""
+    `loss_bbox` and `loss_arg` join the total.
+
+    With a `mesh` the batch is this rank's rows: loss_i and loss_t are the
+    global batch's (module docstring), the `LOCAL_SUM_TERMS` this rank's
+    share of theirs, and the total is what this rank differentiates. A
+    deduped channel's inverse index points into the global unique rows, of
+    which this rank holds the block at rank · U (`data/dedupe.py`)."""
     kw = dict(compute_dtype=compute_dtype, impl=impl, remat=remat)
-    if "text_unique" in batch:
-        # dedupe-encode: encode each unique token row once and gather the
-        # features back to the full layout (data/dedupe.py); exact for the
-        # loss, and the gather's backward sums the duplicates' gradients
+
+    def local_inverse(prefix):
+        inverse = batch[f"{prefix}_inverse"].long()
+        if mesh is None:
+            return inverse
+        return inverse - mesh.rank * batch[f"{prefix}_unique"].shape[0]
+
+    if "text_unique" in batch or mesh is not None:
         image_features = clip_model.l2_normalize(
             clip_model.encode_image(params, cfg, batch["image"], **kw)
         )
-        text_features = clip_model.l2_normalize(
-            clip_model.encode_text(params, cfg, batch["text_unique"], **kw)
-        )[batch["text_inverse"].long()]
+        if "text_unique" in batch:
+            # dedupe-encode: encode each unique token row once and gather
+            # the features back to the full layout (data/dedupe.py); exact
+            # for the loss, and the gather's backward sums the duplicates'
+            # gradients
+            text_features = clip_model.l2_normalize(
+                clip_model.encode_text(params, cfg, batch["text_unique"], **kw)
+            )[local_inverse("text")]
+        else:
+            text_features = clip_model.l2_normalize(
+                clip_model.encode_text(params, cfg, batch["text"], **kw)
+            )
+        labels_per_image, labels_per_text = batch["labels_per_image"], batch["labels_per_text"]
+        scale_params = params
+        if mesh is not None:
+            image_features = collectives.gather_features(image_features, mesh)
+            text_features = collectives.gather_features(text_features, mesh)
+            labels_per_image = collectives.all_gather_rows(labels_per_image, mesh)
+            labels_per_text = collectives.all_gather_rows(labels_per_text, mesh)
+            scale_params = {"logit_scale": collectives.replicated_term(params["logit_scale"], mesh)}
         logits_per_image, logits_per_text = clip_model.contrastive_logits(
-            params, image_features, text_features, overbatch
+            scale_params, image_features, text_features, overbatch
         )
     else:
+        labels_per_image, labels_per_text = batch["labels_per_image"], batch["labels_per_text"]
         logits_per_image, logits_per_text = clip_model.forward(
             params, cfg, batch["image"], batch["text"], overbatch=overbatch, **kw
         )
     loss_dict = contrastive_loss(
-        logits_per_image, logits_per_text, batch["labels_per_image"],
-        batch["labels_per_text"], batch["index_pos"], loss_type=loss_type,
+        logits_per_image, logits_per_text, labels_per_image, labels_per_text,
+        batch["index_pos"], loss_type=loss_type,
     )
     if alignment:
         object_feats, entity_feats = clip_model.sim_entity(
@@ -108,9 +158,11 @@ def loss_fn(
             params, cfg, batch["image"], batch["bbox"], batch["bbox_mask"],
             batch.get("bbox_desc_text"), label_tokens=batch.get("bbox_label_text"),
             train_arg=multiattention, pooling=multiattention_pooling,
-            desc_unique=batch.get("bbox_desc_unique"), desc_inverse=batch.get("bbox_desc_inverse"),
+            desc_unique=batch.get("bbox_desc_unique"),
+            desc_inverse=local_inverse("bbox_desc") if "bbox_desc_unique" in batch else None,
             label_unique=batch.get("bbox_label_unique"),
-            label_inverse=batch.get("bbox_label_inverse"), **kw,
+            label_inverse=local_inverse("bbox_label") if "bbox_label_unique" in batch else None,
+            **kw,
         ))
     return sum(loss_dict.values()), loss_dict
 
@@ -119,6 +171,29 @@ def _grads(total: torch.Tensor, params: dict):
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
+def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Tensor], mesh):
+    """(grads, total, loss_dict) summed across the ranks in one all-reduce
+    a dtype: the gradients, the `LOCAL_SUM_TERMS`, and the total, to which
+    rank 0 brings its whole total (the global contrastive terms, which
+    every rank holds alike, counted once) and every other rank its local
+    sums. The global contrastive terms stay as they are."""
+    local = [k for k in loss_dict if k in LOCAL_SUM_TERMS]
+    with torch.no_grad():
+        if mesh.rank == 0:
+            own = total.detach()
+        else:
+            own = torch.zeros_like(total)
+            for k in local:
+                own = own + loss_dict[k].detach()
+        scalars = [own] + [loss_dict[k].detach() for k in local]
+        summed = collectives.all_reduce_flat(list(grads) + [v.reshape(1) for v in scalars], mesh)
+    n = len(grads)
+    loss_dict = dict(loss_dict)
+    for k, v in zip(local, summed[n + 1:]):
+        loss_dict[k] = v.reshape(())
+    return summed[:n], summed[n].reshape(()), loss_dict
 
 
 def _apply_update(
@@ -166,17 +241,23 @@ def make_train_step(
     alignment_chunks: int = 1,
     multiattention: Optional[str] = None,
     multiattention_pooling: str = "mean",
+    mesh=None,
 ):
     """Returns `train_step(state, batch) -> (state, metrics)`; metrics are
     device tensors (loss, finite, grad_norm, loss_i, loss_t[, loss_ot][,
-    loss_bbox, loss_arg])."""
+    loss_bbox, loss_arg]). With a data-parallel `mesh` every rank calls it
+    on its rows, and the metrics are the global batch's, on every rank."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         total, loss_dict = loss_fn(
             state.params, batch, cfg, loss_type, overbatch, compute_dtype, remat, impl,
             alignment, use_pallas_ot, alignment_chunks, multiattention, multiattention_pooling,
+            mesh,
         )
-        return _apply_update(state, _grads(total, state.params), total, loss_dict, optimizer)
+        grads = _grads(total, state.params)
+        if mesh is not None:
+            grads, total, loss_dict = _sum_across_ranks(grads, total, loss_dict, mesh)
+        return _apply_update(state, grads, total, loss_dict, optimizer)
 
     return train_step
 
@@ -256,10 +337,10 @@ def _graph_key(state: TrainState, batch: Dict[str, torch.Tensor]) -> tuple:
     """What a captured step is valid for: the batch's fields, shapes, dtypes
     and device, the state's tensors (a graph writes the ones it captured)
     and the process-wide LayerNorm and BatchNorm choices (`transformer` and
-    `resnet.batch_norm` read them)."""
+    `resnet.batch_norm` read them; the BatchNorm's mesh too)."""
     fields = tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items()))
     buffers = tuple(t.data_ptr() for t in tree_leaves(state.params) + tree_leaves(state.opt_state))
-    return fields, buffers, layers._resolve_ln(), resnet.get_bn_mode()
+    return fields, buffers, layers._resolve_ln(), resnet.get_bn_mode(), resnet.get_bn_mesh()
 
 
 class _CapturedStep:
@@ -306,6 +387,7 @@ def make_accum_step(
     alignment_chunks: int = 1,
     multiattention: Optional[str] = None,
     multiattention_pooling: str = "mean",
+    mesh=None,
 ):
     """ONE optimizer step from K microbatches (gradient accumulation).
 
@@ -314,7 +396,9 @@ def make_accum_step(
     activations are alive at a time, plus one gradient sum. Gradients and
     loss metrics are K-averaged, then one update applies, so the clip and
     the LR schedule see the averaged gradient. InfoNCE negatives stay
-    within each microbatch (the logit matrix is batch-coupled)."""
+    within each microbatch (the logit matrix is batch-coupled); with a
+    `mesh`, within each global microbatch (every rank's microbatch k), and
+    the ranks' averaged gradients are summed once, after the K."""
 
     def accum_step(state: TrainState, batches: Dict[str, torch.Tensor]):
         lead = next(iter(batches.values())).shape[0]
@@ -329,7 +413,7 @@ def make_accum_step(
             total, loss_dict = loss_fn(
                 state.params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl,
                 alignment, use_pallas_ot, alignment_chunks, multiattention,
-                multiattention_pooling,
+                multiattention_pooling, mesh,
             )
             grads = _grads(total, state.params)
             metrics = {"loss": total.detach(), **{n: v.detach() for n, v in loss_dict.items()}}
@@ -342,6 +426,8 @@ def make_accum_step(
         grads = torch._foreach_mul(gsum, inv)
         avg = {n: v * inv for n, v in msum.items()}
         total = avg.pop("loss")
+        if mesh is not None:
+            grads, total, avg = _sum_across_ranks(grads, total, avg, mesh)
         return _apply_update(state, grads, total, avg, optimizer)
 
     return accum_step

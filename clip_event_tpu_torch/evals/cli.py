@@ -9,6 +9,11 @@ process-wide choice is put back when the run ends. `--device cpu` runs the
 plain PyTorch path instead; with no card and no `--device cpu` the CLI
 raises.
 
+Launched by `torchrun` (or `mpirun` / `srun`), every process evaluates its
+rank's slice of the dataset on `cuda:LOCAL_RANK` (NCCL; gloo with
+`--device cpu`), every rank ends with the full-set metrics, and rank 0
+prints them and writes `output_json` (`evals/common.py`).
+
 `"quantize": "int8"` serves the dense weights in int8 with dynamic
 per-row activation scales; `"int8_static"` adds static scales calibrated
 at load time (`calibration_batches_from_cfg`); `"quantize_towers":
@@ -146,24 +151,38 @@ def calibration_batches_from_cfg(cfg: dict, mcfg):
 
 
 def run(description: str, evaluate) -> None:
-    """Parse --cfg/--device, build the model, call
-    `evaluate(cfg, model, mcfg, device)` under the attention choice of
-    `use_pallas_attention`, print the metrics JSON."""
+    """Parse --cfg/--device, join the process group of a multi-process
+    launch, build the model, call `evaluate(cfg, model, mcfg, device)`
+    under the attention choice of `use_pallas_attention`; rank 0 prints
+    the metrics JSON."""
+    import torch.distributed as dist
+
     from clip_event_tpu_torch.models import layers
+    from clip_event_tpu_torch.parallel.collectives import comm
+    from clip_event_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 
     logging.basicConfig(level=logging.INFO)
     args = build_parser(description).parse_args()
     with open(args.cfg) as fh:
         cfg = json.load(fh)
     if int(cfg.get("tp", 1)) > 1:
-        raise SystemExit("tp>1 evals are not ported yet (single device only)")
+        raise SystemExit("tp>1 evals are not ported yet (ROADMAP A6(c))")
     if cfg.get("image_cache"):
         logging.warning("image_cache is not ported yet: decoding images live")
-    model, mcfg = load_model_from_cfg(cfg, args.device)
-    with layers.attention_impl("kernel" if cfg.get("use_pallas_attention", True) else "plain"):
-        metrics = evaluate(cfg, model, mcfg, args.device)
-    print(json.dumps(metrics, indent=2))
-    out = cfg.get("output_json")
-    if out:
-        with open(out, "w") as fh:
-            json.dump(metrics, fh, indent=2)
+    owned = not dist.is_initialized()
+    initialize_distributed(args.device)
+    device = make_mesh(args.device).device if dist.is_initialized() else args.device
+    try:
+        model, mcfg = load_model_from_cfg(cfg, device)
+        with layers.attention_impl("kernel" if cfg.get("use_pallas_attention", True) else "plain"):
+            metrics = evaluate(cfg, model, mcfg, device)
+        if comm.is_main_process:
+            print(json.dumps(metrics, indent=2))
+            out = cfg.get("output_json")
+            if out:
+                with open(out, "w") as fh:
+                    json.dump(metrics, fh, indent=2)
+        comm.synchronize()
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()

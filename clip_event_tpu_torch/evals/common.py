@@ -1,15 +1,21 @@
-"""Shared zero-shot eval machinery, single device (counterpart of
+"""Shared zero-shot eval machinery (counterpart of
 `clip_event_tpu/evals/common.py`).
 
 All evals reduce to: encode every image and every candidate text with the
 normalized encoders in fixed-size batches (the last partial batch is padded
-by repeating its last row), then score cosine logits on the host. Sharding
-the data over processes or devices is not ported yet.
+by repeating its last row), then score cosine logits on the host.
+
+Under data parallelism every rank encodes its rank-strided slice of the
+dataset on its own device (`resolve_shard`, `eval_loader`), the per-rank
+results are all-gathered and woven back into dataset order
+(`merge_across_ranks`), and every rank computes the same full-set metrics
+at 1/world of the encode cost (the reference's `gather_tensors` /
+`all_gather` merging, `utils.py:94-206`).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,14 +31,63 @@ from clip_event_tpu_torch.models.clip import (
 from clip_event_tpu_torch.platform import resolve_device
 
 
-def eval_loader(dataset, batch_size: int, num_workers: int = 8):
-    """The canonical eval DataLoader: dataset order, no dropped tail."""
+def resolve_shard(rank: Optional[int], world_size: Optional[int]) -> Tuple[int, int]:
+    """The eval shard of this process: (rank, world_size) as given, or,
+    when either is None, this process's place in the process group (every
+    rank of a data-parallel run evaluates its own slice); (0, 1) without
+    one."""
+    if rank is None or world_size is None:
+        from clip_event_tpu_torch.parallel.collectives import comm
+
+        return comm.rank, comm.world_size
+    return rank, world_size
+
+
+def eval_loader(dataset, batch_size: int, num_workers: int = 8, rank: int = 0, world_size: int = 1):
+    """The canonical eval DataLoader: dataset order, no dropped tail,
+    rank-strided sharding."""
     from clip_event_tpu_torch.data.common import DataLoader
 
     return DataLoader(
         dataset, batch_size=min(batch_size, len(dataset)), shuffle=False, drop_last=False,
-        num_workers=num_workers,
+        num_workers=num_workers, rank=rank, world_size=world_size,
     )
+
+
+def merge_across_ranks(n: int, world_size: int, *parts):
+    """All-gather the per-rank strided results and weave them back into
+    dataset order.
+
+    Rank r's loader yields `padded[r::world_size]`, where `padded` wraps
+    the first examples round to equalize the counts
+    (`data.common.DataLoader._indices`); interleaving the gathered slices
+    and trimming to `n` drops exactly that padding. Takes numpy arrays
+    (stacked on axis 0) and lists (metas)."""
+    if world_size <= 1:
+        return parts if len(parts) > 1 else parts[0]
+    from clip_event_tpu_torch.parallel.collectives import all_gather_objects
+
+    gathered = all_gather_objects(parts)
+    per_rank = -(-n // world_size)
+    total = per_rank * world_size
+    outs = []
+    for j in range(len(parts)):
+        ranks_j = [g[j] for g in gathered]
+        if isinstance(ranks_j[0], np.ndarray):
+            out = np.empty((total,) + ranks_j[0].shape[1:], ranks_j[0].dtype)
+        else:
+            out = [None] * total
+        for r, p in enumerate(ranks_j):
+            out[r::world_size] = p
+        outs.append(out[:n])
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+def genuine_rows(rank: int, world_size: int, offset: int, b: int, n: int) -> np.ndarray:
+    """Which of a rank's `b` loader rows from local position `offset` on
+    are the dataset's own, not the loader's count-equalizing wrap-around
+    (their global strided position is below `n`)."""
+    return rank + (offset + np.arange(b)) * world_size < n
 
 
 class Encoders:

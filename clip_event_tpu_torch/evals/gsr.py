@@ -1,6 +1,6 @@
 """Zero-shot GSR/SWiG: verb classification and argument grounding
 (counterpart of `clip_event_tpu/evals/gsr.py`; entry point
-`eval_gsr.py`), single device.
+`eval_gsr.py`).
 
 Verb: the image embedding against the candidate-verb text matrix →
 top-1/top-5. Grounding: for each annotated role, a similarity heat map
@@ -11,8 +11,10 @@ or, with `ground_via="objects"`, the detected box whose window-pooled grid
 feature is closest to the role. The M2E2 eval grounds its argument roles
 with the same helpers. One pass over the loader; per batch one image
 encode, one grid encode and one role-text encode ([b·R, S]), and the
-heat-map and IoU scoring vectorized on the host. Sharding over processes
-is not ported (ROADMAP A6): the eval runs in one process.
+heat-map and IoU scoring vectorized on the host. Sharded by rank
+(`resolve_shard`): the verb features are merged back into dataset order,
+the grounding and value counts summed, and every rank returns the full-set
+metrics.
 """
 
 from __future__ import annotations
@@ -21,10 +23,17 @@ import numpy as np
 import torch
 
 from clip_event_tpu_torch.data.sr import GSRDataset
-from clip_event_tpu_torch.evals.common import Encoders, eval_loader
+from clip_event_tpu_torch.evals.common import (
+    Encoders,
+    eval_loader,
+    genuine_rows,
+    merge_across_ranks,
+    resolve_shard,
+)
 from clip_event_tpu_torch.models import clip as clip_model
 from clip_event_tpu_torch.models.local_attention import pool_bbox_features
 from clip_event_tpu_torch.ops.bbox import iou_batch
+from clip_event_tpu_torch.parallel.collectives import all_gather_objects
 
 
 def _grid_features_fn(cfg, compute_dtype=None):
@@ -97,6 +106,8 @@ def evaluate_gsr(
     ground_via: str = "grid",
     value_metrics: bool = True,
     device="cuda",
+    rank=None,
+    world_size=None,
 ) -> dict:
     """ground_via: 'grid' predicts a top-k patch-window box from the role →
     grid-token heat map; 'objects' ranks the detected object boxes by the
@@ -117,7 +128,8 @@ def evaluate_gsr(
     if do_grounding and ground_via == "objects" and not dataset.load_object:
         raise ValueError("ground_via='objects' needs dataset.load_object=True")
 
-    loader = eval_loader(dataset, batch_size)
+    rank, world_size = resolve_shard(rank, world_size)
+    loader = eval_loader(dataset, batch_size, rank=rank, world_size=world_size)
     enc = Encoders(params, cfg, batch_size=batch_size, device=device)
     grid = cfg.grid_size if do_grounding else None
     grid_fn = _grid_features_fn(cfg) if do_grounding else None
@@ -137,9 +149,14 @@ def evaluate_gsr(
     image_feats, gold_verbs = [], []
     hits, total = 0, 0
     v_hits = v_total = va_hits = va_total = gv_hits = gva_hits = 0
+    offset = 0  # local example index, for the wrap-around rows' mask
     for batch, metas_b in loader:
         images = np.asarray(batch["image"])
         b = images.shape[0]
+        # the loader's count-equalizing duplicates stay out of the streamed
+        # counts (the per-example arrays are deduped by merge_across_ranks)
+        genuine = genuine_rows(rank, world_size, offset, b, len(dataset))
+        offset += b
         image_feats.append(enc.images(images))
         gold_verbs.append(np.asarray(batch["verb_idx"]))
         if not do_grounding:
@@ -151,7 +168,7 @@ def evaluate_gsr(
         role_feats = enc.texts(role_text.reshape(b * R, -1)).reshape(b, R, -1)
         role_mask = np.asarray(batch["role_mask"]).astype(bool)  # [b, R]
         role_bbox = np.asarray(batch["role_bbox"], np.float32)  # [b, R, 4]
-        valid = role_mask & (role_bbox[..., 0] >= 0)
+        valid = role_mask & (role_bbox[..., 0] >= 0) & genuine[:, None]
 
         if ground_via == "objects":
             box_arr, box_mask = _pad_object_boxes(metas_b, b)
@@ -175,6 +192,8 @@ def evaluate_gsr(
                              role_mask.astype(np.int32), grid, enc.device)  # [b, R, E]
             noun_pred = (pooled @ noun_feats.T).argmax(-1)  # [b, R]
             for i in range(b):
+                if not genuine[i]:
+                    continue
                 nouns = metas_b[i]["noun_types"][:R]
                 annotated = [j for j, n in enumerate(nouns) if n and role_mask[i, j]]
                 if not annotated:
@@ -193,7 +212,13 @@ def evaluate_gsr(
                 va_hits += all_ok
                 gva_hits += all_gok
 
-    image_feats, gold = np.concatenate(image_feats), np.concatenate(gold_verbs)
+    image_feats, gold = merge_across_ranks(
+        len(dataset), world_size, np.concatenate(image_feats), np.concatenate(gold_verbs)
+    )
+    if world_size > 1:
+        counts = all_gather_objects((hits, total, v_hits, v_total, va_hits, va_total, gv_hits, gva_hits))
+        hits, total, v_hits, v_total, va_hits, va_total, gv_hits, gva_hits = (
+            sum(c[k] for c in counts) for k in range(8))
     cand_feats = enc.texts(dataset.candidate_tokens)
     logits = image_feats @ cand_feats.T
     order = np.argsort(-logits, axis=1)

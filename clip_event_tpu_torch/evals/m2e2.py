@@ -1,5 +1,5 @@
 """Zero-shot M2E2 multimedia event extraction (counterpart of
-`clip_event_tpu/evals/m2e2.py`), single device.
+`clip_event_tpu/evals/m2e2.py`).
 
 Primary metrics, the M2E2 benchmark's per-mention protocol (Li et al., ACL
 2020, §5.1; the CLIP-Event paper's zero-shot M2E2 numbers use it):
@@ -28,8 +28,15 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 
 from clip_event_tpu_torch.data.m2e2 import M2E2Dataset
-from clip_event_tpu_torch.evals.common import Encoders, eval_loader, macro_prf
+from clip_event_tpu_torch.evals.common import (
+    Encoders,
+    eval_loader,
+    genuine_rows,
+    macro_prf,
+    resolve_shard,
+)
 from clip_event_tpu_torch.ops.bbox import iou
+from clip_event_tpu_torch.parallel.collectives import all_gather_objects
 
 
 def prf(correct: int, n_pred: int, n_gold: int) -> Dict[str, float]:
@@ -152,6 +159,8 @@ def evaluate_m2e2(
     iou_threshold: float = 0.5,
     select_null_threshold: bool = False,
     device="cuda",
+    rank=None,
+    world_size=None,
 ) -> dict:
     """Event-extraction P/R/F1 (primary), the image-level accuracy and
     macro fields (secondary) and a per-event-type breakdown (`per_type`).
@@ -167,7 +176,11 @@ def evaluate_m2e2(
     ones at that threshold (`null_threshold_selected`, `dev_event_f1`);
     `null_threshold` is then ignored. It cannot be combined with
     `ground_arguments` (arguments are predicted before the threshold is
-    known): run the sweep first, then pass the selected value."""
+    known): run the sweep first, then pass the selected value.
+
+    Sharded by rank (`resolve_shard`): each rank scores its slice, and one
+    all-gather brings every rank the per-image records and the argument
+    counts, so every rank returns the full-set metrics."""
     if select_null_threshold and ground_arguments:
         raise ValueError(
             "select_null_threshold is incompatible with ground_arguments: "
@@ -175,7 +188,8 @@ def evaluate_m2e2(
         )
     from clip_event_tpu_torch.tokenizer import tokenize
 
-    loader = eval_loader(dataset, batch_size)
+    rank, world_size = resolve_shard(rank, world_size)
+    loader = eval_loader(dataset, batch_size, rank=rank, world_size=world_size)
     enc = Encoders(params, cfg, batch_size=batch_size, device=device)
     cand_feats = enc.texts(dataset.candidate_tokens)  # [T, E]
 
@@ -197,14 +211,23 @@ def evaluate_m2e2(
                 names = list(roles)
                 role_feats_by_type[etype] = (names, enc.texts(tokenize([roles[r] for r in names])))
 
+    # per-image records (the event side, for the threshold sweep and the
+    # per-type breakdown) and additive argument counts: both exact under a
+    # sharded eval (gathered below)
+    img_gidx: List[int] = []  # global dataset index
     img_top_prob: List[float] = []
     img_top_idx: List[int] = []
     img_correct: List[bool] = []  # top type present in this image's gold
     img_gold: List[List[str]] = []  # gold event types per image
     arg_correct = arg_pred = arg_gold = 0
     sec_pred, sec_gold = [], []  # secondary per-image arrays (positives)
+    offset = 0
     for batch, metas_b in loader:
         images = np.asarray(batch["image"])
+        b = images.shape[0]
+        gidx_b = rank + (offset + np.arange(b)) * world_size
+        genuine = genuine_rows(rank, world_size, offset, b, len(dataset))
+        offset += b
         feats = enc.images(images)  # [b, E]
         logits = 100.0 * feats @ cand_feats.T
         probs = np.exp(logits - logits.max(axis=1, keepdims=True))
@@ -212,10 +235,13 @@ def evaluate_m2e2(
         top = logits.argmax(axis=1)
         grid_feats = None if grid_fn is None else grid_fn(enc.params, images)[:, 1:]  # drop CLS
 
-        for i in range(images.shape[0]):
+        for i in range(b):
+            if not genuine[i]:
+                continue
             gold_types = [m["event_type"] for m in metas_b[i]["mentions"]]
             predicted = null_threshold is None or probs[i, top[i]] >= null_threshold
             pred_types = [dataset.event_types[top[i]]] if predicted else []
+            img_gidx.append(int(gidx_b[i]))
             img_top_prob.append(float(probs[i, top[i]]))
             img_top_idx.append(int(top[i]))
             img_correct.append(dataset.event_types[top[i]] in gold_types)
@@ -240,18 +266,30 @@ def evaluate_m2e2(
 
     sec_pred = np.asarray(sec_pred, np.int64)
     sec_gold = np.asarray(sec_gold, np.int64)
-    img_index = np.arange(len(img_top_prob))
+    img_gidx = np.asarray(img_gidx, np.int64)
     img_top_prob = np.asarray(img_top_prob, np.float64)
     img_top_idx = np.asarray(img_top_idx, np.int64)
     img_correct = np.asarray(img_correct, bool)
+    if world_size > 1:
+        # one gather: the per-image event records, the additive argument
+        # counts and the secondary per-image arrays
+        parts = all_gather_objects(
+            (img_gidx, img_top_prob, img_top_idx, img_correct, img_gold,
+             arg_correct, arg_pred, arg_gold, sec_pred, sec_gold)
+        )
+        img_gidx, img_top_prob, img_top_idx, img_correct = (
+            np.concatenate([c[k] for c in parts]) for k in range(4))
+        img_gold = [g for c in parts for g in c[4]]
+        arg_correct, arg_pred, arg_gold = (sum(c[k] for c in parts) for k in range(5, 8))
+        sec_pred, sec_gold = (np.concatenate([c[k] for c in parts]) for k in (8, 9))
     img_n_gold = np.array([len(g) for g in img_gold], np.int64)
 
     metrics = {}
-    eval_mask = np.ones(len(img_index), bool)
+    eval_mask = np.ones(len(img_gidx), bool)
     if select_null_threshold:
         # sweep on the even-index dev half; the primary metrics on the
         # held-out odd half at the selected threshold
-        dev = img_index % 2 == 0
+        dev = img_gidx % 2 == 0
         null_threshold, dev_f1 = sweep_null_threshold(
             img_top_prob[dev], img_correct[dev], int(img_n_gold[dev].sum())
         )

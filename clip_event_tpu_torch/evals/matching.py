@@ -10,7 +10,13 @@ from __future__ import annotations
 
 import numpy as np
 
-from clip_event_tpu_torch.evals.common import Encoders, collect_encoded, eval_loader
+from clip_event_tpu_torch.evals.common import (
+    Encoders,
+    collect_encoded,
+    eval_loader,
+    merge_across_ranks,
+    resolve_shard,
+)
 
 
 def matching_metrics(image_feats: np.ndarray, text_feats: np.ndarray) -> dict:
@@ -32,8 +38,13 @@ def matching_metrics(image_feats: np.ndarray, text_feats: np.ndarray) -> dict:
     }
 
 
-def evaluate_matching(params, cfg, dataset, batch_size: int = 32, device="cuda") -> dict:
-    loader = eval_loader(dataset, batch_size)
+def evaluate_matching(params, cfg, dataset, batch_size: int = 32, device="cuda",
+                      rank=None, world_size=None) -> dict:
+    """`rank` / `world_size` None: this process's shard of the process group
+    (`resolve_shard`); every rank returns the full-set metrics."""
+    rank, world_size = resolve_shard(rank, world_size)
+    loader = eval_loader(dataset, batch_size, rank=rank, world_size=world_size)
     enc = Encoders(params, cfg, batch_size=batch_size, device=device)
     feats, _, _metas = collect_encoded(loader, enc, {"image": "image", "text": "text"})
-    return matching_metrics(feats["image"], feats["text"])
+    image_feats, text_feats = merge_across_ranks(len(dataset), world_size, feats["image"], feats["text"])
+    return matching_metrics(image_feats, text_feats)

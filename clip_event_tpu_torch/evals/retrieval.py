@@ -1,5 +1,5 @@
 """Image↔text retrieval on COCO / Flickr30k (counterpart of
-`clip_event_tpu/evals/retrieval.py`), single device. C captions per image;
+`clip_event_tpu/evals/retrieval.py`). C captions per image;
 text→image: the rank of the paired image; image→text: the best rank of its
 C captions. Reports R@1/5/10 both ways."""
 
@@ -7,17 +7,27 @@ from __future__ import annotations
 
 import numpy as np
 
-from clip_event_tpu_torch.evals.common import Encoders, collect_encoded, eval_loader, recall_at_k
+from clip_event_tpu_torch.evals.common import (
+    Encoders,
+    collect_encoded,
+    eval_loader,
+    merge_across_ranks,
+    recall_at_k,
+    resolve_shard,
+)
 
 
-def evaluate_retrieval(params, cfg, dataset, batch_size: int = 32, device="cuda") -> dict:
+def evaluate_retrieval(params, cfg, dataset, batch_size: int = 32, device="cuda",
+                       rank=None, world_size=None) -> dict:
     C = dataset.captions_per_image
-    loader = eval_loader(dataset, batch_size)
+    rank, world_size = resolve_shard(rank, world_size)
+    loader = eval_loader(dataset, batch_size, rank=rank, world_size=world_size)
     enc = Encoders(params, cfg, batch_size=batch_size, device=device)
     feats, _, _ = collect_encoded(loader, enc, {"image": "image", "text": "text"})
-    image_feats = feats["image"]
+    local_text = feats["text"].reshape(feats["image"].shape[0], C, -1)
+    image_feats, text_feats = merge_across_ranks(len(dataset), world_size, feats["image"], local_text)
     N = image_feats.shape[0]
-    text_feats = feats["text"].reshape(N * C, -1)
+    text_feats = text_feats.reshape(N * C, -1)
     sims = text_feats @ image_feats.T  # [N·C, N]
 
     # text → image

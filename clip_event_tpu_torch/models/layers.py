@@ -102,16 +102,29 @@ _LN_IMPL = "xla"
 _ATTENTION_IMPL = "kernel"
 
 
-def set_attention_impl(impl: str) -> None:
+def _check_mesh(mesh) -> None:
+    """The JAX package's `mesh` argument of the impl setters shard_maps its
+    kernels over the chips of a mesh. Here each rank's kernel runs on its
+    own rows, so a data-parallel mesh of the port (`parallel.mesh.Mesh`)
+    needs no wrapper; anything else is refused."""
+    from clip_event_tpu_torch.parallel.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a clip_event_tpu_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+
+
+def set_attention_impl(impl: str, mesh=None) -> None:
     """Select the attention core for every later call that passes no
     `impl`: "kernel" (K1 / K2, the default) or "plain" (their plain
     versions on any device): the JAX package's
-    `set_attention_impl("pallas" | "xla")`; or "rounded" (the plain versions
-    with the tensor-core variants' roundings), which has no JAX
-    counterpart."""
+    `set_attention_impl("pallas" | "xla", mesh)`; or "rounded" (the plain
+    versions with the tensor-core variants' roundings), which has no JAX
+    counterpart. `mesh`: a data-parallel mesh of the port, or None (the
+    same choice either way, `_check_mesh`)."""
     global _ATTENTION_IMPL
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}; options: {IMPLS}")
+    _check_mesh(mesh)
     _ATTENTION_IMPL = impl
 
 
@@ -140,14 +153,13 @@ def attention_impl(impl: str):
 def set_ln_impl(impl: str, mesh=None) -> None:
     """Select the LayerNorm of the transformer blocks for every later
     `transformer` call that passes no `ln`: "xla" (plain PyTorch, the
-    default) or "pallas" (the fused kernels of `ops.ln`). The JAX package's
-    `mesh` argument (shard_map of the kernels over a multi-chip mesh) waits
-    for the multi-device port: only None is accepted."""
+    default) or "pallas" (the fused kernels of `ops.ln`). `mesh`: a
+    data-parallel mesh of the port, or None (the same choice either way,
+    `_check_mesh`)."""
     global _LN_IMPL
     if impl not in LN_IMPLS:
         raise ValueError("ln impl must be 'xla' or 'pallas'")
-    if mesh is not None:
-        raise NotImplementedError("set_ln_impl(mesh=...) is not ported yet (ROADMAP A6)")
+    _check_mesh(mesh)
     _LN_IMPL = impl
 
 

@@ -18,7 +18,12 @@ state-dict converters transpose them).
 BatchNorm is "frozen" (the running statistics, CLIP fine-tuning's default)
 or "batch" (the current batch's statistics, population variance), set
 process-wide by `set_bn_mode` or `with bn_mode(...)`; the train loop
-switches "batch" on for `sync_bn`. In both modes the scale and offset are
+switches "batch" on for `sync_bn`. With a data-parallel mesh of more than
+one rank (`set_bn_mode("batch", mesh)`) the statistics are the global
+batch's, as under the JAX package's dp mesh: the per-rank sums, then the
+sums of squared deviations from the global mean (JAX's two-pass variance),
+are all-reduced, and each all-reduce's backward sums the ranks'
+cotangents. In both modes the scale and offset are
 folded in fp32 and cast to the activations' dtype, and the normalization
 is `x * scale + offset` in that dtype, the JAX package's numerics. No hand
 kernel runs here: the convolutions go to cuDNN, the pools and the
@@ -39,6 +44,7 @@ from clip_event_tpu_torch.models import layers as L
 
 BN_MODES = ("frozen", "batch")
 _BN_MODE = "frozen"
+_BN_MESH = None  # the data-parallel mesh of "batch" statistics, or None
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
@@ -47,34 +53,46 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0) 
     return y.permute(0, 2, 3, 1)
 
 
-def set_bn_mode(mode: str) -> None:
+def set_bn_mode(mode: str, mesh=None) -> None:
     """The BatchNorm statistics of every later call: "frozen" (running
-    statistics) or "batch" (the batch's own)."""
-    global _BN_MODE
+    statistics) or "batch" (the batch's own; with a data-parallel `mesh`,
+    the global batch's over its ranks)."""
+    global _BN_MODE, _BN_MESH
     if mode not in BN_MODES:
         raise ValueError("bn mode must be 'frozen' or 'batch'")
-    _BN_MODE = mode
+    _BN_MODE, _BN_MESH = mode, mesh
 
 
 def get_bn_mode() -> str:
     return _BN_MODE
 
 
+def get_bn_mesh():
+    return _BN_MESH
+
+
 @contextlib.contextmanager
-def bn_mode(mode: str):
-    """`with bn_mode("batch"):` sets the BatchNorm mode inside and puts the
-    previous one back after."""
-    old = _BN_MODE
-    set_bn_mode(mode)
+def bn_mode(mode: str, mesh=None):
+    """`with bn_mode("batch"):` sets the BatchNorm mode (and mesh) inside
+    and puts the previous ones back after."""
+    old = (_BN_MODE, _BN_MESH)
+    set_bn_mode(mode, mesh)
     try:
         yield
     finally:
-        set_bn_mode(old)
+        set_bn_mode(*old)
 
 
 def batch_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor:
     """BatchNorm over the channels of NHWC x, statistics by the BN mode."""
-    if _BN_MODE == "batch":
+    if _BN_MODE == "batch" and _BN_MESH is not None and _BN_MESH.world_size > 1:
+        from clip_event_tpu_torch.parallel.collectives import all_reduce_sum
+
+        x32 = x.float()
+        n = x32.shape[0] * x32.shape[1] * x32.shape[2] * _BN_MESH.world_size
+        mean = all_reduce_sum(x32.sum(dim=(0, 1, 2)), _BN_MESH) / n
+        var = all_reduce_sum(((x32 - mean) ** 2).sum(dim=(0, 1, 2)), _BN_MESH) / n
+    elif _BN_MODE == "batch":
         x32 = x.float()
         mean = x32.mean(dim=(0, 1, 2))
         var = x32.var(dim=(0, 1, 2), correction=0)

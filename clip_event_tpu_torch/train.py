@@ -1,7 +1,7 @@
-"""CLIP-Event training entry point of the port (counterpart of `train.py`),
-single device:
+"""CLIP-Event training entry point of the port (counterpart of `train.py`):
 
     python -m clip_event_tpu_torch.train --cfg config.json [--device cpu]
+    torchrun --nproc_per_node N -m clip_event_tpu_torch.train --cfg config.json
 
 The config is the JAX CLI's (`config.py`). It trains from a random init
 (`seed`), from an OpenAI / reference `.pth` (`jit: true` + `begin_ckpt`), or
@@ -17,6 +17,18 @@ the step on the card), the remat policies, `max_steps`, `save_steps`,
 validation work as in the JAX CLI; `config.json` and `scalars.jsonl` are
 written beside the logs. The default device is the card; with no card and
 no `--device cpu` the CLI raises.
+
+Data parallel: launched by `torchrun` (or `mpirun` / `srun`), one process
+per GPU joins an NCCL group (`parallel/mesh.py`; gloo with `--device cpu`)
+on `cuda:LOCAL_RANK`, and `batch_size` is per process, as in the JAX CLI
+(one JAX process of a 4-chip host drives its 4 chips; here 4 processes
+run). Each rank loads its rank-strided rows with the rank-offset label
+layout, every rank starts from rank 0's state, and the step's loss,
+gradients and metrics are the global batch's (`engine/train_step.py`).
+Rank 0 writes the logs' scalars, `config.json` and the checkpoints (every
+rank waits at the save); a SIGTERM on any rank stops every rank at the
+same step boundary; the meters are synced at each epoch's end, and the
+validation is sharded by rank.
 
 `train(...)` is the epoch loop (loader → prefetch → step → metrics) over
 any `ExampleDataset`; `main` builds the VOA dataset and calls it.
@@ -36,6 +48,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from clip_event_tpu_torch.config import load_config, model_config
 from clip_event_tpu_torch.data.common import DataLoader
@@ -52,6 +65,14 @@ from clip_event_tpu_torch.engine.train_step import (
 )
 from clip_event_tpu_torch.models import layers, resnet
 from clip_event_tpu_torch.models.clip import CLIPConfig
+from clip_event_tpu_torch.parallel.collectives import any_rank, comm
+from clip_event_tpu_torch.parallel.mesh import (
+    Mesh,
+    data_process_group,
+    initialize_distributed,
+    make_mesh,
+    replicate,
+)
 from clip_event_tpu_torch.platform import resolve_device
 
 log = logging.getLogger(__name__)
@@ -70,18 +91,25 @@ def train(
     best_perf: float = 0.0,
     writer: Optional[ScalarWriter] = None,
     on_step: Optional[Callable[[int, dict], None]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """Run the epochs `begin_epoch .. max_epoch` of a validated config over
     `dataset`, from `params` (and a restored `opt_state` at `resume_step`).
     `on_step(global_step, metrics)` is called after each optimizer step is
     dispatched (with `steps_per_dispatch` K, K times after each dispatch),
-    with the metrics still on the device. Returns the final state."""
+    with the metrics still on the device. Returns the final state.
+
+    With a data-parallel `mesh` every rank calls it with its own `dataset`
+    (built with its `dist_rank` / `dist_world`) on `mesh.device`, and
+    `writer` only on rank 0."""
     device = resolve_device(device)
     task, ckpt_dir = cfg["task"], cfg["ckpt_dir"]
+    rank, world = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
     begin_epoch = cfg["begin_epoch"] if begin_epoch is None else begin_epoch
     loader = DataLoader(
         dataset, batch_size=cfg["batch_size"], shuffle=cfg["is_train"], seed=cfg["seed"],
         drop_last=cfg["is_train"], num_workers=cfg["num_workers"], prefetch=cfg["prefetch"],
+        rank=rank, world_size=world,
         bucket_widths=(list(cfg["length_buckets"]) if cfg["is_train"] else None) or None,
     )
     grad_accum = max(int(cfg["grad_accum_steps"]), 1)
@@ -108,11 +136,15 @@ def train(
         remat=cfg["remat"], impl="kernel" if cfg["use_pallas_attention"] else "plain",
         alignment=cfg["alignment"], alignment_chunks=cfg["alignment_chunks"],
         use_pallas_ot=cfg["use_pallas_ot"], multiattention=cfg["multiattention"],
-        multiattention_pooling=cfg["multiattention_pooling"],
+        multiattention_pooling=cfg["multiattention_pooling"], mesh=mesh,
     )
     state = create_train_state(params, optimizer)
     if opt_state is not None:
         state = state._replace(opt_state=opt_state, step=resume_step)
+    if mesh is not None:
+        # every rank starts from rank 0's params and optimizer state
+        replicate(state.params, mesh)
+        replicate(state.opt_state, mesh)
     steps_per_dispatch = max(int(cfg["steps_per_dispatch"]), 1)
     if steps_per_dispatch > 1:
         # K optimizer steps in one dispatch: on the card a CUDA graph of the
@@ -156,11 +188,11 @@ def train(
     old_ln = layers._resolve_ln()
     if cfg["use_pallas_ln"]:
         layers.set_ln_impl("pallas")
-    # sync_bn: the ResNet tower's BatchNorm takes the batch's statistics
-    # (single device: the whole batch's) for the length of this run
-    old_bn = resnet.get_bn_mode()
+    # sync_bn: the ResNet tower's BatchNorm takes the global batch's
+    # statistics (over the mesh's ranks) for the length of this run
+    old_bn = (resnet.get_bn_mode(), resnet.get_bn_mesh())
     if cfg["sync_bn"] and not mcfg.is_vit:
-        resnet.set_bn_mode("batch")
+        resnet.set_bn_mode("batch", mesh)
     try:
         for epoch in range(begin_epoch, cfg["max_epoch"]):
             log.info("=> Epoch[%d]: train start", epoch)
@@ -189,7 +221,7 @@ def train(
                                 {"global_step": s, "image_ids": ids} for s, ids in recent_meta
                             ],
                         }
-                        path = os.path.join(ckpt_dir, task, f"nan_debug_step{step_idx}_rank0.json")
+                        path = os.path.join(ckpt_dir, task, f"nan_debug_step{step_idx}_rank{rank}.json")
                         os.makedirs(os.path.dirname(path), exist_ok=True)
                         with open(path, "w") as fh:
                             json.dump(debug, fh, indent=1)
@@ -204,7 +236,9 @@ def train(
                 """save_steps / max_steps / preemption checks; True = stop."""
                 nonlocal next_save, stop_training
                 hit_max = bool(max_steps) and global_step >= max_steps
-                hit_term = preempted["flag"]
+                # every rank stops at the same step boundary, for the
+                # collective save, when any rank got the signal
+                hit_term = any_rank(preempted["flag"])
                 if (next_save is not None and global_step >= next_save) or hit_max or hit_term:
                     drain()
                     save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
@@ -255,6 +289,8 @@ def train(
                 if step_hooks():
                     break
             drain()
+            # the host-side meters differ by rank: their global stats
+            metric_logger.synchronize_between_processes()
             log.info("=> Epoch[%d]: train end, duration: %.2fs", epoch, time.time() - start)
             if stop_training:
                 break  # the step checkpoint is written; no end-of-epoch save
@@ -277,7 +313,8 @@ def train(
                     cfg["val_image_caption_json"], cfg["val_image_dir"],
                     image_size=mcfg.image_resolution,
                 )
-                # the validation encodes with the step's attention choice
+                # the validation encodes with the step's attention choice,
+                # each rank its slice (evals/common.py::resolve_shard)
                 with layers.attention_impl(step_kwargs["impl"]):
                     val = evaluate_matching(state.params, mcfg, val_ds,
                                             batch_size=cfg["batch_size"], device=device)
@@ -290,7 +327,7 @@ def train(
                             best_perf, step=state.step)
     finally:
         layers.set_ln_impl(old_ln)
-        resnet.set_bn_mode(old_bn)
+        resnet.set_bn_mode(*old_bn)
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
     return state
@@ -337,8 +374,9 @@ def initial_state(cfg: dict, device="cuda"):
     return init_params(torch.Generator().manual_seed(int(cfg["seed"])), mcfg, device), mcfg, resume
 
 
-def build_dataset(cfg: dict, mcfg: CLIPConfig):
-    """The VOA fine-tuning dataset a config describes."""
+def build_dataset(cfg: dict, mcfg: CLIPConfig, rank: int = 0, world: int = 1):
+    """The VOA fine-tuning dataset a config describes, for data rank `rank`
+    of `world` (its label layout and deduped channels)."""
     from clip_event_tpu_torch.data.voa import VOADescriptionDataset
 
     return VOADescriptionDataset(
@@ -369,6 +407,8 @@ def build_dataset(cfg: dict, mcfg: CLIPConfig):
         # stack of K steps or of accumulated microbatches cannot take:
         # raise there instead
         dedupe_strict=int(cfg["steps_per_dispatch"]) > 1 or int(cfg["grad_accum_steps"]) > 1,
+        dist_rank=rank,
+        dist_world=world,
     )
 
 
@@ -377,27 +417,56 @@ def main(argv=None):
     parser.add_argument("--cfg", type=str, required=True, help="config JSON path")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
     cfg = load_config(args.cfg)
+    # the process group first (torchrun / mpirun / srun; a no-op alone)
+    owned = not dist.is_initialized()
+    initialize_distributed(args.device)
+    mesh = make_mesh(args.device) if dist.is_initialized() else None
+    device = resolve_device(mesh.device if mesh is not None else args.device)
+    try:
+        _main(cfg, device, mesh)
+        # align the ranks before they exit
+        comm.synchronize()
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _main(cfg: dict, device: torch.device, mesh: Optional[Mesh]):
     task = cfg["task"]
+    rank = comm.rank
     tb_log_dir = os.path.join(cfg["tb_log_dir"], task, "tensorboard")
     log_dir = os.path.join(cfg["tb_log_dir"], task, "log")
     for d in (tb_log_dir, log_dir, os.path.join(cfg["ckpt_dir"], task)):
         os.makedirs(d, exist_ok=True)
-    create_logger(task, log_dir, cfg["log_level"])
-    log.info("config:\n%s", pprint.pformat(cfg))
-    log.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda" else device)
-    with open(os.path.join(tb_log_dir, "config.json"), "w") as fh:
-        json.dump(cfg, fh, indent=2)
+    create_logger(task, log_dir, cfg["log_level"], phase="train" if rank == 0 else f"train_rank{rank}")
+    if rank == 0:
+        log.info("config:\n%s", pprint.pformat(cfg))
+        with open(os.path.join(tb_log_dir, "config.json"), "w") as fh:
+            json.dump(cfg, fh, indent=2)
+    log.info("device: %s (rank %d of %d)",
+             torch.cuda.get_device_name(device) if device.type == "cuda" else device, rank, comm.world_size)
 
     params, mcfg, resume = initial_state(cfg, device)
-    dataset = build_dataset(cfg, mcfg)
-    writer = ScalarWriter(tb_log_dir)
+    # the loader's rank and the label layout's: the data rank (the process
+    # rank while tensor and pipeline parallelism are not ported)
+    data_rank, data_world = data_process_group(int(cfg["tp"]) * int(cfg["pp"]))
+    for key in ("dedupe_texts", "dedupe_sr_texts"):
+        if cfg[key] and cfg[key] % data_world:
+            log.warning(
+                "%s=%d does not divide the data-parallel degree %d: each rank holds "
+                "cap / world unique rows, so the dataset refuses it — pick a multiple of %d",
+                key, cfg[key], data_world, data_world,
+            )
+        elif cfg[key] and data_world > 1:
+            log.info("%s=%d: unique rows shard over dp=%d", key, cfg[key], data_world)
+    dataset = build_dataset(cfg, mcfg, data_rank, data_world)
+    writer = ScalarWriter(tb_log_dir) if rank == 0 else None
     try:
-        train(cfg, mcfg, dataset, params, device, writer=writer, **resume)
+        train(cfg, mcfg, dataset, params, device, writer=writer, mesh=mesh, **resume)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
 
 
 if __name__ == "__main__":

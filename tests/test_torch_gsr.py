@@ -9,8 +9,9 @@ ResNet model (no grid tokens), and `python -m clip_event_tpu_torch.eval_gsr
 Counts equal, rates within 1e-6 (`assert_metrics_match` of
 tests/test_torch_evals.py). Both sides decode images with PIL (the JAX
 package's native JPEG decoder is switched off: it differs from PIL by one
-unit in the last place). The eval runs in one process: rank sharding is
-not ported (ROADMAP A6)."""
+unit in the last place). The eval runs in one process here; its sharding
+by rank is held against the single-process eval in
+tests/test_torch_multiprocess.py."""
 
 import json
 import os

@@ -242,8 +242,16 @@ def test_set_ln_impl_validates_resets_and_feeds_transformer():
     assert TL._resolve_ln() == "xla"
     with pytest.raises(ValueError, match="'xla' or 'pallas'"):
         TL.set_ln_impl("triton")
-    with pytest.raises(NotImplementedError, match="A6"):
+    # the port's data-parallel mesh is taken (each rank's kernels run on
+    # its own rows: no wrapper); any other object is refused
+    from clip_event_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TL.set_ln_impl("pallas", mesh=object())
+    assert TL._resolve_ln() == "xla"
+    TL.set_ln_impl("pallas", mesh=make_mesh("cpu"))
+    assert TL._resolve_ln() == "pallas"
+    TL.set_ln_impl("xla", mesh=make_mesh("cpu"))
     assert TL._resolve_ln() == "xla"
     with pytest.raises(ValueError, match="ln impl"):
         TL.transformer(torch.zeros(1, 3, 128), _torch_tree(_stack(1, 128, 0)), 2, impl="plain", ln="fused")
@@ -399,7 +407,7 @@ def test_use_pallas_ln_is_a_config_key():
     assert validate_config(BASE_CFG)["use_pallas_ln"] is False
     on = validate_config(dict(BASE_CFG, use_pallas_ln=True))
     assert on["use_pallas_ln"] is True and on == JC.validate_config(dict(BASE_CFG, use_pallas_ln=True))
-    with pytest.raises(ConfigError, match="ROADMAP A6"):  # the refusals that stay
+    with pytest.raises(ConfigError, match=r"ROADMAP A6\(c\)"):  # the refusals that stay
         validate_config(dict(BASE_CFG, use_pallas_ln=True, tp=2))
 
 

@@ -253,11 +253,11 @@ def test_config_accepts_finetune_ot_and_refuses_the_rest():
                 "object_detection_threshold", "alignment_chunks"):
         assert ours[key] == ref[key], key
     # the local-attention branch (A4) is accepted beside the OT branch, as
-    # in JAX; the parts still refused are multi-device (A6) and the image
-    # cache (A7)
+    # in JAX; the parts still refused are model parallelism (A6(c)) and the
+    # image cache (A7)
     for extra in ({"multiattention": True}, {"load_sr": True, "dedupe_sr_texts": 16}):
         assert TC.validate_config(dict(raw, **extra)) == JC.validate_config(dict(raw, **extra))
-    for key, value, item in [("tp", 2, "A6"), ("image_cache", "/c", "A7")]:
+    for key, value, item in [("tp", 2, r"A6\(c\)"), ("image_cache", "/c", "A7")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(raw, **{key: value}))
     for bad in ({"load_object": False}, {"load_ie": False}, {"object_ontology_file": None}):

@@ -66,8 +66,10 @@ def test_unported_channels_raise(voa, monkeypatch):
     """Every data channel is ported: the SR/bbox channel (`load_sr`) is
     accepted and carries JAX's fields (held bit for bit in
     tests/test_torch_local_attention.py; the object and IE channels in
-    tests/test_torch_ot_train.py). What stays refused is the multi-process
-    batch assembly (`dist_rank` / `dist_world`, ROADMAP A6)."""
+    tests/test_torch_ot_train.py). The multi-process batch assembly
+    (`dist_rank` / `dist_world`, ROADMAP A6(a)) is ported too: a rank's
+    label layout is JAX's, and a dedupe cap the world does not divide is
+    refused as in JAX."""
     monkeypatch.setenv("CLIP_EVENT_NATIVE", "0")
     args = (voa["descriptions_json"], [voa["mapping_json"]], [voa["image_dir"]])
     ours = VOADescriptionDataset(*args, load_sr=True, max_bboxes=3, image_size=32,
@@ -77,8 +79,12 @@ def test_unported_channels_raise(voa, monkeypatch):
                  object_pickles=[voa["object_pickle"]], object_ontology_file=voa["ontology_csv"])
     _equal(ours[0][0], ref[0][0])
     assert ours[0][0]["bbox_mask"].tolist() == [1, 1, 0]
-    with pytest.raises(TypeError, match="dist_world"):
-        VOADescriptionDataset(*args, dist_world=2)
+    ours = VOADescriptionDataset(*args, dist_rank=1, dist_world=2, image_size=32)
+    ref = JaxVOA(*args, dist_rank=1, dist_world=2, image_size=32)
+    _equal(ours.batch_extras(2), ref.batch_extras(2))
+    assert ours.batch_extras(2)["labels_per_image"].tolist() == [6, 9]
+    with pytest.raises(ValueError, match="divide by world size 2"):
+        VOADescriptionDataset(*args, dist_world=2, dedupe_texts=5)
 
 
 @pytest.mark.parametrize("kw", [
@@ -132,10 +138,12 @@ def test_config_defaults_and_refusals():
             "optimizer": "adam", "max_epoch": 1}
     ours, ref = TC.validate_config(base), JC.validate_config(base)
     assert ours == ref
-    # the ROADMAP items that bring each refused part: multi-device A6, the
-    # image cache A7
-    for key, value, item in [("tp", 2, "A6"), ("pp", 2, "A6"), ("dcn_dp", 2, "A6"),
-                             ("zero", True, "A6"), ("fsdp", True, "A6"),
+    # the ROADMAP items that bring each refused part: the sharded optimizer
+    # state and params A6(b), the model-parallel and multi-slice keys
+    # A6(c), the image cache A7
+    for key, value, item in [("tp", 2, r"A6\(c\)"), ("pp", 2, r"A6\(c\)"),
+                             ("sp", True, r"A6\(c\)"), ("dcn_dp", 2, r"A6\(c\)"),
+                             ("zero", True, r"A6\(b\)"), ("fsdp", True, r"A6\(b\)"),
                              ("image_cache", "/c", "A7")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(base, **{key: value}))
@@ -151,10 +159,15 @@ def test_config_defaults_and_refusals():
     for spec in ("RN50", "RN101", "RN50x4", rn_dict):
         ours, ref = TC.model_config({"model": spec}), JC.model_config({"model": spec})
         assert not ours.is_vit and dataclasses.asdict(ours) == dataclasses.asdict(ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    # data parallelism (A6(a)) is ported: the LayerNorm choice takes the
+    # port's mesh (each rank's kernel runs on its own rows) and refuses
+    # anything else
+    from clip_event_tpu_torch.parallel.mesh import make_mesh
+
+    layers.set_ln_impl("xla", mesh=make_mesh("cpu"))
+    assert layers._resolve_ln() == "xla"
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         layers.set_ln_impl("xla", mesh=object())
-    with pytest.raises(TypeError, match="dist_rank"):
-        VOADescriptionDataset("d.json", [], [], dist_rank=1)
     for bad in ({"constrastive_loss": "bce"}, {"batch_size": 0}, {"length_buckets": [80]},
                 {"lr_scheduler": "linear"}):
         with pytest.raises(TC.ConfigError):

@@ -25,6 +25,7 @@ them), and the bench entry point and component bench.
     python3 chip_smoke.py --only train_full serving_rn50 train_rn50 evals
     python3 chip_smoke.py --only serving_bundle   # the serving bundle alone
     python3 chip_smoke.py --only train_dp   # the data-parallel step alone
+    python3 chip_smoke.py --only data_feed  # the host image path alone
     # the same for an earlier tree's package unpacked under DIR
     python3 chip_smoke.py --only b1 --package-root DIR
 
@@ -102,6 +103,28 @@ Phases, each printing JSON lines:
               kernels' calls and device ms in one profiled step (read, not
               gated); the matching eval through `resolve_shard` equal to
               the unsharded call; the process group destroyed at the end
+  5e. data_feed  `configs/finetune_template_fast.json` (ViT-B/32, 384 x 3,
+              bf16, length buckets [32, 48], dedupe 768) fed from JPEG
+              files through `train.build_dataset` and `train.train`: a
+              synthetic VOA corpus written from seed 0 (768 JPEGs of 480 x
+              640 at quality 90, smooth fields plus noise; repeated
+              description templates); the native decoder's status (built,
+              with libjpeg or decoding with PIL, the compiler's message)
+              beside the host's cores, and on 32 files its u8 path equal to
+              `preprocess_image_u8` bit for bit and its float path within
+              1e-6; the image cache built (images/s); the loop from the
+              cache, which `build_dataset` activates (1 warm-up + 4 timed
+              steps, exact K1 counts, first loss near chance), then 2
+              steps live with the cache cleared, bit for bit the cached
+              run's first two (every metric), each live-decoded image equal
+              to its cache row; the device time between steps, a resident
+              step of the loop's first batch with its busy time and idle
+              share, the loader alone cached (also at 1, 4, 8 and 16
+              threads) and live; `preprocess_on_device`
+              on 64 raw 480 x 640 images within the JAX test's bar of the
+              host float path, images/s; the retrieval eval CLI with
+              `image_cache` and without: equal metrics and launches, 4
+              cache hits
   6. serving_l14  full-width ViT-L/14 from seed 0 (24 + 12 layers; vision
               S=257 through K2, text through K1): embed_stream over 128
               images and 128 token rows at batch 64, fp32 and bf16; launch
@@ -179,7 +202,8 @@ Phases, each printing JSON lines:
               ViT-B/32 bundle in fp32, bf16 and int8 and a ViT-L/14 int8
               bundle (the fp32 and int8 B/32 ones exported on the CPU), each
               loaded in a fresh process (load seconds; `models.clip` and the
-              layers must stay out of its sys.modules) and here, then
+              layers must stay out of its sys.modules; it runs beside this
+              process's own load and checks) and here, then
               serving batches of 1, 7 and 64 on the card, counted: K1 12 a
               tower batch, K2 24 an L/14 image batch, K5 100 / 98 (B/32) and
               196 / 98 (L/14) an image / text batch, equal to the live
@@ -221,7 +245,7 @@ Phases, each printing JSON lines:
               384 x 3; its protocol, 10 steps a call through the graphed
               step, one warm-up call and here one timed call) with the
               plain LayerNorm and with `--ln pallas`, then
-              with `--images uint8` and `--images float32` in turns, and
+              with `--images uint8` and `--images float32`, once each, and
               the `ln` and `megakernel` sections of
               `clip_event_tpu_torch.tools.bench_components` at their default
               shapes (256 images x 3 texts, 12 layers), through their `main`:
@@ -3088,7 +3112,7 @@ def phase_bench_tools():
     """The port's bench entry point at full width (ViT-B/32, 384 x 3; its
     protocol, 10 steps a call through the graphed step after one warm-up
     call, here with one timed call), with
-    the plain LayerNorm and with `--ln pallas` (twice each, in turns), and
+    the plain LayerNorm and with `--ln pallas` (once each), and
     the `ln` and `megakernel`
     sections of the component bench at their default shapes (B = 256, D = 3,
     12 layers), each through its `main`: the JSON lines parsed, the metric
@@ -3106,10 +3130,10 @@ def phase_bench_tools():
 
     all_launches = dict.fromkeys(COUNTERS, 0)
     torch.cuda.empty_cache()
-    # in turns (plain, kernels, kernels, plain): two settings are compared
-    # within one run, and the host's share of a step drifts
+    # both settings within one run, once each (the script's time: the
+    # graphed step's host share is small)
     results = {"xla": [], "pallas": []}
-    for impl in ("xla", "pallas", "pallas", "xla"):
+    for impl in ("xla", "pallas"):
         lines, launches = run_main(port_bench.main, ["--ln", impl, "--calls", "1"])
         check(len(lines) == 1, f"bench --ln {impl}: one line, got {len(lines)}")
         result = json.loads(lines[0])
@@ -3131,9 +3155,9 @@ def phase_bench_tools():
           "step_ms_ratio_fused_to_plain": float(np.mean(step_ms["pallas"]) / np.mean(step_ms["xla"]))})
 
     # the JAX bench's input (float32 N(0, 1) images) beside the train loop's
-    # (uint8 pixels normalized on the device), in turns
+    # (uint8 pixels normalized on the device)
     by_images = {"uint8": [], "float32": []}
-    for images in ("uint8", "float32", "float32", "uint8"):
+    for images in ("uint8", "float32"):
         lines, launches = run_main(port_bench.main, ["--images", images, "--calls", "1"])
         result = json.loads(lines[0])
         check(len(lines) == 1 and result["images"] == images and math.isfinite(result["value"])
@@ -3678,7 +3702,9 @@ def phase_serving_bundle(out_root):
     ViT-B/32 in fp32, bf16 and int8 and ViT-L/14 in int8, the fp32 and int8
     B/32 bundles exported on the CPU, the others on the card. Each bundle is
     loaded in a fresh process (load seconds; the model code must stay out of
-    its sys.modules) and here, then serves batches of 1, 7 and 64 on the
+    its sys.modules; it runs beside this process's own load and checks, and
+    is read before the timed rates) and here, then serves batches of 1, 7
+    and 64 on the
     card, counted: K1 12 a tower batch (K2 24 an L/14 image batch), K5 once
     a dense layer of an int8 tower, the live model's counts. The features
     are held against the live model (fp32 1e-5, bf16 cosine 0.999, int8
@@ -3706,16 +3732,12 @@ def phase_serving_bundle(out_root):
         del export_params
         files = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
 
-        # ---- a fresh process loads it on the card, without the model code
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", BUNDLE_LOAD_CHECK, out_dir], cwd=REPO,
-                              capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"{tag}: loading in a fresh process failed:\n{proc.stderr[-3000:]}")
-        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
-        fresh["process_s"] = time.perf_counter() - t0
-        check(fresh["finite"], f"{tag}: fresh process features finite")
-        check(not fresh["model_code_in_sys_modules"],
-              f"{tag}: loading imported the model code {fresh['model_code_in_sys_modules']}")
+        # ---- a fresh process loads it on the card, without the model code;
+        # it runs beside this process's own load and checks below (which it
+        # shares the host's cores with) and is read before the timed rates
+        t_fresh = time.perf_counter()
+        fresh_proc = subprocess.Popen([sys.executable, "-c", BUNDLE_LOAD_CHECK, out_dir], cwd=REPO,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
         t0 = time.perf_counter()
         bundle = load_serving_bundle(out_dir, device="cuda")
@@ -3772,6 +3794,14 @@ def phase_serving_bundle(out_root):
         cpu_plain_s = time.perf_counter() - t0
         del on_cpu, plain
 
+        stdout, stderr = fresh_proc.communicate(timeout=600)
+        check(fresh_proc.returncode == 0, f"{tag}: loading in a fresh process failed:\n{stderr[-3000:]}")
+        fresh = json.loads(stdout.strip().splitlines()[-1])
+        fresh["process_s"] = time.perf_counter() - t_fresh
+        check(fresh["finite"], f"{tag}: fresh process features finite")
+        check(not fresh["model_code_in_sys_modules"],
+              f"{tag}: loading imported the model code {fresh['model_code_in_sys_modules']}")
+
         # ---- throughput at batch 64, bundle and live in turns
         iters = 20 if mcfg.vision_layers <= 12 else 8
         readings = {}
@@ -3797,10 +3827,448 @@ def phase_serving_bundle(out_root):
     return all_launches
 
 
+# ------------------------------------------------------------- data feed
+
+# the data_feed phase's synthetic VOA corpus: 768 news-photo-sized JPEGs
+# (two B/32 batches of 384), and the files its decoder checks read
+FEED_IMAGES, FEED_HW, FEED_QUALITY, FEED_CHECK_FILES = 768, (480, 640), 90, 32
+# live steps, images the loader reads live alone, images resized on the card
+FEED_LIVE_STEPS, FEED_LIVE_ALONE, FEED_DEVICE_RESIZE = 2, 48, 64
+# the float path's difference from the Python path: one ulp of its /255,
+# through (v - mean) / std (the JAX package's native tests' atol)
+FEED_FLOAT_ATOL = 1e-6
+_FEED_EVENTS = ("protest", "election", "flood", "attack", "wedding", "trial", "strike", "summit",
+                "rally", "funeral", "arrest", "parade")
+_FEED_CITIES = ("Kabul", "Lagos", "Quito", "Hanoi", "Tunis", "Minsk", "Dhaka", "Lima", "Accra",
+                "Sofia", "Oslo", "Riga", "Doha", "Baku", "Yerevan", "Harare")
+# VOA description templates: most short (the 32-token bucket), some
+# medium (48) and some long (77)
+_FEED_TEMPLATES = (
+    "A {ev} event in {city}.",
+    "Reporters said a {ev} event took place in {city} on Monday, where many people gathered "
+    "near the main square while officials watched the crowd from nearby streets.",
+    "Witnesses described a large {ev} event in {city} that lasted through the afternoon, "
+    "with crowds filling the roads around the old market, police closing several bridges, "
+    "and local leaders calling for calm as the events of the day continued late into the evening.",
+)
+
+
+def _feed_noise(seed: int, tiles: int = 4) -> np.ndarray:
+    """A few tiles of sensor-like noise (sigma 6) the corpus's images share."""
+    rng = np.random.default_rng([seed, 1 << 20])
+    return np.round(rng.standard_normal((tiles, *FEED_HW, 3), dtype=np.float32) * 6.0).astype(np.float32)
+
+
+def _feed_image(i: int, seed: int, noise: np.ndarray) -> np.ndarray:
+    """A smooth RGB field (a separable sine pattern and a ramp) plus one of
+    the noise tiles, rolled: JPEG sizes like a news photo's, not pure
+    noise's. From (seed, i)."""
+    rng = np.random.default_rng([seed, i])
+    h, w = FEED_HW
+    fy, fx = rng.uniform(0.5, 4.0, (2, 3)).astype(np.float32)
+    py, px = rng.uniform(0.0, 2 * np.pi, (2, 3)).astype(np.float32)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+    img = 120 + 70 * np.sin(2 * np.pi * fy * y + py) * np.cos(2 * np.pi * fx * x + px) + 40 * x * y
+    img += np.roll(noise[i % len(noise)], int(rng.integers(w)), axis=1)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_feed_corpus(root: str, n: int = FEED_IMAGES, seed: int = 0) -> dict:
+    """The synthetic VOA corpus of the data_feed phase, from `seed`: n JPEGs
+    (FEED_HW, quality FEED_QUALITY) written by threads, the caption mapping
+    and the template descriptions (1 positive, 1 event and 1 argument
+    negative an image; repeated templates, so dedupe and the length buckets
+    act)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    image_dir = os.path.join(root, "jpg")
+    os.makedirs(image_dir, exist_ok=True)
+    ids = [f"VOA_EN_NW_2017_{i:05d}_0" for i in range(n)]
+
+    noise = _feed_noise(seed)
+
+    def write(i):
+        path = os.path.join(image_dir, ids[i] + ".jpg")
+        Image.fromarray(_feed_image(i, seed, noise)).save(path, quality=FEED_QUALITY)
+        return os.path.getsize(path)
+
+    with ThreadPoolExecutor(max_workers=len(os.sched_getaffinity(0))) as pool:
+        sizes = list(pool.map(write, range(n)))
+    rng = np.random.default_rng(seed)
+    mapping, descriptions = {}, {}
+    for image_id in ids:
+        doc = image_id[:-2]
+        ev, ev2 = rng.choice(len(_FEED_EVENTS), 2, replace=False)
+        city, city2 = rng.choice(len(_FEED_CITIES), 2, replace=False)
+        t = _FEED_TEMPLATES[rng.choice(3, p=(0.65, 0.2, 0.15))]
+        mapping[doc] = {"0": {"url": "", "cap": f"FILE - A {_FEED_EVENTS[ev]} in {_FEED_CITIES[city]}."}}
+        descriptions[image_id] = {
+            "pos": [t.format(ev=_FEED_EVENTS[ev], city=_FEED_CITIES[city])],
+            "neg_event": [t.format(ev=_FEED_EVENTS[ev2], city=_FEED_CITIES[city])],
+            "neg_argument": [t.format(ev=_FEED_EVENTS[ev], city=_FEED_CITIES[city2])],
+        }
+    paths = {"image_dir": image_dir, "mapping_json": os.path.join(root, "image_caption_mapping.json"),
+             "descriptions_json": os.path.join(root, "descriptions_template_template.json"),
+             "images": [os.path.join(image_dir, i + ".jpg") for i in ids], "mean_kb": float(np.mean(sizes)) / 1e3}
+    with open(paths["mapping_json"], "w") as fh:
+        json.dump(mapping, fh)
+    with open(paths["descriptions_json"], "w") as fh:
+        json.dump(descriptions, fh)
+    return paths
+
+
+class _CheckedRows:
+    """A dataset read live whose every image is held against the image
+    cache's row for its file, bit for bit, as the loader's threads read it
+    (the train loop's own decodes: no extra pass over the corpus)."""
+
+    def __init__(self, ds, cache):
+        import threading
+
+        self._ds, self._cache = ds, cache
+        self._lock = threading.Lock()
+        self.checked, self.differ = 0, []
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+    def __len__(self):
+        return len(self._ds)
+
+    def __getitem__(self, i):
+        tensors, meta = self._ds[i]
+        rec = self._ds.data[i]
+        row = self._cache.get_u8(os.path.join(rec["image_dir"], rec["image_id"] + ".jpg"), self._ds.image_size)
+        same = row is not None and np.array_equal(row, tensors["image"])
+        with self._lock:
+            self.checked += 1
+            if not same:
+                self.differ.append(rec["image_id"])
+        return tensors, meta
+
+
+class _Rows:
+    """The first n examples of a dataset (the loader-alone readings)."""
+
+    def __init__(self, ds, n):
+        self._ds, self._n = ds, n
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        return self._ds[i]
+
+
+def _loader_images_per_s(ds, batch, workers) -> float:
+    """Images/s of the loader alone (no step) over `ds` in batches of `batch`."""
+    from clip_event_tpu_torch.data.common import DataLoader
+
+    loader = DataLoader(ds, batch_size=batch, shuffle=False, num_workers=workers, prefetch=2)
+    t0 = time.perf_counter()
+    seen = sum(b["image"].shape[0] for b, _ in loader)
+    return seen / (time.perf_counter() - t0)
+
+
+def _feed_eval(root, cache_dir):
+    """The retrieval eval CLI of tests/fixtures.py at ViT-B/32 through
+    `evals.cli.run`, with `image_cache` and without: (metrics, launches,
+    cache hits) each."""
+    import contextlib
+    import io
+
+    from clip_event_tpu_torch import eval_retrieval
+    from clip_event_tpu_torch.data import cache as image_cache
+    from clip_event_tpu_torch.evals.cli import run
+
+    fx = _load_fixtures()
+    p = fx.make_retrieval_fixture(os.path.join(root, "retrieval"))
+    stats = image_cache.build_image_cache(image_cache.scan_image_files(p["coco_dir"]), cache_dir, size=224)
+    check(stats["images"] == 4 and stats["failed"] == 0, f"retrieval cache {stats}")
+    hits = []
+    get = image_cache.ImageCache.get
+
+    def counted(self, path, size=224):
+        out = get(self, path, size)
+        hits.append(out is not None)
+        return out
+
+    results = {}
+    image_cache.ImageCache.get = counted
+    try:
+        for name, extra in (("cached", {"image_cache": cache_dir}), ("live", {})):
+            image_cache.activate(None)
+            cfg = {"model": "ViT-B/32", "dataset": "coco", "caption_file": p["coco_json"],
+                   "image_dir": p["coco_dir"], "seed": 0, "batch_size": 4,
+                   "output_json": os.path.join(root, f"retrieval_{name}.json"), **extra}
+            path = os.path.join(root, f"retrieval_{name}_cfg.json")
+            with open(path, "w") as fh:
+                json.dump(cfg, fh)
+            argv, sys.argv = sys.argv, ["eval_retrieval", "--cfg", path]
+            n_hits = len(hits)
+            reset_launches()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    run("eval_retrieval", eval_retrieval.evaluate)
+            finally:
+                sys.argv = argv
+            torch.cuda.synchronize()
+            with open(cfg["output_json"]) as fh:
+                results[name] = {"metrics": json.load(fh), "launches": read_launches(),
+                                 "cache_hits": sum(hits[n_hits:])}
+    finally:
+        image_cache.ImageCache.get = get
+        image_cache.activate(None)
+    return results
+
+
+def phase_data_feed(out_root):
+    """`configs/finetune_template_fast.json` through the port's train entry
+    (`train.build_dataset`, `train.train`) at ViT-B/32 384 x 3, bf16, fed
+    from JPEG files: a synthetic corpus, the native decoder's status and
+    checks, the cache build, the loop from the cache (1 warm-up + 4 timed
+    steps) and live (FEED_LIVE_STEPS steps, bit for bit the cached run's
+    first steps, every image against its cache row), a resident step of the
+    loop's first batch with its idle share, the loader alone, the on-device
+    resize against the host float path, and the retrieval eval with and
+    without the cache."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from clip_event_tpu_torch.data import cache as image_cache
+    from clip_event_tpu_torch.data import native
+    from clip_event_tpu_torch.data.common import DataLoader
+    from clip_event_tpu_torch.data.device_pipeline import preprocess_on_device
+    from clip_event_tpu_torch.data.transform import preprocess_image, preprocess_image_u8
+    from clip_event_tpu_torch.train import build_dataset
+
+    t_phase = time.perf_counter()
+    nproc = len(os.sched_getaffinity(0))
+    root = os.path.join(out_root, "data_feed")
+    os.environ.pop("CLIP_EVENT_IMAGE_CACHE", None)
+    image_cache.activate(None)
+    t0 = time.perf_counter()
+    corpus = write_feed_corpus(root, FEED_IMAGES)
+    corpus_s = time.perf_counter() - t0
+
+    # the native decoder: built or not (and why), then its checks
+    t0 = time.perf_counter()
+    built = native.available()
+    status = {"built": built, "jpeg_decoder": native.jpeg_decoder(), "build_error": native.build_error(),
+              "build_s": time.perf_counter() - t0, "nproc": nproc}
+    emit({"phase": "data_feed_native", **status})
+    if built:
+        def both(path):
+            with Image.open(path) as img:
+                u8 = preprocess_image_u8(img, 224)
+            return (native.preprocess_jpeg_file_u8(path, 224), u8,
+                    native.preprocess_jpeg_file(path, 224), preprocess_image(u8, 224))
+
+        with ThreadPoolExecutor(max_workers=nproc) as pool:
+            pairs = list(pool.map(both, corpus["images"][:FEED_CHECK_FILES]))
+        check(all(a is not None and np.array_equal(a, b) for a, b, _, _ in pairs),
+              "native u8 path equals preprocess_image_u8 bit for bit")
+        float_err = max(float(np.abs(c - d).max()) for _, _, c, d in pairs)
+        check(float_err <= FEED_FLOAT_ATOL, f"native float path within {FEED_FLOAT_ATOL}: {float_err}")
+    else:
+        float_err = None
+
+    # the cache: built once; its rows are checked against the live run's decodes
+    cache_dir = os.path.join(root, "image_cache")
+    t0 = time.perf_counter()
+    stats = image_cache.build_image_cache(corpus["images"], cache_dir, size=224, num_workers=nproc)
+    build_s = time.perf_counter() - t0
+    check(stats == {"images": FEED_IMAGES, "failed": 0, "size": 224}, f"cache build {stats}")
+
+    with open(os.path.join(REPO, "configs", "finetune_template_fast.json")) as fh:
+        raw = json.load(fh)
+    # only the paths change, and a step cap; begin_ckpt null: the seed-0 init
+    # below is passed to `train` (with "jit" the CLI would import a .pth)
+    n_steps = 1 + 4
+    raw.update(posneg_descriptions_json=corpus["descriptions_json"],
+               image_caption_json=[corpus["mapping_json"]], image_dir=[corpus["image_dir"]],
+               image_cache=cache_dir, begin_ckpt=None, max_steps=n_steps,
+               ckpt_dir=os.path.join(root, "ckpt"), tb_log_dir=os.path.join(root, "logs"))
+    cfg = validate_config(raw)
+    check(cfg["model"] == "ViT-B/32" and cfg["batch_size"] == TRAIN_BATCH and cfg["compute_dtype"] == "bfloat16"
+          and cfg["length_buckets"] == [32, 48] and cfg["dedupe_texts"] == 768,
+          "finetune_template_fast.json: ViT-B/32, 384, bf16, buckets [32, 48], dedupe 768")
+    mcfg = VIT_B32
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    remat = layers.remat_policy(cfg["remat"])
+
+    def loop(ds, steps, tag):
+        """`train` over `ds` for `steps` steps, counted: the metrics, and the
+        device time between consecutive steps' ends (CUDA events recorded
+        as each step's metrics arrive)."""
+        metrics, events = {}, {}
+
+        def on_step(step, m):
+            metrics[step] = m
+            events[step] = torch.cuda.Event(enable_timing=True)
+            events[step].record()
+
+        reset_launches()
+        t0 = time.perf_counter()
+        train(dict(cfg, max_steps=steps), mcfg, ds, params, "cuda", on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(sorted(metrics) == list(range(steps)), f"{tag} steps {sorted(metrics)}")
+        expected = train_launches(mcfg, steps, remat=remat)
+        check(launches == expected, f"{tag} launches {launches} != {expected}")
+        values = {k: [float(metrics[i][k]) for i in range(steps)] for k in metrics[0]}
+        check(all(np.isfinite(values["loss"])), f"{tag} losses {values['loss']}")
+        return {"values": values, "wall_s": wall, "launches": launches,
+                "gap_ms": [events[i - 1].elapsed_time(events[i]) for i in range(1, steps)]}
+
+    # the loop from the cache: build_dataset activates the config's cache
+    t0 = time.perf_counter()
+    ds = build_dataset(cfg, mcfg)
+    dataset_s = time.perf_counter() - t0
+    active = image_cache.active_cache()
+    check(active is not None and active.cache_dir == cache_dir, "build_dataset activated the config's cache")
+    check(len(ds) == FEED_IMAGES and ds.uint8_images, f"dataset of {len(ds)} uint8 images")
+    plan_loader = DataLoader(ds, cfg["batch_size"], shuffle=True, seed=cfg["seed"], drop_last=True,
+                             num_workers=cfg["num_workers"], bucket_widths=cfg["length_buckets"])
+    widths, crosses = [], []
+    for epoch in range(n_steps):
+        plan_loader.set_epoch(epoch)
+        for j, (_, width) in enumerate(plan_loader._plan()):
+            widths.append(width)
+            crosses.append(j == 0)
+    widths, crosses = widths[:n_steps], crosses[:n_steps]
+    check(len(set(widths)) > 1 or widths[0] < ds.context, f"the length buckets act: widths {widths}")
+    cached = loop(ds, n_steps, "data_feed_cached")
+    first = cached["values"]["loss"][0]
+    D = NUM_POS + NUM_NEG
+    check(abs(first - _chance(TRAIN_BATCH, D)) < 0.5, f"first loss {first} vs chance {_chance(TRAIN_BATCH, D)}")
+    # the steady steps: a step whose batch the loader built while the
+    # previous step ran (the first step of an epoch also waits for the
+    # epoch's end: its checkpoint and a new loader)
+    in_epoch = [g for g, c in zip(cached["gap_ms"], crosses[1:]) if not c]
+    # (the first step at a width also meets new shapes: allocations, GEMM
+    # heuristics)
+    steady = [{"step": i + 1, "width": w, "ms": g, "pairs_per_sec": TRAIN_BATCH * (NUM_POS + NUM_NEG) / g * 1e3}
+              for i, (g, c, w) in enumerate(zip(cached["gap_ms"], crosses[1:], widths[1:])) if not c]
+
+    # the loader alone: the cache's rows, then live decodes (raw: PIL and
+    # the Python u8 path, as in the JAX package)
+    cached_ips = _loader_images_per_s(_Rows(ds, cfg["batch_size"]), cfg["batch_size"], cfg["num_workers"])
+    # the same rows at other thread counts: what the tokenizer's threads cost
+    by_threads = {w: _loader_images_per_s(_Rows(ds, cfg["batch_size"]), cfg["batch_size"], w)
+                  for w in (1, 4, 8, 16)}
+    image_cache.activate(None)
+    n_alone = min(FEED_LIVE_ALONE, len(ds))
+    live_ips = _loader_images_per_s(_Rows(ds, n_alone), n_alone, cfg["num_workers"])
+
+    # the same loop live (the cache cleared; the same order and seed), every
+    # decoded image held against its cache row
+    checked = _CheckedRows(ds, image_cache.ImageCache(cache_dir))
+    live = loop(checked, FEED_LIVE_STEPS, "data_feed_live")
+    check(checked.checked == FEED_LIVE_STEPS * TRAIN_BATCH and not checked.differ,
+          f"{checked.checked} live decodes, rows differing from the cache: {checked.differ[:8]}")
+    for k, v in live["values"].items():
+        check(v == cached["values"][k][:FEED_LIVE_STEPS], f"live {k} {v} != cached {cached['values'][k]}")
+
+    # a resident step of the loop's first batch (no loader behind it), and
+    # its device busy time against the loop's steps of the same width
+    image_cache.activate(cache_dir)
+    plan_loader.set_epoch(0)
+    batches = iter(plan_loader)
+    first_batch = next(batches)[0]
+    batches.close()
+    image_cache.activate(None)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in first_batch.items()}
+    same_width = [g for g, c, w in zip(cached["gap_ms"], crosses[1:], widths[1:]) if not c and w == widths[0]]
+    ref_ms = float(np.mean(same_width or in_epoch))
+    opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
+    resident = {"state": create_train_state(params, opt)}
+    step = make_train_step(mcfg, opt, compute_dtype=torch.bfloat16, remat=True)
+
+    def one_step():
+        resident["state"], _ = step(resident["state"], batch)
+
+    one_step()
+    resident_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        resident_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_one(one_step, ref_ms, kernels=(("attention_fwd", "attention_fwd_kernel"),
+                                                   ("attention_bwd", "attention_bwd_")))
+    del batch, resident, step
+
+    # the resize on the card: raw 480 x 640 images against the host float path
+    def decode(path):
+        with Image.open(path) as img:
+            return np.asarray(img.convert("RGB"))
+
+    with ThreadPoolExecutor(max_workers=nproc) as pool:
+        raws = list(pool.map(decode, corpus["images"][:FEED_DEVICE_RESIZE]))
+        host = list(pool.map(lambda im: native.preprocess_rgb(im, 224) if built else preprocess_image(im, 224),
+                             raws))
+    raw_gpu = torch.from_numpy(np.stack(raws)).cuda()
+    got = preprocess_on_device(raw_gpu, 224)
+    torch.cuda.synchronize()
+    diffs = [np.abs(got[i].cpu().numpy() - host[i]) for i in range(len(raws))]
+    p99, worst = max(float(np.percentile(d, 99)) for d in diffs), max(float(d.max()) for d in diffs)
+    check(p99 <= 1.5 / 255 / 0.26 + 1e-3 and worst <= 20.0 / 255 / 0.26,
+          f"preprocess_on_device against the host path: p99 {p99}, max {worst}")
+    resize_ms = cuda_ms(lambda: preprocess_on_device(raw_gpu, 224), iters=10, warmup=2)
+    del raw_gpu, got
+
+    # the retrieval eval with the cache and without
+    evals = _feed_eval(root, os.path.join(root, "retrieval_cache"))
+    check(evals["cached"]["metrics"] == evals["live"]["metrics"], "retrieval metrics with and without the cache")
+    check(evals["cached"]["launches"] == evals["live"]["launches"], "retrieval launches with and without the cache")
+    check(evals["cached"]["cache_hits"] == 4 and evals["live"]["cache_hits"] == 0, f"cache hits {evals}")
+    check(image_cache.active_cache() is None, "no cache left active")
+
+    pairs = TRAIN_BATCH * D
+    emit({"phase": "data_feed", "model": "ViT-B/32", "config": "configs/finetune_template_fast.json",
+          "seed": 0, "nproc": nproc, "images": FEED_IMAGES, "image_hw": FEED_HW, "jpeg_quality": FEED_QUALITY,
+          "jpeg_mean_kb": corpus["mean_kb"], "corpus_write_s": corpus_s, "native": status,
+          "native_float_max_abs_err": float_err, "cache_build_s": build_s,
+          "cache_build_images_per_sec": FEED_IMAGES / build_s, "init_s": init_s, "build_dataset_s": dataset_s,
+          "batch_images": TRAIN_BATCH, "descriptions_per_image": D, "remat": remat,
+          "step_widths": widths, "step_starts_epoch": crosses,
+          "cached": {"losses": cached["values"]["loss"], "gap_ms": cached["gap_ms"], "wall_s": cached["wall_s"],
+                     "in_epoch_steps": steady,
+                     "pairs_per_sec_with_epoch_ends": pairs * (n_steps - 1) / sum(cached["gap_ms"]) * 1e3},
+          "live": {"losses": live["values"]["loss"], "gap_ms": live["gap_ms"], "wall_s": live["wall_s"],
+                   "steps": FEED_LIVE_STEPS, "images_checked_against_cache": checked.checked},
+          "live_steps_bit_equal_cached": True,
+          "k1_launches_per_step": {k: v // n_steps for k, v in cached["launches"].items() if v},
+          "resident_batch_step_ms": resident_ms, "resident_width": widths[0],
+          "loop_step_ms_same_width": ref_ms, "device_busy_ms": prof.get("device_busy_ms"),
+          "device_idle_share": prof.get("device_idle_share"),
+          "loader_alone_images_per_sec": {"cached": cached_ips, "live": live_ips},
+          "cached_loader_images_per_sec_by_threads": by_threads,
+          "device_resize": {"images": FEED_DEVICE_RESIZE, "ms": resize_ms,
+                            "images_per_sec": FEED_DEVICE_RESIZE / resize_ms * 1e3, "p99_abs_err": p99,
+                            "max_abs_err": worst},
+          "retrieval_with_cache": evals, "phase_s": time.perf_counter() - t_phase})
+    return {k: cached["launches"][k] + live["launches"][k] for k in COUNTERS}
+
+
 # the phases `--only` runs alone (after the device and build phases)
 PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn50,
                 "train_rn50": phase_train_rn50, "evals": phase_evals,
-                "serving_bundle": phase_serving_bundle, "train_dp": phase_train_dp}
+                "serving_bundle": phase_serving_bundle, "train_dp": phase_train_dp,
+                "data_feed": phase_data_feed}
 
 
 def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
@@ -3875,7 +4343,7 @@ def main(argv=None) -> int:
     says so; `b1` the wrappers' host cost (`--package-root DIR`: another
     tree's package), `graph` the graphed B/32 train step
     (`phase_train_graph`); `train_full`, `serving_rn50`, `train_rn50`,
-    `evals`, `serving_bundle` or `train_dp` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    `evals`, `serving_bundle`, `train_dp` or `data_feed` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
     csrc/ and times them beside these in turns; `--k6-split` times K6
     without its core and without its projection (`k6_split`)."""
     import argparse
@@ -3969,6 +4437,7 @@ def main(argv=None) -> int:
         paths["train"], train_ms, train_prof = phase_train(out_root)
         paths["train_graph"] = phase_train_graph(out_root)
         paths["train_dp"] = phase_train_dp(out_root)
+        paths["data_feed"] = phase_data_feed(out_root)
         paths["train_ln"], paths["train_ln_l14"] = phase_train_ln(out_root, train_ms, train_prof)
         paths["serving_ln"] = phase_serving_ln()
         paths["serving_l14"], l14_rates = phase_serving(out_root, "ViT-L/14", L14_SERVING_ITEMS,

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import collections
 import csv
+import os
 import pickle
 from concurrent.futures import ThreadPoolExecutor
 from operator import itemgetter
@@ -21,11 +22,38 @@ from clip_event_tpu_torch.data.transform import preprocess_image, preprocess_ima
 
 
 def load_image_file(path: str, size: int = 224, raw: bool = False) -> np.ndarray:
-    """Decode + CLIP-preprocess one image file with PIL → float32
-    [size, size, 3], or with `raw=True` the pre-normalize uint8
-    [size, size, 3] stage (the model normalizes uint8 inputs on the device,
-    `models/clip.py::encode_image`). The native JPEG decoder and the offline
-    image cache of the JAX package are not ported yet."""
+    """Decode + CLIP-preprocess one image file → float32 [size, size, 3].
+
+    Checks the offline preprocessed cache first (`data.cache`, bit-exact
+    uint8 rows, activated explicitly or through CLIP_EVENT_IMAGE_CACHE); on
+    a miss uses the native C++ path (`data.native`: libjpeg + fixed-point
+    bicubic, GIL-free) for a JPEG when the library builds; else PIL + the
+    pure-Python bit-exact transform. CLIP_EVENT_NATIVE=0 turns the native
+    path off.
+
+    `raw=True` returns the pre-normalize uint8 [size, size, 3] stage (the
+    exact PIL intermediate the cache stores; the model normalizes uint8
+    inputs on the device, `models/clip.py::encode_image`): a cache hit is
+    a bare copy of a row, and a miss takes the pure-Python u8 path (exact,
+    slower), as in the JAX package.
+    """
+    from clip_event_tpu_torch.data import cache as image_cache
+
+    cached = image_cache.active_cache()
+    if cached is not None:
+        hit = cached.get_u8(path, size) if raw else cached.get(path, size)
+        if hit is not None:
+            return hit
+
+    if not raw and os.environ.get("CLIP_EVENT_NATIVE", "1") != "0" and path.lower().endswith(
+        (".jpg", ".jpeg")
+    ):
+        from clip_event_tpu_torch.data import native
+
+        out = native.preprocess_jpeg_file(path, size)
+        if out is not None:
+            return out
+
     from PIL import Image, ImageFile
 
     ImageFile.LOAD_TRUNCATED_IMAGES = True

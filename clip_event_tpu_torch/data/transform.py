@@ -1,14 +1,16 @@
-"""CLIP image preprocessing with bit-exact PIL parity (host side, numpy).
+"""CLIP image preprocessing with bit-exact PIL parity.
 
 The reference transform (CLIP's `clip.py:62-69`) is
 `Resize(n, BICUBIC) → CenterCrop(n) → RGB → ToTensor → Normalize`. PIL's
 resampler works in fixed-point integer arithmetic (8-bit channels filtered
 with 22-bit coefficient precision, per pass), so a float implementation never
 matches it bitwise. We emulate the fixed-point path exactly on the host
-(`resize_bicubic_uint8`).
+(`resize_bicubic_uint8`), and expose a float/matmul formulation of the same
+filter (`resize_matrix`) for the on-device path, where the resize becomes
+two products (`data/device_pipeline.py`).
 
-Own copy of the host half of `clip_event_tpu/data/transform.py` (the port
-imports nothing from the JAX package). Layout is NHWC, as there.
+Own copy of `clip_event_tpu/data/transform.py` (the port imports nothing
+from the JAX package). Layout is NHWC, as there.
 """
 
 from __future__ import annotations
@@ -163,3 +165,25 @@ def preprocess_image(img, size: int = 224) -> np.ndarray:
     transforming; for RGB JPEGs this is identical to converting after).
     """
     return normalize(preprocess_image_u8(img, size))
+
+
+# --------------------------------------------------------------------------
+# Device-side path: resize as two products (float32), same filter taps.
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense [out, in] float32 resampling matrix with PIL-bicubic taps.
+
+    `out = M_v @ img @ M_h.T` reproduces the filter in float (no rounding
+    between the passes), so the whole resize runs as two matrix products on
+    the device. The cached array is shared: callers must not write to it.
+    """
+    bounds, weights, ksize = _precompute_coeffs(in_size, out_size)
+    mat = np.zeros((out_size, in_size), dtype=np.float32)
+    for o in range(out_size):
+        xmin, n = bounds[o]
+        mat[o, xmin : xmin + n] = weights[o, :n]
+    mat.flags.writeable = False
+    return mat

@@ -18,7 +18,9 @@ prints them and writes `output_json` (`evals/common.py`).
 per-row activation scales; `"int8_static"` adds static scales calibrated
 at load time (`calibration_batches_from_cfg`); `"quantize_towers":
 ["visual"]` (or ["text"]) quantizes one tower only. On the card every
-quantized dense layer runs K5 (`ops/quant.py`).
+quantized dense layer runs K5 (`ops/quant.py`). `"image_cache"` activates
+an offline image cache (`data/cache.py`) unless CLIP_EVENT_IMAGE_CACHE
+names one.
 """
 
 from __future__ import annotations
@@ -167,8 +169,10 @@ def run(description: str, evaluate) -> None:
         cfg = json.load(fh)
     if int(cfg.get("tp", 1)) > 1:
         raise SystemExit("tp>1 evals are not ported yet (ROADMAP A6(c))")
-    if cfg.get("image_cache"):
-        logging.warning("image_cache is not ported yet: decoding images live")
+    if cfg.get("image_cache") and not os.environ.get("CLIP_EVENT_IMAGE_CACHE"):
+        from clip_event_tpu_torch.data import cache as image_cache
+
+        image_cache.activate(cfg["image_cache"])
     owned = not dist.is_initialized()
     initialize_distributed(args.device)
     device = make_mesh(args.device).device if dist.is_initialized() else args.device

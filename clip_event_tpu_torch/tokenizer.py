@@ -35,6 +35,10 @@ _WORD_PATTERN = _regex.compile(
     r"|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+",
     _regex.IGNORECASE,
 )
+_WHITESPACE = _regex.compile(r"\s+")
+# The matches keep the GIL (`concurrent=False`): the loader tokenizes on
+# many threads, and a match that releases and retakes the GIL on every call
+# makes them queue for it (16 threads ran slower than one).
 
 
 def default_vocab_path() -> str:
@@ -71,7 +75,7 @@ def _clean_text(text: str) -> str:
     if _ftfy is not None:
         text = _ftfy.fix_text(text)
     text = html.unescape(html.unescape(text))
-    text = _regex.sub(r"\s+", " ", text)
+    text = _WHITESPACE.sub(" ", text, concurrent=False)
     return text.strip()
 
 
@@ -148,7 +152,7 @@ class ClipTokenizer:
         """Text → list of BPE ids (no SOT/EOT framing)."""
         ids: List[int] = []
         text = _clean_text(text).lower()
-        for word in _regex.findall(_WORD_PATTERN, text):
+        for word in _WORD_PATTERN.findall(text, concurrent=False):
             mapped = "".join(self._b2u[b] for b in word.encode("utf-8"))
             ids.extend(
                 self.token_to_id[piece] for piece in self._apply_bpe(mapped).split(" ")

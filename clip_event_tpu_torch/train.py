@@ -12,11 +12,11 @@ batch), the OT alignment and local-attention (`multiattention`, with the
 SR/bbox data channel) branches, length buckets, dedupe-encode, gradient
 accumulation, K steps a dispatch (`steps_per_dispatch`: a CUDA graph of
 the step on the card), the remat policies, `max_steps`, `save_steps`,
-`use_pallas_ln`, the SIGTERM checkpoint, the NaN abort with its
-`nan_debug_step*.json` artifact and per-epoch zero-shot matching
-validation work as in the JAX CLI; `config.json` and `scalars.jsonl` are
-written beside the logs. The default device is the card; with no card and
-no `--device cpu` the CLI raises.
+`use_pallas_ln`, the offline image cache (`image_cache`), the SIGTERM
+checkpoint, the NaN abort with its `nan_debug_step*.json` artifact and
+per-epoch zero-shot matching validation work as in the JAX CLI;
+`config.json` and `scalars.jsonl` are written beside the logs. The default
+device is the card; with no card and no `--device cpu` the CLI raises.
 
 Data parallel: launched by `torchrun` (or `mpirun` / `srun`), one process
 per GPU joins an NCCL group (`parallel/mesh.py`; gloo with `--device cpu`)
@@ -376,8 +376,15 @@ def initial_state(cfg: dict, device="cuda"):
 
 def build_dataset(cfg: dict, mcfg: CLIPConfig, rank: int = 0, world: int = 1):
     """The VOA fine-tuning dataset a config describes, for data rank `rank`
-    of `world` (its label layout and deduped channels)."""
+    of `world` (its label layout and deduped channels). The config's
+    `image_cache` is activated first, unless CLIP_EVENT_IMAGE_CACHE names
+    one, as in the JAX CLI."""
     from clip_event_tpu_torch.data.voa import VOADescriptionDataset
+
+    if cfg["image_cache"] and not os.environ.get("CLIP_EVENT_IMAGE_CACHE"):
+        from clip_event_tpu_torch.data import cache as image_cache
+
+        image_cache.activate(cfg["image_cache"])
 
     return VOADescriptionDataset(
         posneg_descriptions_json=cfg["posneg_descriptions_json"],

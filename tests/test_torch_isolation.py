@@ -1,8 +1,11 @@
 """The port stands alone: no file of clip_event_tpu_torch, nor chip_smoke.py,
 imports JAX or the JAX package, and importing every module of the port
 (the int8 serving path, the zero-shot evals, the LayerNorm kernels' module,
-the bench entry point, the component bench, the serving bundle and the
-data-parallel layer among them) leaves JAX out of sys.modules."""
+the bench entry point, the component bench, the serving bundle, the
+data-parallel layer and the host image path among them) leaves JAX out of
+sys.modules. The port's native preprocessing library is built from the
+port's own copy of its C++ source, into the port's build directory, and no
+port file names the repo's `native/` directory."""
 
 import ast
 import os
@@ -34,6 +37,14 @@ EXPORT_MODULES = {
 PARALLEL_MODULES = {
     f"clip_event_tpu_torch.{m}" for m in ("parallel", "parallel.cluster", "parallel.mesh",
                                           "parallel.collectives")
+}
+
+# the host image path: the cache, the native decoder, the on-device resize,
+# the corpus repair, the imSitu dataset, and their CLIs
+IMAGE_PATH_MODULES = {
+    f"clip_event_tpu_torch.{m}" for m in ("data.cache", "data.native", "data.device_pipeline",
+                                          "data.repair", "data.situation", "cache_images",
+                                          "bench_input")
 }
 
 
@@ -77,7 +88,8 @@ def test_importing_the_port_leaves_jax_out():
         "assert not missing, missing\n"
         "print(len(names))\n"
     ) % (sorted(FORBIDDEN),
-         sorted(INT8_AND_EVAL_MODULES | LN_AND_BENCH_MODULES | EXPORT_MODULES | PARALLEL_MODULES))
+         sorted(INT8_AND_EVAL_MODULES | LN_AND_BENCH_MODULES | EXPORT_MODULES | PARALLEL_MODULES
+                | IMAGE_PATH_MODULES))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env,
@@ -85,3 +97,19 @@ def test_importing_the_port_leaves_jax_out():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 55
+
+
+def test_native_library_builds_from_the_ports_own_source():
+    from clip_event_tpu_torch.data import native
+
+    for path in (native.SOURCE, native.BUILD_DIR, native.library_path(True), native.library_path(False)):
+        assert os.path.commonpath([os.path.abspath(path), PORT]) == PORT, path
+    assert os.path.isfile(native.SOURCE) and native.SOURCE.endswith(".cc")
+    # nothing of the port reads or loads the JAX package's native/ directory
+    # or its prebuilt library
+    jax_native = os.path.join(REPO, "native")
+    for path in _port_files():
+        with open(path) as fh:
+            text = fh.read()
+        assert "libclip_event_host.so" not in text and jax_native not in text, path
+        assert "CLIP_EVENT_NATIVE_DIR" not in text, path

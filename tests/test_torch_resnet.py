@@ -486,3 +486,94 @@ def test_train_cli_sync_bn_matches_jax_cli(tmp_path):
     ref = _scalars(tmp_path / "logs_jax" / "rn" / "tensorboard" / "scalars.jsonl")
     for tag in ("train_loss", "loss_i", "loss_t"):
         assert abs(ours[tag, 0] - ref[tag, 0]) <= 1e-5, (tag, ours, ref)
+
+
+# ------------------------------------------------- batch BN at the init's weights
+
+
+def test_batch_bn_at_the_init_weights_parts_only_at_relu_kinks(monkeypatch):
+    """The init's own weights (zero bn3 scales) in batch BatchNorm, on the
+    2-rank sync_bn case's global batch (tests/torch_multiprocess_worker.py):
+    one SGD step at lr 0.1 there differed from JAX by 8.6e-3 in a stem
+    weight. Where the packages part: the forwards agree to a few ulps at
+    every block (1e-5; every channel's batch variance is over 100 eps, so
+    none is near-constant), and a ReLU input that lies within
+    that difference of zero flips its mask: at the init the main branch of
+    a block is exactly 0, so its ReLU acts on a normalized identity, densest
+    at zero (one element of 32,768 at layer1's output on the CPU where
+    this was found). The flipped element's cotangent (~0.07) enters every
+    sum below it. The ops themselves agree: JAX's backward of each block,
+    replayed at the port's block input and output cotangent, gives the
+    port's gradients within N·eps of fp32 (N = 4,096 samples in the stem's
+    reductions)."""
+    from clip_event_tpu_torch.data.transform import CLIP_MEAN, CLIP_STD
+    from tests import torch_multiprocess_worker as W
+
+    tcfg, jcfg = T.CLIPConfig(**W.RESNET), J.CLIPConfig(**W.RESNET)
+    params = T.init_params(torch.Generator().manual_seed(W.SEED), tcfg, "cpu")
+    assert not params["visual"]["layer1"][0]["bn3"]["scale"].any()  # the init's zero bn3 scale
+    jv = jax.tree.map(jnp.asarray,
+                      JC.params_from_state_dict(TC.state_dict_from_params(params, tcfg), jcfg)[0]["visual"])
+    tv = params["visual"]
+    image = W.make_batches("sync_bn", 2, 2, 10)[0]["image"]
+    x = ((image.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD).astype(np.float32)
+
+    def stem(mod, relu):
+        def f(h, s):
+            for i, kw in ((1, dict(stride=2, padding=1)), (2, dict(padding=1)), (3, dict(padding=1))):
+                h = relu(mod.batch_norm(mod.conv2d(h, s[f"conv{i}_w"], **kw), s[f"bn{i}"]))
+            return mod.avg_pool(h, 2)
+        return f
+
+    def blocks(mod, relu):
+        return [stem(mod, relu)] + [lambda h, p, st=(1 if i == 0 else 2): mod.bottleneck(h, p, st)
+                                    for i in range(4)]
+
+    jparams = [jv["stem"]] + [jv[f"layer{i + 1}"][0] for i in range(4)]
+    tparams = [tv["stem"]] + [tv[f"layer{i + 1}"][0] for i in range(4)]
+    cot = np.random.default_rng(0).normal(size=(4, tcfg.embed_dim)).astype(np.float32)
+    fwd_tol, bwd_tol = 1e-5, 4096 * 2.0 ** -24
+    for leaf in TO.tree_leaves(tparams):
+        leaf.requires_grad_(True)
+    # the smallest batch variance of a channel at each BatchNorm
+    variances = []
+    plain_bn = TR.batch_norm
+
+    def recording_bn(x, params, eps=1e-5):
+        variances.append(float(x.detach().float().var(dim=(0, 1, 2), correction=0).min()))
+        return plain_bn(x, params, eps)
+
+    monkeypatch.setattr(TR, "batch_norm", recording_bn)
+    JR.set_bn_mode("batch")
+    try:
+        with TR.bn_mode("batch"):
+            acts = [torch.from_numpy(x)]
+            for f, p in zip(blocks(TR, torch.relu), tparams):
+                acts.append(f(acts[-1], p))
+                acts[-1].retain_grad()
+            (TR.attention_pool(acts[-1], tv["attnpool"], 4) * torch.from_numpy(cot)).sum().backward()
+            monkeypatch.setattr(TR, "batch_norm", plain_bn)
+            # no channel is near-constant: conditioning is not where they part
+            assert len(variances) == 3 + 4 * 4 and min(variances) > 100 * 1e-5, variances
+            # one compiled function a block: its output and its params' VJP
+            fwd_bwd = [jax.jit(lambda h, q, g, f=f: (lambda o, vjp: (o, vjp(g)[1]))(*jax.vjp(f, h, q)))
+                       for f in blocks(JR, jax.nn.relu)]
+            jacts = [jnp.asarray(x)]
+            for i, p in enumerate(jparams):
+                jacts.append(fwd_bwd[i](jacts[-1], p, jnp.asarray(acts[i + 1].grad.numpy()))[0])
+            for i, p in enumerate(jparams):
+                ours, ref = acts[i + 1].detach().numpy(), np.asarray(jacts[i + 1])
+                np.testing.assert_allclose(ours, ref, atol=fwd_tol, rtol=0, err_msg=f"block {i}")
+                flips = (ours == 0) != (ref == 0)
+                assert np.maximum(ours, ref)[flips].max(initial=0.0) <= fwd_tol, f"block {i}"
+                _, replayed = fwd_bwd[i](jnp.asarray(acts[i].detach().numpy()), p,
+                                         jnp.asarray(acts[i + 1].grad.numpy()))
+                # both trees' leaves in sorted-key order
+                for leaf, g in zip(jax.tree_util.tree_leaves(tparams[i]), jax.tree_util.tree_leaves(replayed)):
+                    g = np.asarray(g)
+                    got = np.zeros(g.shape, np.float32) if leaf.grad is None else leaf.grad.numpy()
+                    if got.ndim == 4:
+                        got = got.transpose(2, 3, 1, 0)  # OIHW → HWIO
+                    assert np.abs(got - g).max() <= bwd_tol * max(np.abs(g).max(), 1e-30), f"block {i}"
+    finally:
+        JR.set_bn_mode("frozen")

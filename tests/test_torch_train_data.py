@@ -7,6 +7,8 @@ bucketed batch plans, the config defaults and the keys this port refuses,
 comparison is exact: the same numpy ops run on both sides."""
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -139,14 +141,25 @@ def test_config_defaults_and_refusals():
     ours, ref = TC.validate_config(base), JC.validate_config(base)
     assert ours == ref
     # the ROADMAP items that bring each refused part: the sharded optimizer
-    # state and params A6(b), the model-parallel and multi-slice keys
-    # A6(c), the image cache A7
+    # state and params A6(b), the model-parallel and multi-slice keys A6(c)
     for key, value, item in [("tp", 2, r"A6\(c\)"), ("pp", 2, r"A6\(c\)"),
                              ("sp", True, r"A6\(c\)"), ("dcn_dp", 2, r"A6\(c\)"),
-                             ("zero", True, r"A6\(b\)"), ("fsdp", True, r"A6\(b\)"),
-                             ("image_cache", "/c", "A7")]:
+                             ("zero", True, r"A6\(b\)"), ("fsdp", True, r"A6\(b\)")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(base, **{key: value}))
+    # the image cache (A7) is accepted, as the JAX package accepts it: the
+    # two shipped configs that set it validate as in JAX, and the shipped
+    # tp config stays refused
+    assert TC.validate_config(dict(base, image_cache="/c")) == JC.validate_config(dict(base, image_cache="/c"))
+    configs = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+    for name in ("finetune_template_fast.json", "finetune_real_voa.json", "pretrain_vitl14_tp2.json"):
+        with open(os.path.join(configs, name)) as fh:
+            raw = json.load(fh)
+        if name.startswith("pretrain"):
+            with pytest.raises(TC.ConfigError, match=r"ROADMAP A6\(c\)"):
+                TC.validate_config(raw)
+        else:
+            assert raw["image_cache"] and TC.validate_config(raw) == JC.validate_config(raw)
     # the SR channel, multiattention (A4) and the ResNet towers (A2) are
     # accepted, as the JAX package accepts them
     for extra in ({"multiattention": True, "load_object": True, "object_ontology_file": "o.csv"},

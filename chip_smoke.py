@@ -64,7 +64,7 @@ Phases, each printing JSON lines:
               run of the same model, and images/s and texts/s at batch 64
   3b. b1     the host microseconds a call of each kernel wrapper takes
               (K1, K2 forward and backward, K4a/b/c, K3, K5; the median of
-              7 runs of 200 enqueued calls)
+              7 runs of 100 enqueued calls)
   5. train    full-width ViT-B/32 from seed 0 through the train loop
               (`clip_event_tpu_torch.train.train`: loader → prefetch → step →
               metrics) on the bench workload: 384 uint8 images × 3
@@ -83,7 +83,7 @@ Phases, each printing JSON lines:
               against 4 eager steps bit for bit (params, optimizer state,
               metrics), twice (the first dispatch: one eager step, the
               capture, 3 replays; the second: 4 replays); the eager step
-              against a 10-step dispatch (the bench's call) in turns: ms a
+              against a 3-step dispatch (GRAPH_TIMING_K) in turns: ms a
               step, the device busy ms of an eager step and of one replay
               (torch.profiler, whose count of the hand kernels in the
               replay by name must equal the wrappers' counts), idle shares,
@@ -95,14 +95,22 @@ Phases, each printing JSON lines:
               device cuda:0 checked; phase 5's workload (ViT-B/32, 384 x 3,
               bf16, seed 0, its batches) through the train loop with the
               mesh, counted (K1-fwd 48 and K1-bwd 24 a step, as without
-              one); 4 eager steps of the mesh's step and one 4-step graph
-              dispatch of it (the gather, the gradient all-reduce and the
-              rest captured) each bit for bit against 4 steps without a
-              mesh (params, optimizer state, metrics); the mesh's step
-              against the plain step in turns, ms a step, and the NCCL
-              kernels' calls and device ms in one profiled step (read, not
-              gated); the matching eval through `resolve_shard` equal to
-              the unsharded call; the process group destroyed at the end
+              one); the same loop with "zero": true (ZeRO-1: the moments
+              sharded, `parallel/sharding.py`) and with "fsdp": true (the
+              params too), each at one shard: every metric of every step
+              bit for bit train_dp's, equal launches; 4 eager steps of the
+              mesh's step and one 4-step graph dispatch of it (the gather,
+              the gradient all-reduce, or the reduce-scatter, the
+              all-gathers and FSDP's per-use gathers, and the rest
+              captured), each on a plain, a ZeRO-1 and an FSDP state, each
+              bit for bit against 4 steps without a mesh (params,
+              optimizer state gathered, metrics) with equal launches, its
+              state's bytes and peak memory; the mesh's step on the three
+              states against the plain step in turns, ms a step, and the
+              NCCL kernels' calls and device ms in one profiled step of
+              each (read, not gated); the matching eval through
+              `resolve_shard` equal to the unsharded call; the process
+              group destroyed at the end
   5e. data_feed  `configs/finetune_template_fast.json` (ViT-B/32, 384 x 3,
               bf16, length buckets [32, 48], dedupe 768) fed from JPEG
               files through `train.build_dataset` and `train.train`: a
@@ -139,7 +147,7 @@ Phases, each printing JSON lines:
               chance, moved params, pairs/s, step ms, peak memory; the
               "attn" step against full remat (loss and grad_norm within
               1e-3, bit equality reported; ms in turns, peak memory, exact
-              counts); the eager "attn" step against a 10-step graph
+              counts); the eager "attn" step against a 3-step graph
               dispatch (as phase 5a); under full remat a bf16
               kernel-vs-plain step, and the step with the plain
               attention beside the kernel-path step in turns
@@ -161,7 +169,7 @@ Phases, each printing JSON lines:
               IPOT; bf16 at B=64 and fp32 at B=16); then the graphed step
               as in phase 5a, at less depth (its eager step takes ~1 s):
               one 4-step dispatch against eager steps bit for bit, and the
-              eager step against a 4-step dispatch
+              eager step against a 2-step dispatch (OT_GRAPH_TIMING_K)
   8b. train_full  configs/clip_event_full.json's settings at ViT-B/32 full
               width (64 images × 3 descriptions, finetune_ot's object and
               entity channels, 8 boxes an image with role descriptions and
@@ -373,6 +381,7 @@ from clip_event_tpu_torch.ops.attention import (
     mega_smem_bytes,
     mega_variant,
 )
+from clip_event_tpu_torch.parallel.sharding import full_params, gather_state, shard_state, tree_bytes
 from clip_event_tpu_torch.tools import bench_components
 from clip_event_tpu_torch.train import train
 
@@ -596,13 +605,14 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 # the graphed train step (`make_multi_step`, `steps_per_dispatch`): steps a
 # dispatch in the train loops (one warm-up dispatch, GRAPH_TIMED_DISPATCHES
 # timed), in the bit-for-bit check against eager steps (two dispatches), and
-# in the eager-against-graph timing (the JAX bench's 10 steps a call)
+# in the eager-against-graph timing (3 of the JAX bench's 10 steps a call:
+# the script's time limit; a replay's ms does not depend on K)
 GRAPH_LOOP_K, GRAPH_TIMED_DISPATCHES = 4, 2
 GRAPH_CHECK_K = 4
-GRAPH_TIMING_K = 10
+GRAPH_TIMING_K = 3
 # the data-parallel phase: synchronised steps a turn, and the matching
 # eval's pairs
-DP_TIMING_STEPS, DP_EVAL_ITEMS = 3, 256
+DP_TIMING_STEPS, DP_EVAL_ITEMS = 2, 256
 # kernel names a profile counts for each counter (K4a and K4b run one
 # kernel, K4c two, K1's and K2's backwards one or two)
 PROFILE_NEEDLES = {
@@ -620,7 +630,7 @@ L14_SERVING_ITEMS = 128
 OT_BATCH, OT_OBJECTS, OT_ENTITIES, OT_EVENTS, OT_CHUNKS = 64, 8, 16, 8, 4
 # steps a dispatch in train_ot's graph-against-eager timing (the script's
 # time limit: its eager steps take ~1 s each)
-OT_GRAPH_TIMING_K = 4
+OT_GRAPH_TIMING_K = 2
 OT_FP32_CHECK_BATCH = 16
 # every kernel's launch counter, by the kernel's source name (K4b shares
 # K4a's source)
@@ -2289,7 +2299,7 @@ def run_train_loop(tag, mcfg, params, ds, batch, out_root, mesh=None, **cfg_extr
     values = {k: [float(metrics[i][k]) for i in range(n_steps)]
               for k in metrics[0] if k != "finite"}
     check(all(np.isfinite(values["loss"])), f"{tag} losses finite {values['loss']}")
-    moved = (watched(state.params) - watch).abs().max().item()
+    moved = (watched(full_params(state)) - watch).abs().max().item()
     check(moved > 0, f"{tag}: the params changed")
     step_ms = [events[i - k].elapsed_time(events[i]) / k for i in range(warmup - 1 + k, n_steps, k)]
     emit({"phase": f"{tag}_launches", **{f"{name}_launches": v for name, v in launches.items()},
@@ -2747,7 +2757,9 @@ def only_graph():
         phase_train_graph(out_root)
 
 
-B1_CALLS, B1_REPEATS = 200, 7
+# calls a run and runs of each wrapper's host timing (the heavy kernels'
+# device time bounds each run: the script's time limit sets the calls)
+B1_CALLS, B1_REPEATS = 100, 7
 
 
 class _CaptionPairs(_BenchPairs):
@@ -2767,63 +2779,108 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+DP_MODES = ("dp", "graph", "zero", "zero_graph", "fsdp", "fsdp_graph")
+
+
+def reckoned_rank_state_gib(mcfg, world) -> dict:
+    """The GiB one rank of `world` would hold of an fp32 Adam state of
+    `mcfg` (params, mu, nu), unsharded, under ZeRO-1 and under FSDP, by the
+    layout's own rule (`parallel/sharding.py`, padding included); counted
+    from the shapes on the meta device, nothing allocated."""
+    from clip_event_tpu_torch.parallel.mesh import Mesh
+    from clip_event_tpu_torch.parallel.sharding import ShardLayout
+
+    with torch.device("meta"):
+        params = init_params(torch.Generator(), mcfg, "meta")
+    specs = ShardLayout(params, Mesh(0, world, torch.device("meta")), "fsdp").specs
+    full = sum(math.prod(s.shape) for s in specs) * 4 / 2**30
+    shard = sum(math.prod(s.shard_shape) for s in specs) * 4 / 2**30
+    return {"world": world, "unsharded": 3 * full, "zero": full + 2 * shard, "fsdp": 3 * shard}
+
+
 def dp_equals_plain(mcfg, params, batches, mesh):
     """GRAPH_CHECK_K steps of the mesh's step, eagerly and as one graphed
-    dispatch (`make_multi_step`), each against as many steps without a
-    mesh on the same batches from equal states (bf16, Adam at lr 1e-6):
-    params, optimizer state and every metric bit for bit, and the eager
-    steps' launch counts equal the plain steps'."""
+    dispatch (`make_multi_step`), each on a plain, a ZeRO-1 and an FSDP
+    state (`DP_MODES`), against as many steps without a mesh on the same
+    batches from equal states (bf16, Adam at lr 1e-6): params, optimizer
+    state (a sharded one gathered) and every metric bit for bit, and the
+    launch counts equal the plain steps'. Each mode's wall ms (host clock,
+    synchronised; a graph mode's first dispatch holds its eager first step
+    and its capture), its state's bytes and its peak memory."""
     from clip_event_tpu_torch.engine.train_step import make_multi_step
 
     K = GRAPH_CHECK_K
     check(len(batches) == K, f"dp_equals_plain: {len(batches)} batches")
     opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
     kw = dict(compute_dtype=torch.bfloat16, remat=True)
-    plain, dp = make_train_step(mcfg, opt, **kw), make_train_step(mcfg, opt, mesh=mesh, **kw)
-    many, _ = make_multi_step(mcfg, opt, K, mesh=mesh, **kw)
-    states = {m: create_train_state(params, opt) for m in ("plain", "dp", "graph")}
-    rows, launches = {"plain": [], "dp": []}, {}
-    for mode, step in (("plain", plain), ("dp", dp)):
-        reset_launches()
-        for b in batches:
-            states[mode], m = step(states[mode], b)
-            rows[mode].append(m)
-        torch.cuda.synchronize()
-        launches[mode] = read_launches()
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    ref, rows = create_train_state(params, opt), []
+    step = make_train_step(mcfg, opt, **kw)
     reset_launches()
-    states["graph"], mk = many(states["graph"], {k: torch.stack([b[k] for b in batches]) for k in batches[0]})
+    for b in batches:
+        ref, m = step(ref, b)
+        rows.append(m)
     torch.cuda.synchronize()
-    launches["graph"] = read_launches()
-    want = {k: torch.stack([m[k] for m in rows["plain"]]) for k in rows["plain"][0]}
-    out = {"steps": K, "loss": want["loss"].tolist()}
-    for mode, metrics in (("dp", {k: torch.stack([m[k] for m in rows["dp"]]) for k in want}),
-                          ("graph", mk)):
-        differ = _state_equal(states["plain"], states[mode])
+    plain_launches = read_launches()
+    want = {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+    out = {"steps": K, "loss": want["loss"].tolist(), "modes": {},
+           "launches_per_step": {k: v // K for k, v in plain_launches.items() if v}}
+    dp = make_train_step(mcfg, opt, mesh=mesh, **kw)
+    for mode in DP_MODES:
+        sharding = mode.split("_")[0] if mode.startswith(("zero", "fsdp")) else None
+        state = create_train_state(params, opt)
+        if sharding:
+            state = shard_state(state, mesh, sharding)
+        many = make_multi_step(mcfg, opt, K, mesh=mesh, **kw)[0] if mode.endswith("graph") else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        if many is not None:
+            state, metrics = many(state, stacked)
+        else:
+            got = []
+            for b in batches:
+                state, m = dp(state, b)
+                got.append(m)
+            metrics = {k: torch.stack([m[k] for m in got]) for k in want}
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        differ = _state_equal(ref, gather_state(state))
         metrics_differ = [k for k in want if not torch.equal(metrics[k], want[k])]
         check(not differ and not metrics_differ,
               f"train_dp {mode} vs the plain steps: leaves {differ}, metrics {metrics_differ} differ")
-        check(launches[mode] == launches["plain"],
-              f"train_dp {mode} launches {launches[mode]} != plain {launches['plain']}")
-        out[f"{mode}_bit_equal"] = True
-    out["launches_per_step"] = {k: v // K for k, v in launches["plain"].items() if v}
-    del states, many, plain, dp
+        check(launches == plain_launches, f"train_dp {mode} launches {launches} != plain {plain_launches}")
+        out["modes"][mode] = {"bit_equal": True, "wall_ms": wall_ms, "state_gib": tree_bytes(state.params, state.opt_state) / 2**30,
+                              "max_memory_allocated_gib": peak / 2**30,
+                              "peak_over_start_gib": (peak - start) / 2**30}
+        del state, many, metrics
+        torch.cuda.empty_cache()
+    del ref, step, dp
     torch.cuda.empty_cache()
     return out
 
 
 def dp_step_timing(mcfg, params, batch, mesh):
-    """The mesh's step against the step without one on one resident batch,
-    in turns (plain, dp, dp, plain: host clock around DP_TIMING_STEPS
+    """The mesh's step on a plain, a ZeRO-1 and an FSDP state against the
+    step without a mesh on one resident batch, in turns (plain, dp, zero,
+    fsdp, fsdp, zero, dp, plain: host clock around DP_TIMING_STEPS
     synchronised steps, after one warm-up step each), and one profiled
     step of each: device busy ms and the NCCL kernels' calls and ms."""
     opt = build_optimizer("adam", build_schedule("none", 1e-6, 1))
     kw = dict(compute_dtype=torch.bfloat16, remat=True)
-    steps = {"plain": make_train_step(mcfg, opt, **kw), "dp": make_train_step(mcfg, opt, mesh=mesh, **kw)}
+    dp = make_train_step(mcfg, opt, mesh=mesh, **kw)
+    steps = {"plain": make_train_step(mcfg, opt, **kw), "dp": dp, "zero": dp, "fsdp": dp}
     st = {m: create_train_state(params, opt) for m in steps}
+    for m in ("zero", "fsdp"):
+        st[m] = shard_state(st[m], mesh, m)
     for m in steps:
         st[m], _ = steps[m](st[m], batch)
-    ms = {"plain": [], "dp": []}
-    for mode in ("plain", "dp", "dp", "plain"):
+    ms = {m: [] for m in steps}
+    for mode in ("plain", "dp", "zero", "fsdp", "fsdp", "zero", "dp", "plain"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(DP_TIMING_STEPS):
@@ -2831,7 +2888,7 @@ def dp_step_timing(mcfg, params, batch, mesh):
         torch.cuda.synchronize()
         ms[mode].append((time.perf_counter() - t0) * 1e3 / DP_TIMING_STEPS)
     prof = {}
-    for mode in ("plain", "dp"):
+    for mode in steps:
         def one():
             st[mode], _ = steps[mode](st[mode], batch)
 
@@ -2841,7 +2898,8 @@ def dp_step_timing(mcfg, params, batch, mesh):
         prof[mode]["top"] = p.get("top", [])[:5]
     del st, steps
     torch.cuda.empty_cache()
-    return {"step_ms": ms, "dp_to_plain_step_ms": float(np.mean(ms["dp"]) / np.mean(ms["plain"])),
+    return {"step_ms": ms, **{f"{m}_to_plain_step_ms": float(np.mean(ms[m]) / np.mean(ms["plain"]))
+                              for m in ("dp", "zero", "fsdp")},
             "profile": prof}
 
 
@@ -2883,8 +2941,26 @@ def phase_train_dp(out_root):
         first = run["values"]["loss"][0]
         check(abs(first - _chance(TRAIN_BATCH, D)) < 0.5,
               f"train_dp first loss {first} vs chance {_chance(TRAIN_BATCH, D)}")
+        dp_state_gib = tree_bytes(run["state"].params, run["state"].opt_state) / 2**30
         del run["state"]
         torch.cuda.empty_cache()
+        # the loop under "zero" and "fsdp": the same loss stream, bit for bit
+        sharded_loops = {}
+        for mode in ("zero", "fsdp"):
+            srun = run_train_loop(f"train_dp_{mode}", mcfg, params, ds, TRAIN_BATCH, out_root, mesh=mesh,
+                                  **{mode: True})
+            check(srun["state"].sharding is not None and srun["state"].sharding.mode == mode,
+                  f"train_dp_{mode}: the loop's state is sharded")
+            check(srun["values"] == run["values"],
+                  f"train_dp_{mode} metrics {srun['values']} != train_dp's {run['values']}")
+            check(srun["launches"] == run["launches"],
+                  f"train_dp_{mode} launches {srun['launches']} != train_dp's {run['launches']}")
+            sharded_loops[mode] = {"values_equal_train_dp": True, "step_ms_mean": srun["mean_ms"],
+                                   "step_ms": srun["step_ms"], "loop_wall_s": srun["loop_s"],
+                                   "max_memory_allocated_gib": srun["peak_gib"],
+                                   "state_gib": tree_bytes(srun["state"].params, srun["state"].opt_state) / 2**30}
+            del srun
+            torch.cuda.empty_cache()
         equal = dp_equals_plain(mcfg, params, _device_batches(ds, TRAIN_BATCH, GRAPH_CHECK_K), mesh)
         timing = dp_step_timing(mcfg, params, _device_batch(ds, TRAIN_BATCH), mesh)
         captions = _CaptionPairs(DP_EVAL_ITEMS, mcfg.image_resolution, mcfg.context_length,
@@ -2897,7 +2973,10 @@ def phase_train_dp(out_root):
                       device=str(mesh.device), world_size=mesh.world_size,
                       init_process_group_s=init_group_s, launches_per_step=per_step,
                       dp_equals_plain=equal, dp_vs_plain=timing, matching_sharded_equal=True,
-                      matching=sharded)
+                      matching=sharded, sharded_loops=sharded_loops,
+                      state_gib=dp_state_gib,
+                      reckoned_rank_state_gib={name: reckoned_rank_state_gib(m, 8)
+                                               for name, m in (("ViT-B/32", VIT_B32), ("ViT-L/14", VIT_L14))})
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3155,9 +3234,10 @@ def phase_bench_tools():
           "step_ms_ratio_fused_to_plain": float(np.mean(step_ms["pallas"]) / np.mean(step_ms["xla"]))})
 
     # the JAX bench's input (float32 N(0, 1) images) beside the train loop's
-    # (uint8 pixels normalized on the device)
-    by_images = {"uint8": [], "float32": []}
-    for images in ("uint8", "float32"):
+    # (uint8 pixels normalized on the device: the default, which the plain
+    # LayerNorm's run above read)
+    by_images = {"uint8": list(step_ms["xla"]), "float32": []}
+    for images in ("float32",):
         lines, launches = run_main(port_bench.main, ["--images", images, "--calls", "1"])
         result = json.loads(lines[0])
         check(len(lines) == 1 and result["images"] == images and math.isfinite(result["value"])
@@ -3802,8 +3882,9 @@ def phase_serving_bundle(out_root):
         check(not fresh["model_code_in_sys_modules"],
               f"{tag}: loading imported the model code {fresh['model_code_in_sys_modules']}")
 
-        # ---- throughput at batch 64, bundle and live in turns
-        iters = 20 if mcfg.vision_layers <= 12 else 8
+        # ---- throughput at batch 64, bundle and live in turns (the
+        # script's time limit sets the iterations)
+        iters = 10 if mcfg.vision_layers <= 12 else 4
         readings = {}
         with torch.inference_mode():
             ms = in_turns_many({

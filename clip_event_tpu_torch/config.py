@@ -4,9 +4,11 @@
 The same keys, defaults and checks as the JAX package's `validate_config`
 (including the original `constrastive_*` spellings), for the keys this
 port carries. A key of a part not ported yet raises `ConfigError` naming
-its ROADMAP item when it is set to anything but its default: the sharded
-optimizer state and params (`zero`, `fsdp`: A6(b)), the tensor, sequence,
-pipeline and multi-slice keys (`tp`, `sp`, `pp`, `dcn_dp`: A6(c)).
+its ROADMAP item when it is set to anything but its default: the tensor,
+sequence, pipeline and multi-slice keys (`tp`, `sp`, `pp`, `dcn_dp`:
+A6(c)). `zero` (ZeRO-1: the optimizer's moments sharded over the
+data-parallel ranks) and `fsdp` (the params too) take a bool, as in the
+JAX package (`parallel/sharding.py`).
 `image_cache` names a cache that `data/cache.py` built (the train and eval
 CLIs activate it). Data parallelism (A6(a)) needs no key: it follows the
 launch (`torchrun`, `mpirun`, `srun`), with `batch_size` per process.
@@ -133,7 +135,7 @@ _DEFAULTS: Dict[str, Any] = {
 
 # keys of parts not ported yet: the ROADMAP item that brings each
 _UNPORTED = {
-    "tp": "A6(c)", "pp": "A6(c)", "sp": "A6(c)", "dcn_dp": "A6(c)", "zero": "A6(b)", "fsdp": "A6(b)",
+    "tp": "A6(c)", "pp": "A6(c)", "sp": "A6(c)", "dcn_dp": "A6(c)",
 }
 
 
@@ -200,6 +202,10 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
             "dedupe_sr_texts dedupes the bbox text channels: set load_sr=true "
             "or multiattention"
         )
+    if not isinstance(out["zero"], bool):
+        raise ConfigError("zero must be a bool (ZeRO-1 moment sharding)")
+    if not isinstance(out["fsdp"], bool):
+        raise ConfigError("fsdp must be a bool (ZeRO-3 param sharding)")
     if out["begin_epoch"] > out["max_epoch"]:
         raise ConfigError("begin_epoch must be ≤ max_epoch")
     if not isinstance(out["grad_accum_steps"], int) or out["grad_accum_steps"] < 1:

@@ -15,7 +15,11 @@ not read (ROADMAP A9: not to do, orbax imports JAX). Under data
 parallelism the save is collective: every rank calls it, rank 0 (whose
 state every rank shares) writes the file and the meta, and every rank
 waits at a barrier until the write is done; a resume loads the file on
-every rank.
+every rank. A ZeRO-1 or FSDP state (`parallel/sharding.py`) is gathered
+first, on every rank, so its file is the one an unsharded run writes: the
+full params and optimizer trees. A resume loads the full state and the
+train loop shards it again (`train.py`), so a file written at one world,
+sharded or not, resumes at any other.
 """
 
 from __future__ import annotations
@@ -65,14 +69,21 @@ def save_checkpoint(
     perf: float = 0.0,
     step: int = 0,
     mid_epoch: bool = False,
+    sharding=None,
 ) -> Optional[str]:
     """Save the state; errors are logged, not raised (engine.py:215-218).
     Returns the path, or None if the write failed or on a rank other than
     0. The file is written to a temporary name and renamed, so a crash
     mid-write never leaves a path that `latest_checkpoint` would pick up.
-    Collective under data parallelism (module docstring)."""
+    Collective under data parallelism (module docstring); `sharding`: the
+    state's `ShardLayout` (`TrainState.sharding`), whose shards every rank
+    gathers first."""
     from clip_event_tpu_torch.parallel.collectives import comm
 
+    if sharding is not None:
+        from clip_event_tpu_torch.parallel.sharding import gather_trees
+
+        params, opt_state = gather_trees(sharding, params, opt_state)
     out = None
     if comm.is_main_process:
         out = _write(ckpt_dir, task, epoch, params, opt_state, cfg, perf, step, mid_epoch)

@@ -133,9 +133,24 @@ def tree_unflatten(like, leaves):
     return build(like)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element, fp32 (`optax.global_norm`)."""
+def global_norm(tensors: Sequence[torch.Tensor], mesh=None,
+                replicated: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element, fp32 (`optax.global_norm`).
+
+    With a `mesh` of more than one rank the tensors are this rank's shards
+    of the leaves (`parallel/sharding.py`): the shards' norms are
+    all-gathered and each leaf's norm is the norm of its ranks' norms (a
+    leaf that `replicated` marks, whole on every rank, counted once). At a
+    world of one that is the unsharded value, bit for bit."""
     norms = torch._foreach_norm([t.float() for t in tensors])
+    if mesh is not None and mesh.world_size > 1:
+        from clip_event_tpu_torch.parallel.collectives import all_gather_flat
+
+        if replicated is not None and mesh.rank != 0:
+            # a leaf whole on every rank counts once, as rank 0's
+            norms = torch._foreach_mul(norms, [0.0 if r else 1.0 for r in replicated])
+        per_rank = all_gather_flat([torch.stack(norms)], mesh)[0]
+        return torch.linalg.vector_norm(torch.linalg.vector_norm(per_rank, dim=0))
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -193,13 +208,16 @@ class Optimizer:
         return [t.float() for t in torch._foreach_mul(stored, decay)]
 
     def update(
-        self, grads: dict, state: Dict[str, object], params: dict
+        self, grads: dict, state: Dict[str, object], params: dict,
+        grad_norm: Optional[torch.Tensor] = None,
     ) -> Tuple[List[torch.Tensor], Dict[str, object]]:
+        """`grad_norm`: the gradient's global norm where the caller has it
+        (a sharded gradient's, which no one rank can take alone)."""
         p = tree_leaves(params)
         g = [t.float() for t in tree_leaves(grads)]
         count = state["count"]
         if self.grad_clip_norm is not None:
-            norm = global_norm(g)
+            norm = global_norm(g) if grad_norm is None else grad_norm
             factor = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
                                  self.grad_clip_norm / norm)
             g = torch._foreach_mul(g, factor)

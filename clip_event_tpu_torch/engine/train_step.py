@@ -28,6 +28,18 @@ No DDP wrapper: the whole step, its collectives included, is what a CUDA
 graph captures. At a world of one the gather and the sum are copies, and
 the step is bit for bit the step without a mesh.
 
+A sharded state (`parallel/sharding.py`: `shard_state`, which sets
+`TrainState.sharding`) changes only where the gradients go. Under ZeRO-1
+("zero") the one all-reduce becomes one reduce-scatter a dtype (the
+local loss sums riding in every rank's row), the clip takes the global
+norm combined over the ranks, the optimizer updates this rank's shards of
+the params and moments, and one all-gather a dtype writes the new params
+back into the whole tensors the forward reads. Under FSDP ("fsdp") the
+model reads the param shards through `sharding.full`, whose backward
+reduce-scatters: the gradients arrive summed and sharded, and only the
+replicated leaves and the local loss sums take the all-reduce. The
+non-finite freeze stays on the global total, so every rank freezes alike.
+
 The step updates `state.params` and `state.opt_state` in place (the same
 tensors stay the model's parameters and the optimizer's state from step to
 step) and returns the new state. `make_multi_step` runs K steps in one
@@ -36,6 +48,7 @@ dispatch, on the card as a CUDA graph of the step replayed K times.
 
 from __future__ import annotations
 
+import gc
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -56,9 +69,11 @@ LOCAL_SUM_TERMS = ("loss_ot", "loss_bbox", "loss_arg")
 
 
 class TrainState(NamedTuple):
-    params: dict  # leaf tensors that require grad
+    params: dict  # leaf tensors that require grad (FSDP: this rank's shards)
     opt_state: dict
     step: int  # optimizer steps taken, non-finite ones included (as in JAX)
+    # the state's `parallel.sharding.ShardLayout` (ZeRO-1 / FSDP), or None
+    sharding: Optional[object] = None
 
 
 def create_train_state(params: dict, optimizer: Optimizer) -> TrainState:
@@ -173,12 +188,28 @@ def _grads(total: torch.Tensor, params: dict):
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
-def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Tensor], mesh):
+def _model_params(state: TrainState, mesh):
+    """The params as the model reads them: the state's, or under FSDP its
+    shards wrapped for the per-use gather."""
+    layout = state.sharding
+    if layout is None:
+        return state.params
+    if mesh is None or layout.mesh != mesh:
+        raise ValueError(f"a state sharded over {layout.mesh} needs a step on that mesh, not {mesh}")
+    return layout.wrap(state.params) if layout.mode == "fsdp" else state.params
+
+
+def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Tensor], mesh,
+                      layout=None):
     """(grads, total, loss_dict) summed across the ranks in one all-reduce
     a dtype: the gradients, the `LOCAL_SUM_TERMS`, and the total, to which
     rank 0 brings its whole total (the global contrastive terms, which
     every rank holds alike, counted once) and every other rank its local
-    sums. The global contrastive terms stay as they are."""
+    sums. The global contrastive terms stay as they are. With a ZeRO-1
+    `layout` one reduce-scatter a dtype gives this rank its shards of the
+    summed gradients and every rank the sums; with an FSDP one the
+    gradients are summed shards already, and the all-reduce takes only the
+    replicated leaves' and the sums."""
     local = [k for k in loss_dict if k in LOCAL_SUM_TERMS]
     with torch.no_grad():
         if mesh.rank == 0:
@@ -187,13 +218,23 @@ def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Ten
             own = torch.zeros_like(total)
             for k in local:
                 own = own + loss_dict[k].detach()
-        scalars = [own] + [loss_dict[k].detach() for k in local]
-        summed = collectives.all_reduce_flat(list(grads) + [v.reshape(1) for v in scalars], mesh)
-    n = len(grads)
+        scalars = [v.reshape(1) for v in [own] + [loss_dict[k].detach() for k in local]]
+        if layout is None:
+            summed = collectives.all_reduce_flat(list(grads) + scalars, mesh)
+            grads, sums = summed[:len(grads)], summed[len(grads):]
+        elif layout.mode == "zero":
+            grads, sums = layout.reduce_scatter(grads, scalars)
+        else:
+            whole = [i for i, s in enumerate(layout.specs) if s.replicated]
+            summed = collectives.all_reduce_flat([grads[i] for i in whole] + scalars, mesh)
+            grads = list(grads)
+            for i, v in zip(whole, summed):
+                grads[i] = v
+            sums = summed[len(whole):]
     loss_dict = dict(loss_dict)
-    for k, v in zip(local, summed[n + 1:]):
+    for k, v in zip(local, sums[1:]):
         loss_dict[k] = v.reshape(())
-    return summed[:n], summed[n].reshape(()), loss_dict
+    return grads, sums[0].reshape(()), loss_dict
 
 
 def _apply_update(
@@ -204,15 +245,28 @@ def _apply_update(
     optimizer: Optimizer,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer update + the non-finite freeze, shared by the single
-    and the gradient-accumulated step."""
+    and the gradient-accumulated step. With a sharded state `grads` are
+    this rank's shards: the update runs on the shards (ZeRO-1: the shards
+    of the whole params, all-gathered back after)."""
+    layout = state.sharding
+    zero = layout is not None and layout.mode == "zero"
     with torch.no_grad():
         grad_tree = tree_unflatten(state.params, grads)
-        new_params, new_opt = optimizer.update(grad_tree, state.opt_state, state.params)
+        norm = None if layout is None else layout.norm(grads)
+        params = state.params
+        if zero:
+            params = tree_unflatten(params, layout.shard_leaves([p.detach() for p in tree_leaves(params)]))
+        new_params, new_opt = optimizer.update(grad_tree, state.opt_state, params, grad_norm=norm)
         finite = torch.isfinite(total)
         # every leaf of the state, the step count included, is written in
         # place: a CUDA graph replay reads the buffers the last one wrote
-        for p, new in zip(tree_leaves(state.params), new_params):
-            p.copy_(torch.where(finite, new, p))
+        if zero:
+            kept = [torch.where(finite, new, old) for new, old in zip(new_params, tree_leaves(params))]
+            for p, new in zip(tree_leaves(state.params), layout.gather_leaves(kept)):
+                p.copy_(new)
+        else:
+            for p, new in zip(tree_leaves(state.params), new_params):
+                p.copy_(torch.where(finite, new, p))
         for key, old in state.opt_state.items():
             new = new_opt[key]
             pairs = zip(tree_leaves(old), tree_leaves(new)) if isinstance(old, dict) else [(old, new)]
@@ -222,10 +276,10 @@ def _apply_update(
         metrics = {
             "loss": total.detach(),
             "finite": finite,
-            "grad_norm": global_norm(grads),
+            "grad_norm": global_norm(grads) if norm is None else norm,
             **{k: v.detach() for k, v in loss_dict.items()},
         }
-    return TrainState(state.params, state.opt_state, state.step + 1), metrics
+    return state._replace(step=state.step + 1), metrics
 
 
 def make_train_step(
@@ -246,17 +300,19 @@ def make_train_step(
     """Returns `train_step(state, batch) -> (state, metrics)`; metrics are
     device tensors (loss, finite, grad_norm, loss_i, loss_t[, loss_ot][,
     loss_bbox, loss_arg]). With a data-parallel `mesh` every rank calls it
-    on its rows, and the metrics are the global batch's, on every rank."""
+    on its rows, and the metrics are the global batch's, on every rank; a
+    sharded state (`state.sharding`, on this mesh) takes the sharded update
+    (module docstring)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         total, loss_dict = loss_fn(
-            state.params, batch, cfg, loss_type, overbatch, compute_dtype, remat, impl,
-            alignment, use_pallas_ot, alignment_chunks, multiattention, multiattention_pooling,
-            mesh,
+            _model_params(state, mesh), batch, cfg, loss_type, overbatch, compute_dtype, remat,
+            impl, alignment, use_pallas_ot, alignment_chunks, multiattention,
+            multiattention_pooling, mesh,
         )
         grads = _grads(total, state.params)
         if mesh is not None:
-            grads, total, loss_dict = _sum_across_ranks(grads, total, loss_dict, mesh)
+            grads, total, loss_dict = _sum_across_ranks(grads, total, loss_dict, mesh, state.sharding)
         return _apply_update(state, grads, total, loss_dict, optimizer)
 
     return train_step
@@ -336,11 +392,13 @@ def make_multi_step(cfg: CLIPConfig, optimizer: Optimizer, num_steps: int, **ste
 def _graph_key(state: TrainState, batch: Dict[str, torch.Tensor]) -> tuple:
     """What a captured step is valid for: the batch's fields, shapes, dtypes
     and device, the state's tensors (a graph writes the ones it captured)
-    and the process-wide LayerNorm and BatchNorm choices (`transformer` and
+    and its sharding, and the process-wide LayerNorm and BatchNorm choices (`transformer` and
     `resnet.batch_norm` read them; the BatchNorm's mesh too)."""
     fields = tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items()))
     buffers = tuple(t.data_ptr() for t in tree_leaves(state.params) + tree_leaves(state.opt_state))
-    return fields, buffers, layers._resolve_ln(), resnet.get_bn_mode(), resnet.get_bn_mesh()
+    layout = state.sharding
+    sharding = None if layout is None else (layout.mode, layout.mesh)
+    return fields, buffers, sharding, layers._resolve_ln(), resnet.get_bn_mode(), resnet.get_bn_mesh()
 
 
 class _CapturedStep:
@@ -350,14 +408,25 @@ class _CapturedStep:
     tensors, which each replay rewrites. The kernel wrappers count during
     the capture, which launches nothing: those counts are taken as one
     replay's launches (`launches`), put back after the capture, and added
-    to the counts once a replay (`ops.counters`)."""
+    to the counts once a replay (`ops.counters`). Python's cyclic garbage
+    collector is off for the length of the capture: a collection inside it
+    can run destructors that call CUDA outside the captured stream, which
+    invalidates the capture (seen with FSDP's collectives under full
+    remat); objects freed by their reference counts are freed as always."""
 
     def __init__(self, step_fn, state: TrainState, batch: Dict[str, torch.Tensor]):
         self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
         self.graph = torch.cuda.CUDAGraph()
         before = counters.snapshot()
-        with torch.cuda.graph(self.graph):
-            _, self.metrics = step_fn(state, self.inputs)
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                _, self.metrics = step_fn(state, self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         after = counters.snapshot()
         counters.restore(before)
         self.launches = {k: after[k] - before[k] for k in after}
@@ -398,7 +467,10 @@ def make_accum_step(
     the LR schedule see the averaged gradient. InfoNCE negatives stay
     within each microbatch (the logit matrix is batch-coupled); with a
     `mesh`, within each global microbatch (every rank's microbatch k), and
-    the ranks' averaged gradients are summed once, after the K."""
+    the ranks' averaged gradients are summed once, after the K (under
+    FSDP each microbatch's gradients arrive summed over the ranks and
+    sharded, and the K shard gradients are averaged: gradient memory stays
+    at 1/W)."""
 
     def accum_step(state: TrainState, batches: Dict[str, torch.Tensor]):
         lead = next(iter(batches.values())).shape[0]
@@ -408,10 +480,11 @@ def make_accum_step(
                 f"accum_steps={accum_steps} (gradients would mis-scale)"
             )
         gsum = msum = None
+        params = _model_params(state, mesh)
         for k in range(accum_steps):
             micro = {key: v[k] for key, v in batches.items()}
             total, loss_dict = loss_fn(
-                state.params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl,
+                params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl,
                 alignment, use_pallas_ot, alignment_chunks, multiattention,
                 multiattention_pooling, mesh,
             )
@@ -427,7 +500,7 @@ def make_accum_step(
         avg = {n: v * inv for n, v in msum.items()}
         total = avg.pop("loss")
         if mesh is not None:
-            grads, total, avg = _sum_across_ranks(grads, total, avg, mesh)
+            grads, total, avg = _sum_across_ranks(grads, total, avg, mesh, state.sharding)
         return _apply_update(state, grads, total, avg, optimizer)
 
     return accum_step

@@ -33,6 +33,7 @@ from clip_event_tpu_torch.models.clip_config import (  # noqa: F401
 from clip_event_tpu_torch.models.resnet import init_resnet, resnet_encode
 from clip_event_tpu_torch.models.vit import init_vit, vit_encode
 from clip_event_tpu_torch.ops.quant import QuantWeight
+from clip_event_tpu_torch.parallel.sharding import full
 from clip_event_tpu_torch.platform import resolve_device
 
 
@@ -152,8 +153,8 @@ def encode_text(
     to the same feature as in the full 77-token layout."""
     tokens = tokens.long()
     seq = tokens.shape[-1]
-    x = params["token_embedding"][tokens].to(compute_dtype)
-    x = x + params["positional_embedding"][:seq].to(compute_dtype)
+    x = full(params["token_embedding"])[tokens].to(compute_dtype)
+    x = x + full(params["positional_embedding"])[:seq].to(compute_dtype)
     bias = L.causal_mask(seq, device=x.device)
     x = L.transformer(x, params["text_transformer"], cfg.transformer_heads, bias, impl, remat)
     x = L.layer_norm(x, params["ln_final"])

@@ -55,6 +55,15 @@ train config) and hands it to every block as a plain argument, through
 `layer_norm` directly, as in the JAX package. The names of the two
 settings are the JAX package's.
 
+Under FSDP (`parallel/sharding.py`) a param leaf may be a
+`ShardedParam`: every read of a param goes through `sharding.full`, which
+gathers it at that use (a tensor passes as it is), and `_layer` slices a
+stacked one's layer row. A residual block gathers its leaves at once
+(`sharding.full_tree`, one collective a block each way) as it starts, so
+inside its recomputed region; under "attn" the gathered ln_1 and QKV
+weights are what `_AttentionSaved` keeps, and the rest of the block is
+gathered inside the checkpoint of its tail.
+
 A dense weight may be an int8 `ops.quant.QuantWeight` (the inference
 path): `linear` sends it to `quantized_linear` (K5 on the card), and
 `_layer` slices its stacked tensors like any other leaf. `act_stats`, a
@@ -76,6 +85,7 @@ from clip_event_tpu_torch.ops import library
 from clip_event_tpu_torch.ops import ln as LN
 from clip_event_tpu_torch.ops.attention import IMPLS
 from clip_event_tpu_torch.ops.quant import QuantWeight, quantized_linear
+from clip_event_tpu_torch.parallel.sharding import full, full_tree
 
 # the JAX package's remat policies (`layers.py:465-475`); "dots" and
 # "dots_nobatch" keep the outputs of these ops across the recompute
@@ -93,6 +103,7 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mean) * torch.rsqrt(var + eps)
+    params = full_tree(params)
     y = y * params["scale"].float() + params["bias"].float()
     return y.to(x.dtype)
 
@@ -219,9 +230,9 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor
     an int8 `QuantWeight` goes through `quantized_linear`."""
     if isinstance(w, QuantWeight):
         return quantized_linear(x, w, b)
-    y = torch.matmul(x, w.to(x.dtype))
+    y = torch.matmul(x, full(w).to(x.dtype))
     if b is not None:
-        y = y + b.to(x.dtype)
+        y = y + full(b).to(x.dtype)
     return y
 
 
@@ -302,6 +313,7 @@ def residual_block(
     if act_stats is not None:
         attn_stats = act_stats["attn"] = {}
         mlp_stats = act_stats["mlp"] = {}
+    params = full_tree(params)
     ln_plan = _block_ln_plan(ln, act_stats)
     a = multi_head_attention(
         _ln_apply(x, params["ln_1"], ln_plan), params["attn"], num_heads, attn_bias, impl, attn_stats
@@ -363,6 +375,8 @@ class _AttentionSaved(torch.autograd.Function):
 
 def _attn_tail(x, out, params, ln_plan):
     """The block from (input, attention-core output) on."""
+    params = full_tree({"attn": {k: params["attn"][k] for k in ("out_w", "out_b")},
+                        "ln_2": params["ln_2"], "mlp": params["mlp"]})
     a = linear(out, params["attn"]["out_w"], params["attn"]["out_b"])
     return _block_tail(x, a, params, ln_plan)
 
@@ -373,9 +387,13 @@ def _remat_block(x, params, num_heads, attn_bias, impl, ln, policy: Optional[str
         return residual_block(x, params, num_heads, attn_bias, impl, None, ln)
     if policy == "attn":
         plan = _block_ln_plan(ln, None)
+        # FSDP: the gathered ln_1 and QKV weights are what the saved
+        # region keeps; the rest of the block gathers inside the checkpoint
+        head = full_tree({"ln_1": params["ln_1"], "qkv_w": params["attn"]["qkv_w"],
+                          "qkv_b": params["attn"]["qkv_b"]})
         out = _AttentionSaved.apply(
-            x, params["ln_1"]["scale"], params["ln_1"]["bias"], params["attn"]["qkv_w"],
-            params["attn"]["qkv_b"], attn_bias, num_heads, impl, plan)
+            x, head["ln_1"]["scale"], head["ln_1"]["bias"], head["qkv_w"], head["qkv_b"], attn_bias,
+            num_heads, impl, plan)
         return checkpoint(_attn_tail, x, out, params, plan, use_reentrant=False,
                           preserve_rng_state=False)
     kw = {}
@@ -389,7 +407,7 @@ def _remat_block(x, params, num_heads, attn_bias, impl, ln, policy: Optional[str
 
 def _layer(tree: dict, i: int) -> dict:
     """Layer i of a stacked param tree; a QuantWeight slices its q, scale
-    and act_scale ([L] → one scalar)."""
+    and act_scale ([L] → one scalar), a ShardedParam its shard's row."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from clip_event_tpu_torch.models import layers as L
+from clip_event_tpu_torch.parallel.sharding import full_tree
 
 BN_MODES = ("frozen", "batch")
 _BN_MODE = "frozen"
@@ -114,6 +115,7 @@ def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def bottleneck(x: torch.Tensor, params: dict, stride: int) -> torch.Tensor:
+    params = full_tree(params)  # FSDP: the block's leaves gathered at once
     out = torch.relu(batch_norm(conv2d(x, params["conv1_w"]), params["bn1"]))
     out = torch.relu(batch_norm(conv2d(out, params["conv2_w"], padding=1), params["bn2"]))
     out = avg_pool(out, stride)
@@ -133,6 +135,7 @@ def attention_pool(x: torch.Tensor, params: dict, num_heads: int) -> torch.Tenso
     the mean token and the grid tokens with the positional embedding; only
     the mean token's query row is computed. The products accumulate in
     fp32, the softmax is fp32 and cast to x's dtype, as in JAX."""
+    params = full_tree(params)
     B, H, W, C = x.shape
     tokens = x.reshape(B, H * W, C)
     tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
@@ -164,7 +167,7 @@ def resnet_encode(
     recomputed in the backward pass (the JAX package passes no remat to
     this tower)."""
     x = images.to(compute_dtype)
-    stem = params["stem"]
+    stem = full_tree(params["stem"])
     x = torch.relu(batch_norm(conv2d(x, stem["conv1_w"], stride=2, padding=1), stem["bn1"]))
     x = torch.relu(batch_norm(conv2d(x, stem["conv2_w"], padding=1), stem["bn2"]))
     x = torch.relu(batch_norm(conv2d(x, stem["conv3_w"], padding=1), stem["bn3"]))

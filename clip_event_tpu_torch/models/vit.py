@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from clip_event_tpu_torch.models import layers as L
+from clip_event_tpu_torch.parallel.sharding import full
 
 
 def patch_embed(images: torch.Tensor, w: torch.Tensor, patch: int) -> torch.Tensor:
@@ -37,9 +38,9 @@ def vit_encode(
     """ViT forward. Returns [B, E] (CLS-pooled) or [B, grid²+1, E] if use_grid."""
     x = patch_embed(images.to(compute_dtype), params["patch_embed_w"], patch_size)
     B, _, W = x.shape
-    cls = params["class_embedding"].to(x.dtype).expand(B, 1, W)
+    cls = full(params["class_embedding"]).to(x.dtype).expand(B, 1, W)
     x = torch.cat([cls, x], dim=1)  # [B, G²+1, W]
-    x = x + params["positional_embedding"].to(x.dtype)
+    x = x + full(params["positional_embedding"]).to(x.dtype)
     x = L.layer_norm(x, params["ln_pre"])
     x = L.transformer(x, params["transformer"], num_heads, impl=impl, remat=remat)
     if use_grid:

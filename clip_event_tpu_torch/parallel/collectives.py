@@ -29,8 +29,20 @@ that the train step reproduces the JAX package's global loss:
     0 only;
   * `all_reduce_sum` — a sum across ranks whose backward sums the
     cotangents (the global BatchNorm statistics of `sync_bn`);
+  * `gather_shards` — FSDP's gather (`parallel/sharding.py`): param
+    shards → the full params, all-gathered; its backward reduce-scatters
+    the cotangents, so a shard's gradient is the sum over the ranks of its
+    chunk;
   * `all_reduce_flat` — sum a list of tensors across ranks, one all-reduce
-    a dtype over a flat buffer (the step's gradients and local loss sums).
+    a dtype over a flat buffer (the step's gradients and local loss sums);
+  * `reduce_scatter_flat` / `all_gather_flat` — the same discipline for
+    the sharded state of ZeRO-1 and FSDP (`parallel/sharding.py`): one
+    reduce-scatter, or one all-gather, a dtype over a flat buffer.
+
+`all_gather_into_tensor` and `reduce_scatter_tensor` are the names that
+every torch this port runs on has; torch 2.13 renames them (`*_single`)
+and warns on the old names, a notice that this module filters by its exact
+text (a failed collective still raises).
 
 `torch.distributed.nn.functional.all_gather` is not used: its backward
 sums every rank's cotangent, which under DDP's gradient averaging gives
@@ -40,6 +52,7 @@ each loss term a different factor of the world size.
 from __future__ import annotations
 
 import pickle
+import warnings
 from typing import Dict, List, Sequence
 
 import torch
@@ -48,6 +61,11 @@ import torch.distributed as dist
 # the gloo group beside an NCCL default group: (the default group it
 # belongs to, the group)
 _HOST_GROUP = (None, None)
+
+warnings.filterwarnings(
+    "ignore", category=FutureWarning,
+    message=r"`torch\.distributed\.(all_gather_into_tensor|reduce_scatter_tensor)` is deprecated",
+)
 
 
 def _world() -> int:
@@ -141,8 +159,7 @@ def all_gather_objects(obj) -> list:
 def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     """[b, ...] on every rank → [W·b, ...], rank-major (no gradient)."""
     out = x.new_empty((mesh.world_size * x.shape[0],) + tuple(x.shape[1:]))
-    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    gather(out, x.contiguous(), group=mesh.group)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
     return out
 
 
@@ -202,15 +219,76 @@ def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     return _AllReduceSum.apply(x, mesh)
 
 
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, specs, mesh, *shards):
+        ctx.specs, ctx.mesh = specs, mesh
+        rows = all_gather_flat(shards, mesh)
+        return tuple(s.from_rows(r) for s, r in zip(specs, rows))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = reduce_scatter_flat([s.to_rows(g) for s, g in zip(ctx.specs, grads)], ctx.mesh)
+        return (None, None, *(o.reshape(s.shard_shape) for s, o in zip(ctx.specs, out)))
+
+
+def gather_shards(shards: Sequence[torch.Tensor], specs, mesh) -> List[torch.Tensor]:
+    """The full leaves of this rank's `shards` (each in its
+    `sharding.LeafSpec`'s layout: `from_rows` / `to_rows`),
+    differentiable: the forward all-gathers the ranks' shards, the
+    backward reduce-scatters the cotangents, one collective a dtype each
+    way (module docstring)."""
+    return list(_GatherShards.apply(tuple(specs), mesh, *shards))
+
+
 def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
     """The sums of `tensors` over the ranks: one all-reduce a dtype over a
     flat buffer; the results are views of that buffer, shaped like the
     inputs, in the same order."""
     out: List[torch.Tensor] = [None] * len(tensors)
-    for dtype in sorted({t.dtype for t in tensors}, key=str):
-        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+    for _, idx in _by_dtype(tensors):
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         dist.all_reduce(flat, group=mesh.group)
         for i, v in zip(idx, torch.split(flat, [tensors[i].numel() for i in idx])):
             out[i] = v.view_as(tensors[i])
+    return out
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]):
+    """(dtype, indices of `tensors` of that dtype), in a fixed dtype order
+    (every rank must issue the collectives alike)."""
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        yield dtype, [i for i, t in enumerate(tensors) if t.dtype == dtype]
+
+
+def reduce_scatter_flat(rows: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """This rank's sums over the ranks of `rows`, each [W, k] whose row r is
+    what rank r receives: one reduce-scatter a dtype over the rows laid
+    side by side ([W, K], rank-major when flat). Returns [k] tensors, views
+    of the received buffer, in the order of `rows`."""
+    out: List[torch.Tensor] = [None] * len(rows)
+    for _, idx in _by_dtype(rows):
+        # one tensor: no copy where it is contiguous
+        flat = rows[idx[0]].contiguous() if len(idx) == 1 else torch.cat([rows[i] for i in idx], dim=1)
+        recv = flat.new_empty(flat.shape[1])
+        dist.reduce_scatter_tensor(recv, flat.reshape(-1), group=mesh.group)
+        for i, v in zip(idx, torch.split(recv, [rows[i].shape[1] for i in idx])):
+            out[i] = v
+    return out
+
+
+def all_gather_flat(tensors: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Every rank's `tensors`: one all-gather a dtype over a flat buffer.
+    Returns a [W, numel] tensor for each input (row r: rank r's elements),
+    views of the gathered buffer, in the order of `tensors`."""
+    out: List[torch.Tensor] = [None] * len(tensors)
+    for _, idx in _by_dtype(tensors):
+        # one tensor: no copy where it is contiguous
+        flat = (tensors[idx[0]].contiguous().reshape(-1) if len(idx) == 1
+                else torch.cat([tensors[i].reshape(-1) for i in idx]))
+        recv = flat.new_empty(mesh.world_size * flat.numel())
+        dist.all_gather_into_tensor(recv, flat, group=mesh.group)
+        recv = recv.view(mesh.world_size, flat.numel())
+        for i, v in zip(idx, torch.split(recv, [tensors[i].numel() for i in idx], dim=1)):
+            out[i] = v
     return out

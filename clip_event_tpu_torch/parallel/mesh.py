@@ -3,7 +3,8 @@
 `utils.py:541-616`, `train.py:222-225`).
 
 Parallelism model: one process per GPU, each holding a full copy of the
-params and optimizer state and `batch_size` rows of the global batch (its
+params and optimizer state (or its shard of them under ZeRO-1 / FSDP,
+`parallel/sharding.py`) and `batch_size` rows of the global batch (its
 rank-major block, the row order JAX's `make_array_from_process_local_data`
 gives). The JAX package gets the global loss from GSPMD; here the train
 step makes it by hand (`engine/train_step.py`): the contrastive features

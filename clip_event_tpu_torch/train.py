@@ -28,7 +28,12 @@ gradients and metrics are the global batch's (`engine/train_step.py`).
 Rank 0 writes the logs' scalars, `config.json` and the checkpoints (every
 rank waits at the save); a SIGTERM on any rank stops every rank at the
 same step boundary; the meters are synced at each epoch's end, and the
-validation is sharded by rank.
+validation is sharded by rank. `zero` (ZeRO-1) shards Adam's moments over
+the ranks and `fsdp` the params too (`parallel/sharding.py`), after any
+resume, as in the JAX CLI; they need a launch (`torchrun`, a world of one
+included, which runs the sharded code with one shard) and refuse a plain
+process. The checkpoints hold the full state, gathered, and the
+validation reads the full params.
 
 `train(...)` is the epoch loop (loader → prefetch → step → metrics) over
 any `ExampleDataset`; `main` builds the VOA dataset and calls it.
@@ -73,6 +78,7 @@ from clip_event_tpu_torch.parallel.mesh import (
     make_mesh,
     replicate,
 )
+from clip_event_tpu_torch.parallel.sharding import full_params, shard_state
 from clip_event_tpu_torch.platform import resolve_device
 
 log = logging.getLogger(__name__)
@@ -101,7 +107,9 @@ def train(
 
     With a data-parallel `mesh` every rank calls it with its own `dataset`
     (built with its `dist_rank` / `dist_world`) on `mesh.device`, and
-    `writer` only on rank 0."""
+    `writer` only on rank 0. Under `zero` / `fsdp` the returned state is
+    this rank's sharded one (`parallel.sharding.gather_state` gives the
+    full one)."""
     device = resolve_device(device)
     task, ckpt_dir = cfg["task"], cfg["ckpt_dir"]
     rank, world = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
@@ -145,6 +153,15 @@ def train(
         # every rank starts from rank 0's params and optimizer state
         replicate(state.params, mesh)
         replicate(state.opt_state, mesh)
+    if cfg["zero"] or cfg["fsdp"]:
+        if mesh is None:
+            raise SystemExit(
+                "zero / fsdp shard the state over the data-parallel ranks: launch with "
+                "torchrun (or mpirun / srun; a world of one runs the sharded code)"
+            )
+        # ZeRO-1 shards the moments, FSDP the params too (fresh or
+        # restored: after the resume placement above)
+        state = shard_state(state, mesh, "fsdp" if cfg["fsdp"] else "zero")
     steps_per_dispatch = max(int(cfg["steps_per_dispatch"]), 1)
     if steps_per_dispatch > 1:
         # K optimizer steps in one dispatch: on the card a CUDA graph of the
@@ -242,7 +259,8 @@ def train(
                 if (next_save is not None and global_step >= next_save) or hit_max or hit_term:
                     drain()
                     save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
-                                    best_perf, step=global_step, mid_epoch=True)
+                                    best_perf, step=global_step, mid_epoch=True,
+                                    sharding=state.sharding)
                     log.info("=> step checkpoint at global step %d", global_step)
                     if next_save is not None:
                         while next_save <= global_step:
@@ -316,7 +334,7 @@ def train(
                 # the validation encodes with the step's attention choice,
                 # each rank its slice (evals/common.py::resolve_shard)
                 with layers.attention_impl(step_kwargs["impl"]):
-                    val = evaluate_matching(state.params, mcfg, val_ds,
+                    val = evaluate_matching(full_params(state), mcfg, val_ds,
                                             batch_size=cfg["batch_size"], device=device)
                 best_perf = max(best_perf, val["i2t_top1"])
                 log.info("=> Epoch[%d] validation: %s (best %.4f)", epoch, val, best_perf)
@@ -324,7 +342,7 @@ def train(
                     writer.add_scalar("val_i2t_top1", val["i2t_top1"], epoch)
 
             save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
-                            best_perf, step=state.step)
+                            best_perf, step=state.step, sharding=state.sharding)
     finally:
         layers.set_ln_impl(old_ln)
         resnet.set_bn_mode(*old_bn)

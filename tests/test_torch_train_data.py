@@ -140,13 +140,19 @@ def test_config_defaults_and_refusals():
             "optimizer": "adam", "max_epoch": 1}
     ours, ref = TC.validate_config(base), JC.validate_config(base)
     assert ours == ref
-    # the ROADMAP items that bring each refused part: the sharded optimizer
-    # state and params A6(b), the model-parallel and multi-slice keys A6(c)
+    # the ROADMAP item that brings each refused part: the model-parallel
+    # and multi-slice keys A6(c)
     for key, value, item in [("tp", 2, r"A6\(c\)"), ("pp", 2, r"A6\(c\)"),
-                             ("sp", True, r"A6\(c\)"), ("dcn_dp", 2, r"A6\(c\)"),
-                             ("zero", True, r"A6\(b\)"), ("fsdp", True, r"A6\(b\)")]:
+                             ("sp", True, r"A6\(c\)"), ("dcn_dp", 2, r"A6\(c\)")]:
         with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
             TC.validate_config(dict(base, **{key: value}))
+    # the sharded optimizer state and params (A6(b)) are accepted as JAX
+    # accepts them, and a value that is not a bool is refused alike
+    for key in ("zero", "fsdp"):
+        assert TC.validate_config(dict(base, **{key: True})) == JC.validate_config(dict(base, **{key: True}))
+        for pkg in (TC, JC):
+            with pytest.raises(pkg.ConfigError, match=f"{key} must be a bool"):
+                pkg.validate_config(dict(base, **{key: 1}))
     # the image cache (A7) is accepted, as the JAX package accepts it: the
     # two shipped configs that set it validate as in JAX, and the shipped
     # tp config stays refused

@@ -7,6 +7,12 @@ global batch, for the test's JAX reference; the weights come from the
 port's init (the test carries them to JAX through the state dict). Every
 rank joins a gloo group over a FileStore, runs the cases it is given and
 pickles what it measured to `<out>/rank<r>.pkl`.
+
+A case "<mode>:<case>" (`run_sharded`) runs Adam with the clip at 1.0 on
+a state that is plain ("plain"), ZeRO-1 ("zero") or FSDP ("fsdp")
+sharded over the ranks (`parallel/sharding.py`), and reports the full
+state gathered back, the shard sizes and, where it wrote one, the
+checkpoint's path.
 """
 
 from __future__ import annotations
@@ -31,6 +37,14 @@ D = NPOS + NNEG
 NOBJ, NENT, R = 3, 4, 3
 LR = 0.1
 SEED = 1
+# Adam's update is lr·m/(√v + ε): where a gradient element is near ε, the
+# last-ulp differences of another summation order (XLA's, or the sharded
+# step's) move it by up to a tenth of one update over three steps
+# (tests/test_zero.py documents the same); at this lr that stays under the
+# tests' 1e-5
+ADAM_LR = 1e-5
+# the seeds of the global batches the sharded cases step through, in turn
+ADAM_SEEDS = (10, 11, 12)
 
 
 def model_dict(case: str) -> dict:
@@ -180,6 +194,129 @@ def run_step(case: str, world: int, rank: int, b_local: int, mesh):
     return {k: float(v) for k, v in metrics.items()}, state_dict_from_params(state.params, cfg)
 
 
+def adam(moment_dtype=None):
+    from clip_event_tpu_torch.engine import optim as TO
+
+    return TO.build_optimizer("adam", TO.build_schedule("none", ADAM_LR, 1), grad_clip_norm=1.0,
+                              moment_dtype=moment_dtype)
+
+
+def state_record(state, cfg) -> dict:
+    """The full state of a (sharded) train state, gathered on every rank:
+    the params' state dict and each moment's, as float32 numpy."""
+    from clip_event_tpu_torch.models.clip import tree_to
+    from clip_event_tpu_torch.models.convert import state_dict_from_params
+    from clip_event_tpu_torch.parallel.sharding import gather_state
+
+    full = gather_state(state)
+    out = {"count": int(full.opt_state["count"])}
+    for k, tree in (("params", full.params), ("mu", full.opt_state["mu"]), ("nu", full.opt_state["nu"])):
+        # copies: the step updates the state's tensors in place
+        sd = state_dict_from_params(tree_to(tree, dtype=torch.float32), cfg)
+        out[k] = {name: np.array(v) for name, v in sd.items()}
+    return out
+
+
+def shard_sizes(state) -> dict:
+    """Per param leaf: the full numel, the rows of a stacked leaf, and the
+    numel this rank holds of the param and of each moment."""
+    from clip_event_tpu_torch.engine.optim import tree_leaves
+
+    layout = state.sharding
+    out = {"specs": [(s.shape, s.rows, s.replicated) for s in layout.specs],
+           "params": [t.numel() for t in tree_leaves(state.params)]}
+    for k in ("mu", "nu"):
+        out[k] = [t.numel() for t in tree_leaves(state.opt_state[k])]
+    return out
+
+
+def saved_shapes(step, state, batch) -> set:
+    """The shapes of the tensors autograd keeps outside the recomputed
+    regions during one step (a tensor a checkpoint saves is not seen)."""
+    shapes = set()
+
+    def pack(t):
+        shapes.add(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        step(state, batch)
+    return shapes
+
+
+def run_sharded(name: str, world: int, rank: int, b_local: int, mesh, out: str) -> dict:
+    """One sharded case (module docstring): "plain" / "zero" / "fsdp" on
+    "contrastive", "ot" or "multiattention" (the first seed's step;
+    contrastive: its checkpoint, and under "zero" a second step first,
+    with the state after each), "zero:accum_dedupe" (two microbatches),
+    "zero:bf16" (bf16 first moments), "fsdp:multi_step" (two steps in one
+    `make_multi_step` dispatch) and "fsdp:from_one" (a world-of-one step on
+    the global batch, checkpointed, restored, sharded over the ranks and
+    stepped once more)."""
+    from clip_event_tpu_torch.engine import train_step as TT
+    from clip_event_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
+    from clip_event_tpu_torch.parallel.mesh import replicate
+    from clip_event_tpu_torch.parallel.sharding import shard_state
+
+    mode, case = name.split(":")
+    base = case if case in ("ot", "multiattention", "accum_dedupe") else "contrastive"
+    params, cfg = init_params(base)
+    opt = adam("bfloat16" if case == "bf16" else None)
+    kw = dict(compute_dtype=torch.float32, remat=True, mesh=mesh, **step_kwargs(base))
+
+    def sharded(state):
+        replicate(state.params, mesh)
+        return state if mode == "plain" else shard_state(state, mesh, mode)
+
+    def rank_batch(seed):
+        return _t(make_batches(base, world, b_local, seed)[1][rank])
+
+    result = {}
+    if case == "from_one":
+        glob = _t(make_batches(base, world, b_local, ADAM_SEEDS[0])[0])
+        one = TT.make_train_step(cfg, opt, **dict(kw, mesh=None))(TT.create_train_state(params, opt), glob)[0]
+        save_checkpoint(out, "from_one", 0, one.params, one.opt_state, cfg, step=one.step)
+        params, opt_state, meta, _ = restore_checkpoint(os.path.join(out, "from_one", "from_one_0"))
+        state = TT.create_train_state(params, opt)._replace(opt_state=opt_state, step=meta["step"])
+        state, m = TT.make_train_step(cfg, opt, **kw)(sharded(state), rank_batch(ADAM_SEEDS[1]))
+        result["metrics"] = {k: float(v) for k, v in m.items()}
+    elif case == "accum_dedupe":
+        micro = [make_batches(case, world, b_local, 20 + k)[1][rank] for k in range(2)]
+        state = sharded(TT.create_train_state(params, opt))
+        step = TT.make_accum_step(cfg, opt, 2, **kw)
+        state, m = step(state, _t({k: np.stack([b[k] for b in micro]) for k in micro[0]}))
+        result["metrics"] = {k: float(v) for k, v in m.items()}
+    elif case == "multi_step":
+        state = sharded(TT.create_train_state(params, opt))
+        many, _ = TT.make_multi_step(cfg, opt, 2, **kw)
+        batches = [rank_batch(seed) for seed in ADAM_SEEDS[:2]]
+        state, m = many(state, {k: torch.stack([b[k] for b in batches]) for k in batches[0]})
+        result["metrics"] = {k: v.tolist() for k, v in m.items()}
+    else:
+        state = sharded(TT.create_train_state(params, opt))
+        step = TT.make_train_step(cfg, opt, **kw)
+        if mode != "plain":
+            result["sizes"] = shard_sizes(state)
+        if mode == "fsdp" and case == "contrastive":
+            probe = sharded(TT.create_train_state(params, opt))
+            result["saved_shapes"] = saved_shapes(step, probe, rank_batch(ADAM_SEEDS[0]))
+        state, m = step(state, rank_batch(ADAM_SEEDS[0]))
+        result["metrics"] = {k: float(v) for k, v in m.items()}
+        if case == "contrastive":
+            if mode == "zero":
+                result["step1"] = state_record(state, cfg)
+                state, m = step(state, rank_batch(ADAM_SEEDS[1]))
+                result["metrics2"] = {k: float(v) for k, v in m.items()}
+            task = name.replace(":", "_")
+            save_checkpoint(out, task, 0, state.params, state.opt_state, cfg, step=state.step,
+                            sharding=state.sharding)
+            result["ckpt"] = os.path.join(out, task, task + "_0")
+        if mode != "plain":
+            result["sizes_after"] = shard_sizes(state)
+    result.update(state_record(state, cfg))
+    return result
+
+
 def comm_checks(rank: int, world: int) -> None:
     """The JAX package's multi-process assertions (tests/test_multiprocess.py
     `_WORKER`) on the port's collectives, and `any_rank`."""
@@ -256,6 +393,8 @@ def main(rank: int, world: int, out: str, cases, b_local: int, fixtures=None, te
                 results["evals"] = run_evals(fixtures)
             elif case == "embed":
                 results["embed"] = run_embed_case(fixtures, os.path.join(out, "embed"), texts)
+            elif ":" in case:
+                results[case] = run_sharded(case, world, rank, b_local, mesh, out)
             else:
                 results[case] = run_step(case, world, rank, b_local, mesh)
         with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as fh:

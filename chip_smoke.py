@@ -26,6 +26,7 @@ them), and the bench entry point and component bench.
     python3 chip_smoke.py --only serving_bundle   # the serving bundle alone
     python3 chip_smoke.py --only train_dp   # the data-parallel step alone
     python3 chip_smoke.py --only data_feed  # the host image path alone
+    python3 chip_smoke.py --only tp_heads   # the tp = 2 head groups alone
     # the same for an earlier tree's package unpacked under DIR
     python3 chip_smoke.py --only b1 --package-root DIR
 
@@ -111,6 +112,29 @@ Phases, each printing JSON lines:
               each (read, not gated); the matching eval through
               `resolve_shard` equal to the unsharded call; the process
               group destroyed at the end
+  5t. tp_heads  the attention core's head groups of Megatron tensor
+              parallelism at tp = 2 (`parallel/sharding.py`: a rank's QKV
+              slice is its H/2 heads, packed [B, S, 3W/2], reordered in the
+              weight): at the train batches of the L/14 text (W 768, H 12,
+              S 77, causal) and vision (1024, 16, 257) towers, the B/16
+              vision tower (768, 12, 197) and the B/32 text (512, 8, 77,
+              causal) and vision (768, 12, 50) towers, bf16 and fp32: each
+              head-group shape's kernel (K1 or K2, by `core_kernel`) against
+              its plain version with the kernel phase's gates (timed in
+              bf16); then one attention sublayer through the port: whole
+              weights split by `TPSpec` (the "qkv" reorder, the row-parallel
+              `out_w`), each rank's `layers.head_group_attention` forward
+              and backward through autograd, counted exactly (per rank: one
+              forward, the backward's launches), the ranks' partial products
+              summed by hand plus `out_b`, against the full-width
+              `layers.multi_head_attention` on the kernel: the output, dx
+              and the weights' gradients laid back whole by
+              `TPSpec.from_shards`, each gap relative to the largest
+              full-width value (`TP_SUM_TOL`: two roundings, bf16 2^-6;
+              fp32 1e-5; the gaps printed, bit equality read); K4a (ln_1) and
+              K4b (+ K4c) through autograd on the sequence-parallel local
+              rows of the L/14 towers (B·⌈S/2⌉ rows), counted, with K4's
+              checks at those shapes; the phase's seconds
   5e. data_feed  `configs/finetune_template_fast.json` (ViT-B/32, 384 x 3,
               bf16, length buckets [32, 48], dedupe 768) fed from JPEG
               files through `train.build_dataset` and `train.train`: a
@@ -381,7 +405,7 @@ from clip_event_tpu_torch.ops.attention import (
     mega_smem_bytes,
     mega_variant,
 )
-from clip_event_tpu_torch.parallel.sharding import full_params, gather_state, shard_state, tree_bytes
+from clip_event_tpu_torch.parallel.sharding import TPSpec, full_params, gather_state, shard_state, tree_bytes
 from clip_event_tpu_torch.tools import bench_components
 from clip_event_tpu_torch.train import train
 
@@ -2798,6 +2822,23 @@ def reckoned_rank_state_gib(mcfg, world) -> dict:
     return {"world": world, "unsharded": 3 * full, "zero": full + 2 * shard, "fsdp": 3 * shard}
 
 
+def reckoned_tp_rank_state_gib(mcfg, tp) -> dict:
+    """The GiB one rank of a tp group of `tp` would hold of an fp32 Adam
+    state of `mcfg` (params, mu, nu: its slices of the split leaves, every
+    whole leaf), against the unsharded state, by `parallel.sharding.
+    TPLayout`'s rule; counted from the shapes on the meta device."""
+    from clip_event_tpu_torch.parallel.mesh import Mesh
+    from clip_event_tpu_torch.parallel.sharding import TPLayout
+
+    with torch.device("meta"):
+        params = init_params(torch.Generator(), mcfg, "meta")
+    leaves = tree_leaves(params)
+    layout = TPLayout(params, mcfg, Mesh(0, tp, torch.device("meta"), tp=tp))
+    full = sum(t.numel() for t in leaves) * 4 / 2**30
+    rank = sum(t.numel() for t in layout.shard_leaves(leaves)) * 4 / 2**30
+    return {"tp": tp, "unsharded": 3 * full, "tp_rank": 3 * rank}
+
+
 def dp_equals_plain(mcfg, params, batches, mesh):
     """GRAPH_CHECK_K steps of the mesh's step, eagerly and as one graphed
     dispatch (`make_multi_step`), each on a plain, a ZeRO-1 and an FSDP
@@ -3908,6 +3949,154 @@ def phase_serving_bundle(out_root):
     return all_launches
 
 
+# ------------------------------------------------------------- tp heads
+
+# Megatron tensor parallelism's head groups at tp = 2: (tag, B, S, W, H,
+# causal) of the full tower at its train batch (L/14 64 x 3, B/16 96, B/32
+# 384 x 3); a rank's attention core runs on W/2 lanes and H/2 heads
+TP_HEADS = 2
+TP_HEAD_SHAPES = [
+    ("l14_train_text", 192, 77, 768, 12, True),
+    ("l14_vision", 64, 257, 1024, 16, False),
+    ("b16_train_vision", 96, 197, 768, 12, False),
+    ("b32_train_text", 1152, 77, 512, 8, True),
+    ("b32_train_vision", 384, 50, 768, 12, False),
+]
+# K4a (ln_1) and K4b (the mid-block add + ln_2) under sequence parallelism
+# at tp = 2: a rank's local rows of the L/14 towers, B·⌈S/2⌉
+TP_LN_SHAPES = [("l14_sp_text", 192 * 39, 768), ("l14_sp_vision", 64 * 129, 1024)]
+# the attention sublayer's leaves that split, by the port's rule (`TPSpec`)
+TP_ATTN_SPECS = {"qkv_w": TPSpec("qkv"), "qkv_b": TPSpec("qkv"), "out_w": TPSpec("row")}
+# the ranks' sum against the full width, relative to the largest full-width
+# value: a rank rounds its partial product and the sum rounds again where
+# the full width rounds once, so bf16 may differ by two roundings of 2^-7
+# at most; fp32 at the backward's gate
+TP_SUM_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+
+
+def _rel(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item() / max(want.float().abs().max().item(), 1e-30)
+
+
+def tp_attention_check(k, gen, tag, B, S, W, H, causal, dtype) -> dict:
+    """One attention sublayer of a full tower at tp = TP_HEADS through the
+    port: whole weights split by `TPSpec` (the "qkv" head-group reorder,
+    the row-parallel `out_w`), each rank's `layers.head_group_attention`
+    (its QKV slice, K1 or K2 on its H/tp heads at the full head_dim's
+    scale, its rows of `out_w`), the ranks' partial products summed by hand
+    (the all-reduce of one GPU's two ranks) plus `out_b`, forward and
+    backward through autograd, counted; against the full-width
+    `layers.multi_head_attention` on the kernel (not counted): the output,
+    dx and the weights' gradients laid back whole by `TPSpec.from_shards`."""
+    name = str(dtype).split(".")[-1]
+    wl, hl = W // TP_HEADS, H // TP_HEADS
+    bias = causal_mask(S, device="cuda") if causal else None
+    params = {"qkv_w": torch.randn((W, 3 * W), device="cuda", generator=gen) * W ** -0.5,
+              "qkv_b": 0.1 * torch.randn((3 * W,), device="cuda", generator=gen),
+              "out_w": torch.randn((W, W), device="cuda", generator=gen) * W ** -0.5,
+              "out_b": 0.1 * torch.randn((W,), device="cuda", generator=gen)}
+    params = {n: v.to(dtype) for n, v in params.items()}
+    x = torch.randn((B, S, W), device="cuda", generator=gen).to(dtype)
+    do = torch.randn((B, S, W), device="cuda", generator=gen).to(dtype)
+    wanted = ("qkv_w", "qkv_b", "out_w")
+    # the full width, the comparison (not counted)
+    whole = {n: v.detach().requires_grad_(n in wanted) for n, v in params.items()}
+    leaf = x.detach().requires_grad_(True)
+    full_out = layers.multi_head_attention(leaf, whole, H, bias, "kernel")
+    full_grads = torch.autograd.grad(full_out, [leaf] + [whole[n] for n in wanted], do)
+    torch.cuda.synchronize()
+    # the ranks' slices and their sublayers, as the tp step runs them
+    shards = [{n: spec.shard_of(params[n], TP_HEADS, g).requires_grad_(True)
+               for n, spec in TP_ATTN_SPECS.items()} for g in range(TP_HEADS)]
+    leaf = x.detach().requires_grad_(True)
+    reset_launches()
+    parts = [layers.head_group_attention(leaf, s, H, bias, "kernel", TP_HEADS) for s in shards]
+    out = sum(parts[1:], parts[0]) + params["out_b"]
+    grads = torch.autograd.grad(out, [leaf] + [s[n] for s in shards for n in wanted], do)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    variant = k.variant(dtype, wl // hl)
+    want = dict.fromkeys(COUNTERS, 0)
+    want[k.names[0]] = TP_HEADS
+    want[k.names[1]] = TP_HEADS * k.bwd_launches(variant, wl // hl)
+    check(launched == want, f"tp_heads {tag} {name}: launched {launched}, not {want}")
+    check(out.shape == full_out.shape and bool(torch.isfinite(out).all()), f"tp_heads {tag} {name}: output")
+    rank_grads = iter(grads[1:])
+    by_rank = [{n: next(rank_grads) for n in wanted} for _ in range(TP_HEADS)]
+    laid = [TP_ATTN_SPECS[n].from_shards(torch.stack([r[n] for r in by_rank])) for n in wanted]
+    gaps = {n: _rel(g, f) for n, g, f in zip(("out", "dx") + tuple(f"d{n}" for n in wanted),
+                                             [out, grads[0]] + laid, (full_out,) + full_grads)}
+    for n, gap in gaps.items():
+        check(gap <= TP_SUM_TOL[name], f"tp_heads {tag} {name}: ranks vs full width {n} {gap} > {TP_SUM_TOL[name]}")
+    return {"variant": variant, "launched": {n: v for n, v in launched.items() if v},
+            "vs_full_width": {"max_rel_gap": gaps,
+                              "fwd_max_abs_gap": (out.float() - full_out.float()).abs().max().item(),
+                              "full_max_abs": full_out.float().abs().max().item(),
+                              "fwd_bit_equal": bool(torch.equal(out, full_out)),
+                              "dx_bit_equal": bool(torch.equal(grads[0], full_grads[0]))}}
+
+
+def phase_tp_heads(out_root=None, rows=None, errs=None):
+    """Phase 5t (module docstring). Returns the launch counts of the
+    counted sublayers; `rows` / `errs` (the kernel phase's) take the
+    head-group shapes' check rows."""
+    t_phase = time.perf_counter()
+    if rows is None:
+        rows = {name: [] for name in COUNTERS}
+        errs = {name: {} for name in COUNTERS}
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    total = dict.fromkeys(COUNTERS, 0)
+    blocks = []
+    for tag, B, S, W, H, causal in TP_HEAD_SHAPES:
+        wl, hl = W // TP_HEADS, H // TP_HEADS
+        pair = attention_ops.core_kernel(S, wl, hl)
+        check(pair == attention_ops.core_kernel(S, W, H), f"tp_heads {tag}: the head group takes {pair}")
+        k = K1 if pair == "k1" else K2
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            # the head group's shape against its plain version, the gates of
+            # the kernel phase (timed in bf16, the training dtype)
+            check_attention(rows, errs, k, gen, f"tp{TP_HEADS}_{tag}", B, S, wl, hl, causal, dtype,
+                            dtype == torch.bfloat16)
+            row = {"shape": tag, "B": B, "S": S, "W": W, "H": H, "tp": TP_HEADS, "dtype": name,
+                   "kernel": pair, "head_group": [B, S, wl, hl],
+                   **tp_attention_check(k, gen, tag, B, S, W, H, causal, dtype)}
+            total = {n: total[n] + row["launched"].get(n, 0) for n in COUNTERS}
+            blocks.append(row)
+            emit({"phase": "tp_heads", **row})
+    # K4a (ln_1) and K4b (+ K4c) on a rank's sequence-parallel local rows
+    for tag, N, W in TP_LN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_ln(rows, errs, gen, tag, N, W, dtype, dtype == torch.bfloat16, False)
+            res, delta, dh, dy, dx = (torch.randn((N, W), device="cuda", generator=gen).to(dtype)
+                                      .requires_grad_(i < 2) for i in range(5))
+            ln_params = [((1.0 + 0.1 * torch.randn((W,), device="cuda", generator=gen)).requires_grad_(True),
+                          (0.1 * torch.randn((W,), device="cuda", generator=gen)).requires_grad_(True))
+                         for _ in range(2)]
+            reset_launches()
+            h = ln.fused_layer_norm(res, *ln_params[0])
+            x, y = ln.fused_add_layer_norm(res, delta, *ln_params[1])
+            grads = torch.autograd.grad((h, x, y), (res, delta) + ln_params[0] + ln_params[1], (dh, dx, dy))
+            torch.cuda.synchronize()
+            launched = read_launches()
+            want = dict.fromkeys(COUNTERS, 0)
+            want[ln.KERNEL], want[ADD_LN_KERNEL], want[ln.BWD_KERNEL] = 1, 1, 2 * ln.BWD_LAUNCHES_PER_CALL
+            check(launched == want, f"tp_heads {tag} {str(dtype)}: launched {launched}, not {want}")
+            check(all(bool(torch.isfinite(g).all()) for g in grads), f"tp_heads {tag}: K4 grads finite")
+            total = {n: total[n] + launched[n] for n in COUNTERS}
+            del res, delta, dh, dy, dx, h, x, y, grads
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "tp_heads_summary", "tp": TP_HEADS, "launches": total, "seconds": seconds,
+          "reckoned_tp_rank_state_gib": {f"{name} tp={tp}": reckoned_tp_rank_state_gib(m, tp)
+                                         for name, m in (("ViT-B/32", VIT_B32), ("ViT-L/14", VIT_L14))
+                                         for tp in (2, 4)},
+          "bit_equal_to_full_width": {f"{r['shape']}_{r['dtype']}": [r["vs_full_width"]["fwd_bit_equal"],
+                                                                     r["vs_full_width"]["dx_bit_equal"]]
+                                      for r in blocks}})
+    return total
+
+
 # ------------------------------------------------------------- data feed
 
 # the data_feed phase's synthetic VOA corpus: 768 news-photo-sized JPEGs
@@ -4349,7 +4538,7 @@ def phase_data_feed(out_root):
 PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn50,
                 "train_rn50": phase_train_rn50, "evals": phase_evals,
                 "serving_bundle": phase_serving_bundle, "train_dp": phase_train_dp,
-                "data_feed": phase_data_feed}
+                "data_feed": phase_data_feed, "tp_heads": phase_tp_heads}
 
 
 def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
@@ -4518,6 +4707,7 @@ def main(argv=None) -> int:
         paths["train"], train_ms, train_prof = phase_train(out_root)
         paths["train_graph"] = phase_train_graph(out_root)
         paths["train_dp"] = phase_train_dp(out_root)
+        paths["tp_heads"] = phase_tp_heads(out_root, rows, errs)
         paths["data_feed"] = phase_data_feed(out_root)
         paths["train_ln"], paths["train_ln_l14"] = phase_train_ln(out_root, train_ms, train_prof)
         paths["serving_ln"] = phase_serving_ln()

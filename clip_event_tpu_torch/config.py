@@ -4,11 +4,14 @@
 The same keys, defaults and checks as the JAX package's `validate_config`
 (including the original `constrastive_*` spellings), for the keys this
 port carries. A key of a part not ported yet raises `ConfigError` naming
-its ROADMAP item when it is set to anything but its default: the tensor,
-sequence, pipeline and multi-slice keys (`tp`, `sp`, `pp`, `dcn_dp`:
-A6(c)). `zero` (ZeRO-1: the optimizer's moments sharded over the
-data-parallel ranks) and `fsdp` (the params too) take a bool, as in the
-JAX package (`parallel/sharding.py`).
+its ROADMAP item when it is set to anything but its default: pipeline
+parallelism (`pp`: A6(c)). `zero` (ZeRO-1: the optimizer's moments
+sharded over the data-parallel ranks) and `fsdp` (the params too) take a
+bool, as in the JAX package (`parallel/sharding.py`). `tp` (Megatron
+tensor parallelism), `sp` (sequence parallelism over the tp ranks) and
+`dcn_dp` (data-parallel slices) follow the JAX package's rules and
+messages (`clip_event_tpu/config.py:233-256`); `zero` or `fsdp` together
+with `tp > 1` or `dcn_dp > 1` is refused (A6(c): not composed yet).
 `image_cache` names a cache that `data/cache.py` built (the train and eval
 CLIs activate it). Data parallelism (A6(a)) needs no key: it follows the
 launch (`torchrun`, `mpirun`, `srun`), with `batch_size` per process.
@@ -134,9 +137,7 @@ _DEFAULTS: Dict[str, Any] = {
 }
 
 # keys of parts not ported yet: the ROADMAP item that brings each
-_UNPORTED = {
-    "tp": "A6(c)", "pp": "A6(c)", "sp": "A6(c)", "dcn_dp": "A6(c)",
-}
+_UNPORTED = {"pp": "A6(c)"}
 
 
 class ConfigError(ValueError):
@@ -166,6 +167,31 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
 
     if not isinstance(out["batch_size"], int) or out["batch_size"] <= 0:
         raise ConfigError("batch_size must be a positive int")
+    # the JAX package's model-parallel rules, with its messages
+    if not isinstance(out["tp"], int) or out["tp"] < 1:
+        raise ConfigError("tp must be a positive int (1 = data-parallel only)")
+    if not isinstance(out["pp"], int) or out["pp"] < 1:
+        raise ConfigError("pp must be a positive int (1 = no pipeline parallelism)")
+    if out["pp"] > 1 and out["tp"] > 1:
+        raise ConfigError(
+            "pp>1 and tp>1 are mutually exclusive: pick ONE model-sharding "
+            "axis (tp column/row-shards weights, pp layer-shards the stacks)"
+        )
+    if out["sp"] and out["tp"] <= 1:
+        raise ConfigError(
+            "sp (sequence parallelism) shards the residual stream over the "
+            "tp axis — it requires tp > 1"
+        )
+    if not isinstance(out["pp_microbatches"], int) or out["pp_microbatches"] < 1:
+        raise ConfigError("pp_microbatches must be a positive int")
+    if not isinstance(out["dcn_dp"], int) or out["dcn_dp"] < 1:
+        raise ConfigError("dcn_dp must be a positive int (1 = single slice)")
+    if out["dcn_dp"] > 1 and out["pp"] > 1:
+        raise ConfigError(
+            "dcn_dp>1 with pp>1 is not supported: the GPipe ppermute "
+            "schedule would rotate activations over DCN every microbatch — "
+            "keep pipeline stages inside one slice"
+        )
     cap = out["context_cap"]
     if not isinstance(cap, int) or cap < 0:
         raise ConfigError("context_cap must be an int ≥ 0 (0 = full context)")
@@ -206,6 +232,9 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         raise ConfigError("zero must be a bool (ZeRO-1 moment sharding)")
     if not isinstance(out["fsdp"], bool):
         raise ConfigError("fsdp must be a bool (ZeRO-3 param sharding)")
+    if (out["zero"] or out["fsdp"]) and (out["tp"] > 1 or out["dcn_dp"] > 1):
+        raise ConfigError(
+            "zero / fsdp with tp>1 or dcn_dp>1 is not ported yet (ROADMAP A6(c))")
     if out["begin_epoch"] > out["max_epoch"]:
         raise ConfigError("begin_epoch must be ≤ max_epoch")
     if not isinstance(out["grad_accum_steps"], int) or out["grad_accum_steps"] < 1:

@@ -62,8 +62,10 @@ class ImageFilesDataset(ExampleDataset):
 
 
 def _write_shard(out_dir: str, kind: str, tag: str, shard_idx: int,
-                 ids: List[str], feats: List[np.ndarray]) -> str:
+                 ids: List[str], feats: List[np.ndarray], write: bool = True) -> str:
     path = os.path.join(out_dir, f"{kind}-{tag}{shard_idx:05d}.npz")
+    if not write:
+        return path
     np.savez_compressed(
         path,
         ids=np.asarray(ids),
@@ -74,14 +76,15 @@ def _write_shard(out_dir: str, kind: str, tag: str, shard_idx: int,
 
 def embed_stream(dataset, enc, field: str, kind: str, out_dir: str,
                  shard_size: int, batch_size: int, num_workers: int = 8,
-                 id_key: str = "id", rank: int = 0, world_size: int = 1) -> Dict:
+                 id_key: str = "id", rank: int = 0, world_size: int = 1, write: bool = True) -> Dict:
     """Encode `dataset` and write `<kind>-NNNNN.npz` shards of (ids, features).
 
     Constant host memory: at most one shard of features is resident. With
     `world_size` > 1 this rank encodes its rank-strided slice and writes
     `<kind>-rNN-NNNNN.npz` shards, without the loader's wrap-around rows
-    (no gather: the export is embarrassingly parallel). Returns this
-    rank's manifest entry for the stream."""
+    (no gather: the export is embarrassingly parallel). `write` False
+    (a tp group's other ranks) encodes and names the shards without
+    writing them. Returns this rank's manifest entry for the stream."""
     from clip_event_tpu_torch.evals.common import genuine_rows
 
     os.makedirs(out_dir, exist_ok=True)
@@ -110,12 +113,12 @@ def embed_stream(dataset, enc, field: str, kind: str, out_dir: str,
         while len(ids) >= shard_size:
             buf = np.concatenate(feats)
             shards.append(
-                _write_shard(out_dir, kind, tag, len(shards), ids[:shard_size], [buf[:shard_size]])
+                _write_shard(out_dir, kind, tag, len(shards), ids[:shard_size], [buf[:shard_size]], write)
             )
             rest = buf[shard_size:]
             ids, feats = ids[shard_size:], ([rest] if rest.size else [])
     if ids:
-        shards.append(_write_shard(out_dir, kind, tag, len(shards), ids, feats))
+        shards.append(_write_shard(out_dir, kind, tag, len(shards), ids, feats, write))
     return {
         "kind": kind, "count": count, "dim": int(dim or 0),
         "shards": [os.path.basename(s) for s in shards],
@@ -139,10 +142,11 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
                             in the process group; (0, 1) without one)
     """
     from clip_event_tpu_torch.data.text import TextDataset
-    from clip_event_tpu_torch.evals.common import Encoders, resolve_shard
-    from clip_event_tpu_torch.parallel.collectives import all_gather_objects
+    from clip_event_tpu_torch.evals.common import Encoders, gather_data_objects, resolve_shard, writes_files
 
     rank, world_size = resolve_shard(cfg.get("rank"), cfg.get("world_size"))
+    # under tensor parallelism one rank of a tp group writes its files
+    writer = writes_files(world_size)
     out_dir = cfg["output_dir"]
     batch = cfg.get("batch_size", 64)
     shard = cfg.get("shard_size", 50000)
@@ -160,7 +164,7 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
         ds = ImageFilesDataset(image_dirs, image_files, mcfg.image_resolution)
         log.info("embedding %d images", len(ds))
         manifests["images"] = embed_stream(ds, enc, "image", "image", out_dir, shard, batch, workers,
-                                           rank=rank, world_size=world_size)
+                                           rank=rank, world_size=world_size, write=writer)
 
     texts = list(cfg.get("texts", []))
     if cfg.get("text_file"):
@@ -192,6 +196,7 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
             m = embed_stream(
                 ds, enc, "text", f"text-w{cap}" if cap else "text",
                 out_dir, shard, batch, workers, id_key="text", rank=rank, world_size=world_size,
+                write=writer,
             )
             if merged is None:
                 merged = m
@@ -206,14 +211,14 @@ def run_embed(cfg: dict, params, mcfg, device="cuda") -> dict:
     if world_size > 1:
         # the ranks' manifests merged: every rank returns the global one
         merged_all: Dict[str, Dict] = {}
-        for rank_manifests in all_gather_objects(manifests):
+        for rank_manifests in gather_data_objects(manifests, world_size):
             for k, m in rank_manifests.items():
                 if k not in merged_all:
                     merged_all[k] = dict(m, count=0, shards=[])
                 merged_all[k]["count"] += m["count"]
                 merged_all[k]["shards"] += m["shards"]
         manifests = merged_all
-    if rank == 0:
+    if rank == 0 and writer:
         with open(os.path.join(out_dir, "manifest.json"), "w") as fh:
             json.dump(manifests, fh, indent=2)
     return {k: {"count": m["count"], "shards": len(m["shards"]), "dim": m["dim"]}

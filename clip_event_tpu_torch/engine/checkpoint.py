@@ -15,9 +15,10 @@ not read (ROADMAP A9: not to do, orbax imports JAX). Under data
 parallelism the save is collective: every rank calls it, rank 0 (whose
 state every rank shares) writes the file and the meta, and every rank
 waits at a barrier until the write is done; a resume loads the file on
-every rank. A ZeRO-1 or FSDP state (`parallel/sharding.py`) is gathered
-first, on every rank, so its file is the one an unsharded run writes: the
-full params and optimizer trees. A resume loads the full state and the
+every rank. A ZeRO-1, FSDP or tensor-parallel state (`parallel/sharding.py`) is
+gathered first, on every rank (a tp state with its head-group reorder
+inverted), so its file is the one an unsharded run writes: the full
+params and optimizer trees. A resume loads the full state and the
 train loop shards it again (`train.py`), so a file written at one world,
 sharded or not, resumes at any other.
 """

@@ -40,6 +40,20 @@ reduce-scatters: the gradients arrive summed and sharded, and only the
 replicated leaves and the local loss sums take the all-reduce. The
 non-finite freeze stays on the global total, so every rank freezes alike.
 
+Tensor parallelism (a mesh with tp > 1 and a state sharded by
+`parallel.sharding.shard_state_tp`, `TrainState.sharding` a `TPLayout`):
+the step runs its forward and backward under the mesh's tp group
+(`layers.tensor_parallel`), so the stacks run Megatron's blocks on the
+rank's slices; everything above concerns the data ranks (`mesh.data`: a
+tp group holds the same rows), so the features gather, the labels and the
+gradient sum go over the data group, whose rank 0 brings the whole total;
+the leaves whose gradient a tp rank holds in part (`TPLayout.partial`:
+`ln_1`, and under sequence parallelism `ln_2`, `out_b`, `proj_b`) are
+summed over the tp group first; the clip takes the norm of each split
+leaf over its slices, a whole leaf once (`TPLayout.norm`); Adam updates
+the slices elementwise. Under dcn > 1 the data group spans the slices,
+and its sum is the same one all-reduce (`collectives.all_reduce_flat`).
+
 The step updates `state.params` and `state.opt_state` in place (the same
 tensors stay the model's parameters and the optimizer's state from step to
 step) and returns the new state. `make_multi_step` runs K steps in one
@@ -48,6 +62,7 @@ dispatch, on the card as a CUDA graph of the step replayed K times.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -117,11 +132,14 @@ def loss_fn(
     which this rank holds the block at rank · U (`data/dedupe.py`)."""
     kw = dict(compute_dtype=compute_dtype, impl=impl, remat=remat)
 
+    # the data-parallel view: a tp group's ranks hold the same rows
+    data = None if mesh is None else mesh.data
+
     def local_inverse(prefix):
         inverse = batch[f"{prefix}_inverse"].long()
         if mesh is None:
             return inverse
-        return inverse - mesh.rank * batch[f"{prefix}_unique"].shape[0]
+        return inverse - data.rank * batch[f"{prefix}_unique"].shape[0]
 
     if "text_unique" in batch or mesh is not None:
         image_features = clip_model.l2_normalize(
@@ -142,11 +160,11 @@ def loss_fn(
         labels_per_image, labels_per_text = batch["labels_per_image"], batch["labels_per_text"]
         scale_params = params
         if mesh is not None:
-            image_features = collectives.gather_features(image_features, mesh)
-            text_features = collectives.gather_features(text_features, mesh)
-            labels_per_image = collectives.all_gather_rows(labels_per_image, mesh)
-            labels_per_text = collectives.all_gather_rows(labels_per_text, mesh)
-            scale_params = {"logit_scale": collectives.replicated_term(params["logit_scale"], mesh)}
+            image_features = collectives.gather_features(image_features, data)
+            text_features = collectives.gather_features(text_features, data)
+            labels_per_image = collectives.all_gather_rows(labels_per_image, data)
+            labels_per_text = collectives.all_gather_rows(labels_per_text, data)
+            scale_params = {"logit_scale": collectives.replicated_term(params["logit_scale"], data)}
         logits_per_image, logits_per_text = clip_model.contrastive_logits(
             scale_params, image_features, text_features, overbatch
         )
@@ -188,6 +206,15 @@ def _grads(total: torch.Tensor, params: dict):
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
+def _tensor_parallel(mesh):
+    """The tp group of a step on a mesh with tp > 1, for its forward and
+    backward (`layers.tensor_parallel`; the recomputed regions of the
+    backward read it too); nothing else changes for any other mesh."""
+    if mesh is None or mesh.tp == 1:
+        return contextlib.nullcontext()
+    return layers.tensor_parallel(mesh)
+
+
 def _model_params(state: TrainState, mesh):
     """The params as the model reads them: the state's, or under FSDP its
     shards wrapped for the per-use gather."""
@@ -201,18 +228,30 @@ def _model_params(state: TrainState, mesh):
 
 def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Tensor], mesh,
                       layout=None):
-    """(grads, total, loss_dict) summed across the ranks in one all-reduce
-    a dtype: the gradients, the `LOCAL_SUM_TERMS`, and the total, to which
-    rank 0 brings its whole total (the global contrastive terms, which
-    every rank holds alike, counted once) and every other rank its local
-    sums. The global contrastive terms stay as they are. With a ZeRO-1
+    """(grads, total, loss_dict) summed across the data ranks in one
+    all-reduce a dtype (`collectives.all_reduce_flat`):
+    the gradients, the `LOCAL_SUM_TERMS`, and the total, to which data rank
+    0 brings its whole total (the global contrastive terms, which every rank
+    holds alike, counted once) and every other rank its local sums. The
+    global contrastive terms stay as they are. With a tensor-parallel
+    `layout` the leaves whose gradient the tp ranks hold in part are summed
+    over the tp group first (one all-reduce a dtype). With a ZeRO-1
     `layout` one reduce-scatter a dtype gives this rank its shards of the
     summed gradients and every rank the sums; with an FSDP one the
     gradients are summed shards already, and the all-reduce takes only the
     replicated leaves' and the sums."""
     local = [k for k in loss_dict if k in LOCAL_SUM_TERMS]
+    data = mesh.data
     with torch.no_grad():
-        if mesh.rank == 0:
+        if layout is not None and layout.mode == "tp":
+            partial = layout.partial()
+            grads = list(grads)
+            if partial:
+                for i, v in zip(partial, collectives.all_reduce_flat([grads[i] for i in partial],
+                                                                     mesh.tensor)):
+                    grads[i] = v
+            layout = None
+        if data.rank == 0:
             own = total.detach()
         else:
             own = torch.zeros_like(total)
@@ -220,7 +259,7 @@ def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Ten
                 own = own + loss_dict[k].detach()
         scalars = [v.reshape(1) for v in [own] + [loss_dict[k].detach() for k in local]]
         if layout is None:
-            summed = collectives.all_reduce_flat(list(grads) + scalars, mesh)
+            summed = collectives.all_reduce_flat(list(grads) + scalars, data)
             grads, sums = summed[:len(grads)], summed[len(grads):]
         elif layout.mode == "zero":
             grads, sums = layout.reduce_scatter(grads, scalars)
@@ -305,12 +344,13 @@ def make_train_step(
     (module docstring)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        total, loss_dict = loss_fn(
-            _model_params(state, mesh), batch, cfg, loss_type, overbatch, compute_dtype, remat,
-            impl, alignment, use_pallas_ot, alignment_chunks, multiattention,
-            multiattention_pooling, mesh,
-        )
-        grads = _grads(total, state.params)
+        with _tensor_parallel(mesh):
+            total, loss_dict = loss_fn(
+                _model_params(state, mesh), batch, cfg, loss_type, overbatch, compute_dtype, remat,
+                impl, alignment, use_pallas_ot, alignment_chunks, multiattention,
+                multiattention_pooling, mesh,
+            )
+            grads = _grads(total, state.params)
         if mesh is not None:
             grads, total, loss_dict = _sum_across_ranks(grads, total, loss_dict, mesh, state.sharding)
         return _apply_update(state, grads, total, loss_dict, optimizer)
@@ -483,12 +523,13 @@ def make_accum_step(
         params = _model_params(state, mesh)
         for k in range(accum_steps):
             micro = {key: v[k] for key, v in batches.items()}
-            total, loss_dict = loss_fn(
-                params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl,
-                alignment, use_pallas_ot, alignment_chunks, multiattention,
-                multiattention_pooling, mesh,
-            )
-            grads = _grads(total, state.params)
+            with _tensor_parallel(mesh):
+                total, loss_dict = loss_fn(
+                    params, micro, cfg, loss_type, overbatch, compute_dtype, remat, impl,
+                    alignment, use_pallas_ot, alignment_chunks, multiattention,
+                    multiattention_pooling, mesh,
+                )
+                grads = _grads(total, state.params)
             metrics = {"loss": total.detach(), **{n: v.detach() for n, v in loss_dict.items()}}
             if gsum is None:
                 gsum, msum = grads, metrics

@@ -37,7 +37,7 @@ def evaluate(cfg, model, mcfg, device):
         ground_via=cfg.get("ground_via", "grid"),
         value_metrics=cfg.get("value_metrics", True),
         iou_threshold=cfg.get("iou_threshold", 0.5),
-        device=device,
+        device=device, rank=cfg.get("rank"), world_size=cfg.get("world_size"),
     )
 
 

@@ -32,7 +32,7 @@ def evaluate(cfg, model, mcfg, device):
         ground_arguments=cfg.get("ground_arguments", False),
         arg_topk=cfg.get("arg_topk", 4),
         iou_threshold=cfg.get("iou_threshold", 0.5),
-        device=device,
+        device=device, rank=cfg.get("rank"), world_size=cfg.get("world_size"),
     )
 
 

@@ -34,7 +34,8 @@ def evaluate(cfg, model, mcfg, device):
     else:
         raise ValueError("dataset must be 'voa' or 'meed'")
     return evaluate_matching(
-        model, mcfg, dataset, batch_size=cfg.get("batch_size", 32), device=device
+        model, mcfg, dataset, batch_size=cfg.get("batch_size", 32), device=device,
+        rank=cfg.get("rank"), world_size=cfg.get("world_size"),
     )
 
 

@@ -31,7 +31,8 @@ def evaluate(cfg, model, mcfg, device):
         )
     else:
         raise ValueError("dataset must be 'coco' or 'flickr'")
-    return evaluate_retrieval(model, mcfg, dataset, batch_size=cfg.get("batch_size", 32), device=device)
+    return evaluate_retrieval(model, mcfg, dataset, batch_size=cfg.get("batch_size", 32), device=device,
+                              rank=cfg.get("rank"), world_size=cfg.get("world_size"))
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ def evaluate(cfg, model, mcfg, device):
         rationale=cfg.get("rationale", False),
         image_size=mcfg.image_resolution,
     )
-    return evaluate_vcr(model, mcfg, dataset, batch_size=cfg.get("batch_size", 32), device=device)
+    return evaluate_vcr(model, mcfg, dataset, batch_size=cfg.get("batch_size", 32), device=device,
+                        rank=cfg.get("rank"), world_size=cfg.get("world_size"))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ def evaluate(cfg, model, mcfg, device):
         image_size=mcfg.image_resolution,
     )
     return evaluate_visualcomet(model, mcfg, dataset, batch_size=cfg.get("batch_size", 32),
-                                device=device)
+                                device=device, rank=cfg.get("rank"), world_size=cfg.get("world_size"))
 
 
 if __name__ == "__main__":

@@ -14,6 +14,14 @@ rank's slice of the dataset on `cuda:LOCAL_RANK` (NCCL; gloo with
 `--device cpu`), every rank ends with the full-set metrics, and rank 0
 prints them and writes `output_json` (`evals/common.py`).
 
+`"tp": N` (Megatron tensor parallelism for inference, the JAX CLI's key)
+needs a launch of dp·N ranks: the model's float transformer stacks and
+token embedding are split over each tp group (`parallel.sharding.
+shard_params_tp`; int8 weights stay whole on every rank, as JAX keeps
+them), and the eval rows over the data ranks. Without a launch it
+refuses: JAX's tp evals are one process over its local devices, and the
+port runs one device a process.
+
 `"quantize": "int8"` serves the dense weights in int8 with dynamic
 per-row activation scales; `"int8_static"` adds static scales calibrated
 at load time (`calibration_batches_from_cfg`); `"quantize_towers":
@@ -155,8 +163,9 @@ def calibration_batches_from_cfg(cfg: dict, mcfg):
 def run(description: str, evaluate) -> None:
     """Parse --cfg/--device, join the process group of a multi-process
     launch, build the model, call `evaluate(cfg, model, mcfg, device)`
-    under the attention choice of `use_pallas_attention`; rank 0 prints
-    the metrics JSON."""
+    under the attention choice of `use_pallas_attention`, with the cfg's
+    `rank` / `world_size` (unless given) the mesh's data rank and world;
+    rank 0 prints the metrics JSON."""
     import torch.distributed as dist
 
     from clip_event_tpu_torch.models import layers
@@ -167,18 +176,32 @@ def run(description: str, evaluate) -> None:
     args = build_parser(description).parse_args()
     with open(args.cfg) as fh:
         cfg = json.load(fh)
-    if int(cfg.get("tp", 1)) > 1:
-        raise SystemExit("tp>1 evals are not ported yet (ROADMAP A6(c))")
+    tp = int(cfg.get("tp", 1))
     if cfg.get("image_cache") and not os.environ.get("CLIP_EVENT_IMAGE_CACHE"):
         from clip_event_tpu_torch.data import cache as image_cache
 
         image_cache.activate(cfg["image_cache"])
     owned = not dist.is_initialized()
     initialize_distributed(args.device)
-    device = make_mesh(args.device).device if dist.is_initialized() else args.device
+    if tp > 1 and not dist.is_initialized():
+        raise SystemExit(f"tp={tp} evals shard the model over processes, one a GPU: launch dp x tp "
+                         "ranks with torchrun (or mpirun / srun)")
+    mesh = make_mesh(args.device, tp=tp) if dist.is_initialized() else None
+    device = mesh.device if mesh is not None else args.device
+    if mesh is not None:
+        # the eval's shard: this rank's data rank (a tp group shares one)
+        cfg = {"rank": mesh.data.rank, "world_size": mesh.data.world_size, **cfg}
     try:
         model, mcfg = load_model_from_cfg(cfg, device)
-        with layers.attention_impl("kernel" if cfg.get("use_pallas_attention", True) else "plain"):
+        if tp > 1:
+            from clip_event_tpu_torch.models.clip import CLIP
+            from clip_event_tpu_torch.parallel.sharding import check_tp_kernels, shard_params_tp
+
+            if cfg.get("use_pallas_attention", True):
+                check_tp_kernels(mcfg, tp)
+            model = CLIP(mcfg, shard_params_tp(model.params(), mcfg, mesh))
+        with layers.attention_impl("kernel" if cfg.get("use_pallas_attention", True) else "plain"), \
+                layers.tensor_parallel(mesh):
             metrics = evaluate(cfg, model, mcfg, device)
         if comm.is_main_process:
             print(json.dumps(metrics, indent=2))

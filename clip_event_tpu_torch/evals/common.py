@@ -35,12 +35,39 @@ def resolve_shard(rank: Optional[int], world_size: Optional[int]) -> Tuple[int, 
     """The eval shard of this process: (rank, world_size) as given, or,
     when either is None, this process's place in the process group (every
     rank of a data-parallel run evaluates its own slice); (0, 1) without
-    one."""
+    one. Under tensor parallelism the caller passes its mesh's data view
+    (`mesh.data`: the ranks of a tp group share one slice), as the eval
+    CLIs do."""
     if rank is None or world_size is None:
         from clip_event_tpu_torch.parallel.collectives import comm
 
         return comm.rank, comm.world_size
     return rank, world_size
+
+
+def _ranks_per_shard(world_size: int) -> int:
+    """The processes that evaluate one of `world_size` shards: the ranks
+    of a tp group (consecutive, `parallel/mesh.py`), 1 without tp."""
+    from clip_event_tpu_torch.parallel.collectives import comm
+
+    return max(1, comm.world_size // max(1, world_size))
+
+
+def gather_data_objects(obj, world_size: int) -> list:
+    """Every shard's picklable `obj`, in shard order, for `world_size`
+    shards: the host all-gather (`collectives.all_gather_objects`), the
+    first rank of each tp group speaking for its shard."""
+    from clip_event_tpu_torch.parallel.collectives import all_gather_objects
+
+    return all_gather_objects(obj)[::_ranks_per_shard(world_size)]
+
+
+def writes_files(world_size: int) -> bool:
+    """Whether this process writes the files of its shard (one of
+    `world_size`): the first rank of its tp group."""
+    from clip_event_tpu_torch.parallel.collectives import comm
+
+    return comm.rank % _ranks_per_shard(world_size) == 0
 
 
 def eval_loader(dataset, batch_size: int, num_workers: int = 8, rank: int = 0, world_size: int = 1):
@@ -65,9 +92,7 @@ def merge_across_ranks(n: int, world_size: int, *parts):
     (stacked on axis 0) and lists (metas)."""
     if world_size <= 1:
         return parts if len(parts) > 1 else parts[0]
-    from clip_event_tpu_torch.parallel.collectives import all_gather_objects
-
-    gathered = all_gather_objects(parts)
+    gathered = gather_data_objects(parts, world_size)
     per_rank = -(-n // world_size)
     total = per_rank * world_size
     outs = []

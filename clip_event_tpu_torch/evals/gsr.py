@@ -26,6 +26,7 @@ from clip_event_tpu_torch.data.sr import GSRDataset
 from clip_event_tpu_torch.evals.common import (
     Encoders,
     eval_loader,
+    gather_data_objects,
     genuine_rows,
     merge_across_ranks,
     resolve_shard,
@@ -33,7 +34,6 @@ from clip_event_tpu_torch.evals.common import (
 from clip_event_tpu_torch.models import clip as clip_model
 from clip_event_tpu_torch.models.local_attention import pool_bbox_features
 from clip_event_tpu_torch.ops.bbox import iou_batch
-from clip_event_tpu_torch.parallel.collectives import all_gather_objects
 
 
 def _grid_features_fn(cfg, compute_dtype=None):
@@ -216,7 +216,8 @@ def evaluate_gsr(
         len(dataset), world_size, np.concatenate(image_feats), np.concatenate(gold_verbs)
     )
     if world_size > 1:
-        counts = all_gather_objects((hits, total, v_hits, v_total, va_hits, va_total, gv_hits, gva_hits))
+        counts = gather_data_objects((hits, total, v_hits, v_total, va_hits, va_total, gv_hits, gva_hits),
+                                     world_size)
         hits, total, v_hits, v_total, va_hits, va_total, gv_hits, gva_hits = (
             sum(c[k] for c in counts) for k in range(8))
     cand_feats = enc.texts(dataset.candidate_tokens)

@@ -31,12 +31,12 @@ from clip_event_tpu_torch.data.m2e2 import M2E2Dataset
 from clip_event_tpu_torch.evals.common import (
     Encoders,
     eval_loader,
+    gather_data_objects,
     genuine_rows,
     macro_prf,
     resolve_shard,
 )
 from clip_event_tpu_torch.ops.bbox import iou
-from clip_event_tpu_torch.parallel.collectives import all_gather_objects
 
 
 def prf(correct: int, n_pred: int, n_gold: int) -> Dict[str, float]:
@@ -273,9 +273,9 @@ def evaluate_m2e2(
     if world_size > 1:
         # one gather: the per-image event records, the additive argument
         # counts and the secondary per-image arrays
-        parts = all_gather_objects(
+        parts = gather_data_objects(
             (img_gidx, img_top_prob, img_top_idx, img_correct, img_gold,
-             arg_correct, arg_pred, arg_gold, sec_pred, sec_gold)
+             arg_correct, arg_pred, arg_gold, sec_pred, sec_gold), world_size
         )
         img_gidx, img_top_prob, img_top_idx, img_correct = (
             np.concatenate([c[k] for c in parts]) for k in range(4))

@@ -33,6 +33,7 @@ from clip_event_tpu_torch.models.clip_config import (  # noqa: F401
 from clip_event_tpu_torch.models.resnet import init_resnet, resnet_encode
 from clip_event_tpu_torch.models.vit import init_vit, vit_encode
 from clip_event_tpu_torch.ops.quant import QuantWeight
+from clip_event_tpu_torch.parallel import collectives
 from clip_event_tpu_torch.parallel.sharding import full
 from clip_event_tpu_torch.platform import resolve_device
 
@@ -153,7 +154,7 @@ def encode_text(
     to the same feature as in the full 77-token layout."""
     tokens = tokens.long()
     seq = tokens.shape[-1]
-    x = full(params["token_embedding"])[tokens].to(compute_dtype)
+    x = embed_tokens(full(params["token_embedding"]), tokens, cfg.vocab_size).to(compute_dtype)
     x = x + full(params["positional_embedding"])[:seq].to(compute_dtype)
     bias = L.causal_mask(seq, device=x.device)
     x = L.transformer(x, params["text_transformer"], cfg.transformer_heads, bias, impl, remat)
@@ -163,6 +164,24 @@ def encode_text(
     return L.linear(pooled, params["text_projection"])
 
 
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The token embeddings of `tokens`. A table of V/tp rows is a tp
+    rank's vocab-parallel slice (`parallel/sharding.py`): the rows outside
+    its range give zeros, and the sum over the tp group
+    (`collectives.tp_sum`) is the whole lookup, bit for bit (one rank holds
+    each row)."""
+    if table.shape[0] == vocab_size:
+        return table[tokens]
+    tp = L.resolve_tensor_parallel()
+    if tp is None or table.shape[0] * tp.world_size != vocab_size:
+        raise ValueError(f"a token embedding of {table.shape[0]} rows for a vocabulary of {vocab_size}: "
+                         "a tp rank's slice needs the tp group (layers.set_tensor_parallel)")
+    local = tokens - tp.rank * table.shape[0]
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)].masked_fill(~mine.unsqueeze(-1), 0.0)
+    return collectives.tp_sum(rows, tp)
+
+
 def text_act_stats(params: dict, cfg: CLIPConfig, tokens: torch.Tensor,
                    compute_dtype=torch.float32) -> dict:
     """Dense-input abs-max stats of the text tower (static int8 activation
@@ -170,7 +189,7 @@ def text_act_stats(params: dict, cfg: CLIPConfig, tokens: torch.Tensor,
     {"text_transformer": {...[L]...}, "text_projection"}."""
     tokens = tokens.long()
     seq = tokens.shape[-1]
-    x = params["token_embedding"][tokens].to(compute_dtype)
+    x = embed_tokens(params["token_embedding"], tokens, cfg.vocab_size).to(compute_dtype)
     x = x + params["positional_embedding"][:seq].to(compute_dtype)
     bias = L.causal_mask(seq, device=x.device)
     x, tstats = L.transformer_with_act_stats(x, params["text_transformer"], cfg.transformer_heads, bias)

@@ -64,6 +64,34 @@ inside its recomputed region; under "attn" the gathered ln_1 and QKV
 weights are what `_AttentionSaved` keeps, and the rest of the block is
 gathered inside the checkpoint of its tail.
 
+Tensor parallelism (`set_tensor_parallel(mesh)`, `with
+tensor_parallel(mesh)`: the train step sets it from its mesh, the eval
+CLIs from theirs). A stack whose `qkv_w` is [L, W, 3W/tp] (a tp rank's
+slice, `parallel/sharding.py`) runs Megatron's blocks over the mesh's tp
+group (`collectives.tp_copy` f, `tp_sum` g): the column-parallel QKV and
+fc products on the rank's columns, the core on its H/tp heads (K1 or K2 by
+the head group's shape; the scale from the full head_dim), the
+row-parallel out and proj products summed, `out_b` and `proj_b` added once
+after the sum. The f before a block's attention sits before `ln_1`,
+outside the "attn" policy's saved region (whose forward and backward stay
+collective-free without sequence parallelism), so `ln_1`'s gradient is
+split over the tp ranks and the step sums it over the tp group. Under
+sequence parallelism (`Mesh.sp`) the residual stream is [B, ⌈S/tp⌉, W] a
+rank: the stack pads S to a multiple of tp and takes the rank's chunk at
+its entry, and gathers and drops the pad at its exit; `ln_1`, `ln_2`, the
+residual adds and the LayerNorm kernels (K4, `use_pallas_ln`) run on the
+local rows; an all-gather over the sequence (`sp_gather`) comes after
+`ln_1` and `ln_2`, before the column-parallel products, and a
+reduce-scatter (`sp_reduce_scatter`) after the row-parallel ones; the pad
+rows are dropped after the gather before the attention projection, so
+they never reach the core. Under "attn" the saved region then holds the
+gather: it keeps the local rows of the block input, not the gathered
+stream, and gathers ln_1's output again in its backward, so a block keeps
+B·⌈S/tp⌉·W of its input where tp alone keeps B·S·W. The JAX package runs its XLA LayerNorm under
+sequence parallelism (a TPU `shard_map` reason); here the kernels run on
+the local rows, the same numbers. A whole stack (W or H not dividing tp,
+or int8 weights) runs unsharded, with no collective.
+
 A dense weight may be an int8 `ops.quant.QuantWeight` (the inference
 path): `linear` sends it to `quantized_linear` (K5 on the card), and
 `_layer` slices its stacked tensors like any other leaf. `act_stats`, a
@@ -75,9 +103,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from clip_event_tpu_torch.ops import attention as A
@@ -85,6 +114,7 @@ from clip_event_tpu_torch.ops import library
 from clip_event_tpu_torch.ops import ln as LN
 from clip_event_tpu_torch.ops.attention import IMPLS
 from clip_event_tpu_torch.ops.quant import QuantWeight, quantized_linear
+from clip_event_tpu_torch.parallel import collectives
 from clip_event_tpu_torch.parallel.sharding import full, full_tree
 
 # the JAX package's remat policies (`layers.py:465-475`); "dots" and
@@ -111,6 +141,38 @@ def layer_norm(x: torch.Tensor, params: dict, eps: float = 1e-5) -> torch.Tensor
 LN_IMPLS = ("xla", "pallas")
 _LN_IMPL = "xla"
 _ATTENTION_IMPL = "kernel"
+# the tp group's view of the process's mesh (`Mesh.tensor`), or None
+_TENSOR_PARALLEL = None
+
+
+def set_tensor_parallel(mesh=None) -> None:
+    """The tp group that a transformer stack sharded by
+    `parallel.sharding.shard_params_tp` runs over, for every later call
+    (the JAX package's `set_attention_impl(..., mesh)` with a 'tp' axis and
+    `set_sequence_parallel(mesh)`): a `parallel.mesh.Mesh` with tp > 1
+    (its `sp` turns sequence parallelism on), or None (a mesh with tp = 1
+    is None)."""
+    global _TENSOR_PARALLEL
+    _check_mesh(mesh)
+    _TENSOR_PARALLEL = mesh.tensor if mesh is not None and mesh.tp > 1 else None
+
+
+def resolve_tensor_parallel():
+    """The process-wide tp group's view (`set_tensor_parallel`), or None."""
+    return _TENSOR_PARALLEL
+
+
+@contextlib.contextmanager
+def tensor_parallel(mesh):
+    """`with tensor_parallel(mesh):` sets the tp group of the calls inside
+    (`set_tensor_parallel`) and puts the previous one back after."""
+    global _TENSOR_PARALLEL
+    old = _TENSOR_PARALLEL
+    set_tensor_parallel(mesh)
+    try:
+        yield
+    finally:
+        _TENSOR_PARALLEL = old
 
 
 def _check_mesh(mesh) -> None:
@@ -241,6 +303,59 @@ def _absmax(x: torch.Tensor) -> torch.Tensor:
     return x.float().abs().amax()
 
 
+class TPBlock(NamedTuple):
+    """A sharded stack's run over the tp group: `mesh` (the tp view,
+    `Mesh.tensor`), `sp` (sequence parallel) and the stream's sequence
+    length `seq` (before the pad)."""
+
+    mesh: object
+    sp: bool
+    seq: int
+
+    @property
+    def padded(self) -> int:
+        n = self.mesh.world_size
+        return -(-self.seq // n) * n
+
+
+def _tp_in(x: torch.Tensor, tp: TPBlock) -> torch.Tensor:
+    """A normalized stream as a column-parallel product reads it: f
+    (`tp_copy`), or under sequence parallelism the all-gathered rows."""
+    if not tp.sp:
+        return collectives.tp_copy(x, tp.mesh)
+    return collectives.sp_gather(x, tp.mesh)
+
+
+def _attention_rows(x: torch.Tensor, tp: Optional[TPBlock]) -> torch.Tensor:
+    """The block input as `ln_1` reads it: f before `ln_1` under tp (so
+    the "attn" policy's saved region stays collective-free); under
+    sequence parallelism the local rows (`_ln_1_rows` gathers after
+    `ln_1`)."""
+    return x if tp is None or tp.sp else collectives.tp_copy(x, tp.mesh)
+
+
+def _ln_1_rows(h: torch.Tensor, tp: Optional[TPBlock]) -> torch.Tensor:
+    """`ln_1`'s output as the QKV projection reads it: under sequence
+    parallelism all-gathered over the sequence, the pad rows dropped."""
+    if tp is None or not tp.sp:
+        return h
+    return collectives.sp_gather(h, tp.mesh)[:, :tp.seq]
+
+
+def _tp_out(y: torch.Tensor, b, tp: TPBlock) -> torch.Tensor:
+    """A row-parallel product's partial sums → their sum over the tp group
+    (g), or under sequence parallelism this rank's rows of it
+    (reduce-scatter; an attention output is padded first), plus the bias,
+    added once after the sum."""
+    if tp.sp:
+        if y.shape[1] < tp.padded:
+            y = F.pad(y, (0, 0, 0, tp.padded - y.shape[1]))
+        y = collectives.sp_reduce_scatter(y, tp.mesh)
+    else:
+        y = collectives.tp_sum(y, tp.mesh)
+    return y + full(b).to(y.dtype)
+
+
 def multi_head_attention(
     x: torch.Tensor,
     params: dict,
@@ -248,12 +363,18 @@ def multi_head_attention(
     attn_bias: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
     act_stats: Optional[dict] = None,
+    tp: Optional[TPBlock] = None,
 ) -> torch.Tensor:
     """Self-attention with packed QKV projection.
 
     x: [B, S, W]; params: qkv_w [W, 3W], qkv_b [3W], out_w [W, W], out_b [W].
     attn_bias: optional additive [S, S] mask (e.g. causal -inf upper triangle).
+    With `tp` the params are a tp rank's slices: `head_group_attention`,
+    summed over the tp group (module docstring).
     """
+    if tp is not None:
+        part = head_group_attention(x, params, num_heads, attn_bias, impl, tp.mesh.world_size)
+        return _tp_out(part, params["out_b"], tp)
     scale = (x.shape[-1] // num_heads) ** -0.5
     if act_stats is not None:
         act_stats["qkv_w"] = _absmax(x)
@@ -262,6 +383,24 @@ def multi_head_attention(
     if act_stats is not None:
         act_stats["out_w"] = _absmax(out)
     return linear(out, params["out_w"], params["out_b"])
+
+
+def head_group_attention(
+    x: torch.Tensor,
+    params: dict,
+    num_heads: int,
+    attn_bias: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+    groups: int = 1,
+) -> torch.Tensor:
+    """One tp rank's attention sublayer before the sum over its group of
+    `groups` ranks: its packed QKV projection (`qkv_w` [W, 3W/groups], the
+    head-group order of `parallel.sharding.TPSpec` "qkv"), the core on its
+    H/groups heads at the full head_dim's scale (W and H global), its rows
+    of `out_w`; `out_b` is added once, after the sum."""
+    scale = (x.shape[-1] // num_heads) ** -0.5
+    qkv = linear(x, params["qkv_w"], params["qkv_b"])  # [B, S, 3W/groups]
+    return linear(attention_core(qkv, attn_bias, num_heads // groups, scale, impl), params["out_w"])
 
 
 def attention_core(
@@ -300,6 +439,7 @@ def residual_block(
     impl: Optional[str] = None,
     act_stats: Optional[dict] = None,
     ln: str = "xla",
+    tp: Optional[TPBlock] = None,
 ) -> torch.Tensor:
     """Pre-LN transformer block: MHA + QuickGELU MLP, both residual.
 
@@ -308,35 +448,43 @@ def residual_block(
     ({"attn": {qkv_w, out_w}, "mlp": {fc_w, proj_w}}).
 
     `ln`: "xla" or "pallas", the LayerNorm of `ln_1` and of the mid-block
-    residual add + `ln_2` (see the module docstring)."""
+    residual add + `ln_2` (see the module docstring). `tp`: the params are
+    a tp rank's slices (module docstring; no `act_stats` then)."""
     attn_stats = mlp_stats = None
     if act_stats is not None:
+        if tp is not None:
+            raise ValueError("the calibration pass runs on whole weights")
         attn_stats = act_stats["attn"] = {}
         mlp_stats = act_stats["mlp"] = {}
     params = full_tree(params)
     ln_plan = _block_ln_plan(ln, act_stats)
-    a = multi_head_attention(
-        _ln_apply(x, params["ln_1"], ln_plan), params["attn"], num_heads, attn_bias, impl, attn_stats
-    )
-    return _block_tail(x, a, params, ln_plan, mlp_stats)
+    h = _ln_1_rows(_ln_apply(_attention_rows(x, tp), params["ln_1"], ln_plan), tp)
+    a = multi_head_attention(h, params["attn"], num_heads, attn_bias, impl, attn_stats, tp)
+    return _block_tail(x, a, params, ln_plan, mlp_stats, tp)
 
 
 def _block_tail(x: torch.Tensor, a: torch.Tensor, params: dict, ln_plan: str,
-                mlp_stats: Optional[dict] = None) -> torch.Tensor:
+                mlp_stats: Optional[dict] = None, tp: Optional[TPBlock] = None) -> torch.Tensor:
     """A block after its attention (`a`, out-projected): the residual add +
     `ln_2`, then the QuickGELU MLP and its residual add."""
     x, h = _add_ln_apply(x, a, params["ln_2"], ln_plan)
+    mlp = params["mlp"]
+    if tp is not None:
+        h = quick_gelu(linear(_tp_in(h, tp), mlp["fc_w"], mlp["fc_b"]))
+        return x + _tp_out(linear(h, mlp["proj_w"]), mlp["proj_b"], tp)
     if mlp_stats is not None:
         mlp_stats["fc_w"] = _absmax(h)
-    h = quick_gelu(linear(h, params["mlp"]["fc_w"], params["mlp"]["fc_b"]))
+    h = quick_gelu(linear(h, mlp["fc_w"], mlp["fc_b"]))
     if mlp_stats is not None:
         mlp_stats["proj_w"] = _absmax(h)
-    return x + linear(h, params["mlp"]["proj_w"], params["mlp"]["proj_b"])
+    return x + linear(h, mlp["proj_w"], mlp["proj_b"])
 
 
-def _project(x, ln_scale, ln_bias, qkv_w, qkv_b, ln_plan: str) -> torch.Tensor:
-    """ln_1 → the packed QKV projection of one block."""
-    return linear(_ln_apply(x, {"scale": ln_scale, "bias": ln_bias}, ln_plan), qkv_w, qkv_b)
+def _project(x, ln_scale, ln_bias, qkv_w, qkv_b, ln_plan: str, tp=None) -> torch.Tensor:
+    """ln_1 → the packed QKV projection of one block (under sequence
+    parallelism ln_1 on the local rows, then gathered, `_ln_1_rows`)."""
+    h = _ln_apply(x, {"scale": ln_scale, "bias": ln_bias}, ln_plan)
+    return linear(_ln_1_rows(h, tp), qkv_w, qkv_b)
 
 
 class _AttentionSaved(torch.autograd.Function):
@@ -347,13 +495,21 @@ class _AttentionSaved(torch.autograd.Function):
     from the input with autograd on, runs the core's backward on the saved
     output and lse (`attention_core_bwd`; the plain backward for impl
     "plain" and "rounded") and takes the projection's and ln_1's gradients
-    from there. The attention forward runs once."""
+    from there. The attention forward runs once. Under tensor parallelism
+    (`tp`, a `TPBlock`) the weights are a tp rank's slices and the core runs
+    on H/tp heads at the full head_dim's scale; nothing here is collective
+    but, under sequence parallelism, the gather of ln_1's output over the
+    sequence: the input and what is saved are the rank's local rows, and the
+    backward gathers again (and reduce-scatters ln_1's cotangent)."""
 
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, attn_bias, num_heads, impl, ln_plan):
-        ctx.num_heads, ctx.impl, ctx.ln_plan = num_heads, impl, ln_plan
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, attn_bias, num_heads, impl, ln_plan,
+                tp=None):
         ctx.scale = (x.shape[-1] // num_heads) ** -0.5
-        qkv = _project(x, ln_scale, ln_bias, qkv_w, qkv_b, ln_plan)
+        if tp is not None:
+            num_heads //= tp.mesh.world_size
+        ctx.num_heads, ctx.impl, ctx.ln_plan, ctx.tp = num_heads, impl, ln_plan, tp
+        qkv = _project(x, ln_scale, ln_bias, qkv_w, qkv_b, ln_plan, tp)
         out, lse = A.attention_core_fwd(qkv, attn_bias, num_heads, ctx.scale, impl)
         ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, attn_bias, out, lse)
         return out
@@ -365,43 +521,49 @@ class _AttentionSaved(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip((x, ln_scale, ln_bias, qkv_w, qkv_b), needs)]
         with torch.enable_grad():
-            qkv = _project(*inputs, ctx.ln_plan)
+            qkv = _project(*inputs, ctx.ln_plan, ctx.tp)
         dqkv = A.attention_core_bwd(qkv.detach(), attn_bias, do, ctx.num_heads, ctx.scale,
                                     out, lse, ctx.impl)
         wanted = [t for t, need in zip(inputs, needs) if need]
         grads = iter(torch.autograd.grad(qkv, wanted, dqkv) if wanted else ())
-        return (*(next(grads) if need else None for need in needs), None, None, None, None)
+        return (*(next(grads) if need else None for need in needs), None, None, None, None, None)
 
 
-def _attn_tail(x, out, params, ln_plan):
+def _attn_tail(x, out, params, ln_plan, tp=None):
     """The block from (input, attention-core output) on."""
     params = full_tree({"attn": {k: params["attn"][k] for k in ("out_w", "out_b")},
                         "ln_2": params["ln_2"], "mlp": params["mlp"]})
-    a = linear(out, params["attn"]["out_w"], params["attn"]["out_b"])
-    return _block_tail(x, a, params, ln_plan)
+    if tp is None:
+        a = linear(out, params["attn"]["out_w"], params["attn"]["out_b"])
+    else:
+        a = _tp_out(linear(out, params["attn"]["out_w"]), params["attn"]["out_b"], tp)
+    return _block_tail(x, a, params, ln_plan, None, tp)
 
 
-def _remat_block(x, params, num_heads, attn_bias, impl, ln, policy: Optional[str]):
+def _remat_block(x, params, num_heads, attn_bias, impl, ln, policy: Optional[str],
+                 tp: Optional[TPBlock] = None):
     """One residual block under a `remat_policy` (None: no recompute)."""
     if policy is None:
-        return residual_block(x, params, num_heads, attn_bias, impl, None, ln)
+        return residual_block(x, params, num_heads, attn_bias, impl, None, ln, tp)
     if policy == "attn":
         plan = _block_ln_plan(ln, None)
         # FSDP: the gathered ln_1 and QKV weights are what the saved
         # region keeps; the rest of the block gathers inside the checkpoint
         head = full_tree({"ln_1": params["ln_1"], "qkv_w": params["attn"]["qkv_w"],
                           "qkv_b": params["attn"]["qkv_b"]})
+        # tp: the f before ln_1 stays outside the saved region; under sp
+        # the region takes the local rows and gathers ln_1's output itself
         out = _AttentionSaved.apply(
-            x, head["ln_1"]["scale"], head["ln_1"]["bias"], head["qkv_w"], head["qkv_b"], attn_bias,
-            num_heads, impl, plan)
-        return checkpoint(_attn_tail, x, out, params, plan, use_reentrant=False,
+            _attention_rows(x, tp), head["ln_1"]["scale"], head["ln_1"]["bias"], head["qkv_w"],
+            head["qkv_b"], attn_bias, num_heads, impl, plan, tp)
+        return checkpoint(_attn_tail, x, out, params, plan, tp, use_reentrant=False,
                           preserve_rng_state=False)
     kw = {}
     if policy in _SAVED_OPS:
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _SAVED_OPS[policy])
     # nothing in a block draws random numbers: no RNG state to keep (and a
     # CUDA graph capture may not read the generator's)
-    return checkpoint(residual_block, x, params, num_heads, attn_bias, impl, None, ln,
+    return checkpoint(residual_block, x, params, num_heads, attn_bias, impl, None, ln, tp,
                       use_reentrant=False, preserve_rng_state=False, **kw)
 
 
@@ -442,10 +604,31 @@ def transformer(
     policy = remat_policy(remat)
     if not torch.is_grad_enabled():
         policy = None
+    tp = _stack_tp(stacked_params, x)
+    if tp is not None and tp.sp:
+        # sequence parallel: the rank's chunk of the padded stream
+        x = collectives.sp_scatter(F.pad(x, (0, 0, 0, tp.padded - tp.seq)), tp.mesh)
     n_layers = stacked_params["attn"]["qkv_w"].shape[0]
     for i in range(n_layers):
-        x = _remat_block(x, _layer(stacked_params, i), num_heads, attn_bias, impl, ln, policy)
+        x = _remat_block(x, _layer(stacked_params, i), num_heads, attn_bias, impl, ln, policy, tp)
+    if tp is not None and tp.sp:
+        x = collectives.sp_unscatter(x, tp.mesh)[:, :tp.seq]
     return x
+
+
+def _stack_tp(stacked_params: dict, x: torch.Tensor) -> Optional[TPBlock]:
+    """The tp run of a stack whose params are a tp rank's slices (`qkv_w`
+    [L, W, 3W/tp]), over the process-wide tp group; None for a whole
+    stack."""
+    cols, width = stacked_params["attn"]["qkv_w"].shape[-1], x.shape[-1]
+    if cols == 3 * width:
+        return None
+    tp = _TENSOR_PARALLEL
+    if tp is None or cols * tp.world_size != 3 * width:
+        raise ValueError(f"a transformer stack with qkv_w of {cols} columns at width {width}: a tp "
+                         f"rank's slices need the tp group (set_tensor_parallel), of "
+                         f"{3 * width // cols} ranks")
+    return TPBlock(tp, tp.sp, x.shape[1])
 
 
 def transformer_with_act_stats(

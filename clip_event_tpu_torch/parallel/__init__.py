@@ -1,6 +1,7 @@
-"""Data parallelism of the port: one process per GPU (counterpart of
-`clip_event_tpu/parallel/`, the `dp` mesh; reference DDP/NCCL stack,
-`utils.py:541-616`), and ZeRO-1 / FSDP over its ranks (`sharding.py`)."""
+"""Parallelism of the port: one process per GPU on a (dcn × dp × tp) mesh
+(counterpart of `clip_event_tpu/parallel/`; reference DDP/NCCL stack,
+`utils.py:541-616`), Megatron tensor parallelism over the tp ranks and
+ZeRO-1 / FSDP over the data ranks (`sharding.py`)."""
 
 from clip_event_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

@@ -39,6 +39,29 @@ that the train step reproduces the JAX package's global loss:
     the sharded state of ZeRO-1 and FSDP (`parallel/sharding.py`): one
     reduce-scatter, or one all-gather, a dtype over a flat buffer.
 
+The step passes the data view of its mesh (`mesh.data`) to these: a tp
+group holds the same rows, so a gather over the whole job would count
+each row tp times.
+
+Megatron's operators over the tp group (`mesh.tensor`), for the
+tensor-parallel blocks of `models/layers.py` (Shoeybi et al. 2019;
+sequence parallelism, Korthikanti et al. 2022):
+
+  * `tp_copy` (f) — identity forward, all-reduce backward: before a
+    column-parallel product;
+  * `tp_sum` (g) — all-reduce forward, identity backward: after a
+    row-parallel product;
+  * `sp_gather` — all-gather over the sequence forward, reduce-scatter
+    backward: before a column-parallel product under sequence
+    parallelism;
+  * `sp_reduce_scatter` — reduce-scatter over the sequence forward,
+    all-gather backward: after a row-parallel product under sequence
+    parallelism;
+  * `sp_scatter` / `sp_unscatter` — take this rank's sequence chunk
+    forward and all-gather backward / all-gather forward and take the
+    chunk backward: the entry and the exit of a sequence-parallel stack,
+    where every rank holds the whole stream and its whole cotangent.
+
 `all_gather_into_tensor` and `reduce_scatter_tensor` are the names that
 every torch this port runs on has; torch 2.13 renames them (`*_single`)
 and warns on the old names, a notice that this module filters by its exact
@@ -252,6 +275,137 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]
         for i, v in zip(idx, torch.split(flat, [tensors[i].numel() for i in idx])):
             out[i] = v.view_as(tensors[i])
     return out
+
+
+# ------------------------------------------------------------ Megatron tp
+
+
+def _all_reduce(x: torch.Tensor, tp) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=tp.group)
+    return out
+
+
+def _seq_all_gather(x: torch.Tensor, tp) -> torch.Tensor:
+    """[B, s, ...] on every rank → [B, tp·s, ...], rank-major on dim 1."""
+    parts = x.new_empty(tp.world_size * x.numel())
+    dist.all_gather_into_tensor(parts, x.contiguous().reshape(-1), group=tp.group)
+    parts = parts.view((tp.world_size,) + tuple(x.shape))
+    return parts.transpose(0, 1).reshape((x.shape[0], tp.world_size * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def _seq_reduce_scatter(x: torch.Tensor, tp) -> torch.Tensor:
+    """[B, tp·s, ...] partial sums on every rank → this rank's [B, s, ...]
+    chunk of their sum over the ranks."""
+    s = x.shape[1] // tp.world_size
+    rows = x.reshape((x.shape[0], tp.world_size, s) + tuple(x.shape[2:])).transpose(0, 1).contiguous()
+    out = x.new_empty((x.shape[0], s) + tuple(x.shape[2:]))
+    dist.reduce_scatter_tensor(out.view(-1), rows.view(-1), group=tp.group)
+    return out
+
+
+def _seq_chunk(x: torch.Tensor, tp) -> torch.Tensor:
+    s = x.shape[1] // tp.world_size
+    return x[:, tp.rank * s:(tp.rank + 1) * s].contiguous()
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.tp), None
+
+
+class _TPSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _seq_all_gather(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_reduce_scatter(grad, ctx.tp), None
+
+
+class _SPReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _seq_reduce_scatter(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_all_gather(grad, ctx.tp), None
+
+
+class _SPScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _seq_chunk(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_all_gather(grad, ctx.tp), None
+
+
+class _SPUnscatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _seq_all_gather(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_chunk(grad, ctx.tp), None
+
+
+def tp_copy(x: torch.Tensor, tp) -> torch.Tensor:
+    """Megatron's f over the tp group `tp` (`mesh.tensor`)."""
+    return _TPCopy.apply(x, tp)
+
+
+def tp_sum(x: torch.Tensor, tp) -> torch.Tensor:
+    """Megatron's g: the sum over the tp group, identity backward."""
+    return _TPSum.apply(x, tp)
+
+
+def sp_gather(x: torch.Tensor, tp) -> torch.Tensor:
+    """[B, s, W] sequence chunks → [B, tp·s, W]; the backward
+    reduce-scatters the cotangents (each rank's is partial)."""
+    return _SPGather.apply(x, tp)
+
+
+def sp_reduce_scatter(x: torch.Tensor, tp) -> torch.Tensor:
+    """[B, tp·s, W] partial sums → this rank's [B, s, W] chunk of the sum;
+    the backward all-gathers."""
+    return _SPReduceScatter.apply(x, tp)
+
+
+def sp_scatter(x: torch.Tensor, tp) -> torch.Tensor:
+    """[B, tp·s, W], whole on every rank → this rank's [B, s, W] chunk; the
+    backward all-gathers the chunks' cotangents."""
+    return _SPScatter.apply(x, tp)
+
+
+def sp_unscatter(x: torch.Tensor, tp) -> torch.Tensor:
+    """[B, s, W] chunks → [B, tp·s, W] whole on every rank; the backward
+    keeps this rank's chunk of the (whole) cotangent."""
+    return _SPUnscatter.apply(x, tp)
 
 
 def _by_dtype(tensors: Sequence[torch.Tensor]):

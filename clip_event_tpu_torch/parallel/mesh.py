@@ -1,21 +1,36 @@
-"""The data-parallel mesh of the port (counterpart of
-`clip_event_tpu/parallel/mesh.py`; reference DDP/NCCL stack,
+"""The process mesh of the port (counterpart of
+`clip_event_tpu/parallel/mesh.py` and of `make_mesh_2d` in
+`clip_event_tpu/parallel/sharding.py`; reference DDP/NCCL stack,
 `utils.py:541-616`, `train.py:222-225`).
 
-Parallelism model: one process per GPU, each holding a full copy of the
-params and optimizer state (or its shard of them under ZeRO-1 / FSDP,
-`parallel/sharding.py`) and `batch_size` rows of the global batch (its
-rank-major block, the row order JAX's `make_array_from_process_local_data`
-gives). The JAX package gets the global loss from GSPMD; here the train
-step makes it by hand (`engine/train_step.py`): the contrastive features
-are all-gathered (`collectives.gather_features`), the local loss sums stay
-local, and the gradients are summed across ranks in one all-reduce inside
-the step. The collectives run over NCCL on the card and over gloo only
-when the caller asked for the CPU; NCCL failing on a CUDA run is an error.
+Parallelism model: one process per GPU. The processes form a mesh of
+three axes, (dcn, dp, tp), tp innermost: rank = (dcn_idx·DP + dp_idx)·TP +
+tp_idx, the flat device order of the JAX package's `make_mesh_2d`. The
+ranks of one tp group (one (dcn_idx, dp_idx)) hold the Megatron shards of
+the transformer stacks (`parallel/sharding.py`) and the same rows of the
+batch; the ranks with one tp_idx form the data group, over which the
+batch is split (`batch_size` rows a data rank, its rank-major block, the
+row order JAX's `make_array_from_process_local_data` gives), and over
+which the gradients are summed in one all-reduce
+(`collectives.all_reduce_flat`; the dcn axis shapes the coordinates and
+the loader's data rank, and NCCL's all-reduce already follows the links
+between and within hosts). Each data rank holds a full copy of the
+params and optimizer state, or its shard of them under ZeRO-1 / FSDP
+(`parallel/sharding.py`). The JAX package gets the global loss from
+GSPMD; here the train step makes it by hand (`engine/train_step.py`): the
+contrastive features are all-gathered over the data group
+(`collectives.gather_features`), the local loss sums stay local, and the
+gradients are summed inside the step. The collectives run over NCCL on
+the card and over gloo only when the caller asked for the CPU; NCCL
+failing on a CUDA run is an error.
+
+`mesh.data` is the data-parallel view (rank, world and group of the data
+group) and `mesh.tensor` the tensor-parallel view (of the tp group); at tp
+= 1 the data view is the mesh itself.
 
 `initialize_distributed()` first (torchrun, OpenMPI or SLURM, through
-`parallel.cluster`), then `make_mesh(device)`: the rank, the world, the
-device (`cuda:LOCAL_RANK`) and the process group.
+`parallel.cluster`), then `make_mesh(device, tp=, dcn=, sp=)`: the rank,
+the world, the device (`cuda:LOCAL_RANK`), the process groups.
 """
 
 from __future__ import annotations
@@ -40,14 +55,54 @@ _CLUSTER: Optional[ClusterSpec] = None
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One process's place in the data-parallel job: its `rank` of
-    `world_size`, its `device`, and the process group of the step's
-    collectives (`group`, None: the default group)."""
+    """One process's place in the job: its `rank` of `world_size`, its
+    `device`, the process group of the whole job (`group`, None: the
+    default group), the axes' sizes (`dcn`, `tp`; dp follows), whether the
+    transformer stacks' residual stream is sharded over the sequence (`sp`,
+    Megatron sequence parallelism, tp > 1) and this rank's subgroups under
+    tp > 1: its tp group and its data group. A mesh made by hand with the first four fields is a plain
+    data-parallel mesh."""
 
     rank: int
     world_size: int
     device: torch.device
     group: Any = None
+    tp: int = 1
+    dcn: int = 1
+    sp: bool = False
+    tp_group: Any = None
+    data_group: Any = None
+
+    @property
+    def dp(self) -> int:
+        return self.world_size // (self.tp * self.dcn)
+
+    @property
+    def dcn_idx(self) -> int:
+        return self.rank // (self.tp * self.dp)
+
+    @property
+    def dp_idx(self) -> int:
+        return (self.rank // self.tp) % self.dp
+
+    @property
+    def tp_idx(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def data(self) -> "Mesh":
+        """The data-parallel view: this rank's place in its data group
+        (rank // tp of world // tp); the mesh itself at tp = 1."""
+        if self.tp == 1:
+            return self
+        return Mesh(self.rank // self.tp, self.world_size // self.tp, self.device, self.data_group,
+                    dcn=self.dcn)
+
+    @property
+    def tensor(self) -> "Mesh":
+        """The tensor-parallel view: this rank's place in its tp group
+        (tp_idx of tp), carrying `sp`."""
+        return Mesh(self.tp_idx, self.tp, self.device, self.tp_group, sp=self.sp)
 
 
 def backend_for(device) -> str:
@@ -96,15 +151,39 @@ def initialize_distributed(device="cuda") -> Optional[ClusterSpec]:
     return spec
 
 
-def make_mesh(device=None) -> Mesh:
-    """This process's data-parallel mesh. `device` None or "cuda" means
-    `cuda:LOCAL_RANK` on an NCCL group; "cpu" needs a gloo group (or no
-    group: a world of one). A device whose type does not match the group's
-    backend raises: a CUDA run never goes over gloo."""
+def _axis_groups(world: int, tp: int, dcn: int):
+    """Every subgroup's ranks under tp > 1, in one fixed order: the tp
+    groups (one a (dcn_idx, dp_idx)), then the data groups (one a
+    tp_idx)."""
+    dp = world // (tp * dcn)
+
+    def rank(c, d, t):
+        return (c * dp + d) * tp + t
+
+    out = {}
+    if tp > 1:
+        out["tp_group"] = [[rank(c, d, t) for t in range(tp)] for c in range(dcn) for d in range(dp)]
+        out["data_group"] = [[rank(c, d, t) for c in range(dcn) for d in range(dp)] for t in range(tp)]
+    return out
+
+
+def make_mesh(device=None, tp: int = 1, dcn: int = 1, sp: bool = False) -> Mesh:
+    """This process's mesh. `device` None or "cuda" means `cuda:LOCAL_RANK`
+    on an NCCL group; "cpu" needs a gloo group (or no group: a world of
+    one). A device whose type does not match the group's backend raises: a
+    CUDA run never goes over gloo. `tp` and `dcn` (the config's `tp` and
+    `dcn_dp`) must divide the world together; dp is what is left. Every
+    rank makes every subgroup, in one fixed order (`_axis_groups`):
+    `new_group` is collective over the whole job."""
     if dist.is_initialized():
         rank, world, backend = dist.get_rank(), dist.get_world_size(), dist.get_backend()
     else:
         rank, world, backend = 0, 1, None
+    tp, dcn = int(tp), int(dcn)
+    if tp < 1 or dcn < 1 or world % (dcn * tp):
+        raise ValueError(f"dcn_dp={dcn} x tp={tp} does not divide device count {world}")
+    if sp and tp <= 1:
+        raise ValueError("sequence parallelism requires a 'tp' mesh axis of size > 1")
     if device is None:
         device = "cpu" if backend == "gloo" else "cuda"
     device = torch.device(device)
@@ -112,23 +191,35 @@ def make_mesh(device=None) -> Mesh:
         device = torch.device("cuda", local_rank())
     if backend is not None and backend != backend_for(device):
         raise RuntimeError(f"a {device.type} mesh over a {backend} process group")
-    return Mesh(rank, world, device)
+    groups = {}
+    for name, members in _axis_groups(world, tp, dcn).items():
+        for ranks in members:
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[name] = group
+    return Mesh(rank, world, device, tp=tp, dcn=dcn, sp=bool(sp), **groups)
 
 
 def data_size(mesh: Mesh) -> int:
-    """Total data-parallel degree."""
-    return mesh.world_size
+    """Total data-parallel degree: dcn · dp."""
+    return mesh.world_size // mesh.tp
 
 
-def data_process_group(model_degree: int = 1) -> Tuple[int, int]:
+def data_process_group(model_degree: int = 1, pp: int = 1) -> Tuple[int, int]:
     """(data_rank, data_world) for the batch loader of this process: the
-    process's rank and the world while tensor and pipeline parallelism are
-    not ported (ROADMAP A6(c))."""
-    if int(model_degree) > 1:
-        raise NotImplementedError("tp / pp process groups are not ported yet (ROADMAP A6(c))")
-    if not dist.is_initialized():
-        return 0, 1
-    return dist.get_rank(), dist.get_world_size()
+    ranks of one tp group (`model_degree` consecutive processes, one device
+    each) load the same rows, so the loader's rank collapses to the group
+    (JAX `mesh.py:126-148` at one device a process). Pipeline parallelism
+    is not ported (ROADMAP A6(c))."""
+    if int(pp) > 1:
+        raise NotImplementedError("pp process groups are not ported yet (ROADMAP A6(c))")
+    g = max(1, int(model_degree))
+    rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    if world % g:
+        raise ValueError(
+            f"model degree {model_degree} over 1-device processes needs process groups of {g}, "
+            f"which does not divide process_count={world}")
+    return rank // g, world // g
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:

@@ -1,8 +1,31 @@
-"""ZeRO-1 and FSDP of the port: the optimizer state, and with FSDP the
-params too, sharded over the data-parallel ranks (counterpart of the
-ZeRO/FSDP half of `clip_event_tpu/parallel/sharding.py`:
+"""The port's sharded states: Megatron tensor parallelism of the
+transformer stacks over the tp ranks, and ZeRO-1 and FSDP over the
+data-parallel ranks (counterpart of `clip_event_tpu/parallel/sharding.py`:
+`_TRANSFORMER_RULES` / `param_shardings` / `shard_params`, and
 `zero_opt_shardings` / `shard_opt_state_zero`, `fsdp_param_shardings` /
-`shard_params_fsdp`; its tensor-parallel half waits for ROADMAP A6(c)).
+`shard_params_fsdp`). Both kinds are a layout object carried by the train
+state (`TrainState.sharding`): a `TPLayout` ("tp") or a `ShardLayout`
+("zero", "fsdp"); they do not compose yet (ROADMAP A6(c)).
+
+Tensor parallelism ("tp", `shard_state_tp`). Inside `transformer` and
+`text_transformer` the JAX package's leaf rules, column-parallel `qkv_w`
+[L, W, 3W], `qkv_b`, `fc_w` [L, W, 4W] and `fc_b` (the last dim split),
+row-parallel `out_w` [L, W, W] and `proj_w` [L, 4W, W] (the dim before
+it), `out_b` and `proj_b` whole; `token_embedding` [V, W] vocab-parallel
+(rows, where V % tp == 0); every other leaf whole on every rank, the
+ResNet tower included. Two differences kept on purpose: (1) the rule is
+a tower's, not a leaf's: a stack whose W or H does not divide tp (or
+that holds int8 weights) stays whole on every rank and runs unsharded, the
+same numbers, where JAX drops the annotation of each leaf that does not
+divide (`sharding.py:94-102`); (2) the head-group reorder of JAX's
+`sharded_attention_tp` (`attention_pallas.py:357-362`, [q|k|v] lanes to
+[q_g|k_g|v_g]) is done once in the weight, not at every step in the
+activation: rank g's `qkv_w` shard is [L, W, 3W/tp] with the columns
+[q_g|k_g|v_g] (and `qkv_b` alike), so its projection is already the packed
+QKV of its H/tp heads, and head group g's attention output is lanes
+[g·W/tp, (g+1)·W/tp) of the canonical output, the rows of `out_w` rank g
+holds. `TPLayout.gather_leaves` inverts the reorder (`full_params`,
+`gather_state`); checkpoints hold the unsharded tree.
 
 Layout. A leaf's elements are flattened and split into W (the world size)
 chunks of c = ceil(n / W), the last padded with zeros; rank r keeps chunk
@@ -46,7 +69,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -246,6 +269,8 @@ def shard_state(state, mesh, mode: str):
     params too (each shard a new leaf that requires grad)."""
     if state.sharding is not None:
         raise ValueError("the state is sharded already")
+    if mesh.tp > 1 or mesh.dcn > 1:
+        raise NotImplementedError(f"{mode} with tp > 1 or dcn_dp > 1 is not ported yet (ROADMAP A6(c))")
     layout = ShardLayout(state.params, mesh, mode)
     with torch.no_grad():
         opt_state = dict(state.opt_state)
@@ -266,9 +291,11 @@ def shard_state(state, mesh, mode: str):
 
 
 def full_params(state) -> dict:
-    """The full params of a train state: under FSDP gathered on every rank
-    (collective), else the state's own."""
+    """The full params of a train state: under FSDP and tp gathered on
+    every rank (collective), else the state's own."""
     layout = state.sharding
+    if layout is not None and layout.mode == "tp":
+        return layout.gather_trees(state.params, {})[0]
     if layout is None or layout.mode != "fsdp":
         return state.params
     with torch.no_grad():
@@ -279,7 +306,9 @@ def full_params(state) -> dict:
 def gather_trees(layout: ShardLayout, params: dict, opt_state: dict):
     """(full params, full optimizer state) of a state sharded by `layout`,
     on every rank (collective: one all-gather a dtype over the sharded
-    leaves)."""
+    leaves; a `TPLayout` gathers over its tp group)."""
+    if layout.mode == "tp":
+        return layout.gather_trees(params, opt_state)
     keys = _param_trees(opt_state)
     trees = ([params] if layout.mode == "fsdp" else []) + [opt_state[k] for k in keys]
     leaves = [t.detach() for tree in trees for t in tree_leaves(tree)]
@@ -303,3 +332,195 @@ def gather_state(state):
         return state
     params, opt_state = gather_trees(layout, state.params, state.opt_state)
     return state._replace(params=params, opt_state=opt_state, sharding=None)
+
+
+# ------------------------------------------------------------ tensor parallel
+
+# the JAX package's leaf rules inside a stacked transformer subtree
+# (`_TRANSFORMER_RULES`): the dim of the full leaf that tp splits, counted
+# from the end ("qkv": the last dim, head-group reordered)
+TP_RULES = {"qkv_w": "qkv", "qkv_b": "qkv", "fc_w": "column", "fc_b": "column",
+            "out_w": "row", "proj_w": "row"}
+_TP_DIM = {"qkv": -1, "column": -1, "row": -2, "vocab": 0}
+# replicated leaves of a sharded stack whose gradient each tp rank holds in
+# part: ln_1 always (its output's cotangent comes from the rank's heads:
+# the tp operator sits before it, outside the "attn" policy's saved
+# region); under sequence parallelism also the leaves that see the rank's
+# rows only
+TP_PARTIAL = ("ln_1",)
+SP_PARTIAL = ("ln_1", "ln_2", "out_b", "proj_b")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPSpec:
+    """How one leaf splits over the tp ranks: `kind` None (whole on every
+    rank), "qkv", "column", "row" or "vocab"; `partial`: a whole leaf whose
+    gradient is split over the tp ranks (summed over the tp group by the
+    step)."""
+
+    kind: Optional[str] = None
+    partial: bool = False
+
+    def shard_of(self, x: torch.Tensor, tp: int, rank: int) -> torch.Tensor:
+        """Rank `rank`'s slice of a full leaf (a copy; a whole leaf as it
+        is)."""
+        if self.kind is None:
+            return x
+        if self.kind == "qkv":
+            w = x.shape[-1] // 3 // tp
+            return x.reshape(*x.shape[:-1], 3, tp, w)[..., rank, :].reshape(*x.shape[:-1], 3 * w).clone()
+        return x.chunk(tp, dim=_TP_DIM[self.kind])[rank].clone()
+
+    def from_shards(self, shards: torch.Tensor) -> torch.Tensor:
+        """[tp, *shard] (every rank's slice) → the full leaf."""
+        if self.kind == "qkv":
+            tp, lead, w = shards.shape[0], tuple(shards.shape[1:-1]), shards.shape[-1] // 3
+            parts = shards.reshape((tp,) + lead + (3, w)).movedim(0, -2)
+            return parts.reshape(lead + (3 * tp * w,))
+        return torch.cat(list(shards.unbind(0)), dim=_TP_DIM[self.kind])
+
+
+def tp_stack_sharded(stack: dict, width: int, heads: int, tp: int) -> bool:
+    """Whether a stacked transformer subtree splits over `tp` ranks: W and H
+    divide tp, and no leaf is an int8 `QuantWeight` (its weights stay whole,
+    as the JAX eval CLI keeps them)."""
+    if tp <= 1 or width % tp or heads % tp:
+        return False
+    return all(isinstance(t, torch.Tensor) for t in tree_leaves(stack))
+
+
+def _stack_heads(cfg) -> dict:
+    """{stack key: (width, heads)} of a model config's transformer stacks."""
+    out = {"text_transformer": (cfg.transformer_width, cfg.transformer_heads)}
+    if cfg.is_vit:
+        out["transformer"] = (cfg.vision_width, cfg.vision_heads)
+    return out
+
+
+def tp_specs(params: dict, cfg, tp: int, sp: bool = False) -> List[TPSpec]:
+    """A `TPSpec` a leaf of `params`, in `optim.tree_leaves` order."""
+    heads = _stack_heads(cfg)
+    partial = SP_PARTIAL if sp else TP_PARTIAL
+    out = []
+
+    def walk(tree, path, stack):
+        for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+            if isinstance(v, (dict, list)):
+                inner = stack
+                if stack is None and k in heads:
+                    inner = tp_stack_sharded(v, *heads[k], tp)
+                walk(v, path + (k,), inner)
+            elif stack:
+                kind = TP_RULES.get(k)
+                out.append(TPSpec(kind, partial=kind is None and (k in partial or path[-1] in partial)))
+            elif (path, k) == ((), "token_embedding") and tp > 1 and isinstance(v, torch.Tensor) \
+                    and v.shape[0] % tp == 0:
+                out.append(TPSpec("vocab"))
+            else:
+                out.append(TPSpec())
+
+    walk(params, (), None)
+    return out
+
+
+def check_tp_kernels(cfg, tp: int, text_len: Optional[int] = None) -> None:
+    """Raise, naming the tower and the shape, where a sharded stack's head
+    group (S, W/tp, H/tp) is a shape no attention kernel takes
+    (`ops.attention.core_kernel`): ViT-B/16's vision tower at tp = 4
+    (W/tp = 192). The JAX package runs its einsum path there
+    (`layers.py:249-283`); here the kernel path refuses at setup, as
+    `attention_core` refuses such a shape."""
+    from clip_event_tpu_torch.ops.attention import core_kernel
+
+    seqs = {"text_transformer": text_len or cfg.context_length}
+    if cfg.is_vit:
+        seqs["transformer"] = cfg.grid_size ** 2 + 1
+    for key, (width, heads) in _stack_heads(cfg).items():
+        if tp > 1 and width % tp == 0 and heads % tp == 0:
+            try:
+                core_kernel(seqs[key], width // tp, heads // tp)
+            except ValueError as err:
+                raise ValueError(f"tp={tp}: the {key} stack's head group (S={seqs[key]}, "
+                                 f"W={width // tp}, H={heads // tp}) has no attention kernel: {err}") from None
+
+
+class TPLayout:
+    """The tensor-parallel sharding of one train state (mode "tp"): the
+    mesh (its `tensor` view is the tp group), and a `TPSpec` a param leaf
+    (in `optim.tree_leaves` order; every param-shaped tree of the optimizer
+    state follows it)."""
+
+    mode = "tp"
+
+    def __init__(self, params: dict, cfg, mesh):
+        self.mesh = mesh
+        self.specs = tp_specs(params, cfg, mesh.tp, mesh.sp)
+
+    def shard_leaves(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's slices of full leaves (copies; whole leaves as they
+        are)."""
+        tp = self.mesh.tensor
+        return [s.shard_of(x, tp.world_size, tp.rank) for s, x in zip(self.specs, leaves)]
+
+    def gather_leaves(self, shards: Sequence[torch.Tensor], specs=None) -> List[torch.Tensor]:
+        """The full leaves of every tp rank's slices (collective over the tp
+        group: one all-gather a dtype of the split leaves)."""
+        specs = self.specs if specs is None else specs
+        tp = self.mesh.tensor
+        split = [i for i, s in enumerate(specs) if s.kind is not None]
+        out = [t for t in shards]
+        rows = collectives.all_gather_flat([shards[i] for i in split], tp)
+        for i, r in zip(split, rows):
+            out[i] = specs[i].from_shards(r.reshape((tp.world_size,) + tuple(shards[i].shape)))
+        return out
+
+    def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of a tp-sharded gradient: each split leaf's norm
+        combined over the tp ranks, a whole leaf counted once
+        (`optim.global_norm`)."""
+        return global_norm(grads, self.mesh.tensor, [s.kind is None for s in self.specs])
+
+    def partial(self) -> List[int]:
+        """The leaves whose gradient the tp ranks hold in part."""
+        return [i for i, s in enumerate(self.specs) if s.partial]
+
+    def gather_trees(self, params: dict, opt_state: dict):
+        """(full params, full optimizer state), on every rank (collective)."""
+        keys = _param_trees(opt_state)
+        trees = [params] + [opt_state[k] for k in keys]
+        with torch.no_grad():
+            full = [tree_unflatten(t, self.gather_leaves([x.detach() for x in tree_leaves(t)]))
+                    for t in trees]
+        opt_state = dict(opt_state)
+        opt_state.update(zip(keys, full[1:]))
+        return full[0], opt_state
+
+
+def shard_params_tp(params: dict, cfg, mesh) -> dict:
+    """This rank's slices of a full param tree (`TPLayout`'s rule; int8
+    leaves and the stacks that do not divide stay whole)."""
+    layout = TPLayout(params, cfg, mesh)
+    return tree_unflatten(params, layout.shard_leaves(tree_leaves(params)))
+
+
+def shard_state_tp(state, cfg, mesh):
+    """A full train state (the same on every rank) → this rank's
+    tensor-parallel one, which carries its layout (`state.sharding`): the
+    params (each slice a new leaf that requires grad) and every moment
+    tree split alike."""
+    if state.sharding is not None:
+        raise ValueError("the state is sharded already")
+    if mesh.tp <= 1:
+        raise ValueError("a tensor-parallel state needs a mesh with tp > 1")
+    layout = TPLayout(state.params, cfg, mesh)
+    with torch.no_grad():
+        params = tree_unflatten(state.params, [
+            t.detach().requires_grad_(True) for t in layout.shard_leaves(tree_leaves(state.params))])
+        opt_state = dict(state.opt_state)
+        for k in _param_trees(opt_state):
+            opt_state[k] = tree_unflatten(opt_state[k], layout.shard_leaves(tree_leaves(opt_state[k])))
+    split = sum(s.kind is not None for s in layout.specs)
+    log.info("TP: %d of %d param leaves split over tp=%d%s; params %d bytes, optimizer %d bytes a rank",
+             split, len(layout.specs), mesh.tp, " (sequence parallel)" if mesh.sp else "",
+             tree_bytes(params), tree_bytes(opt_state))
+    return state._replace(params=params, opt_state=opt_state, sharding=layout)

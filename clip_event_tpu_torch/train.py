@@ -35,6 +35,19 @@ included, which runs the sharded code with one shard) and refuse a plain
 process. The checkpoints hold the full state, gathered, and the
 validation reads the full params.
 
+Tensor, sequence and multi-slice data parallelism (`tp`, `sp`, `dcn_dp`):
+the launch's ranks form a (dcn × dp × tp) mesh (`parallel/mesh.py`), tp
+innermost; every rank builds the full state (from the seed, or restored:
+a file of any tp resumes at any other) and keeps its tp rank's Megatron
+slices of the transformer stacks (`parallel.sharding.shard_state_tp`); a
+tp group loads the same rows (its data rank, `mesh.data`), and
+`batch_size` is per data rank. `sp` shards the stacks' residual stream
+over the sequence; `dcn_dp` splits the data ranks into slices (the mesh's
+coordinates; the gradient sum stays one all-reduce over the data group).
+They need a launch, and refuse a plain
+process; with `zero` / `fsdp` they are refused at config time (ROADMAP
+A6(c)).
+
 `train(...)` is the epoch loop (loader → prefetch → step → metrics) over
 any `ExampleDataset`; `main` builds the VOA dataset and calls it.
 """
@@ -73,12 +86,16 @@ from clip_event_tpu_torch.models.clip import CLIPConfig
 from clip_event_tpu_torch.parallel.collectives import any_rank, comm
 from clip_event_tpu_torch.parallel.mesh import (
     Mesh,
-    data_process_group,
     initialize_distributed,
     make_mesh,
     replicate,
 )
-from clip_event_tpu_torch.parallel.sharding import full_params, shard_state
+from clip_event_tpu_torch.parallel.sharding import (
+    check_tp_kernels,
+    full_params,
+    shard_state,
+    shard_state_tp,
+)
 from clip_event_tpu_torch.platform import resolve_device
 
 log = logging.getLogger(__name__)
@@ -112,7 +129,8 @@ def train(
     full one)."""
     device = resolve_device(device)
     task, ckpt_dir = cfg["task"], cfg["ckpt_dir"]
-    rank, world = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
+    # the loader's place: the data rank (a tp group loads the same rows)
+    rank, world = (mesh.data.rank, mesh.data.world_size) if mesh is not None else (0, 1)
     begin_epoch = cfg["begin_epoch"] if begin_epoch is None else begin_epoch
     loader = DataLoader(
         dataset, batch_size=cfg["batch_size"], shuffle=cfg["is_train"], seed=cfg["seed"],
@@ -153,6 +171,12 @@ def train(
         # every rank starts from rank 0's params and optimizer state
         replicate(state.params, mesh)
         replicate(state.opt_state, mesh)
+    if mesh is not None and mesh.tp > 1:
+        if step_kwargs["impl"] == "kernel":
+            check_tp_kernels(mcfg, mesh.tp, int(cfg["context_cap"]) or None)
+        # the tp rank's Megatron slices of the full state (fresh or
+        # restored: after the placement above)
+        state = shard_state_tp(state, mcfg, mesh)
     if cfg["zero"] or cfg["fsdp"]:
         if mesh is None:
             raise SystemExit(
@@ -446,7 +470,15 @@ def main(argv=None):
     # the process group first (torchrun / mpirun / srun; a no-op alone)
     owned = not dist.is_initialized()
     initialize_distributed(args.device)
-    mesh = make_mesh(args.device) if dist.is_initialized() else None
+    tp, dcn, sp = int(cfg["tp"]), int(cfg["dcn_dp"]), bool(cfg["sp"])
+    if dist.is_initialized():
+        mesh = make_mesh(args.device, tp=tp, dcn=dcn, sp=sp)
+    elif tp > 1 or dcn > 1:
+        raise SystemExit(
+            f"tp={tp} / dcn_dp={dcn} shard the job over processes, one a GPU: launch dcn_dp x dp x tp "
+            "ranks with torchrun (or mpirun / srun)")
+    else:
+        mesh = None
     device = resolve_device(mesh.device if mesh is not None else args.device)
     try:
         _main(cfg, device, mesh)
@@ -472,10 +504,20 @@ def _main(cfg: dict, device: torch.device, mesh: Optional[Mesh]):
     log.info("device: %s (rank %d of %d)",
              torch.cuda.get_device_name(device) if device.type == "cuda" else device, rank, comm.world_size)
 
+    if mesh is not None and (mesh.tp > 1 or mesh.dcn > 1):
+        # the JAX CLI's mesh lines (`train.py:278-285, 323`)
+        if mesh.tp > 1:
+            log.info("mesh: %sdp=%d x tp=%d (Megatron weight sharding)",
+                     f"dcn={mesh.dcn} x " if mesh.dcn > 1 else "", mesh.dp, mesh.tp)
+        else:
+            log.info("mesh: dcn=%d x dp=%d", mesh.dcn, mesh.dp)
+        if mesh.sp:
+            log.info("SP: residual-stream sequence axis sharded over tp=%d "
+                     "(Megatron sequence parallelism)", mesh.tp)
     params, mcfg, resume = initial_state(cfg, device)
-    # the loader's rank and the label layout's: the data rank (the process
-    # rank while tensor and pipeline parallelism are not ported)
-    data_rank, data_world = data_process_group(int(cfg["tp"]) * int(cfg["pp"]))
+    # the loader's rank and the label layout's: the data rank (a tp
+    # group's ranks load the same rows)
+    data_rank, data_world = (mesh.data.rank, mesh.data.world_size) if mesh is not None else (0, 1)
     for key in ("dedupe_texts", "dedupe_sr_texts"):
         if cfg[key] and cfg[key] % data_world:
             log.warning(

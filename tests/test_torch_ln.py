@@ -407,8 +407,12 @@ def test_use_pallas_ln_is_a_config_key():
     assert validate_config(BASE_CFG)["use_pallas_ln"] is False
     on = validate_config(dict(BASE_CFG, use_pallas_ln=True))
     assert on["use_pallas_ln"] is True and on == JC.validate_config(dict(BASE_CFG, use_pallas_ln=True))
-    with pytest.raises(ConfigError, match=r"ROADMAP A6\(c\)"):  # the refusals that stay
-        validate_config(dict(BASE_CFG, use_pallas_ln=True, tp=2))
+    # with tensor parallelism (the kernels on the local rows under sp) as in
+    # JAX; the refusal that stays: pipeline parallelism
+    tp = dict(BASE_CFG, use_pallas_ln=True, tp=2, sp=True)
+    assert validate_config(tp) == JC.validate_config(tp)
+    with pytest.raises(ConfigError, match=r"ROADMAP A6\(c\)"):
+        validate_config(dict(BASE_CFG, use_pallas_ln=True, pp=2))
 
 
 def _scalars(path):

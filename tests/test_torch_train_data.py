@@ -140,12 +140,14 @@ def test_config_defaults_and_refusals():
             "optimizer": "adam", "max_epoch": 1}
     ours, ref = TC.validate_config(base), JC.validate_config(base)
     assert ours == ref
-    # the ROADMAP item that brings each refused part: the model-parallel
-    # and multi-slice keys A6(c)
-    for key, value, item in [("tp", 2, r"A6\(c\)"), ("pp", 2, r"A6\(c\)"),
-                             ("sp", True, r"A6\(c\)"), ("dcn_dp", 2, r"A6\(c\)")]:
-        with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
-            TC.validate_config(dict(base, **{key: value}))
+    # tensor, sequence and multi-slice parallelism are accepted as JAX
+    # accepts them; the ROADMAP item that brings each refused part: pipeline
+    # parallelism, and ZeRO-1 / FSDP composed with tp or dcn_dp, A6(c)
+    for extra in ({"tp": 2}, {"tp": 2, "sp": True}, {"dcn_dp": 2}):
+        assert TC.validate_config(dict(base, **extra)) == JC.validate_config(dict(base, **extra))
+    for extra in ({"pp": 2}, {"tp": 2, "zero": True}, {"dcn_dp": 2, "fsdp": True}):
+        with pytest.raises(TC.ConfigError, match=r"ROADMAP A6\(c\)"):
+            TC.validate_config(dict(base, **extra))
     # the sharded optimizer state and params (A6(b)) are accepted as JAX
     # accepts them, and a value that is not a bool is refused alike
     for key in ("zero", "fsdp"):
@@ -154,16 +156,15 @@ def test_config_defaults_and_refusals():
             with pytest.raises(pkg.ConfigError, match=f"{key} must be a bool"):
                 pkg.validate_config(dict(base, **{key: 1}))
     # the image cache (A7) is accepted, as the JAX package accepts it: the
-    # two shipped configs that set it validate as in JAX, and the shipped
-    # tp config stays refused
+    # two shipped configs that set it validate as in JAX, and so does the
+    # shipped tp config
     assert TC.validate_config(dict(base, image_cache="/c")) == JC.validate_config(dict(base, image_cache="/c"))
     configs = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
     for name in ("finetune_template_fast.json", "finetune_real_voa.json", "pretrain_vitl14_tp2.json"):
         with open(os.path.join(configs, name)) as fh:
             raw = json.load(fh)
         if name.startswith("pretrain"):
-            with pytest.raises(TC.ConfigError, match=r"ROADMAP A6\(c\)"):
-                TC.validate_config(raw)
+            assert raw["tp"] == 2 and TC.validate_config(raw) == JC.validate_config(raw)
         else:
             assert raw["image_cache"] and TC.validate_config(raw) == JC.validate_config(raw)
     # the SR channel, multiattention (A4) and the ResNet towers (A2) are

@@ -13,6 +13,13 @@ a state that is plain ("plain"), ZeRO-1 ("zero") or FSDP ("fsdp")
 sharded over the ranks (`parallel/sharding.py`), and reports the full
 state gathered back, the shard sizes and, where it wrote one, the
 checkpoint's path.
+
+A case "tp/<case>" (`run_tp`) runs on a (dcn × dp × tp) mesh of the ranks
+(`TP_MESHES`): SGD with the clip at 1.0 on a tensor-parallel state
+(Megatron slices of `TP_VIT`'s stacks and token embedding), or the M2E2
+eval, the checkpoint a tp run writes, and a world-of-one file resumed at
+tp = 2; it reports the metrics, the full params gathered back and this
+rank's whole (unsplit) leaves.
 """
 
 from __future__ import annotations
@@ -47,7 +54,25 @@ ADAM_LR = 1e-5
 ADAM_SEEDS = (10, 11, 12)
 
 
+# the tensor-parallel cases' model: two heads in both towers (every stack
+# splits over tp = 2), two text layers; S = 77 (text) and 5 (vision) are
+# odd, so sequence parallelism pads both
+TP_VIT = dict(VIT, vision_width=128, transformer_heads=2, transformer_layers=2)
+# tp/<case>: (tp, dcn, sp) of its mesh over 4 ranks, its base batch case,
+# and its train-step settings
+TP_MESHES = {
+    "contrastive": (2, 1, False), "sp": (2, 1, True), "attn": (2, 1, False),
+    "accum": (2, 1, False), "multi_step": (2, 1, True), "dcn_tp": (2, 2, False),
+    "dcn_dp": (1, 2, False), "evals": (2, 1, False), "ckpt": (2, 1, False),
+    "resume": (2, 1, False),
+}
+TP_REMAT = {"sp": False, "attn": "attn", "multi_step": "attn"}
+TP_SEEDS = (40, 41)
+
+
 def model_dict(case: str) -> dict:
+    if case.startswith("tp/"):
+        return TP_VIT
     return {"multiattention": VIT_GRID, "sync_bn": RESNET}.get(case, VIT)
 
 
@@ -317,6 +342,151 @@ def run_sharded(name: str, world: int, rank: int, b_local: int, mesh, out: str) 
     return result
 
 
+def tp_batch_case(case: str) -> str:
+    """The `make_batches` case of a tp case (its accumulation dedupes)."""
+    return "accum_dedupe" if case == "tp/accum" else "contrastive"
+
+
+def tp_sgd():
+    from clip_event_tpu_torch.engine import optim as TO
+
+    return TO.build_optimizer("sgd", TO.build_schedule("none", LR, 1), grad_clip_norm=1.0)
+
+
+def tp_record(state, cfg, mesh) -> dict:
+    """The full params gathered (`full_params`), and this rank's whole
+    leaves (those no rank splits) as they are, as numpy."""
+    from clip_event_tpu_torch.engine.optim import tree_leaves
+    from clip_event_tpu_torch.models.convert import state_dict_from_params
+    from clip_event_tpu_torch.parallel.sharding import full_params
+
+    full = full_params(state)
+    out = {"params": {k: np.array(v) for k, v in state_dict_from_params(
+        {k: v for k, v in full.items()}, cfg).items()}}
+    layout = state.sharding
+    leaves = tree_leaves(state.params)
+    out["whole"] = [leaves[i].detach().numpy().copy() for i, s in enumerate(layout.specs)
+                    if s.kind is None] if layout is not None else []
+    out["split"] = sum(s.kind is not None for s in layout.specs) if layout is not None else 0
+    out["mesh"] = (mesh.dcn_idx, mesh.dp_idx, mesh.tp_idx, mesh.data.rank, mesh.data.world_size)
+    return out
+
+
+SAVED_SEQ = 33
+
+
+def saved_activation_bytes(params, cfg, mesh) -> int:
+    """The bytes autograd keeps for the backward of a forward of the vision
+    stack (this rank's slices) under remat "attn", on a [2, SAVED_SEQ, W]
+    stream: each storage the pack hook sees once, the params left out."""
+    from clip_event_tpu_torch.engine.optim import tree_leaves
+    from clip_event_tpu_torch.models import layers
+    from clip_event_tpu_torch.parallel.sharding import shard_params_tp
+
+    stack = shard_params_tp(params, cfg, mesh)["visual"]["transformer"]
+    weights = {t.untyped_storage().data_ptr() for t in tree_leaves(stack)}
+    x = torch.randn(2, SAVED_SEQ, cfg.vision_width, generator=torch.Generator().manual_seed(SEED),
+                    requires_grad=True)
+    kept = {}
+
+    def pack(t):
+        storage = t.untyped_storage()
+        if storage.data_ptr() not in weights:
+            kept[storage.data_ptr()] = storage.nbytes()
+        return t
+
+    with layers.tensor_parallel(mesh), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        layers.transformer(x, stack, cfg.vision_heads, remat="attn")
+    return sum(kept.values())
+
+
+def run_tp(name: str, world: int, rank: int, b_local: int, out: str, fixtures=None) -> dict:
+    """One tensor-parallel case (module docstring) on the mesh `TP_MESHES`
+    gives it: its data rank's rows of the global batches of `TP_SEEDS`."""
+    from clip_event_tpu_torch.engine import train_step as TT
+    from clip_event_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
+    from clip_event_tpu_torch.models import layers
+    from clip_event_tpu_torch.parallel.mesh import make_mesh, replicate
+    from clip_event_tpu_torch.parallel.sharding import shard_params_tp, shard_state_tp
+
+    case = name.split("/", 1)[1]
+    tp, dcn, sp = TP_MESHES[case]
+    mesh = make_mesh("cpu", tp=tp, dcn=dcn, sp=sp)
+    data = mesh.data
+    params, cfg = init_params(name)
+    base = tp_batch_case(name)
+    opt = tp_sgd()
+    kw = dict(compute_dtype=torch.float32, remat=TP_REMAT.get(case, True), mesh=mesh, loss_type="ce")
+
+    def rank_batch(seed):
+        return _t(make_batches(base, data.world_size, b_local, seed)[1][data.rank])
+
+    def sharded(state):
+        replicate(state.params, mesh)
+        return shard_state_tp(state, cfg, mesh) if tp > 1 else state
+
+    result = {}
+    if case == "evals":
+        from clip_event_tpu_torch.data.m2e2 import M2E2Dataset
+        from clip_event_tpu_torch.evals.m2e2 import evaluate_m2e2
+
+        m = fixtures["m2e2"]
+        ds = M2E2Dataset(m["anno_json"], m["image_dir"], m["ontology_json"], image_size=32)
+        with layers.tensor_parallel(mesh):
+            result["sharded"] = evaluate_m2e2(shard_params_tp(params, cfg, mesh), cfg, ds,
+                                              batch_size=3, device="cpu", rank=mesh.data.rank,
+                                              world_size=mesh.data.world_size)
+        result["single"] = evaluate_m2e2(params, cfg, ds, batch_size=3, device="cpu", rank=0,
+                                         world_size=1)
+        return result
+    if case == "resume":
+        from clip_event_tpu_torch.engine import optim as TO
+
+        opt = TO.build_optimizer("adam", TO.build_schedule("none", ADAM_LR, 1), grad_clip_norm=1.0)
+        glob = _t(make_batches(base, data.world_size, b_local, TP_SEEDS[0])[0])
+        one = TT.make_train_step(cfg, opt, **dict(kw, mesh=None))(TT.create_train_state(params, opt), glob)[0]
+        # every rank calls the save (rank 0 writes, all wait)
+        save_checkpoint(out, "tp_from_one", 0, one.params, one.opt_state, cfg, step=one.step)
+        params, opt_state, meta, _ = restore_checkpoint(os.path.join(out, "tp_from_one", "tp_from_one_0"))
+        state = TT.create_train_state(params, opt)._replace(opt_state=opt_state, step=meta["step"])
+        state, m = TT.make_train_step(cfg, opt, **kw)(sharded(state), rank_batch(TP_SEEDS[1]))
+        result["metrics"] = {k: float(v) for k, v in m.items()}
+        result["count"] = int(state.opt_state["count"])
+    elif case == "accum":
+        micro = [make_batches(base, data.world_size, b_local, 20 + k)[1][data.rank] for k in range(2)]
+        state = sharded(TT.create_train_state(params, opt))
+        step = TT.make_accum_step(cfg, opt, 2, **kw)
+        state, m = step(state, _t({k: np.stack([b[k] for b in micro]) for k in micro[0]}))
+        result["metrics"] = {k: float(v) for k, v in m.items()}
+    elif case == "multi_step":
+        result["saved"] = saved_activation_bytes(params, cfg, mesh)
+        state = sharded(TT.create_train_state(params, opt))
+        many, _ = TT.make_multi_step(cfg, opt, 2, **kw)
+        batches = [rank_batch(seed) for seed in TP_SEEDS]
+        state, m = many(state, {k: torch.stack([b[k] for b in batches]) for k in batches[0]})
+        result["metrics"] = {k: v.tolist() for k, v in m.items()}
+    else:
+        if case == "ckpt":
+            from clip_event_tpu_torch.engine import optim as TO
+
+            opt = TO.build_optimizer("adam", TO.build_schedule("none", ADAM_LR, 1), grad_clip_norm=1.0)
+        if case == "attn":
+            result["saved"] = saved_activation_bytes(params, cfg, mesh)
+        state = sharded(TT.create_train_state(params, opt))
+        with layers.ln_impl("pallas" if case == "sp" else "xla"):
+            state, m = TT.make_train_step(cfg, opt, **kw)(state, rank_batch(TP_SEEDS[0]))
+        result["metrics"] = {k: float(v) for k, v in m.items()}
+        if case == "ckpt":
+            task = "tp_ckpt"
+            save_checkpoint(out, task, 0, state.params, state.opt_state, cfg, step=state.step,
+                            sharding=state.sharding)
+            result["ckpt"] = os.path.join(out, task, task + "_0")
+            rec = state_record(state, cfg)
+            result.update({k: rec[k] for k in ("mu", "nu", "count")})
+    result.update(tp_record(state, cfg, mesh))
+    return result
+
+
 def comm_checks(rank: int, world: int) -> None:
     """The JAX package's multi-process assertions (tests/test_multiprocess.py
     `_WORKER`) on the port's collectives, and `any_rank`."""
@@ -393,6 +563,8 @@ def main(rank: int, world: int, out: str, cases, b_local: int, fixtures=None, te
                 results["evals"] = run_evals(fixtures)
             elif case == "embed":
                 results["embed"] = run_embed_case(fixtures, os.path.join(out, "embed"), texts)
+            elif case.startswith("tp/"):
+                results[case] = run_tp(case, world, rank, b_local, out, fixtures)
             elif ":" in case:
                 results[case] = run_sharded(case, world, rank, b_local, mesh, out)
             else:

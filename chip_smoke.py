@@ -27,6 +27,7 @@ them), and the bench entry point and component bench.
     python3 chip_smoke.py --only train_dp   # the data-parallel step alone
     python3 chip_smoke.py --only data_feed  # the host image path alone
     python3 chip_smoke.py --only tp_heads   # the tp = 2 head groups alone
+    python3 chip_smoke.py --only pp_stages  # the pp = 2 stages alone
     # the same for an earlier tree's package unpacked under DIR
     python3 chip_smoke.py --only b1 --package-root DIR
 
@@ -135,6 +136,29 @@ Phases, each printing JSON lines:
               K4b (+ K4c) through autograd on the sequence-parallel local
               rows of the L/14 towers (B·⌈S/2⌉ rows), counted, with K4's
               checks at those shapes; the phase's seconds
+  5p. pp_stages  GPipe at pp = 2 through the port's in-process driver
+              (`parallel.pipeline.run_in_process`: both stages on the one
+              card, in tick order, the schedule and stage function of a
+              multi-rank run with a mailbox for the transport; the card's
+              machine has one GPU, and NCCL takes one rank a GPU): K1 and K2
+              at the microbatch shapes (B/32 vision 96 x 50 x 768, text 288
+              x 77 x 512 causal, L/14 vision 16 x 257 x 1024) against their
+              plain versions with the kernel phase's gates, timed in bf16;
+              the ViT-B/32 train step's loss and every gradient (384 x 3,
+              bf16, full remat, pp_microbatches 4; and fp32 at 64 x 3), the
+              stacks cut into stages by `PPLayout` and run by
+              `layers.transformer` as a list of stages, the stage leaves'
+              gradients laid back by `PPSpec.from_shards`, against the plain
+              step on the kernels from the same params and batch: relative
+              to the largest plain value within bf16 2^-6 / fp32 1e-5, the
+              forward's features' bit equality reported; one ViT-L/14
+              vision stack call (64 x 257, K2, "attn") forward and backward
+              against `layers.run_stack` on the whole batch, bf16 and fp32,
+              the same gates; exact K1 / K2 launch counts by the rules the
+              summary line states (full remat: 3 forwards a block and
+              microbatch, "attn": 2); the fp32 Adam state one rank holds at
+              pp = 2 and 4 (W = 8), alone and with zero / fsdp on top,
+              counted from shapes; the phase's seconds (at most 60)
   5e. data_feed  `configs/finetune_template_fast.json` (ViT-B/32, 384 x 3,
               bf16, length buckets [32, 48], dedupe 768) fed from JPEG
               files through `train.build_dataset` and `train.train`: a
@@ -355,7 +379,7 @@ from clip_event_tpu_torch.data.common import ExampleDataset
 from clip_event_tpu_torch.data.transform import CLIP_MEAN, CLIP_STD
 from clip_event_tpu_torch.data.labels import build_label_layout
 from clip_event_tpu_torch.embed import embed_stream
-from clip_event_tpu_torch.engine.optim import build_optimizer, build_schedule, tree_leaves
+from clip_event_tpu_torch.engine.optim import build_optimizer, build_schedule, tree_leaves, tree_unflatten
 from clip_event_tpu_torch.engine.train_step import create_train_state, loss_fn, make_train_step
 from clip_event_tpu_torch.evals.cli import load_model_from_cfg
 from clip_event_tpu_torch.evals.common import Encoders
@@ -2549,28 +2573,43 @@ def graph_equals_eager(mcfg, params, batches, dispatches=2, **step_kwargs):
     return out
 
 
+PROFILE_REPLAYS = 3  # a trace can lose kernel records (30k kernels a finetune_ot replay)
+
+
 def profile_replay(graph_obj):
     """One replay of a captured step under torch.profiler: the device busy
     ms of the replay and its kernel launches by name, held against the
-    wrappers' counts the capture recorded (`launches`: PROFILE_NEEDLES)."""
-    graph_obj.replay()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        graph_obj.replay()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    check(bool(rows), "the profiler shows no kernel of a graph replay")
+    wrappers' counts the capture recorded (`launches`: PROFILE_NEEDLES).
+    A replay launches the same kernels every time and a trace can lose
+    records but not add them, so every profiled replay must show no more
+    than the counts, and one of up to PROFILE_REPLAYS must show exactly
+    them; the shortfalls of the others are returned."""
     counted = graph_obj.launches
     want = {KERNEL: counted["attention_fwd"], BWD_KERNEL: counted["attention_bwd"],
             HG_KERNEL: counted["attention_hg_fwd"], HG_BWD_KERNEL: counted["attention_hg_bwd"],
             "ipot": counted["ipot"], "layer_norm+add_layer_norm": counted["layer_norm"] + counted["add_layer_norm"],
             "layer_norm_bwd": counted["layer_norm_bwd"]}
-    seen = {name: sum(c for key, _, c in rows if any(n in key for n in needles))
-            for name, needles in PROFILE_NEEDLES.items()}
-    check(seen == want, f"profiled replay's kernels {seen} != the wrappers' counts {want}")
+    graph_obj.replay()
+    torch.cuda.synchronize()
+    lost = []
+    for _ in range(PROFILE_REPLAYS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph_obj.replay()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        check(bool(rows), "the profiler shows no kernel of a graph replay")
+        seen = {name: sum(c for key, _, c in rows if any(n in key for n in needles))
+                for name, needles in PROFILE_NEEDLES.items()}
+        check(all(seen[k] <= want[k] for k in want),
+              f"profiled replay's kernels {seen} exceed the wrappers' counts {want}")
+        if seen == want:
+            break
+        lost.append({k: want[k] - seen[k] for k in want if seen[k] != want[k]})
+    check(seen == want, f"profiled replays' kernels {seen} != the wrappers' counts {want} "
+                        f"in {PROFILE_REPLAYS} replays (records lost: {lost})")
     return {"replay_busy_ms": sum(r[1] for r in rows), "replay_kernel_launches": sum(r[2] for r in rows),
-            "replay_hand_kernels_by_profile": seen}
+            "replay_hand_kernels_by_profile": seen, "replay_profile_records_lost": lost}
 
 
 def graph_vs_eager(mcfg, params, batch, k=GRAPH_TIMING_K, **step_kwargs):
@@ -4097,6 +4136,293 @@ def phase_tp_heads(out_root=None, rows=None, errs=None):
     return total
 
 
+# ------------------------------------------------------------- pp stages
+
+# GPipe at pp = 2 with the in-process driver (`parallel.pipeline.
+# run_in_process`: both stages on the one card, in tick order): the B/32
+# train step at its bench batch with pp_microbatches 4 (vision microbatches
+# 96 x 50 x 768, text 288 x 77 x 512), bf16, full remat, and in fp32 at 64
+# x 3; one ViT-L/14 vision stack call (64 x 257 x 1024, K2, microbatches
+# of 16) under "attn", bf16 and fp32
+PP_STAGES, PP_MICRO = 2, 4
+PP_MB_SHAPES = [  # (tag, B, S, W, H, causal) of one microbatch
+    ("pp_b32_vision_mb", TRAIN_BATCH // PP_MICRO, 50, 768, 12, False),
+    ("pp_b32_text_mb", TRAIN_BATCH * 3 // PP_MICRO, 77, 512, 8, True),
+    ("pp_l14_vision_mb", L14_BATCH // PP_MICRO, 257, 1024, 16, False),
+]
+# the pipelined run against the plain one, relative to the largest plain
+# value: the microbatches' GEMMs round apart from the whole batch's, and
+# the weights' gradients are summed over 4 microbatches (TP_SUM_TOL's
+# reasoning: bf16 2^-6, fp32 1e-5)
+PP_TOL = TP_SUM_TOL
+
+
+def pp_stage_tree(params, pp):
+    """A copy of `params` whose leaves require grad, each stack whose depth
+    divides pp replaced by the list of its stages' slices, cut by
+    `PPLayout` (stage s's on a hand-made mesh of pp stages): the tree the
+    in-process driver runs (`layers.transformer` takes a list of stages).
+    Returns (tree, own): `own` a tensor a whole leaf, a list of pp tensors
+    a stage leaf, in `tree_leaves` order of `params`."""
+    from clip_event_tpu_torch.parallel.mesh import Mesh
+    from clip_event_tpu_torch.parallel.pipeline import PPLayout
+
+    leaves = [t.detach() for t in tree_leaves(params)]
+    device = leaves[0].device
+    layouts = [PPLayout(params, Mesh(s, pp, device, pp=pp)) for s in range(pp)]
+    cuts = [lay.shard_leaves(leaves) for lay in layouts]
+    own = [[c[i].clone().requires_grad_(True) for c in cuts] if spec.kind else t.clone().requires_grad_(True)
+           for i, (spec, t) in enumerate(zip(layouts[0].specs, leaves))]
+    stages = [tree_unflatten(params, [o[s] if isinstance(o, list) else o for o in own]) for s in range(pp)]
+    tree = stages[0]
+    for path in (("visual", "transformer"), ("text_transformer",)):
+        try:
+            node = _subtree(tree, path)
+        except (KeyError, TypeError):
+            continue
+        if node["attn"]["qkv_w"].shape[0] != _subtree(params, path)["attn"]["qkv_w"].shape[0]:
+            _subtree(tree, path[:-1])[path[-1]] = [_subtree(st, path) for st in stages]
+    return tree, own
+
+
+def _subtree(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def pp_grads_laid_back(outputs, own, pp, inputs=(), grad_outputs=None):
+    """The gradients of `inputs`, then of `own` (`pp_stage_tree`), in one
+    `autograd.grad`, each stage leaf's stages laid back in layer order by
+    `PPSpec.from_shards`."""
+    from clip_event_tpu_torch.parallel.pipeline import PPSpec
+
+    flat = list(inputs) + [t for o in own for t in (o if isinstance(o, list) else [o])]
+    grads = iter(torch.autograd.grad(outputs, flat, grad_outputs, allow_unused=True))
+    out = [next(grads) for _ in inputs]
+    for o in own:
+        if isinstance(o, list):
+            out.append(PPSpec("stage").from_shards(torch.stack([next(grads) for _ in range(pp)])))
+        else:
+            g = next(grads)
+            out.append(torch.zeros_like(o) if g is None else g)
+    return out
+
+
+def pp_step_launches(mcfg, dtype, M):
+    """K1 / K2 launches of one pipelined train step under full remat (the
+    in-process driver's, any pp): each block of a stage slice runs its
+    attention forward 3 times a microbatch (the driver's forward, without
+    autograd; the backward's recompute of the stage with autograd on,
+    under the block's checkpoint; that checkpoint's own recompute) and its
+    backward once a microbatch; M microbatches a tower."""
+    out = dict.fromkeys(COUNTERS, 0)
+    for L, W, H in ((mcfg.vision_layers, mcfg.vision_width, mcfg.vision_heads),
+                    (mcfg.transformer_layers, mcfg.transformer_width, mcfg.transformer_heads)):
+        out[KERNEL] += 3 * M * L
+        out[BWD_KERNEL] += M * L * k1_bwd_launches(W, H, dtype)
+    return out
+
+
+def pp_stack_launches(L, M):
+    """K2 launches of one pipelined stack call, forward and backward, under
+    "attn": per block and microbatch the driver's forward and the
+    backward's recompute (whose saved region keeps the core's output, so
+    no third), and one backward (HG_BWD_LAUNCHES_PER_CALL launches)."""
+    out = dict.fromkeys(COUNTERS, 0)
+    out[HG_KERNEL] = 2 * M * L
+    out[HG_BWD_KERNEL] = M * L * HG_BWD_LAUNCHES_PER_CALL
+    return out
+
+
+def _pp_gaps(got, want) -> dict:
+    return {"max_rel_gap": max(_rel(g, w) for g, w in zip(got, want)),
+            "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want))}
+
+
+def pp_train_step_check(mcfg, params, batch, dtype, timed=False) -> dict:
+    """The train step's loss and every gradient at pp = PP_STAGES through
+    the in-process driver, counted, against the plain step (the kernels,
+    no pipeline; not counted) from the same params and batch; `timed`:
+    the two forward-and-backward passes in turns."""
+    name = str(dtype).split(".")[-1]
+    kw = dict(compute_dtype=dtype, remat=True, impl="kernel")
+    ref_params = tree_unflatten(params, [t.detach().clone().requires_grad_(True) for t in tree_leaves(params)])
+    # the plain forward's features, and the step's loss and gradients
+    with torch.no_grad():
+        feats = (encode_image(ref_params, mcfg, batch["image"], compute_dtype=dtype),
+                 encode_text(ref_params, mcfg, batch["text"], compute_dtype=dtype))
+    total, _ = loss_fn(ref_params, batch, mcfg, **kw)
+    want = torch.autograd.grad(total, tree_leaves(ref_params))
+    want_loss = total.detach()
+    del total
+    tree, own = pp_stage_tree(params, PP_STAGES)
+    M = PP_MICRO
+    with layers.pipeline(_pp_mesh(), M):
+        with torch.no_grad():
+            got_feats = (encode_image(tree, mcfg, batch["image"], compute_dtype=dtype),
+                         encode_text(tree, mcfg, batch["text"], compute_dtype=dtype))
+        torch.cuda.synchronize()
+        reset_launches()
+        total, _ = loss_fn(tree, batch, mcfg, **kw)
+        got = pp_grads_laid_back(total, own, PP_STAGES)
+        torch.cuda.synchronize()
+        launched = read_launches()
+    want_launches = pp_step_launches(mcfg, dtype, M)
+    check(launched == want_launches, f"pp_stages B/32 step {name}: launched {launched}, not {want_launches}")
+    turns = {}
+    if timed:
+        # the forward and backward alone (no optimizer), plain and
+        # pipelined in turns: what the driver's third forward a block, the
+        # microbatches' smaller GEMMs and their launches cost on one card
+        flat = [t for o in own for t in (o if isinstance(o, list) else [o])]
+
+        def plain_step():
+            torch.autograd.grad(loss_fn(ref_params, batch, mcfg, **kw)[0], tree_leaves(ref_params))
+
+        def pp_step():
+            with layers.pipeline(_pp_mesh(), M):
+                torch.autograd.grad(loss_fn(tree, batch, mcfg, **kw)[0], flat)
+
+        turns["plain_ms"], turns["pp_ms"] = in_turns(plain_step, pp_step, iters=2, warmup=1)
+        # where the difference goes: each one's device busy time, idle
+        # share and launches (torch.profiler, one warm run)
+        turns["plain_profile"] = profile_one(plain_step, turns["plain_ms"], host=False)
+        turns["pp_profile"] = profile_one(pp_step, turns["pp_ms"], host=False)
+    loss_gap = abs(total.item() - want_loss.item()) / max(abs(want_loss.item()), 1e-30)
+    grads = _pp_gaps(got, want)
+    tol = PP_TOL[name]
+    check(math.isfinite(total.item()) and loss_gap <= tol, f"pp_stages B/32 {name}: loss gap {loss_gap} > {tol}")
+    check(grads["max_rel_gap"] <= tol, f"pp_stages B/32 {name}: a gradient gap {grads['max_rel_gap']} > {tol}")
+    return {"dtype": name, "batch": batch["image"].shape[0], "microbatches": M, "loss": total.item(),
+            "plain_loss": want_loss.item(), "loss_rel_gap": loss_gap, "grads": grads,
+            "forward_bit_equal": {"image_features": bool(torch.equal(got_feats[0], feats[0])),
+                                  "text_features": bool(torch.equal(got_feats[1], feats[1]))},
+            "forward_max_abs_gap": max((a.float() - b.float()).abs().max().item()
+                                       for a, b in zip(got_feats, feats)),
+            "launched": {k: v for k, v in launched.items() if v}, "tol": tol,
+            "forward_backward_ms_in_turns": turns or "not measured"}
+
+
+def _pp_mesh():
+    from clip_event_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(0, PP_STAGES, torch.device("cuda"), pp=PP_STAGES)
+
+
+def pp_stack_check(gen, dtype, mcfg=VIT_L14, B=L14_BATCH, device="cuda"):
+    """One ViT-L/14 vision stack (24 blocks, W 1024, H 16, S 257: K2) at
+    L14_BATCH rows under "attn", forward and backward through the
+    in-process driver at pp = PP_STAGES, counted, against the plain stack
+    (`layers.run_stack` on the whole batch, not counted): the output, dx
+    and every leaf's gradient, stages laid back. Returns (dtype name, the
+    pipelined output, the plain one, their gradients, the launches)."""
+    from clip_event_tpu_torch.parallel.pipeline import run_in_process
+
+    name = str(dtype).split(".")[-1]
+    L, W, H, S = mcfg.vision_layers, mcfg.vision_width, mcfg.vision_heads, mcfg.grid_size ** 2 + 1
+    stack = layers.init_transformer(torch.Generator().manual_seed(14), L, W)
+    stack = {k: {n: v.to(device) for n, v in sub.items()} for k, sub in stack.items()}
+    x = torch.randn((B, S, W), device=device, generator=gen).to(dtype)
+    dy = torch.randn((B, S, W), device=device, generator=gen).to(dtype)
+    whole = tree_unflatten(stack, [t.clone().requires_grad_(True) for t in tree_leaves(stack)])
+    leaf = x.clone().requires_grad_(True)
+    want_y = layers.run_stack(leaf, whole, H, None, "kernel", "attn", "xla")
+    want = torch.autograd.grad(want_y, [leaf] + tree_leaves(whole), dy)
+    tree, own = pp_stage_tree({"visual": {"transformer": stack}}, PP_STAGES)
+    stages = tree["visual"]["transformer"]
+    check(isinstance(stages, list) and len(stages) == PP_STAGES, "pp_stages: the L/14 stack splits")
+    torch.cuda.synchronize()
+    reset_launches()
+    leaf = x.clone().requires_grad_(True)
+    y = run_in_process(leaf, stages, H, None, PP_MICRO, "attn", "kernel", "xla")
+    got = pp_grads_laid_back(y, own, PP_STAGES, inputs=[leaf], grad_outputs=dy)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    return name, y, want_y, got, want, launched
+
+
+def phase_pp_stages(out_root=None, rows=None, errs=None):
+    """Phase 5p (module docstring). Returns the launch counts of the
+    pipelined runs; `rows` / `errs` (the kernel phase's) take the
+    microbatch shapes' check rows."""
+    t_phase = time.perf_counter()
+    if rows is None:
+        rows = {name: [] for name in COUNTERS}
+        errs = {name: {} for name in COUNTERS}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    total = dict.fromkeys(COUNTERS, 0)
+    # the microbatch shapes against the plain versions (the kernel phase's
+    # gates; timed in bf16)
+    for tag, B, S, W, H, causal in PP_MB_SHAPES:
+        k = K1 if attention_ops.core_kernel(S, W, H) == "k1" else K2
+        for dtype in (torch.bfloat16, torch.float32):
+            check_attention(rows, errs, k, gen, tag, B, S, W, H, causal, dtype, dtype == torch.bfloat16)
+    mcfg = VIT_B32
+    params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+    ds = _BenchPairs(TRAIN_BATCH, mcfg.image_resolution, mcfg.context_length, mcfg.vocab_size)
+    steps = []
+    for dtype, b in ((torch.bfloat16, TRAIN_BATCH), (torch.float32, FP32_CHECK_BATCH)):
+        row = pp_train_step_check(mcfg, params, _device_batch(ds, b), dtype, timed=dtype == torch.bfloat16)
+        total = {n: total[n] + row["launched"].get(n, 0) for n in COUNTERS}
+        steps.append(row)
+        emit({"phase": "pp_stages", "what": "b32_train_step", **row})
+    del params
+    stacks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name, y, want_y, got, want, launched = pp_stack_check(gen, dtype)
+        want_launches = pp_stack_launches(VIT_L14.vision_layers, PP_MICRO)
+        check(launched == want_launches, f"pp_stages L/14 stack {name}: launched {launched}, not {want_launches}")
+        out_gap = _rel(y, want_y)
+        grads = _pp_gaps(got, want)
+        tol = PP_TOL[name]
+        check(bool(torch.isfinite(y).all()) and out_gap <= tol, f"pp_stages L/14 {name}: output gap {out_gap}")
+        check(grads["max_rel_gap"] <= tol, f"pp_stages L/14 {name}: a gradient gap {grads['max_rel_gap']} > {tol}")
+        row = {"dtype": name, "B": L14_BATCH, "S": 257, "microbatches": PP_MICRO, "remat": "attn",
+               "output_rel_gap": out_gap, "output_bit_equal": bool(torch.equal(y, want_y)),
+               "dx_bit_equal": bool(torch.equal(got[0], want[0])), "grads": grads,
+               "launched": {k: v for k, v in launched.items() if v}, "tol": tol}
+        total = {n: total[n] + launched[n] for n in COUNTERS}
+        stacks.append(row)
+        emit({"phase": "pp_stages", "what": "l14_vision_stack", **row})
+        del y, want_y, got, want
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "pp_stages_summary", "pp": PP_STAGES, "pp_microbatches": PP_MICRO, "launches": total,
+          "launch_rules": {"b32_step_full_remat": "K1-fwd 3·M·L, K1-bwd M·L·k1_bwd_launches a tower",
+                           "l14_stack_attn": "K2-fwd 2·M·L, K2-bwd M·L·HG_BWD_LAUNCHES_PER_CALL"},
+          "seconds": seconds,
+          "reckoned_pp_rank_state_gib": {f"{name} pp={pp}": reckoned_pp_rank_state_gib(m, pp, 8)
+                                         for name, m in (("ViT-B/32", VIT_B32), ("ViT-L/14", VIT_L14))
+                                         for pp in (2, 4)}})
+    check(seconds <= 60.0, f"pp_stages took {seconds} s of its 60")
+    return total
+
+
+def reckoned_pp_rank_state_gib(mcfg, pp, world) -> dict:
+    """The GiB one rank of a (dp × pp) mesh of `world` ranks would hold of
+    an fp32 Adam state of `mcfg` (params, mu, nu): its stage (stage 0: the
+    stages of a stack are alike, every whole leaf on every stage), alone
+    and with ZeRO-1 / FSDP over its world/pp data ranks on top, by the
+    layouts' own rules (`PPLayout`, `ShardLayout`, padding included);
+    counted from the shapes on the meta device."""
+    from clip_event_tpu_torch.parallel.mesh import Mesh
+    from clip_event_tpu_torch.parallel.pipeline import PPLayout
+    from clip_event_tpu_torch.parallel.sharding import ShardLayout
+
+    with torch.device("meta"):
+        params = init_params(torch.Generator(), mcfg, "meta")
+    mesh = Mesh(0, world, torch.device("meta"), pp=pp)
+    leaves = tree_leaves(params)
+    stage = tree_unflatten(params, PPLayout(params, mesh).shard_leaves(leaves))
+    specs = ShardLayout(stage, mesh, "fsdp").specs
+    full = sum(t.numel() for t in leaves) * 4 / 2**30
+    rank = sum(t.numel() for t in tree_leaves(stage)) * 4 / 2**30
+    shard = sum(math.prod(s.shard_shape) for s in specs) * 4 / 2**30
+    return {"pp": pp, "world": world, "dp": world // pp, "unsharded": 3 * full, "pp_rank": 3 * rank,
+            "pp_zero": rank + 2 * shard, "pp_fsdp": 3 * shard}
+
+
 # ------------------------------------------------------------- data feed
 
 # the data_feed phase's synthetic VOA corpus: 768 news-photo-sized JPEGs
@@ -4538,18 +4864,21 @@ def phase_data_feed(out_root):
 PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn50,
                 "train_rn50": phase_train_rn50, "evals": phase_evals,
                 "serving_bundle": phase_serving_bundle, "train_dp": phase_train_dp,
-                "data_feed": phase_data_feed, "tp_heads": phase_tp_heads}
+                "data_feed": phase_data_feed, "tp_heads": phase_tp_heads, "pp_stages": phase_pp_stages}
 
 
-def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
+def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),), host=True):
     """Device time of one warm `run()` by kernel (torch.profiler): the busy
     time summed over the kernels themselves (not the aten ops that launch
     them), its share of `batch_ms` (the unprofiled time of one run), the
     time and busy share of each named kernel family (name substring), and
-    the kernels that took most."""
+    the kernels that took most. `host` False traces the device alone (the
+    same kernel rows; tens of thousands of host ops take the tracer tens
+    of seconds)."""
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     rows = sorted(
@@ -4613,7 +4942,8 @@ def main(argv=None) -> int:
     says so; `b1` the wrappers' host cost (`--package-root DIR`: another
     tree's package), `graph` the graphed B/32 train step
     (`phase_train_graph`); `train_full`, `serving_rn50`, `train_rn50`,
-    `evals`, `serving_bundle`, `train_dp` or `data_feed` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    `evals`, `serving_bundle`, `train_dp`, `data_feed`, `tp_heads` or
+    `pp_stages` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
     csrc/ and times them beside these in turns; `--k6-split` times K6
     without its core and without its projection (`k6_split`)."""
     import argparse
@@ -4708,6 +5038,7 @@ def main(argv=None) -> int:
         paths["train_graph"] = phase_train_graph(out_root)
         paths["train_dp"] = phase_train_dp(out_root)
         paths["tp_heads"] = phase_tp_heads(out_root, rows, errs)
+        paths["pp_stages"] = phase_pp_stages(out_root, rows, errs)
         paths["data_feed"] = phase_data_feed(out_root)
         paths["train_ln"], paths["train_ln_l14"] = phase_train_ln(out_root, train_ms, train_prof)
         paths["serving_ln"] = phase_serving_ln()

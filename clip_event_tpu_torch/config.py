@@ -2,16 +2,17 @@
 `clip_event_tpu/config.py`; reference README.md:151-197).
 
 The same keys, defaults and checks as the JAX package's `validate_config`
-(including the original `constrastive_*` spellings), for the keys this
-port carries. A key of a part not ported yet raises `ConfigError` naming
-its ROADMAP item when it is set to anything but its default: pipeline
-parallelism (`pp`: A6(c)). `zero` (ZeRO-1: the optimizer's moments
-sharded over the data-parallel ranks) and `fsdp` (the params too) take a
-bool, as in the JAX package (`parallel/sharding.py`). `tp` (Megatron
-tensor parallelism), `sp` (sequence parallelism over the tp ranks) and
-`dcn_dp` (data-parallel slices) follow the JAX package's rules and
-messages (`clip_event_tpu/config.py:233-256`); `zero` or `fsdp` together
-with `tp > 1` or `dcn_dp > 1` is refused (A6(c): not composed yet).
+(including the original `constrastive_*` spellings). Every key trains
+through the port (`_UNPORTED` is empty; a key listed there would raise
+`ConfigError` naming its ROADMAP item when set to anything but its
+default). `zero` (ZeRO-1: the optimizer's moments sharded over the
+data-parallel ranks) and `fsdp` (the params too) take a bool, as in the
+JAX package (`parallel/sharding.py`), and compose with every model axis.
+`tp` (Megatron tensor parallelism), `sp` (sequence parallelism over the tp
+ranks), `pp` and `pp_microbatches` (GPipe over the pp ranks,
+`parallel/pipeline.py`) and `dcn_dp` (data-parallel slices) follow the
+JAX package's rules and messages (`clip_event_tpu/config.py:233-256`):
+pp takes neither tp nor dcn_dp.
 `image_cache` names a cache that `data/cache.py` built (the train and eval
 CLIs activate it). Data parallelism (A6(a)) needs no key: it follows the
 launch (`torchrun`, `mpirun`, `srun`), with `batch_size` per process.
@@ -136,8 +137,9 @@ _DEFAULTS: Dict[str, Any] = {
     "val_image_dir": [],
 }
 
-# keys of parts not ported yet: the ROADMAP item that brings each
-_UNPORTED = {"pp": "A6(c)"}
+# keys of parts not ported yet: the ROADMAP item that brings each (none:
+# every key of the JAX package's config trains through the port)
+_UNPORTED: Dict[str, str] = {}
 
 
 class ConfigError(ValueError):
@@ -232,9 +234,6 @@ def validate_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
         raise ConfigError("zero must be a bool (ZeRO-1 moment sharding)")
     if not isinstance(out["fsdp"], bool):
         raise ConfigError("fsdp must be a bool (ZeRO-3 param sharding)")
-    if (out["zero"] or out["fsdp"]) and (out["tp"] > 1 or out["dcn_dp"] > 1):
-        raise ConfigError(
-            "zero / fsdp with tp>1 or dcn_dp>1 is not ported yet (ROADMAP A6(c))")
     if out["begin_epoch"] > out["max_epoch"]:
         raise ConfigError("begin_epoch must be ≤ max_epoch")
     if not isinstance(out["grad_accum_steps"], int) or out["grad_accum_steps"] < 1:

@@ -15,10 +15,12 @@ not read (ROADMAP A9: not to do, orbax imports JAX). Under data
 parallelism the save is collective: every rank calls it, rank 0 (whose
 state every rank shares) writes the file and the meta, and every rank
 waits at a barrier until the write is done; a resume loads the file on
-every rank. A ZeRO-1, FSDP or tensor-parallel state (`parallel/sharding.py`) is
-gathered first, on every rank (a tp state with its head-group reorder
-inverted), so its file is the one an unsharded run writes: the full
-params and optimizer trees. A resume loads the full state and the
+every rank. A ZeRO-1, FSDP, tensor-parallel or pipeline state
+(`parallel/sharding.py`, `parallel/pipeline.py`; the data level, then the
+model level below it) is gathered first, on every rank (a tp state with
+its head-group reorder inverted, a pp state's stages laid back in layer
+order), so its file is the one an unsharded run writes: the full params
+and optimizer trees. A resume loads the full state and the
 train loop shards it again (`train.py`), so a file written at one world,
 sharded or not, resumes at any other.
 """
@@ -77,7 +79,7 @@ def save_checkpoint(
     0. The file is written to a temporary name and renamed, so a crash
     mid-write never leaves a path that `latest_checkpoint` would pick up.
     Collective under data parallelism (module docstring); `sharding`: the
-    state's `ShardLayout` (`TrainState.sharding`), whose shards every rank
+    state's layout (`TrainState.sharding`), whose shards every rank
     gathers first."""
     from clip_event_tpu_torch.parallel.collectives import comm
 

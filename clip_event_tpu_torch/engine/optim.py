@@ -142,6 +142,14 @@ def global_norm(tensors: Sequence[torch.Tensor], mesh=None,
     all-gathered and each leaf's norm is the norm of its ranks' norms (a
     leaf that `replicated` marks, whole on every rank, counted once). At a
     world of one that is the unsharded value, bit for bit."""
+    return torch.linalg.vector_norm(leaf_norms(tensors, mesh, replicated))
+
+
+def leaf_norms(tensors: Sequence[torch.Tensor], mesh=None,
+               replicated: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """[n] fp32: each leaf's norm, over the ranks of `mesh` as
+    `global_norm` combines them (a sharded state's first level, before the
+    model group's, `parallel.sharding.ShardLayout.norm`)."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     if mesh is not None and mesh.world_size > 1:
         from clip_event_tpu_torch.parallel.collectives import all_gather_flat
@@ -150,8 +158,8 @@ def global_norm(tensors: Sequence[torch.Tensor], mesh=None,
             # a leaf whole on every rank counts once, as rank 0's
             norms = torch._foreach_mul(norms, [0.0 if r else 1.0 for r in replicated])
         per_rank = all_gather_flat([torch.stack(norms)], mesh)[0]
-        return torch.linalg.vector_norm(torch.linalg.vector_norm(per_rank, dim=0))
-    return torch.linalg.vector_norm(torch.stack(norms))
+        return torch.linalg.vector_norm(per_rank, dim=0)
+    return torch.stack(norms)
 
 
 class Optimizer:

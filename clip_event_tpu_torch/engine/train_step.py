@@ -54,6 +54,26 @@ leaf over its slices, a whole leaf once (`TPLayout.norm`); Adam updates
 the slices elementwise. Under dcn > 1 the data group spans the slices,
 and its sum is the same one all-reduce (`collectives.all_reduce_flat`).
 
+Pipeline parallelism (a mesh with pp > 1, a state held by
+`parallel.pipeline.shard_state_pp`, `TrainState.sharding` a `PPLayout`,
+and the process-wide pipeline of `layers.set_pipeline`): the stacks whose
+depth divides pp run the GPipe schedule over the pp group, and every pp
+rank runs the rest of the model on the stack's output, which it gets
+whole. The output's cotangent enters the pipeline once and the input's
+cotangent reaches every pp rank, so the leaves outside the stages get the
+same gradient on every pp rank, and each stage leaf its own: the gradient
+sum goes over the data group only (the ranks of one stage), the clip
+takes each stage leaf's norm once over the pp group and each whole leaf
+once (`PPLayout.norm`), and the non-finite freeze is the pp group's one
+decision (a minimum over the group of each rank's flag).
+
+ZeRO-1 and FSDP compose with tp, dcn and pp (`parallel/sharding.py`: a
+`ShardLayout` whose `inner` is the model layout): the tp-partial leaves
+are summed over the tp group, the reduce-scatter (ZeRO-1) or the
+per-use gathers' backward (FSDP) go over the data ranks of the slice and
+then one all-reduce across the slices under dcn, and the norm combines
+each leaf's shards, then the model group's slices.
+
 The step updates `state.params` and `state.opt_state` in place (the same
 tensors stay the model's parameters and the optimizer's state from step to
 step) and returns the new state. `make_multi_step` runs K steps in one
@@ -87,7 +107,9 @@ class TrainState(NamedTuple):
     params: dict  # leaf tensors that require grad (FSDP: this rank's shards)
     opt_state: dict
     step: int  # optimizer steps taken, non-finite ones included (as in JAX)
-    # the state's `parallel.sharding.ShardLayout` (ZeRO-1 / FSDP), or None
+    # the state's layout (`parallel/sharding.py`: a `ShardLayout` for
+    # ZeRO-1 / FSDP, a `TPLayout` or `PPLayout`, or a `ShardLayout` over
+    # one of them), or None
     sharding: Optional[object] = None
 
 
@@ -234,22 +256,28 @@ def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Ten
     0 brings its whole total (the global contrastive terms, which every rank
     holds alike, counted once) and every other rank its local sums. The
     global contrastive terms stay as they are. With a tensor-parallel
-    `layout` the leaves whose gradient the tp ranks hold in part are summed
-    over the tp group first (one all-reduce a dtype). With a ZeRO-1
-    `layout` one reduce-scatter a dtype gives this rank its shards of the
-    summed gradients and every rank the sums; with an FSDP one the
-    gradients are summed shards already, and the all-reduce takes only the
-    replicated leaves' and the sums."""
+    model level the leaves whose gradient the tp ranks hold in part are
+    summed over the tp group first (one all-reduce a dtype; under FSDP
+    their shards). A pipeline's stage leaves keep their own gradient and
+    the whole leaves hold the same one on every pp rank: nothing is summed
+    over pp. With a ZeRO-1 `layout` one reduce-scatter a dtype gives this
+    rank its shards of the summed gradients and every rank the sums; with
+    an FSDP one the gradients are summed shards already, and the
+    all-reduce takes only the replicated leaves' and the sums; under dcn
+    the shards are the slice's, summed across the slices after."""
+    from clip_event_tpu_torch.parallel.sharding import ModelLayout, model_layout
+
     local = [k for k in loss_dict if k in LOCAL_SUM_TERMS]
     data = mesh.data
     with torch.no_grad():
-        if layout is not None and layout.mode == "tp":
-            partial = layout.partial()
+        inner = model_layout(layout)
+        partial = [] if inner is None else inner.partial()
+        if partial:
             grads = list(grads)
-            if partial:
-                for i, v in zip(partial, collectives.all_reduce_flat([grads[i] for i in partial],
-                                                                     mesh.tensor)):
-                    grads[i] = v
+            for i, v in zip(partial, collectives.all_reduce_flat([grads[i] for i in partial],
+                                                                 inner.view)):
+                grads[i] = v
+        if isinstance(layout, ModelLayout):
             layout = None
         if data.rank == 0:
             own = total.detach()
@@ -264,9 +292,13 @@ def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Ten
         elif layout.mode == "zero":
             grads, sums = layout.reduce_scatter(grads, scalars)
         else:
-            whole = [i for i, s in enumerate(layout.specs) if s.replicated]
-            summed = collectives.all_reduce_flat([grads[i] for i in whole] + scalars, mesh)
             grads = list(grads)
+            whole = [i for i, s in enumerate(layout.specs) if s.replicated]
+            if layout.cross is not None:
+                split = [i for i, s in enumerate(layout.specs) if not s.replicated]
+                for i, v in zip(split, collectives.all_reduce_flat([grads[i] for i in split], layout.cross)):
+                    grads[i] = v
+            summed = collectives.all_reduce_flat([grads[i] for i in whole] + scalars, data)
             for i, v in zip(whole, summed):
                 grads[i] = v
             sums = summed[len(whole):]
@@ -274,6 +306,22 @@ def _sum_across_ranks(grads, total: torch.Tensor, loss_dict: Dict[str, torch.Ten
     for k, v in zip(local, sums[1:]):
         loss_dict[k] = v.reshape(())
     return grads, sums[0].reshape(()), loss_dict
+
+
+def _finite(total: torch.Tensor, layout) -> torch.Tensor:
+    """Whether the step keeps its update: the loss is finite; under a
+    pipeline the pp group's one decision (every rank's flag, the minimum)."""
+    import torch.distributed as dist
+
+    from clip_event_tpu_torch.parallel.sharding import model_layout
+
+    finite = torch.isfinite(total)
+    inner = model_layout(layout)
+    if inner is None or inner.mode != "pp":
+        return finite
+    flag = finite.to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=inner.view.group)
+    return flag.reshape(()) > 0
 
 
 def _apply_update(
@@ -296,7 +344,7 @@ def _apply_update(
         if zero:
             params = tree_unflatten(params, layout.shard_leaves([p.detach() for p in tree_leaves(params)]))
         new_params, new_opt = optimizer.update(grad_tree, state.opt_state, params, grad_norm=norm)
-        finite = torch.isfinite(total)
+        finite = _finite(total, layout)
         # every leaf of the state, the step count included, is written in
         # place: a CUDA graph replay reads the buffers the last one wrote
         if zero:

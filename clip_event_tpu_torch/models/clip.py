@@ -131,6 +131,7 @@ def encode_image(
         return vit_encode(
             params["visual"], images, cfg.vision_patch_size, cfg.vision_heads,
             use_grid=use_grid, compute_dtype=compute_dtype, impl=impl, remat=remat,
+            depth=cfg.vision_layers,
         )
     if use_grid:
         raise ValueError("grid features require the ViT tower")
@@ -157,7 +158,8 @@ def encode_text(
     x = embed_tokens(full(params["token_embedding"]), tokens, cfg.vocab_size).to(compute_dtype)
     x = x + full(params["positional_embedding"])[:seq].to(compute_dtype)
     bias = L.causal_mask(seq, device=x.device)
-    x = L.transformer(x, params["text_transformer"], cfg.transformer_heads, bias, impl, remat)
+    x = L.transformer(x, params["text_transformer"], cfg.transformer_heads, bias, impl, remat,
+                      depth=cfg.transformer_layers)
     x = L.layer_norm(x, params["ln_final"])
     eot_idx = tokens.argmax(dim=-1)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx]

@@ -92,6 +92,16 @@ sequence parallelism (a TPU `shard_map` reason); here the kernels run on
 the local rows, the same numbers. A whole stack (W or H not dividing tp,
 or int8 weights) runs unsharded, with no collective.
 
+Pipeline parallelism (`set_pipeline(mesh, microbatches)`, `with
+pipeline(mesh, microbatches)`: the train loop sets it from its mesh and
+`pp_microbatches`). The towers pass `transformer` their `depth`; a stack
+that holds depth/pp of its layers is a pipeline stage's slice
+(`parallel/pipeline.py`) and runs `pipelined_transformer` over the mesh's
+pp group, the remat policy and the LayerNorm choice applied inside each
+stage's recomputed region (`run_stack`); a whole stack (a depth that does
+not divide pp) runs as it is on every rank. A list of stacks is every
+stage of the pipeline in this process (`parallel.pipeline.run_in_process`).
+
 A dense weight may be an int8 `ops.quant.QuantWeight` (the inference
 path): `linear` sends it to `quantized_linear` (K5 on the card), and
 `_layer` slices its stacked tensors like any other leaf. `act_stats`, a
@@ -143,6 +153,9 @@ _LN_IMPL = "xla"
 _ATTENTION_IMPL = "kernel"
 # the tp group's view of the process's mesh (`Mesh.tensor`), or None
 _TENSOR_PARALLEL = None
+# the pipeline: (the pp group's view of the process's mesh, `Mesh.pipe`;
+# the GPipe microbatch count), or None
+_PIPELINE = None
 
 
 def set_tensor_parallel(mesh=None) -> None:
@@ -173,6 +186,39 @@ def tensor_parallel(mesh):
         yield
     finally:
         _TENSOR_PARALLEL = old
+
+
+def set_pipeline(mesh=None, microbatches: int = 4) -> None:
+    """Pipeline parallelism for every later `transformer` call (the JAX
+    package's `set_pipeline`): a `parallel.mesh.Mesh` with pp > 1 and the
+    GPipe microbatch count (`pp_microbatches`), or None (off; a mesh with
+    pp = 1 is None). A stack that is a stage's slice then runs the
+    schedule over the mesh's pp group (`parallel.pipeline`); a whole stack
+    runs as it is."""
+    global _PIPELINE
+    _check_mesh(mesh)
+    if int(microbatches) < 1:
+        raise ValueError("pp_microbatches must be a positive int")
+    _PIPELINE = (mesh.pipe, int(microbatches)) if mesh is not None and mesh.pp > 1 else None
+
+
+def resolve_pipeline():
+    """The process-wide pipeline (`set_pipeline`): (the pp view, the
+    microbatch count), or None."""
+    return _PIPELINE
+
+
+@contextlib.contextmanager
+def pipeline(mesh, microbatches: int = 4):
+    """`with pipeline(mesh, microbatches):` sets the pipeline of the calls
+    inside (`set_pipeline`) and puts the previous one back after."""
+    global _PIPELINE
+    old = _PIPELINE
+    set_pipeline(mesh, microbatches)
+    try:
+        yield
+    finally:
+        _PIPELINE = old
 
 
 def _check_mesh(mesh) -> None:
@@ -593,14 +639,44 @@ def transformer(
     impl: Optional[str] = None,
     remat=False,
     ln: Optional[str] = None,
+    depth: Optional[int] = None,
 ) -> torch.Tensor:
     """Run the stack of residual blocks over the leading L axis of the params,
     each block under the `remat` policy (module docstring) when autograd is
     recording. `ln` None takes `set_ln_impl`'s choice, `impl` None
-    `set_attention_impl`'s."""
+    `set_attention_impl`'s. `depth`: the tower's layer count (the model
+    config's); a stack that holds fewer is a pipeline stage's slice
+    (`parallel/pipeline.py`) and runs the GPipe schedule over the
+    process-wide pipeline (`set_pipeline`), the remat policy and the
+    LayerNorm choice applied inside the stage (module docstring). A list
+    of stacks is every stage of that pipeline in this process, stage 0
+    first (`parallel.pipeline.run_in_process`: the stages on one device)."""
     if ln is None:
         ln = _resolve_ln()
     impl = _resolve_attention(impl)
+    if isinstance(stacked_params, (list, tuple)):
+        # every stage of the pipeline in this process, in tick order
+        from clip_event_tpu_torch.parallel.pipeline import run_in_process
+
+        pipe = _PIPELINE
+        if pipe is None or pipe[0].world_size != len(stacked_params):
+            raise ValueError(f"a stack of {len(stacked_params)} stages needs the pipeline (set_pipeline) "
+                             f"of as many")
+        return run_in_process(x, stacked_params, num_heads, attn_bias, pipe[1], remat, impl, ln)
+    pipe = _stack_stage(stacked_params, depth, x)
+    if pipe is not None:
+        from clip_event_tpu_torch.parallel.pipeline import pipelined_transformer
+
+        return pipelined_transformer(x, stacked_params, num_heads, attn_bias, pipe[0], pipe[1],
+                                     remat=remat, impl=impl, ln=ln)
+    return run_stack(x, stacked_params, num_heads, attn_bias, impl, remat, ln)
+
+
+def run_stack(x: torch.Tensor, stacked_params: dict, num_heads: int, attn_bias: Optional[torch.Tensor],
+              impl: str, remat, ln: str) -> torch.Tensor:
+    """The stack's blocks one after the other on this rank (`transformer`
+    with `impl` and `ln` resolved, and no pipeline): under tp on the rank's
+    slices; the body a pipeline stage runs on each microbatch."""
     policy = remat_policy(remat)
     if not torch.is_grad_enabled():
         policy = None
@@ -614,6 +690,23 @@ def transformer(
     if tp is not None and tp.sp:
         x = collectives.sp_unscatter(x, tp.mesh)[:, :tp.seq]
     return x
+
+
+def _stack_stage(stacked_params: dict, depth: Optional[int], x: torch.Tensor):
+    """The pipeline (`set_pipeline`: the pp view, microbatches) of a stack
+    that is a stage's slice: L = depth / pp of a tower whose depth divides
+    pp, on a 3-D stream (JAX `layers.py:505-519`); None for a whole stack,
+    which runs on every rank as it is (a tower whose depth does not divide
+    pp keeps its stack whole, `parallel.pipeline.stage_leaf`)."""
+    n_layers = stacked_params["attn"]["qkv_w"].shape[0]
+    if depth is None or n_layers == depth:
+        return None
+    pipe = _PIPELINE
+    if pipe is None or x.dim() != 3 or n_layers * pipe[0].world_size != depth:
+        raise ValueError(f"a transformer stack of {n_layers} of its tower's {depth} layers is a pipeline "
+                         f"stage's slice: it needs the pipeline (set_pipeline) of {depth // n_layers} "
+                         f"stages and a [B, S, W] stream")
+    return pipe
 
 
 def _stack_tp(stacked_params: dict, x: torch.Tensor) -> Optional[TPBlock]:

@@ -34,15 +34,18 @@ def vit_encode(
     compute_dtype=torch.float32,
     impl: Optional[str] = None,
     remat=False,
+    depth: Optional[int] = None,
 ) -> torch.Tensor:
-    """ViT forward. Returns [B, E] (CLS-pooled) or [B, grid²+1, E] if use_grid."""
+    """ViT forward. Returns [B, E] (CLS-pooled) or [B, grid²+1, E] if use_grid.
+    `depth`: the tower's layer count, where the stack may be a pipeline
+    stage's slice (`layers.transformer`)."""
     x = patch_embed(images.to(compute_dtype), params["patch_embed_w"], patch_size)
     B, _, W = x.shape
     cls = full(params["class_embedding"]).to(x.dtype).expand(B, 1, W)
     x = torch.cat([cls, x], dim=1)  # [B, G²+1, W]
     x = x + full(params["positional_embedding"]).to(x.dtype)
     x = L.layer_norm(x, params["ln_pre"])
-    x = L.transformer(x, params["transformer"], num_heads, impl=impl, remat=remat)
+    x = L.transformer(x, params["transformer"], num_heads, impl=impl, remat=remat, depth=depth)
     if use_grid:
         x = L.layer_norm(x, params["ln_post"])  # all tokens (grid path)
     else:

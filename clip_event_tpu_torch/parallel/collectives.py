@@ -62,6 +62,20 @@ sequence parallelism, Korthikanti et al. 2022):
     chunk backward: the entry and the exit of a sequence-parallel stack,
     where every rank holds the whole stream and its whole cotangent.
 
+The pipeline's operators over the pp group (`mesh.pipe`), for
+`parallel/pipeline.py`'s GPipe schedule (no gradient: the schedule's
+backward is written out by hand):
+
+  * `pipe_exchange` — one tick's point-to-point traffic of a stage: the
+    activation block it sends to the next stage (or the cotangent it
+    sends back to the one before) and the block it receives, posted
+    together in one `dist.batch_isend_irecv` and waited on;
+  * `pipe_broadcast` — a tensor of one stage on every stage: the last
+    stage's output (JAX's `psum` over 'pp' of the output, which every
+    other stage adds as zeros, `pipeline.py:193-195`), and stage 0's
+    cotangent of the stack's input (the transpose of the input every
+    stage holds).
+
 `all_gather_into_tensor` and `reduce_scatter_tensor` are the names that
 every torch this port runs on has; torch 2.13 renames them (`*_single`)
 and warns on the old names, a notice that this module filters by its exact
@@ -406,6 +420,29 @@ def sp_unscatter(x: torch.Tensor, tp) -> torch.Tensor:
     """[B, s, W] chunks → [B, tp·s, W] whole on every rank; the backward
     keeps this rank's chunk of the (whole) cotangent."""
     return _SPUnscatter.apply(x, tp)
+
+
+# ------------------------------------------------------------ pipeline
+
+
+def pipe_exchange(sends: Sequence, recvs: Sequence, pipe) -> List[torch.Tensor]:
+    """One tick of a pipeline stage over the pp group `pipe` (`Mesh.pipe`):
+    `sends` are (stage, tensor) pairs, `recvs` (stage, buffer) pairs; the
+    sends and receives are posted together in one `dist.batch_isend_irecv`
+    and all waited on. Returns the filled buffers, in order."""
+    ops = [dist.P2POp(dist.isend, t.contiguous(), pipe.global_rank(s), pipe.group) for s, t in sends]
+    ops += [dist.P2POp(dist.irecv, b, pipe.global_rank(s), pipe.group) for s, b in recvs]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return [b for _, b in recvs]
+
+
+def pipe_broadcast(x: torch.Tensor, stage: int, pipe) -> torch.Tensor:
+    """Stage `stage`'s `x` on every stage of the pp group `pipe` (in place
+    in `x`, which every stage passes with the same shape)."""
+    dist.broadcast(x, src=pipe.global_rank(stage), group=pipe.group)
+    return x
 
 
 def _by_dtype(tensors: Sequence[torch.Tensor]):

@@ -4,8 +4,18 @@ data-parallel ranks (counterpart of `clip_event_tpu/parallel/sharding.py`:
 `_TRANSFORMER_RULES` / `param_shardings` / `shard_params`, and
 `zero_opt_shardings` / `shard_opt_state_zero`, `fsdp_param_shardings` /
 `shard_params_fsdp`). Both kinds are a layout object carried by the train
-state (`TrainState.sharding`): a `TPLayout` ("tp") or a `ShardLayout`
-("zero", "fsdp"); they do not compose yet (ROADMAP A6(c)).
+state (`TrainState.sharding`): a model layout (`ModelLayout`: a
+`TPLayout`, "tp", or the pipeline's `parallel.pipeline.PPLayout`, "pp"),
+or a `ShardLayout` ("zero", "fsdp"), which may hold a model layout as its
+`inner` level: ZeRO-1 and FSDP then chunk the rank's own leaves (its tp
+slices, its pipeline stage) over its data group, the JAX package's rule of
+keeping the tp and pp dims and adding the data axis (`_dp_leaf_sharding`,
+`sharding.py:112-147`). Under dcn > 1 the chunks go over the data ranks of
+the rank's slice (`Mesh.slice`) and the state is the same in every slice:
+the gradients reduce-scatter within the slice, then sum across the slices
+(`Mesh.cross`), and the update's all-gather stays within the slice, as
+the JAX package keeps the moments off the dcn axis
+(`tests/test_multislice.py::test_zero_moments_stay_intra_slice`).
 
 Tensor parallelism ("tp", `shard_state_tp`). Inside `transformer` and
 `text_transformer` the JAX package's leaf rules, column-parallel `qkv_w`
@@ -27,9 +37,10 @@ QKV of its H/tp heads, and head group g's attention output is lanes
 holds. `TPLayout.gather_leaves` inverts the reorder (`full_params`,
 `gather_state`); checkpoints hold the unsharded tree.
 
-Layout. A leaf's elements are flattened and split into W (the world size)
-chunks of c = ceil(n / W), the last padded with zeros; rank r keeps chunk
-r. A stacked transformer leaf ([L, ...], under `transformer` or
+Layout. A leaf's elements are flattened and split into W (the ranks the
+state is chunked over: the data group, or the slice's data ranks under
+dcn) chunks of c = ceil(n / W), the last padded with zeros; rank r keeps
+chunk r. A stacked transformer leaf ([L, ...], under `transformer` or
 `text_transformer`) is split layer by layer, so its shard is [L, c] and
 FSDP gathers one layer at a time. A 0-d leaf (`logit_scale`) stays whole
 on every rank. The JAX package's rule (`_dp_leaf_sharding`: the data axis
@@ -59,9 +70,11 @@ backward.
 A world of one runs the same code with one shard: no padding, each
 collective a copy, and the step bit for bit the unsharded one.
 `shard_state` shards a full state (after init, or after a resume and
-`mesh.replicate`); `gather_state` gives the full trees back, collectively
-(the checkpoint holds them, so a run resumes at any world, sharded or
-not).
+`mesh.replicate`), or one a model layout holds; `gather_state` gives the
+full trees back, collectively, through both levels (the checkpoint holds
+them, so a run resumes at any world, sharded or not). A leaf whose
+gradient the tp ranks hold in part is summed over the tp group (its
+shard, under FSDP) before the update, as without the data level.
 """
 
 from __future__ import annotations
@@ -74,7 +87,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from clip_event_tpu_torch.engine.optim import global_norm, tree_leaves, tree_unflatten
+from clip_event_tpu_torch.engine.optim import global_norm, leaf_norms, tree_leaves, tree_unflatten
 from clip_event_tpu_torch.parallel import collectives
 
 log = logging.getLogger(__name__)
@@ -205,49 +218,69 @@ def _specs(tree, world: int, stacked: bool = False) -> List[LeafSpec]:
 
 class ShardLayout:
     """The sharding of one train state: the `mode` ("zero" or "fsdp"), the
-    mesh, and a `LeafSpec` a param leaf (in `optim.tree_leaves` order; every
-    param-shaped tree of the optimizer state follows it)."""
+    mesh, the model layout below it (`inner`: a `TPLayout` or `PPLayout`,
+    or None), and a `LeafSpec` a param leaf of the rank's own params (in
+    `optim.tree_leaves` order; every param-shaped tree of the optimizer
+    state follows it), chunked over `shards` (`Mesh.slice`: the data
+    group, or the slice's data ranks under dcn, whose sums `cross` then
+    completes)."""
 
-    def __init__(self, params: dict, mesh, mode: str):
+    def __init__(self, params: dict, mesh, mode: str, inner=None):
         if mode not in MODES:
             raise ValueError(f"sharding mode {mode!r}; options: {MODES}")
-        self.mode, self.mesh = mode, mesh
-        self.specs = _specs(params, mesh.world_size)
+        self.mode, self.mesh, self.inner = mode, mesh, inner
+        self.shards, self.cross = mesh.slice, mesh.cross
+        self.specs = _specs(params, self.shards.world_size)
 
     def shard_leaves(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """This rank's shards of full leaves."""
-        return [s.shard_of(x, self.mesh.rank) for s, x in zip(self.specs, leaves)]
+        return [s.shard_of(x, self.shards.rank) for s, x in zip(self.specs, leaves)]
 
     def gather_leaves(self, shards: Sequence[torch.Tensor], specs=None) -> List[torch.Tensor]:
         """The full leaves of every rank's shards (collective: one
         all-gather a dtype); `specs` default to one per param leaf."""
         specs = self.specs if specs is None else specs
-        rows = collectives.all_gather_flat(list(shards), self.mesh)
+        rows = collectives.all_gather_flat(list(shards), self.shards)
         return [s.from_rows(r) for s, r in zip(specs, rows)]
 
     def reduce_scatter(self, grads: Sequence[torch.Tensor], extra: Sequence[torch.Tensor] = ()):
         """(this rank's shards of the gradients summed over the ranks, the
         sums of `extra`): the full gradients and the extra tensors (whole in
-        every row) in one reduce-scatter a dtype."""
-        world = self.mesh.world_size
+        every row) in one reduce-scatter a dtype, then under dcn one
+        all-reduce a dtype across the slices."""
+        world = self.shards.world_size
         rows = [s.to_rows(g) for s, g in zip(self.specs, grads)]
         rows += [e.reshape(1, -1).expand(world, -1) for e in extra]
-        out = collectives.reduce_scatter_flat(rows, self.mesh)
+        out = collectives.reduce_scatter_flat(rows, self.shards)
+        if self.cross is not None:
+            out = collectives.all_reduce_flat(out, self.cross)
         n = len(self.specs)
         shards = [o.view(s.shard_shape) for s, o in zip(self.specs, out[:n])]
         return shards, [o.view_as(e) for o, e in zip(out[n:], extra)]
 
     def norm(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The global norm of a sharded gradient (`optim.global_norm` with
-        each leaf's norm combined over the ranks)."""
-        return global_norm(shards, self.mesh, [s.replicated for s in self.specs])
+        """The global norm of a sharded gradient: each leaf's norm combined
+        over the ranks of its chunks (`optim.leaf_norms`), then over the
+        model group below (`inner.norm`: a split leaf's over its slices, a
+        whole leaf once)."""
+        norms = leaf_norms(shards, self.shards, [s.replicated for s in self.specs])
+        if self.inner is None:
+            return torch.linalg.vector_norm(norms)
+        return self.inner.norm(list(norms.unbind()))
 
     def wrap(self, params: dict) -> dict:
         """An FSDP state's params as the model reads them: a `ShardedParam`
         for each sharded leaf, a replicated leaf as it is."""
-        leaves = [x if s.replicated else ShardedParam(x, s, self.mesh)
+        leaves = [x if s.replicated else ShardedParam(x, s, self.shards)
                   for s, x in zip(self.specs, tree_leaves(params))]
         return tree_unflatten(params, leaves)
+
+
+def model_layout(layout):
+    """The model level of a state's layout (a `ModelLayout`, or None)."""
+    if isinstance(layout, ModelLayout):
+        return layout
+    return getattr(layout, "inner", None)
 
 
 def tree_bytes(*trees) -> int:
@@ -263,15 +296,18 @@ def _param_trees(opt_state: dict):
 
 
 def shard_state(state, mesh, mode: str):
-    """A full train state (`engine.train_step.TrainState`, the same on
-    every rank) → this rank's sharded state, which carries its layout
-    (`state.sharding`). "zero" shards the optimizer's moments, "fsdp" the
-    params too (each shard a new leaf that requires grad)."""
-    if state.sharding is not None:
+    """A train state, full (the same on every rank) or held by a model
+    layout (`shard_state_tp`, `parallel.pipeline.shard_state_pp`) → this
+    rank's sharded state, which carries its layout (`state.sharding`, the
+    model layout as its `inner`). "zero" shards the optimizer's moments,
+    "fsdp" the params too (each shard a new leaf that requires grad), over
+    the data group (`ShardLayout`)."""
+    inner = state.sharding
+    if inner is not None and not isinstance(inner, ModelLayout):
         raise ValueError("the state is sharded already")
-    if mesh.tp > 1 or mesh.dcn > 1:
-        raise NotImplementedError(f"{mode} with tp > 1 or dcn_dp > 1 is not ported yet (ROADMAP A6(c))")
-    layout = ShardLayout(state.params, mesh, mode)
+    if inner is not None and inner.mesh != mesh:
+        raise ValueError(f"a state held over {inner.mesh} sharded over {mesh}")
+    layout = ShardLayout(state.params, mesh, mode, inner)
     with torch.no_grad():
         opt_state = dict(state.opt_state)
         for k in _param_trees(opt_state):
@@ -282,32 +318,41 @@ def shard_state(state, mesh, mode: str):
             params = tree_unflatten(params, [t.detach().clone().requires_grad_(True)
                                              for t in layout.shard_leaves(tree_leaves(params))])
     out = state._replace(params=params, opt_state=opt_state, sharding=layout)
+    dp = layout.shards.world_size
     if mode == "fsdp":
-        log.info("FSDP: params sharded over dp=%d", mesh.world_size)
-    log.info("ZeRO-1: optimizer moments sharded over dp=%d", mesh.world_size)
-    log.info("sharded state (%s, world %d): params %d bytes, optimizer %d bytes a rank",
-             mode, mesh.world_size, tree_bytes(params), tree_bytes(opt_state))
+        log.info("FSDP: params sharded over dp=%d", dp)
+    log.info("ZeRO-1: optimizer moments sharded over dp=%d", dp)
+    log.info("sharded state (%s%s, world %d): params %d bytes, optimizer %d bytes a rank",
+             mode, "" if inner is None else f" over {inner.mode}", mesh.world_size,
+             tree_bytes(params), tree_bytes(opt_state))
     return out
 
 
-def full_params(state) -> dict:
-    """The full params of a train state: under FSDP and tp gathered on
-    every rank (collective), else the state's own."""
+def local_params(state) -> dict:
+    """The params of a train state as this rank's model level holds them:
+    under FSDP gathered over the data ranks (collective), its tp slices or
+    pipeline stage kept; else the state's own."""
     layout = state.sharding
-    if layout is not None and layout.mode == "tp":
-        return layout.gather_trees(state.params, {})[0]
-    if layout is None or layout.mode != "fsdp":
+    if not isinstance(layout, ShardLayout) or layout.mode != "fsdp":
         return state.params
     with torch.no_grad():
         leaves = layout.gather_leaves([t.detach() for t in tree_leaves(state.params)])
     return tree_unflatten(state.params, leaves)
 
 
-def gather_trees(layout: ShardLayout, params: dict, opt_state: dict):
+def full_params(state) -> dict:
+    """The full params of a train state: under FSDP, tp and pp gathered on
+    every rank (collective), else the state's own."""
+    params = local_params(state)
+    inner = model_layout(state.sharding)
+    return params if inner is None else inner.gather_trees(params, {})[0]
+
+
+def gather_trees(layout, params: dict, opt_state: dict):
     """(full params, full optimizer state) of a state sharded by `layout`,
     on every rank (collective: one all-gather a dtype over the sharded
-    leaves; a `TPLayout` gathers over its tp group)."""
-    if layout.mode == "tp":
+    leaves; a model layout, alone or below, gathers over its group)."""
+    if isinstance(layout, ModelLayout):
         return layout.gather_trees(params, opt_state)
     keys = _param_trees(opt_state)
     trees = ([params] if layout.mode == "fsdp" else []) + [opt_state[k] for k in keys]
@@ -320,6 +365,8 @@ def gather_trees(layout: ShardLayout, params: dict, opt_state: dict):
         params = full_trees.pop(0)
     opt_state = dict(opt_state)
     opt_state.update(zip(keys, full_trees))
+    if layout.inner is not None:
+        return layout.inner.gather_trees(params, opt_state)
     return params, opt_state
 
 
@@ -332,6 +379,62 @@ def gather_state(state):
         return state
     params, opt_state = gather_trees(layout, state.params, state.opt_state)
     return state._replace(params=params, opt_state=opt_state, sharding=None)
+
+
+class ModelLayout:
+    """A model-parallel layout of one train state (`TPLayout`, and the
+    pipeline's `PPLayout`): the `mesh`, the model group's view (`view`:
+    the tp or the pp group) and a spec a param leaf (in `optim.tree_leaves`
+    order; every param-shaped tree of the optimizer state follows it), each
+    with a `kind` (None: whole on every rank of the group), `shard_of`,
+    `from_shards` and `partial`."""
+
+    mode = None
+    mesh = None
+    specs: list = []
+
+    @property
+    def view(self):
+        raise NotImplementedError
+
+    def shard_leaves(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's slices of full leaves (copies; whole leaves as they
+        are)."""
+        v = self.view
+        return [s.shard_of(x, v.world_size, v.rank) for s, x in zip(self.specs, leaves)]
+
+    def gather_leaves(self, shards: Sequence[torch.Tensor], specs=None) -> List[torch.Tensor]:
+        """The full leaves of every rank's slices (collective over the
+        group: one all-gather a dtype of the split leaves)."""
+        specs = self.specs if specs is None else specs
+        v = self.view
+        split = [i for i, s in enumerate(specs) if s.kind is not None]
+        out = [t for t in shards]
+        rows = collectives.all_gather_flat([shards[i] for i in split], v)
+        for i, r in zip(split, rows):
+            out[i] = specs[i].from_shards(r.reshape((v.world_size,) + tuple(shards[i].shape)))
+        return out
+
+    def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of a model-sharded gradient: each split leaf's
+        norm combined over the group's ranks, a whole leaf counted once
+        (`optim.global_norm`)."""
+        return global_norm(grads, self.view, [s.kind is None for s in self.specs])
+
+    def partial(self) -> List[int]:
+        """The leaves whose gradient the group's ranks hold in part."""
+        return [i for i, s in enumerate(self.specs) if s.partial]
+
+    def gather_trees(self, params: dict, opt_state: dict):
+        """(full params, full optimizer state), on every rank (collective)."""
+        keys = _param_trees(opt_state)
+        trees = [params] + [opt_state[k] for k in keys]
+        with torch.no_grad():
+            full = [tree_unflatten(t, self.gather_leaves([x.detach() for x in tree_leaves(t)]))
+                    for t in trees]
+        opt_state = dict(opt_state)
+        opt_state.update(zip(keys, full[1:]))
+        return full[0], opt_state
 
 
 # ------------------------------------------------------------ tensor parallel
@@ -444,11 +547,9 @@ def check_tp_kernels(cfg, tp: int, text_len: Optional[int] = None) -> None:
                                  f"W={width // tp}, H={heads // tp}) has no attention kernel: {err}") from None
 
 
-class TPLayout:
+class TPLayout(ModelLayout):
     """The tensor-parallel sharding of one train state (mode "tp"): the
-    mesh (its `tensor` view is the tp group), and a `TPSpec` a param leaf
-    (in `optim.tree_leaves` order; every param-shaped tree of the optimizer
-    state follows it)."""
+    mesh (its `tensor` view is the tp group), and a `TPSpec` a param leaf."""
 
     mode = "tp"
 
@@ -456,44 +557,9 @@ class TPLayout:
         self.mesh = mesh
         self.specs = tp_specs(params, cfg, mesh.tp, mesh.sp)
 
-    def shard_leaves(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """This rank's slices of full leaves (copies; whole leaves as they
-        are)."""
-        tp = self.mesh.tensor
-        return [s.shard_of(x, tp.world_size, tp.rank) for s, x in zip(self.specs, leaves)]
-
-    def gather_leaves(self, shards: Sequence[torch.Tensor], specs=None) -> List[torch.Tensor]:
-        """The full leaves of every tp rank's slices (collective over the tp
-        group: one all-gather a dtype of the split leaves)."""
-        specs = self.specs if specs is None else specs
-        tp = self.mesh.tensor
-        split = [i for i, s in enumerate(specs) if s.kind is not None]
-        out = [t for t in shards]
-        rows = collectives.all_gather_flat([shards[i] for i in split], tp)
-        for i, r in zip(split, rows):
-            out[i] = specs[i].from_shards(r.reshape((tp.world_size,) + tuple(shards[i].shape)))
-        return out
-
-    def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The global norm of a tp-sharded gradient: each split leaf's norm
-        combined over the tp ranks, a whole leaf counted once
-        (`optim.global_norm`)."""
-        return global_norm(grads, self.mesh.tensor, [s.kind is None for s in self.specs])
-
-    def partial(self) -> List[int]:
-        """The leaves whose gradient the tp ranks hold in part."""
-        return [i for i, s in enumerate(self.specs) if s.partial]
-
-    def gather_trees(self, params: dict, opt_state: dict):
-        """(full params, full optimizer state), on every rank (collective)."""
-        keys = _param_trees(opt_state)
-        trees = [params] + [opt_state[k] for k in keys]
-        with torch.no_grad():
-            full = [tree_unflatten(t, self.gather_leaves([x.detach() for x in tree_leaves(t)]))
-                    for t in trees]
-        opt_state = dict(opt_state)
-        opt_state.update(zip(keys, full[1:]))
-        return full[0], opt_state
+    @property
+    def view(self):
+        return self.mesh.tensor
 
 
 def shard_params_tp(params: dict, cfg, mesh) -> dict:

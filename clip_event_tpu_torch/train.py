@@ -45,8 +45,19 @@ tp group loads the same rows (its data rank, `mesh.data`), and
 over the sequence; `dcn_dp` splits the data ranks into slices (the mesh's
 coordinates; the gradient sum stays one all-reduce over the data group).
 They need a launch, and refuse a plain
-process; with `zero` / `fsdp` they are refused at config time (ROADMAP
-A6(c)).
+process.
+
+Pipeline parallelism (`pp`, `pp_microbatches`): the launch's ranks form a
+(dp × pp) mesh, pp innermost (`parallel/mesh.py`); every rank builds the
+full state and keeps its stage (`parallel.pipeline.shard_state_pp`: L/pp
+layers of each stack whose depth divides pp, every other leaf whole), a
+pp group loads the same rows, and the stacks run the GPipe schedule over
+the pp group (`layers.set_pipeline`, for the length of the run), the
+per-epoch validation too (on each rank's stage, the data ranks' slices of
+the set). pp needs a launch of dp · pp ranks and refuses a plain process.
+`zero` / `fsdp` compose with tp, dcn_dp and pp: they shard each rank's
+own leaves (its tp slices, its stage) over its data group (within its
+slice under dcn).
 
 `train(...)` is the epoch loop (loader → prefetch → step → metrics) over
 any `ExampleDataset`; `main` builds the VOA dataset and calls it.
@@ -56,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import logging
 import os
@@ -90,9 +102,11 @@ from clip_event_tpu_torch.parallel.mesh import (
     make_mesh,
     replicate,
 )
+from clip_event_tpu_torch.parallel.pipeline import shard_state_pp
 from clip_event_tpu_torch.parallel.sharding import (
     check_tp_kernels,
     full_params,
+    local_params,
     shard_state,
     shard_state_tp,
 )
@@ -177,6 +191,9 @@ def train(
         # the tp rank's Megatron slices of the full state (fresh or
         # restored: after the placement above)
         state = shard_state_tp(state, mcfg, mesh)
+    if mesh is not None and mesh.pp > 1:
+        # the rank's pipeline stage of the full state (fresh or restored)
+        state = shard_state_pp(state, mesh)
     if cfg["zero"] or cfg["fsdp"]:
         if mesh is None:
             raise SystemExit(
@@ -184,7 +201,8 @@ def train(
                 "torchrun (or mpirun / srun; a world of one runs the sharded code)"
             )
         # ZeRO-1 shards the moments, FSDP the params too (fresh or
-        # restored: after the resume placement above)
+        # restored: after the resume placement above), of the rank's own
+        # leaves under tp or pp
         state = shard_state(state, mesh, "fsdp" if cfg["fsdp"] else "zero")
     steps_per_dispatch = max(int(cfg["steps_per_dispatch"]), 1)
     if steps_per_dispatch > 1:
@@ -233,7 +251,12 @@ def train(
     # statistics (over the mesh's ranks) for the length of this run
     old_bn = (resnet.get_bn_mode(), resnet.get_bn_mesh())
     if cfg["sync_bn"] and not mcfg.is_vit:
-        resnet.set_bn_mode("batch", mesh)
+        resnet.set_bn_mode("batch", None if mesh is None else mesh.data)
+    # pp: the stacks' stages run the GPipe schedule for the length of this
+    # run (JAX's process-wide `set_pipeline`), put back after
+    scoped = contextlib.ExitStack()
+    if mesh is not None and mesh.pp > 1:
+        scoped.enter_context(layers.pipeline(mesh, int(cfg["pp_microbatches"])))
     try:
         for epoch in range(begin_epoch, cfg["max_epoch"]):
             log.info("=> Epoch[%d]: train start", epoch)
@@ -356,10 +379,18 @@ def train(
                     image_size=mcfg.image_resolution,
                 )
                 # the validation encodes with the step's attention choice,
-                # each rank its slice (evals/common.py::resolve_shard)
+                # each rank its slice (evals/common.py::resolve_shard);
+                # under pp through the pipeline, on the rank's stage, each
+                # pp group one data rank's slice
+                shard = {}
+                val_params = None
+                if mesh is not None and mesh.pp > 1:
+                    shard = {"rank": mesh.data.rank, "world_size": mesh.data.world_size}
+                    val_params = local_params(state)
                 with layers.attention_impl(step_kwargs["impl"]):
-                    val = evaluate_matching(full_params(state), mcfg, val_ds,
-                                            batch_size=cfg["batch_size"], device=device)
+                    val = evaluate_matching(full_params(state) if val_params is None else val_params,
+                                            mcfg, val_ds, batch_size=cfg["batch_size"], device=device,
+                                            **shard)
                 best_perf = max(best_perf, val["i2t_top1"])
                 log.info("=> Epoch[%d] validation: %s (best %.4f)", epoch, val, best_perf)
                 if writer is not None:
@@ -370,6 +401,7 @@ def train(
     finally:
         layers.set_ln_impl(old_ln)
         resnet.set_bn_mode(*old_bn)
+        scoped.close()
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
     return state
@@ -470,13 +502,13 @@ def main(argv=None):
     # the process group first (torchrun / mpirun / srun; a no-op alone)
     owned = not dist.is_initialized()
     initialize_distributed(args.device)
-    tp, dcn, sp = int(cfg["tp"]), int(cfg["dcn_dp"]), bool(cfg["sp"])
+    tp, dcn, sp, pp = int(cfg["tp"]), int(cfg["dcn_dp"]), bool(cfg["sp"]), int(cfg["pp"])
     if dist.is_initialized():
-        mesh = make_mesh(args.device, tp=tp, dcn=dcn, sp=sp)
-    elif tp > 1 or dcn > 1:
+        mesh = make_mesh(args.device, tp=tp, dcn=dcn, sp=sp, pp=pp)
+    elif tp > 1 or dcn > 1 or pp > 1:
         raise SystemExit(
-            f"tp={tp} / dcn_dp={dcn} shard the job over processes, one a GPU: launch dcn_dp x dp x tp "
-            "ranks with torchrun (or mpirun / srun)")
+            f"tp={tp} / dcn_dp={dcn} / pp={pp} shard the job over processes, one a GPU: launch "
+            "dcn_dp x dp x tp (or dp x pp) ranks with torchrun (or mpirun / srun)")
     else:
         mesh = None
     device = resolve_device(mesh.device if mesh is not None else args.device)
@@ -514,6 +546,17 @@ def _main(cfg: dict, device: torch.device, mesh: Optional[Mesh]):
         if mesh.sp:
             log.info("SP: residual-stream sequence axis sharded over tp=%d "
                      "(Megatron sequence parallelism)", mesh.tp)
+    if mesh is not None and mesh.pp > 1:
+        # the JAX CLI's pipeline lines (`train.py:295-319`); each rank
+        # holds its own rows, so the attention kernel runs in the stages
+        # whatever the batch (JAX falls back to einsum where its global
+        # batch does not divide dp)
+        log.info("mesh: dp=%d x pp=%d (GPipe layer sharding, M=%d)",
+                 mesh.dp, mesh.pp, int(cfg["pp_microbatches"]))
+        if mesh.dp > 1 and cfg["use_pallas_attention"]:
+            log.info("pp=%d x dp=%d: pipeline stages run on each rank's rows — the fused "
+                     "attention kernel stays active on each device's local batch shard",
+                     mesh.pp, mesh.dp)
     params, mcfg, resume = initial_state(cfg, device)
     # the loader's rank and the label layout's: the data rank (a tp
     # group's ranks load the same rows)

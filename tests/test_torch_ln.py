@@ -407,12 +407,14 @@ def test_use_pallas_ln_is_a_config_key():
     assert validate_config(BASE_CFG)["use_pallas_ln"] is False
     on = validate_config(dict(BASE_CFG, use_pallas_ln=True))
     assert on["use_pallas_ln"] is True and on == JC.validate_config(dict(BASE_CFG, use_pallas_ln=True))
-    # with tensor parallelism (the kernels on the local rows under sp) as in
-    # JAX; the refusal that stays: pipeline parallelism
-    tp = dict(BASE_CFG, use_pallas_ln=True, tp=2, sp=True)
-    assert validate_config(tp) == JC.validate_config(tp)
-    with pytest.raises(ConfigError, match=r"ROADMAP A6\(c\)"):
-        validate_config(dict(BASE_CFG, use_pallas_ln=True, pp=2))
+    # with tensor and pipeline parallelism (the kernels on the local rows
+    # under sp, inside the stages under pp) as in JAX; the refusal that
+    # stays is JAX's own: pp < 1
+    for extra in ({"tp": 2, "sp": True}, {"pp": 2}):
+        cfg = dict(BASE_CFG, use_pallas_ln=True, **extra)
+        assert validate_config(cfg) == JC.validate_config(cfg)
+    with pytest.raises(ConfigError, match="pp must be a positive int"):
+        validate_config(dict(BASE_CFG, use_pallas_ln=True, pp=0))
 
 
 def _scalars(path):

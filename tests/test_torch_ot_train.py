@@ -252,15 +252,15 @@ def test_config_accepts_finetune_ot_and_refuses_the_rest():
     for key in ("use_pallas_ot", "max_objects", "max_entities", "max_events", "object_topk",
                 "object_detection_threshold", "alignment_chunks"):
         assert ours[key] == ref[key], key
-    # the local-attention branch (A4), the image cache (A7) and tensor
-    # parallelism (A6(c)) are accepted beside the OT branch, as in JAX; the
-    # part still refused here is pipeline parallelism (A6(c))
+    # the local-attention branch (A4), the image cache (A7), tensor and
+    # pipeline parallelism (A6(c)) are accepted beside the OT branch, as in
+    # JAX; the refusal that stays is JAX's own: pp with dcn_dp
     for extra in ({"multiattention": True}, {"load_sr": True, "dedupe_sr_texts": 16},
-                  {"image_cache": "/c"}, {"tp": 2}):
+                  {"image_cache": "/c"}, {"tp": 2}, {"pp": 2}):
         assert TC.validate_config(dict(raw, **extra)) == JC.validate_config(dict(raw, **extra))
-    for key, value, item in [("pp", 2, r"A6\(c\)")]:
-        with pytest.raises(TC.ConfigError, match=f"ROADMAP {item}"):
-            TC.validate_config(dict(raw, **{key: value}))
+    for key, value, item in [("dcn_dp", 2, "keep pipeline stages inside one slice")]:
+        with pytest.raises(TC.ConfigError, match=item):
+            TC.validate_config(dict(raw, pp=2, **{key: value}))
     for bad in ({"load_object": False}, {"load_ie": False}, {"object_ontology_file": None}):
         with pytest.raises(TC.ConfigError):
             TC.validate_config(dict(raw, **bad))

@@ -242,11 +242,13 @@ def test_initialize_distributed_from_torchrun_env(launch_env):
             TM.make_mesh("cuda")
         assert TEC.resolve_shard(None, None) == (0, 1) and TEC.resolve_shard(2, 4) == (2, 4)
         assert TM.data_process_group() == (0, 1)
-        # a tp group of 2 needs 2 processes; pp stays refused
+        # a tp group of 2 needs 2 processes, and so does a pp group of 2
         with pytest.raises(ValueError, match="does not divide process_count=1"):
             TM.data_process_group(2)
-        with pytest.raises(NotImplementedError, match=r"A6\(c\)"):
+        with pytest.raises(ValueError, match="needs process groups of 2, which does not divide"):
             TM.data_process_group(1, pp=2)
+        with pytest.raises(ValueError, match="pp=2 does not divide device count 1"):
+            TM.make_mesh("cpu", pp=2)
         assert TCO.reduce_dict({"a": 1.5}) == {"a": 1.5} and TCO.all_gather_objects(3) == [3]
         assert TCO.any_rank(True) and not TCO.any_rank(False)
         TCO.comm.synchronize()

@@ -215,12 +215,18 @@ def test_sequence_parallel_pad_and_chunks(seq, tp):
 
 
 def test_mesh_axes_and_groups_in_the_flat_order():
-    """rank = (dcn_idx·DP + dp_idx)·TP + tp_idx; each subgroup's ranks."""
+    """rank = (dcn_idx·DP + dp_idx)·TP + tp_idx; each subgroup's ranks: the
+    tp and data groups, and under dcn the slice groups (a slice's data
+    ranks) and the cross groups (a dp_idx's ranks across the slices), which
+    ZeRO-1 / FSDP shard within and sum across."""
     groups = TM._axis_groups(8, tp=2, dcn=2)
     assert groups["tp_group"] == [[0, 1], [2, 3], [4, 5], [6, 7]]
     assert groups["data_group"] == [[0, 2, 4, 6], [1, 3, 5, 7]]
-    assert sorted(groups) == ["data_group", "tp_group"]
-    assert TM._axis_groups(4, 1, 1) == {} and TM._axis_groups(4, 1, 2) == {}
+    assert groups["slice_group"] == [[0, 2], [1, 3], [4, 6], [5, 7]]
+    assert groups["cross_group"] == [[0, 4], [1, 5], [2, 6], [3, 7]]
+    assert sorted(groups) == ["cross_group", "data_group", "slice_group", "tp_group"]
+    assert TM._axis_groups(4, 1, 1) == {}
+    assert TM._axis_groups(4, 1, 2) == {"slice_group": [[0, 1], [2, 3]], "cross_group": [[0, 2], [1, 3]]}
     m = TM.Mesh(5, 8, torch.device("cpu"), tp=2, dcn=2)
     assert (m.dp, m.dcn_idx, m.dp_idx, m.tp_idx) == (2, 1, 0, 1)
     assert (m.data.rank, m.data.world_size, m.data.dcn) == (2, 4, 2)
@@ -242,7 +248,8 @@ def test_make_mesh_refuses_what_does_not_divide():
     assert TM.data_process_group(1) == (0, 1)
     with pytest.raises(ValueError, match="does not divide process_count=1"):
         TM.data_process_group(2)
-    with pytest.raises(NotImplementedError, match=r"A6\(c\)"):
+    # a pp group's ranks load one data rank's rows: rank // (tp·pp)
+    with pytest.raises(ValueError, match="does not divide process_count=1"):
         TM.data_process_group(1, pp=2)
 
 
@@ -300,9 +307,19 @@ def test_model_parallel_rules_match_jax(extra):
     {"dcn_dp": 2, "zero": True}, {"dcn_dp": 2, "fsdp": True},
 ])
 def test_what_stays_refused_names_a6c(extra):
-    """pp, and ZeRO-1 / FSDP composed with tp or dcn_dp: the next slice's."""
-    with pytest.raises(TC.ConfigError, match=r"A6\(c\)"):
-        TC.validate_config(dict(BASE, **extra))
+    """pp, and ZeRO-1 / FSDP composed with tp or dcn_dp, once refused for
+    A6(c): now validated as the JAX package validates them, accepted with
+    the same config, or refused with its message (pp × tp); no refusal
+    names A6(c) any more."""
+    try:
+        ref = JC.validate_config(dict(BASE, **extra))
+    except JC.ConfigError as err:
+        with pytest.raises(TC.ConfigError) as got:
+            TC.validate_config(dict(BASE, **extra))
+        assert str(got.value) == str(err) and "A6(c)" not in str(got.value)
+    else:
+        assert TC.validate_config(dict(BASE, **extra)) == ref
+    assert TC._UNPORTED == {}
 
 
 def test_pretrain_vitl14_tp2_validates_as_in_jax():

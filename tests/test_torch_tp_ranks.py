@@ -19,7 +19,18 @@ from the port's init (carried over by the state dict):
   * the checkpoint a tp run writes (Adam): the unsharded file's layout,
     its tensors the gathered state's, read by JAX's
     `import_initial_checkpoint`; a world-of-one file resumed at tp = 2 and
-    stepped, against JAX's two steps.
+    stepped, against JAX's two steps;
+  * pipeline parallelism and ZeRO-1 / FSDP over a model axis, each on 4
+    global rows (the 2 data ranks' batches of the contrastive cases, so
+    JAX's same runs): (dp=2, pp=2) contrastive under full remat and under
+    "attn"; (dp=1, pp=4), where the 4-layer text stack runs 4 stages and
+    the 2-layer vision stack, which does not divide, runs whole on every
+    rank; (dp=2, pp=2) + zero or fsdp, (dp=2, tp=2) + fsdp and (dcn=2,
+    dp=2) + zero or fsdp, whose state stays within the slice (Adam); the
+    train loop at (dp=2, pp=2) against a world of one; the checkpoint a
+    pp run writes, and a world-of-one file resumed at pp = 2. Every rank's
+    gathered params bit for bit the same, and the ranks of a pp group
+    equal in every leaf outside the stages.
 """
 
 import os
@@ -41,11 +52,12 @@ from clip_event_tpu.models.convert import params_from_state_dict  # noqa: E402
 from clip_event_tpu_torch.models import clip as T  # noqa: E402
 from clip_event_tpu_torch.models.convert import state_dict_from_params  # noqa: E402
 from tests import torch_multiprocess_worker as W  # noqa: E402
-from tests.fixtures import make_m2e2_fixture  # noqa: E402
+from tests.fixtures import make_m2e2_fixture, make_voa_fixture  # noqa: E402
 
 WORLD, B_LOCAL = 4, 2
 TOL = 1e-5
 STEP_CASES = ("contrastive", "sp", "attn", "dcn_tp", "dcn_dp")
+COMPOSED_STEPS = ("pp", "pp_attn", "pp4", "pp_zero", "fsdp", "dcn_zero", "pp_fsdp", "dcn_fsdp")
 CASES = tuple(f"tp/{c}" for c in W.TP_MESHES)
 
 
@@ -54,7 +66,8 @@ def ranks(tmp_path_factory):
     """One spawn of four ranks for every case; its wall time."""
     out = tmp_path_factory.mktemp("tp_ranks")
     os.makedirs(out / "m2e2")
-    fixtures = {"m2e2": make_m2e2_fixture(str(out / "m2e2"), num_images=7)}
+    fixtures = {"m2e2": make_m2e2_fixture(str(out / "m2e2"), num_images=7),
+                "voa": make_voa_fixture(str(out / "voa"), num_docs=6, images_per_doc=2)}
     start = time.perf_counter()
     mp.spawn(W.main, args=(WORLD, str(out), CASES, B_LOCAL, fixtures, ()), nprocs=WORLD, join=True)
     seconds = time.perf_counter() - start
@@ -75,8 +88,10 @@ def _jax_run(case):
     data ranks' batches of `TP_SEEDS` (its first step is the one-step
     cases'), SGD on the 4 data ranks' batch, the accumulated step, Adam on
     the 2 data ranks' batches (the checkpoint's step, then the resume's)."""
-    world = WORLD // W.TP_MESHES[case][0]
-    adam = case in ("ckpt", "resume")
+    tp, dcn, _, pp = W.TP_MESHES[case]
+    # the composed cases' 4 global rows are the 2 data ranks' batches
+    world = 2 if case in W.COMPOSED else WORLD // (tp * pp)
+    adam = case in W.ADAM_CASES
     key = ("accum" if case == "accum" else "adam" if adam else "sgd", world)
     if key in _JAX:
         return _JAX[key]
@@ -124,14 +139,14 @@ def _close_params(got, want):
 
 def _ranks_agree(results, case):
     """Every rank's metrics and gathered params bit for bit rank 0's; the
-    ranks of a tp group equal in every whole leaf."""
+    ranks of a tp or pp group equal in every whole leaf."""
     r0 = results[0][f"tp/{case}"]
-    tp = W.TP_MESHES[case][0]
+    tp, _, _, pp = W.TP_MESHES[case]
     for rank, r in enumerate(results):
         got = r[f"tp/{case}"]
         assert got["metrics"] == r0["metrics"]
         assert all(np.array_equal(got["params"][k], r0["params"][k]) for k in r0["params"])
-        lead = results[rank - rank % tp][f"tp/{case}"]
+        lead = results[rank - rank % (tp * pp)][f"tp/{case}"]
         assert len(got["whole"]) == len(lead["whole"])
         assert all(np.array_equal(a, b) for a, b in zip(got["whole"], lead["whole"]))
     assert [r[f"tp/{case}"]["mesh"][2] for r in results] == [i % tp for i in range(WORLD)]
@@ -209,6 +224,17 @@ def test_tp_multi_step_dispatch_matches_jax(ranks):
     _close_params(got["params"], want[-1]["params"])
 
 
+def test_pp_multi_step_dispatch_matches_jax(ranks):
+    """Two steps in one `make_multi_step` dispatch at (dp 2, pp 2) (on the
+    CPU, two eager steps of the pipelined step) against JAX's two steps."""
+    got = _ranks_agree(ranks[0], "pp_multi_step")
+    want = _jax_run("pp_multi_step")
+    assert len(want) == 2
+    for j, rec in enumerate(want):
+        _close_metrics({k: v[j] for k, v in got["metrics"].items()}, rec["metrics"])
+    _close_params(got["params"], want[-1]["params"])
+
+
 def test_tp_m2e2_eval_equals_one_process(ranks):
     """The model split over each tp group and the images over the two data
     ranks: the metrics of one process on whole weights, on every rank."""
@@ -249,6 +275,123 @@ def test_tp_checkpoint_is_the_unsharded_file(ranks, tmp_path):
     jparams, _ = import_initial_checkpoint(got["ckpt"])
     jsd = state_dict_from_params(jax.tree.map(np.asarray, jparams), tcfg)
     assert all(np.array_equal(jsd[k], got["params"][k]) for k in jsd)
+
+
+def test_pp_mesh_layout_and_stages(ranks):
+    """rank = dp_idx·PP + pp_idx: the stage and the data rank of each rank
+    (a pp group loads one data rank's rows); the stage leaves: the 12
+    leaves of each stack that divides pp (both at pp = 2, the text stack
+    alone at pp = 4)."""
+    results, _ = ranks
+    stages = {c: [(r[f"tp/{c}"]["stage"], r[f"tp/{c}"]["mesh"][3:]) for r in results] for c in ("pp", "pp4")}
+    assert stages["pp"] == [((0, 2), (0, 2)), ((1, 2), (0, 2)), ((0, 2), (1, 2)), ((1, 2), (1, 2))]
+    assert stages["pp4"] == [((p, 4), (0, 1)) for p in range(4)]
+    assert results[0]["tp/pp"]["split"] == 24 and results[0]["tp/pp4"]["split"] == 12
+
+
+@pytest.mark.parametrize("case", COMPOSED_STEPS)
+def test_composed_step_matches_jax_on_the_global_batch(ranks, case):
+    """A pipeline step, or ZeRO-1 / FSDP over a model axis, against JAX's
+    single-process step on the global batch: every loss term and updated
+    param within 1e-5, grad_norm within 1e-5 relative, every rank alike."""
+    got = _ranks_agree(ranks[0], case)
+    want = _jax_run(case)[0]
+    _close_metrics(got["metrics"], want["metrics"])
+    _close_params(got["params"], want["params"])
+    params, tcfg = W.init_params(f"tp/{case}")
+    init = state_dict_from_params(params, tcfg)
+    assert got["metrics"]["grad_norm"] > 1.0
+    assert max(np.abs(got["params"][k] - init[k]).max() for k in init) > (1e-6 if case in W.ADAM_CASES
+                                                                          else 1e-3)
+
+
+def test_composed_shards_are_the_data_ranks_chunks(ranks):
+    """ZeRO-1 / FSDP over a model axis chunk the rank's own leaves over its
+    data group: under (dp 2, pp 2) a stage leaf's moment shard is half its
+    stage; under (dp 2, tp 2) + fsdp a split leaf's param shard is half its
+    tp slice; under (dcn 2, dp 2) the chunks go over the slice's 2 data
+    ranks, not the 4, and the two slices hold the same moments, bit for
+    bit (the state never spans the dcn axis)."""
+    results, _ = ranks
+    for case, halves in (("pp_zero", "mu"), ("fsdp", "params"), ("dcn_zero", "mu"), ("pp_fsdp", "params"),
+                         ("dcn_fsdp", "params")):
+        sizes = results[0][f"tp/{case}"]["sizes"]
+        for (shape, rows, replicated), n in zip(sizes["specs"], sizes[halves]):
+            full = int(np.prod(shape))
+            assert n == (full if replicated else rows * -(-(full // rows) // 2)), (case, shape, n)
+    pp_specs = results[0]["tp/pp_zero"]["sizes"]["specs"]
+    assert (1, 128, 384) in [s[0] for s in pp_specs]  # a vision stage: 1 of the 2 layers
+    for r in range(2):
+        a, b = (results[i]["tp/dcn_zero"]["moments"] for i in (r, r + 2))
+        assert len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert not all(np.array_equal(x, y) for x, y in zip(results[0]["tp/dcn_zero"]["moments"],
+                                                         results[1]["tp/dcn_zero"]["moments"]))
+
+
+def test_pp_checkpoint_is_the_unsharded_file(ranks, tmp_path):
+    """The file a (dp 2, pp 2) run writes is the unsharded one: laid out as
+    a one-process run's file, its params and moments the state the ranks
+    gathered (the stages laid back in layer order), bit for bit, within
+    1e-5 of JAX's Adam step."""
+    from clip_event_tpu_torch.engine import train_step as TT
+    from clip_event_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
+
+    results, _ = ranks
+    got = _ranks_agree(results, "pp_ckpt")
+    _close_metrics(got["metrics"], _jax_run("pp_ckpt")[0]["metrics"])
+    _close_params(got["params"], _jax_run("pp_ckpt")[0]["params"])
+    params, tcfg = W.init_params("tp/pp_ckpt")
+    opt = W.adam()
+    one, _ = TT.make_train_step(tcfg, opt, compute_dtype=torch.float32)(
+        TT.create_train_state(params, opt), W._t(W.make_batches("contrastive", 2, B_LOCAL, W.TP_SEEDS[0])[0]))
+    plain = save_checkpoint(str(tmp_path), "one", 0, one.params, one.opt_state, tcfg, step=one.step)
+    files = [torch.load(p, map_location="cpu", weights_only=False) for p in (got["ckpt"], plain)]
+    assert ({k: tuple(v.shape) for k, v in files[0]["state_dict"].items()}
+            == {k: tuple(v.shape) for k, v in files[1]["state_dict"].items()})
+    r_params, opt_state, meta, _ = restore_checkpoint(got["ckpt"])
+    assert meta["step"] == got["count"] == int(opt_state["count"]) == 1
+    sd = state_dict_from_params(r_params, tcfg)
+    assert all(np.array_equal(sd[k], got["params"][k]) for k in sd)
+    for tree in ("mu", "nu"):
+        moment = state_dict_from_params(opt_state[tree], tcfg)
+        assert all(np.array_equal(moment[k], got[tree][k]) for k in moment)
+
+
+def test_world_of_one_file_resumes_at_pp2(ranks):
+    """A world-of-one Adam step's file, restored by every rank, split into
+    pp = 2 stages and stepped on the second global batch: JAX's two
+    steps."""
+    got = _ranks_agree(ranks[0], "pp_resume")
+    want = _jax_run("pp_resume")
+    assert got["count"] == 2
+    _close_metrics(got["metrics"], want[1]["metrics"])
+    _close_params(got["params"], want[1]["params"])
+
+
+def test_pp_train_loop_matches_one_process(ranks):
+    """`train.train` at (dp 2, pp 2), batch 2 a data rank, against the loop
+    at a world of one at batch 4 (the same global batches, in another row
+    order): the epoch's train loss within 1e-5, its validation (through
+    the pipeline on each rank's stage, the set split over the 2 data
+    ranks) equal, the final params within 1e-5 on every rank, and the
+    epoch's checkpoint the unsharded file."""
+    from clip_event_tpu_torch.engine.checkpoint import restore_checkpoint
+    from clip_event_tpu_torch.models.convert import state_dict_from_params
+
+    results, _ = ranks
+    got = results[0]["tp/pp_loop"]
+    scalars = {name: {(r["tag"], r["step"]): r["value"] for r in got[name]["scalars"]} for name in ("pp", "one")}
+    assert scalars["pp"].keys() == scalars["one"].keys() and ("val_i2t_top1", 0) in scalars["pp"]
+    for key, value in scalars["one"].items():
+        np.testing.assert_allclose(scalars["pp"][key], value, atol=TOL, rtol=0, err_msg=str(key))
+    assert scalars["pp"][("val_i2t_top1", 0)] == scalars["one"][("val_i2t_top1", 0)]
+    for r in results:
+        assert all(np.array_equal(r["tp/pp_loop"]["pp"]["params"][k], got["pp"]["params"][k])
+                   for k in got["pp"]["params"])
+    _close_params(got["pp"]["params"], got["one"]["params"])
+    params, _, meta, tcfg = restore_checkpoint(got["pp"]["ckpt"])
+    sd = state_dict_from_params(params, tcfg)
+    assert meta["epoch"] == 0 and all(np.array_equal(sd[k], got["pp"]["params"][k]) for k in sd)
 
 
 def test_world_of_one_file_resumes_at_tp2(ranks):

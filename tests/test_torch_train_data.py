@@ -140,14 +140,15 @@ def test_config_defaults_and_refusals():
             "optimizer": "adam", "max_epoch": 1}
     ours, ref = TC.validate_config(base), JC.validate_config(base)
     assert ours == ref
-    # tensor, sequence and multi-slice parallelism are accepted as JAX
-    # accepts them; the ROADMAP item that brings each refused part: pipeline
-    # parallelism, and ZeRO-1 / FSDP composed with tp or dcn_dp, A6(c)
-    for extra in ({"tp": 2}, {"tp": 2, "sp": True}, {"dcn_dp": 2}):
+    # tensor, sequence, multi-slice and pipeline parallelism, and ZeRO-1 /
+    # FSDP composed with them, are accepted as JAX accepts them (no key is
+    # refused as not ported any more); JAX's own refusal of pp with tp stays
+    for extra in ({"tp": 2}, {"tp": 2, "sp": True}, {"dcn_dp": 2}, {"pp": 2, "pp_microbatches": 3},
+                  {"tp": 2, "zero": True}, {"dcn_dp": 2, "fsdp": True}, {"pp": 2, "zero": True}):
         assert TC.validate_config(dict(base, **extra)) == JC.validate_config(dict(base, **extra))
-    for extra in ({"pp": 2}, {"tp": 2, "zero": True}, {"dcn_dp": 2, "fsdp": True}):
-        with pytest.raises(TC.ConfigError, match=r"ROADMAP A6\(c\)"):
-            TC.validate_config(dict(base, **extra))
+    assert TC._UNPORTED == {}
+    with pytest.raises(TC.ConfigError, match="pp>1 and tp>1 are mutually exclusive"):
+        TC.validate_config(dict(base, pp=2, tp=2))
     # the sharded optimizer state and params (A6(b)) are accepted as JAX
     # accepts them, and a value that is not a bool is refused alike
     for key in ("zero", "fsdp"):

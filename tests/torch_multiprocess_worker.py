@@ -14,16 +14,20 @@ sharded over the ranks (`parallel/sharding.py`), and reports the full
 state gathered back, the shard sizes and, where it wrote one, the
 checkpoint's path.
 
-A case "tp/<case>" (`run_tp`) runs on a (dcn × dp × tp) mesh of the ranks
-(`TP_MESHES`): SGD with the clip at 1.0 on a tensor-parallel state
-(Megatron slices of `TP_VIT`'s stacks and token embedding), or the M2E2
-eval, the checkpoint a tp run writes, and a world-of-one file resumed at
-tp = 2; it reports the metrics, the full params gathered back and this
-rank's whole (unsplit) leaves.
+A case "tp/<case>" (`run_tp`) runs on a (dcn × dp × tp) or (dp × pp) mesh
+of the ranks (`TP_MESHES`): SGD with the clip at 1.0 on a tensor-parallel
+state (Megatron slices of `TP_VIT`'s stacks and token embedding) or a
+pipeline state (the stacks' stages, the GPipe schedule over the pp
+group), Adam where ZeRO-1 or FSDP shards the state over the data ranks
+on top (`TP_SHARDED`), or the M2E2 eval, the checkpoint a tp or pp run
+writes, and a world-of-one file resumed at tp = 2 or pp = 2; it reports
+the metrics, the full params gathered back and this rank's whole
+(unsplit) leaves.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 
@@ -54,19 +58,38 @@ ADAM_LR = 1e-5
 ADAM_SEEDS = (10, 11, 12)
 
 
-# the tensor-parallel cases' model: two heads in both towers (every stack
-# splits over tp = 2), two text layers; S = 77 (text) and 5 (vision) are
-# odd, so sequence parallelism pads both
-TP_VIT = dict(VIT, vision_width=128, transformer_heads=2, transformer_layers=2)
-# tp/<case>: (tp, dcn, sp) of its mesh over 4 ranks, its base batch case,
-# and its train-step settings
+# the model-parallel cases' model: two heads in both towers (every stack
+# splits over tp = 2); two vision and four text layers, so both stacks
+# divide pp = 2 and at pp = 4 the text stack does and the vision stack
+# does not; S = 77 (text) and 5 (vision) are odd, so sequence parallelism
+# pads both
+TP_VIT = dict(VIT, vision_width=128, vision_layers=2, transformer_heads=2, transformer_layers=4)
+# tp/<case>: (tp, dcn, sp, pp) of its mesh over 4 ranks
 TP_MESHES = {
-    "contrastive": (2, 1, False), "sp": (2, 1, True), "attn": (2, 1, False),
-    "accum": (2, 1, False), "multi_step": (2, 1, True), "dcn_tp": (2, 2, False),
-    "dcn_dp": (1, 2, False), "evals": (2, 1, False), "ckpt": (2, 1, False),
-    "resume": (2, 1, False),
+    "contrastive": (2, 1, False, 1), "sp": (2, 1, True, 1), "attn": (2, 1, False, 1),
+    "accum": (2, 1, False, 1), "multi_step": (2, 1, True, 1), "dcn_tp": (2, 2, False, 1),
+    "dcn_dp": (1, 2, False, 1), "evals": (2, 1, False, 1), "ckpt": (2, 1, False, 1),
+    "resume": (2, 1, False, 1),
+    "pp": (1, 1, False, 2), "pp_attn": (1, 1, False, 2), "pp4": (1, 1, False, 4),
+    "pp_zero": (1, 1, False, 2), "pp_ckpt": (1, 1, False, 2), "pp_resume": (1, 1, False, 2),
+    "fsdp": (2, 1, False, 1), "dcn_zero": (1, 2, False, 1), "pp_fsdp": (1, 1, False, 2),
+    "dcn_fsdp": (1, 2, False, 1), "pp_loop": (1, 1, False, 2), "pp_multi_step": (1, 1, False, 2),
 }
-TP_REMAT = {"sp": False, "attn": "attn", "multi_step": "attn"}
+TP_REMAT = {"sp": False, "attn": "attn", "multi_step": "attn", "pp_attn": "attn"}
+# the cases whose state ZeRO-1 or FSDP shards over the data ranks on top
+TP_SHARDED = {"pp_zero": "zero", "fsdp": "fsdp", "dcn_zero": "zero", "pp_fsdp": "fsdp",
+              "dcn_fsdp": "fsdp"}
+# the pipeline and composed-sharding cases: 4 global rows (the 2 data ranks'
+# batches of the contrastive cases, JAX's same runs), Adam where the state
+# is sharded, checkpointed or resumed
+COMPOSED = ("pp", "pp_attn", "pp4", "pp_zero", "pp_ckpt", "pp_resume", "fsdp", "dcn_zero", "pp_fsdp",
+            "dcn_fsdp", "pp_multi_step")
+COMPOSED_ROWS = 4
+ADAM_CASES = ("ckpt", "resume", "pp_zero", "pp_ckpt", "pp_resume", "fsdp", "dcn_zero", "pp_fsdp",
+              "dcn_fsdp")
+# the GPipe microbatches asked for: at (dp 2, pp 2) 2 vision rows take 2
+# and 6 text rows take 3; at pp = 4 the 12 text rows take 4
+PP_MICROBATCHES = 4
 TP_SEEDS = (40, 41)
 
 
@@ -355,20 +378,22 @@ def tp_sgd():
 
 def tp_record(state, cfg, mesh) -> dict:
     """The full params gathered (`full_params`), and this rank's whole
-    leaves (those no rank splits) as they are, as numpy."""
+    leaves (those no rank of its model group splits) as they are, as
+    numpy."""
     from clip_event_tpu_torch.engine.optim import tree_leaves
     from clip_event_tpu_torch.models.convert import state_dict_from_params
-    from clip_event_tpu_torch.parallel.sharding import full_params
+    from clip_event_tpu_torch.parallel.sharding import full_params, model_layout
 
     full = full_params(state)
     out = {"params": {k: np.array(v) for k, v in state_dict_from_params(
         {k: v for k, v in full.items()}, cfg).items()}}
-    layout = state.sharding
+    layout = model_layout(state.sharding)
     leaves = tree_leaves(state.params)
     out["whole"] = [leaves[i].detach().numpy().copy() for i, s in enumerate(layout.specs)
                     if s.kind is None] if layout is not None else []
     out["split"] = sum(s.kind is not None for s in layout.specs) if layout is not None else 0
     out["mesh"] = (mesh.dcn_idx, mesh.dp_idx, mesh.tp_idx, mesh.data.rank, mesh.data.world_size)
+    out["stage"] = (mesh.pp_idx, mesh.pp)
     return out
 
 
@@ -401,21 +426,33 @@ def saved_activation_bytes(params, cfg, mesh) -> int:
 
 
 def run_tp(name: str, world: int, rank: int, b_local: int, out: str, fixtures=None) -> dict:
-    """One tensor-parallel case (module docstring) on the mesh `TP_MESHES`
+    """One model-parallel case (module docstring) on the mesh `TP_MESHES`
     gives it: its data rank's rows of the global batches of `TP_SEEDS`."""
+    from clip_event_tpu_torch.models import layers
+
+    case = name.split("/", 1)[1]
+    tp, dcn, sp, pp = TP_MESHES[case]
+    from clip_event_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh("cpu", tp=tp, dcn=dcn, sp=sp, pp=pp)
+    if case in COMPOSED:
+        b_local = COMPOSED_ROWS // mesh.data.world_size
+    with layers.pipeline(mesh, PP_MICROBATCHES):
+        return _run_tp_case(name, case, mesh, b_local, out, fixtures)
+
+
+def _run_tp_case(name, case, mesh, b_local, out, fixtures) -> dict:
     from clip_event_tpu_torch.engine import train_step as TT
     from clip_event_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
     from clip_event_tpu_torch.models import layers
-    from clip_event_tpu_torch.parallel.mesh import make_mesh, replicate
-    from clip_event_tpu_torch.parallel.sharding import shard_params_tp, shard_state_tp
+    from clip_event_tpu_torch.parallel.mesh import replicate
+    from clip_event_tpu_torch.parallel.pipeline import shard_state_pp
+    from clip_event_tpu_torch.parallel.sharding import shard_params_tp, shard_state, shard_state_tp
 
-    case = name.split("/", 1)[1]
-    tp, dcn, sp = TP_MESHES[case]
-    mesh = make_mesh("cpu", tp=tp, dcn=dcn, sp=sp)
     data = mesh.data
     params, cfg = init_params(name)
     base = tp_batch_case(name)
-    opt = tp_sgd()
+    opt = adam() if case in ADAM_CASES else tp_sgd()
     kw = dict(compute_dtype=torch.float32, remat=TP_REMAT.get(case, True), mesh=mesh, loss_type="ce")
 
     def rank_batch(seed):
@@ -423,9 +460,16 @@ def run_tp(name: str, world: int, rank: int, b_local: int, out: str, fixtures=No
 
     def sharded(state):
         replicate(state.params, mesh)
-        return shard_state_tp(state, cfg, mesh) if tp > 1 else state
+        if mesh.tp > 1:
+            state = shard_state_tp(state, cfg, mesh)
+        if mesh.pp > 1:
+            state = shard_state_pp(state, mesh)
+        mode = TP_SHARDED.get(case)
+        return state if mode is None else shard_state(state, mesh, mode)
 
     result = {}
+    if case == "pp_loop":
+        return run_pp_loop(mesh, out, fixtures["voa"])
     if case == "evals":
         from clip_event_tpu_torch.data.m2e2 import M2E2Dataset
         from clip_event_tpu_torch.evals.m2e2 import evaluate_m2e2
@@ -439,15 +483,13 @@ def run_tp(name: str, world: int, rank: int, b_local: int, out: str, fixtures=No
         result["single"] = evaluate_m2e2(params, cfg, ds, batch_size=3, device="cpu", rank=0,
                                          world_size=1)
         return result
-    if case == "resume":
-        from clip_event_tpu_torch.engine import optim as TO
-
-        opt = TO.build_optimizer("adam", TO.build_schedule("none", ADAM_LR, 1), grad_clip_norm=1.0)
+    if case in ("resume", "pp_resume"):
         glob = _t(make_batches(base, data.world_size, b_local, TP_SEEDS[0])[0])
         one = TT.make_train_step(cfg, opt, **dict(kw, mesh=None))(TT.create_train_state(params, opt), glob)[0]
         # every rank calls the save (rank 0 writes, all wait)
-        save_checkpoint(out, "tp_from_one", 0, one.params, one.opt_state, cfg, step=one.step)
-        params, opt_state, meta, _ = restore_checkpoint(os.path.join(out, "tp_from_one", "tp_from_one_0"))
+        task = f"{case}_from_one"
+        save_checkpoint(out, task, 0, one.params, one.opt_state, cfg, step=one.step)
+        params, opt_state, meta, _ = restore_checkpoint(os.path.join(out, task, f"{task}_0"))
         state = TT.create_train_state(params, opt)._replace(opt_state=opt_state, step=meta["step"])
         state, m = TT.make_train_step(cfg, opt, **kw)(sharded(state), rank_batch(TP_SEEDS[1]))
         result["metrics"] = {k: float(v) for k, v in m.items()}
@@ -458,32 +500,76 @@ def run_tp(name: str, world: int, rank: int, b_local: int, out: str, fixtures=No
         step = TT.make_accum_step(cfg, opt, 2, **kw)
         state, m = step(state, _t({k: np.stack([b[k] for b in micro]) for k in micro[0]}))
         result["metrics"] = {k: float(v) for k, v in m.items()}
-    elif case == "multi_step":
-        result["saved"] = saved_activation_bytes(params, cfg, mesh)
+    elif case in ("multi_step", "pp_multi_step"):
+        if case == "multi_step":
+            result["saved"] = saved_activation_bytes(params, cfg, mesh)
         state = sharded(TT.create_train_state(params, opt))
         many, _ = TT.make_multi_step(cfg, opt, 2, **kw)
         batches = [rank_batch(seed) for seed in TP_SEEDS]
         state, m = many(state, {k: torch.stack([b[k] for b in batches]) for k in batches[0]})
         result["metrics"] = {k: v.tolist() for k, v in m.items()}
     else:
-        if case == "ckpt":
-            from clip_event_tpu_torch.engine import optim as TO
-
-            opt = TO.build_optimizer("adam", TO.build_schedule("none", ADAM_LR, 1), grad_clip_norm=1.0)
         if case == "attn":
             result["saved"] = saved_activation_bytes(params, cfg, mesh)
         state = sharded(TT.create_train_state(params, opt))
+        if case in TP_SHARDED:
+            result["sizes"] = shard_sizes(state)
         with layers.ln_impl("pallas" if case == "sp" else "xla"):
             state, m = TT.make_train_step(cfg, opt, **kw)(state, rank_batch(TP_SEEDS[0]))
         result["metrics"] = {k: float(v) for k, v in m.items()}
-        if case == "ckpt":
-            task = "tp_ckpt"
+        if case == "dcn_zero":
+            from clip_event_tpu_torch.engine.optim import tree_leaves
+
+            result["moments"] = [t.numpy().copy() for k in ("mu", "nu")
+                                 for t in tree_leaves(state.opt_state[k])]
+        if case in ("ckpt", "pp_ckpt"):
+            task = f"{case}_run"
             save_checkpoint(out, task, 0, state.params, state.opt_state, cfg, step=state.step,
                             sharding=state.sharding)
             result["ckpt"] = os.path.join(out, task, task + "_0")
             rec = state_record(state, cfg)
             result.update({k: rec[k] for k in ("mu", "nu", "count")})
     result.update(tp_record(state, cfg, mesh))
+    return result
+
+
+def run_pp_loop(mesh, out: str, voa: dict) -> dict:
+    """The train loop (`train.train`: loader, pipeline stages, the epoch's
+    validation through the pipeline, the checkpoint) at (dp 2, pp 2),
+    batch 2 a data rank, and then at a world of one (no mesh) at batch 4,
+    every rank running both: one epoch of the synthetic VOA corpus, Adam,
+    from the same init. Returns each run's full params and rank 0's
+    scalars."""
+    from clip_event_tpu_torch import train as TR
+    from clip_event_tpu_torch.config import validate_config
+    from clip_event_tpu_torch.engine.metrics import ScalarWriter
+    from clip_event_tpu_torch.models.convert import state_dict_from_params
+    from clip_event_tpu_torch.parallel.sharding import full_params
+
+    params, mcfg = init_params("tp/pp_loop")
+    base = {"task": "pp_loop", "constrastive_loss": "ce", "posneg_descriptions_json": voa["descriptions_json"],
+            "image_caption_json": [voa["mapping_json"]], "image_dir": [voa["image_dir"]], "max_epoch": 1,
+            "lr": ADAM_LR, "optimizer": "adam", "lr_scheduler": "none", "compute_dtype": "float32",
+            "remat": True, "num_workers": 2, "seed": 5, "validate_every": 1,
+            "val_image_caption_json": [voa["mapping_json"]], "val_image_dir": [voa["image_dir"]],
+            "pp_microbatches": PP_MICROBATCHES}
+    result = {}
+    for name, m, batch in (("pp", mesh, 2), ("one", None, 4)):
+        root = os.path.join(out, f"pp_loop_{name}")
+        cfg = validate_config(dict(base, batch_size=batch, pp=1 if m is None else m.pp,
+                                   ckpt_dir=os.path.join(root, "ckpt"), tb_log_dir=os.path.join(root, "logs")))
+        rank, world = (m.data.rank, m.data.world_size) if m is not None else (0, 1)
+        logs = os.path.join(root, "logs", "rank0")
+        writer = ScalarWriter(logs) if mesh.rank == 0 else None
+        state = TR.train(cfg, mcfg, TR.build_dataset(cfg, mcfg, rank, world), params, "cpu", writer=writer,
+                         mesh=m)
+        result[name] = {"params": {k: np.array(v) for k, v in state_dict_from_params(full_params(state),
+                                                                                    mcfg).items()}}
+        if writer is not None:
+            writer.close()
+            with open(os.path.join(logs, "scalars.jsonl")) as fh:
+                result[name]["scalars"] = [json.loads(line) for line in fh]
+        result[name]["ckpt"] = os.path.join(cfg["ckpt_dir"], "pp_loop", "pp_loop_0")
     return result
 
 

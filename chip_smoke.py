@@ -8,7 +8,8 @@ full CLIP-Event fine-tuning of `configs/clip_event_full.json` (OT and
 local attention) at ViT-B/32, RN50 and RN50x4 serving and RN50
 fine-tuning, int8 serving, the serving bundle (`torch.export` programs
 serving through the kernels' custom ops), the zero-shot evals (GSR among
-them), and the bench entry point and component bench.
+them), the description pipeline's CLIP type scorer, and the bench entry
+point and component bench.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --only k1   # device, build and K1's kernel checks
@@ -28,6 +29,7 @@ them), and the bench entry point and component bench.
     python3 chip_smoke.py --only data_feed  # the host image path alone
     python3 chip_smoke.py --only tp_heads   # the tp = 2 head groups alone
     python3 chip_smoke.py --only pp_stages  # the pp = 2 stages alone
+    python3 chip_smoke.py --only preprocess  # the description pipeline alone
     # the same for an earlier tree's package unpacked under DIR
     python3 chip_smoke.py --only b1 --package-root DIR
 
@@ -257,17 +259,19 @@ Phases, each printing JSON lines:
   9b. serving_bundle  `engine/export.py` at full width from seed 0: a
               ViT-B/32 bundle in fp32, bf16 and int8 and a ViT-L/14 int8
               bundle (the fp32 and int8 B/32 ones exported on the CPU), each
-              loaded in a fresh process (load seconds; `models.clip` and the
-              layers must stay out of its sys.modules; it runs beside this
+              exported by a process of its own, the four started beside the
+              kernels' build and read after it; each loaded in a fresh
+              process (load seconds; `models.clip` and the layers must stay
+              out of its sys.modules; the four run together, beside this
               process's own load and checks) and here, then
               serving batches of 1, 7 and 64 on the card, counted: K1 12 a
               tower batch, K2 24 an L/14 image batch, K5 100 / 98 (B/32) and
               196 / 98 (L/14) an image / text batch, equal to the live
               model's a batch; features against the live model (fp32 max abs
               1e-5, bf16 cosine 0.999, int8 1e-4; bit equality reported) and
-              the batch of 7 against the same bundle served on the CPU
-              through the ops' plain versions (fp32 1e-4, else cosine
-              0.999); export and load seconds, bundle bytes, images/s and
+              the first 2 rows of the batch of 7 against the same bundle
+              serving those rows on the CPU through the ops' plain versions
+              (fp32 1e-4, else cosine 0.999); export and load seconds, bundle bytes, images/s and
               texts/s at batch 64, bundle and live in turns
  10. evals    the M2E2, VCR, VisualCOMET and retrieval CLIs through
               `evals.cli.run` on synthetic annotation files (tests/fixtures.py):
@@ -280,6 +284,22 @@ Phases, each printing JSON lines:
               GSR at ViT-B/32 with the value metrics (6 grounded roles, 6
               frames), counted, and again with the plain attention: equal
               metrics
+ 10b. preprocess  the description pipeline's CLI
+              (`clip_event_tpu_torch.preprocess_descriptions`) at ViT-B/32
+              full width from seed 0, fp32, with `add_clip_sim` on a
+              synthetic corpus written from seed 0 (64 docs of 1-4 ACE
+              events, 61 JPEGs of 320 x 480, 2 docs without a file, 1 with
+              a file that is no image; the 33 ACE event types' descriptions)
+              and a cold `clip_cache_dir`: exactly 24 K1-fwd launches (one
+              text batch, one image batch) and no other kernel, pred_idx -1
+              for the 3 bad docs; the cached scores against the plain path
+              (the images decoded again by threads, both towers with the
+              plain attention) within PP_PROB_GATE (0.5 · 100 · 1e-4: the
+              fp32 serving gate through the logit scale), pred_idx equal
+              where the plain top-two margin is above it; the CLI again on
+              the warm cache: 12 K1-fwd launches (the text batch alone),
+              every output file byte for byte the cold run's; images
+              scored a second and the phase's seconds
 
   5b. train_ln  phase 5's workload through the train loop with
               `use_pallas_ln: true`: exact launch counts of K1 and of K4a,
@@ -357,6 +377,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3805,13 +3826,34 @@ BUNDLES = (  # (tag, model, compute dtype, quantize, the device the export trace
 )
 BUNDLE_MODELS = {"ViT-B/32": VIT_B32, "ViT-L/14": VIT_L14}
 BUNDLE_BATCHES = (1, 7, 64)
-BUNDLE_PLAIN_BATCH = 7  # the batch served again on the CPU's plain versions
+# the served batch whose first rows are served again on the CPU's plain
+# versions (a row's features depend on that row alone; the CPU's plain
+# encode, the phase's largest host cost after the export, grows with the rows)
+BUNDLE_PLAIN_BATCH, BUNDLE_PLAIN_ROWS = 7, 2
 # the bundle against the live model on the card (max abs error, or min
 # cosine for bf16), and the bundle on the card against the same bundle on
 # the CPU (the plain versions; min cosine, but fp32 max abs error)
 BUNDLE_LIVE_TOL = {"float32": 1e-5, "int8": 1e-4}
 BUNDLE_COS = 0.999
 BUNDLE_PLAIN_TOL = 1e-4
+# each bundle is exported by a process of its own, all of them started
+# together beside the kernels' build (`start_bundle_exports`): the
+# torch.export trace is host work, the largest of the phase
+BUNDLE_EXPORT = r"""
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_num_threads(2)
+from clip_event_tpu_torch.engine.export import save_serving_bundle
+from clip_event_tpu_torch.models.clip import VIT_B32, VIT_L14, init_params, tree_to
+model, dtype, quantize, device, out_dir = sys.argv[1:6]
+mcfg = {"ViT-B/32": VIT_B32, "ViT-L/14": VIT_L14}[model]
+params = tree_to(init_params(torch.Generator().manual_seed(0), mcfg, "cuda"), device)
+t0 = time.perf_counter()
+save_serving_bundle(out_dir, params, mcfg, compute_dtype=getattr(torch, dtype), quantize=quantize or None)
+print(json.dumps({"export_s": time.perf_counter() - t0}))
+"""
 # a fresh process loads a bundle on the card and serves one batch: the
 # load's seconds, and whether the model code stayed out of sys.modules
 BUNDLE_LOAD_CHECK = r"""
@@ -3833,9 +3875,49 @@ t3 = time.perf_counter()
 code = ("clip_event_tpu_torch.models.clip", "clip_event_tpu_torch.models.layers",
         "clip_event_tpu_torch.models.vit", "clip_event_tpu_torch.models.resnet")
 print(json.dumps({"import_and_cuda_init_s": t1 - t0, "load_s": t2 - t1, "first_batch_s": t3 - t2,
-                  "finite": bool(torch.isfinite(f).all() and torch.isfinite(t).all()),
+                  "process_s": t3 - t0, "finite": bool(torch.isfinite(f).all() and torch.isfinite(t).all()),
                   "model_code_in_sys_modules": [m for m in code if m in sys.modules]}))
 """
+
+
+def spawn(code, args, log_base):
+    """A child `python -c code args...` in the repo's root, its stdout and
+    stderr into log_base.out / log_base.err (files: a full pipe would stall
+    a child while another is read)."""
+    with open(log_base + ".out", "w") as out, open(log_base + ".err", "w") as err:
+        return subprocess.Popen([sys.executable, "-c", code, *args], cwd=REPO, stdout=out, stderr=err), log_base
+
+
+def collect(child, what, timeout=600) -> dict:
+    """The JSON object a `spawn`ed child printed last; fails on its exit code."""
+    proc, log_base = child
+    rc = proc.wait(timeout=timeout)
+    with open(log_base + ".err") as fh:
+        check(rc == 0, f"{what} failed (exit code {rc}):\n{fh.read()[-3000:]}")
+    with open(log_base + ".out") as fh:
+        return json.loads(fh.read().strip().splitlines()[-1])
+
+
+def stop(children) -> None:
+    """Kill every `spawn`ed child still running."""
+    for proc, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def bundle_dir(out_root, tag):
+    return os.path.join(out_root, "serving_bundle", tag)
+
+
+def start_bundle_exports(out_root) -> dict:
+    """Start the export of every bundle of BUNDLES, one process each
+    (BUNDLE_EXPORT), into `bundle_dir(out_root, tag)`: {tag: child}."""
+    os.makedirs(os.path.join(out_root, "serving_bundle"), exist_ok=True)
+    return {tag: spawn(BUNDLE_EXPORT, [model, str(dtype).replace("torch.", ""), quantize or "", device,
+                                       bundle_dir(out_root, tag)],
+                       os.path.join(out_root, "serving_bundle", f"export_{tag}"))
+            for tag, model, dtype, quantize, device in BUNDLES}
 
 
 def bundle_inputs(mcfg, n):
@@ -3857,134 +3939,130 @@ def _compare(got, ref, gate, what):
     return {"max_abs_err": err, "min_cos": cos, "bit_equal": bool(torch.equal(got, ref))}
 
 
-def phase_serving_bundle(out_root):
+def phase_serving_bundle(out_root, exports):
     """The serving bundle (`engine/export.py`) at full width from seed 0:
     ViT-B/32 in fp32, bf16 and int8 and ViT-L/14 in int8, the fp32 and int8
-    B/32 bundles exported on the CPU, the others on the card. Each bundle is
-    loaded in a fresh process (load seconds; the model code must stay out of
-    its sys.modules; it runs beside this process's own load and checks, and
-    is read before the timed rates) and here, then serves batches of 1, 7
-    and 64 on the
-    card, counted: K1 12 a tower batch (K2 24 an L/14 image batch), K5 once
-    a dense layer of an int8 tower, the live model's counts. The features
-    are held against the live model (fp32 1e-5, bf16 cosine 0.999, int8
-    1e-4), and the batch of 7 against the same bundle served on the CPU
-    through the ops' plain versions (fp32 1e-4, else cosine 0.999); export
-    and load seconds, bundle bytes, and images/s and texts/s at batch 64,
-    bundle and live in turns."""
-    from clip_event_tpu_torch.engine.export import load_serving_bundle, save_serving_bundle
-    from clip_event_tpu_torch.models.clip import tree_to
+    B/32 bundles exported on the CPU, the others on the card, each by a
+    process of its own beside the kernels' build (`exports`: their export
+    seconds, read there). Each bundle is loaded in a fresh process (load
+    seconds; the model code must stay out of its sys.modules; the four run
+    together, beside this process's own load and checks of the first
+    bundle, and are read before the first timed rates) and here, then
+    serves batches of 1, 7 and 64 on the card, counted: K1 12 a tower batch
+    (K2 24 an L/14 image batch), K5 once a dense layer of an int8 tower, the
+    live model's counts. The features are held against the live model (fp32
+    1e-5, bf16 cosine 0.999, int8 1e-4), and the first BUNDLE_PLAIN_ROWS
+    rows of the batch of 7 against the same bundle serving those rows on the
+    CPU through the ops' plain versions (fp32 1e-4, else cosine 0.999);
+    export and load seconds, bundle bytes, and images/s and texts/s at
+    batch 64, bundle and live in turns."""
+    from clip_event_tpu_torch.engine.export import load_serving_bundle
     from clip_event_tpu_torch.ops.quant import quantize_params
 
     all_launches = dict.fromkeys(COUNTERS, 0)
-    for tag, model, dtype, quantize, export_device in BUNDLES:
-        t_bundle = time.perf_counter()
-        mcfg = BUNDLE_MODELS[model]
-        dtype_name = str(dtype).replace("torch.", "")
-        live_params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
-        export_params = tree_to(live_params, export_device)
-        if quantize:
-            live_params = quantize_params(live_params)
-        out_dir = os.path.join(out_root, "serving_bundle", tag)
-        t0 = time.perf_counter()
-        save_serving_bundle(out_dir, export_params, mcfg, compute_dtype=dtype, quantize=quantize)
-        export_s = time.perf_counter() - t0
-        del export_params
-        files = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+    fresh_children = {tag: spawn(BUNDLE_LOAD_CHECK, [bundle_dir(out_root, tag)],
+                                 os.path.join(out_root, "serving_bundle", f"fresh_{tag}"))
+                      for tag, *_ in BUNDLES}
+    fresh_all = None
+    try:
+        for tag, model, dtype, quantize, export_device in BUNDLES:
+            t_bundle = time.perf_counter()
+            mcfg = BUNDLE_MODELS[model]
+            dtype_name = str(dtype).replace("torch.", "")
+            live_params = init_params(torch.Generator().manual_seed(0), mcfg, "cuda")
+            if quantize:
+                live_params = quantize_params(live_params)
+            out_dir = bundle_dir(out_root, tag)
+            files = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
 
-        # ---- a fresh process loads it on the card, without the model code;
-        # it runs beside this process's own load and checks below (which it
-        # shares the host's cores with) and is read before the timed rates
-        t_fresh = time.perf_counter()
-        fresh_proc = subprocess.Popen([sys.executable, "-c", BUNDLE_LOAD_CHECK, out_dir], cwd=REPO,
-                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-        t0 = time.perf_counter()
-        bundle = load_serving_bundle(out_dir, device="cuda")
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        x_img, x_tok = bundle_inputs(mcfg, max(BUNDLE_BATCHES))
-
-        # ---- the main path, counted: batches of 1, 7 and 64 through both programs
-        reset_launches()
-        served = {}
-        for b in BUNDLE_BATCHES:
-            served[b] = (bundle.encode_image(x_img[:b]), bundle.encode_text(x_tok[:b]))
-        torch.cuda.synchronize()
-        launches = read_launches()
-        per_batch = int8_launches(mcfg, 1, 1) if quantize else serving_launches(mcfg, 1, 1)
-        n = len(BUNDLE_BATCHES)
-        expected = {k: v * n for k, v in per_batch.items()}
-        check(launches == expected, f"{tag} launches {launches} != {expected}")
-        all_launches = {k: all_launches[k] + launches[k] for k in COUNTERS}
-
-        # ---- the live model: its launches a batch, its features
-        def live_image(x):
-            return l2_normalize(encode_image(live_params, mcfg, x, compute_dtype=dtype, impl="kernel")).float()
-
-        def live_text(t):
-            return l2_normalize(encode_text(live_params, mcfg, t, compute_dtype=dtype, impl="kernel")).float()
-
-        with torch.inference_mode():
-            reset_launches()
-            live64 = (live_image(x_img), live_text(x_tok))
+            t0 = time.perf_counter()
+            bundle = load_serving_bundle(out_dir, device="cuda")
             torch.cuda.synchronize()
-            live_launches = read_launches()
-            check(live_launches == per_batch, f"{tag}: the live model's launches a batch {live_launches} "
-                                              f"!= the bundle's {per_batch}")
-            gate = ("cos", BUNDLE_COS) if dtype == torch.bfloat16 else (
-                "abs", BUNDLE_LIVE_TOL["int8" if quantize else "float32"])
-            vs_live = {}
+            load_s = time.perf_counter() - t0
+            x_img, x_tok = bundle_inputs(mcfg, max(BUNDLE_BATCHES))
+
+            # ---- the main path, counted: batches of 1, 7 and 64 through both programs
+            reset_launches()
+            served = {}
             for b in BUNDLE_BATCHES:
-                live = live64 if b == max(BUNDLE_BATCHES) else (live_image(x_img[:b]), live_text(x_tok[:b]))
-                for kind, got, ref in zip(("images", "texts"), served[b], live):
-                    check(got.shape == (b, mcfg.embed_dim) and got.dtype == torch.float32
-                          and bool(torch.isfinite(got).all()), f"{tag} {kind} batch {b}: shape / finite")
-                    vs_live[f"{kind}_b{b}"] = _compare(got, ref, gate, f"{tag} {kind} batch {b} vs live")
+                served[b] = (bundle.encode_image(x_img[:b]), bundle.encode_text(x_tok[:b]))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            per_batch = int8_launches(mcfg, 1, 1) if quantize else serving_launches(mcfg, 1, 1)
+            n = len(BUNDLE_BATCHES)
+            expected = {k: v * n for k, v in per_batch.items()}
+            check(launches == expected, f"{tag} launches {launches} != {expected}")
+            all_launches = {k: all_launches[k] + launches[k] for k in COUNTERS}
 
-        # ---- the same bundle on the CPU: the ops' plain versions
-        t0 = time.perf_counter()
-        on_cpu = load_serving_bundle(out_dir, device="cpu")
-        cpu_load_s = time.perf_counter() - t0
-        b = BUNDLE_PLAIN_BATCH
-        plain = (on_cpu.encode_image(x_img[:b].cpu()), on_cpu.encode_text(x_tok[:b].cpu()))
-        gate = ("abs", BUNDLE_PLAIN_TOL) if dtype == torch.float32 and not quantize else ("cos", BUNDLE_COS)
-        vs_plain = {kind: _compare(got, ref, gate, f"{tag} {kind} card vs CPU plain")
-                    for kind, got, ref in zip(("images", "texts"), served[b], plain)}
-        cpu_plain_s = time.perf_counter() - t0
-        del on_cpu, plain
+            # ---- the live model: its launches a batch, its features
+            def live_image(x):
+                return l2_normalize(encode_image(live_params, mcfg, x, compute_dtype=dtype, impl="kernel")).float()
 
-        stdout, stderr = fresh_proc.communicate(timeout=600)
-        check(fresh_proc.returncode == 0, f"{tag}: loading in a fresh process failed:\n{stderr[-3000:]}")
-        fresh = json.loads(stdout.strip().splitlines()[-1])
-        fresh["process_s"] = time.perf_counter() - t_fresh
-        check(fresh["finite"], f"{tag}: fresh process features finite")
-        check(not fresh["model_code_in_sys_modules"],
-              f"{tag}: loading imported the model code {fresh['model_code_in_sys_modules']}")
+            def live_text(t):
+                return l2_normalize(encode_text(live_params, mcfg, t, compute_dtype=dtype, impl="kernel")).float()
 
-        # ---- throughput at batch 64, bundle and live in turns (the
-        # script's time limit sets the iterations)
-        iters = 10 if mcfg.vision_layers <= 12 else 4
-        readings = {}
-        with torch.inference_mode():
-            ms = in_turns_many({
-                "bundle_image": lambda: bundle.encode_image(x_img), "live_image": lambda: live_image(x_img),
-                "bundle_text": lambda: bundle.encode_text(x_tok), "live_text": lambda: live_text(x_tok),
-            }, iters, warmup=3, readings=readings)
-        B = max(BUNDLE_BATCHES)
-        rates = {who: {"images_per_s": B / ms[f"{who}_image"] * 1e3, "texts_per_s": B / ms[f"{who}_text"] * 1e3,
-                       "image_batch_ms": ms[f"{who}_image"], "text_batch_ms": ms[f"{who}_text"]}
-                 for who in ("bundle", "live")}
-        emit({"phase": "serving_bundle", "bundle": tag, "model": model, "compute_dtype": dtype_name,
-              "quantize": quantize, "seed": 0, "exported_on": export_device, "served_on": "cuda",
-              "export_s": export_s, "load_s": load_s, "cpu_load_s": cpu_load_s, "fresh_process": fresh,
-              "cpu_plain_s": cpu_plain_s, "phase_s": time.perf_counter() - t_bundle,
-              "bundle_bytes": sum(files.values()), "files": files, "batches": list(BUNDLE_BATCHES),
-              "launches": launches, "per_batch": per_batch, "live_per_batch": live_launches,
-              "vs_live": vs_live, "vs_cpu_plain": vs_plain, "throughput_b64": rates,
-              "batch_ms_readings_in_turns": readings})
-        del bundle, live_params, served, live64
-        torch.cuda.empty_cache()
+            with torch.inference_mode():
+                reset_launches()
+                live64 = (live_image(x_img), live_text(x_tok))
+                torch.cuda.synchronize()
+                live_launches = read_launches()
+                check(live_launches == per_batch, f"{tag}: the live model's launches a batch {live_launches} "
+                                                  f"!= the bundle's {per_batch}")
+                gate = ("cos", BUNDLE_COS) if dtype == torch.bfloat16 else (
+                    "abs", BUNDLE_LIVE_TOL["int8" if quantize else "float32"])
+                vs_live = {}
+                for b in BUNDLE_BATCHES:
+                    live = live64 if b == max(BUNDLE_BATCHES) else (live_image(x_img[:b]), live_text(x_tok[:b]))
+                    for kind, got, ref in zip(("images", "texts"), served[b], live):
+                        check(got.shape == (b, mcfg.embed_dim) and got.dtype == torch.float32
+                              and bool(torch.isfinite(got).all()), f"{tag} {kind} batch {b}: shape / finite")
+                        vs_live[f"{kind}_b{b}"] = _compare(got, ref, gate, f"{tag} {kind} batch {b} vs live")
+
+            # ---- the same bundle on the CPU: the ops' plain versions
+            t0 = time.perf_counter()
+            on_cpu = load_serving_bundle(out_dir, device="cpu")
+            cpu_load_s = time.perf_counter() - t0
+            r = BUNDLE_PLAIN_ROWS
+            plain = (on_cpu.encode_image(x_img[:r].cpu()), on_cpu.encode_text(x_tok[:r].cpu()))
+            gate = ("abs", BUNDLE_PLAIN_TOL) if dtype == torch.float32 and not quantize else ("cos", BUNDLE_COS)
+            vs_plain = {kind: _compare(got, ref, gate, f"{tag} {kind} card vs CPU plain")
+                        for kind, got, ref in zip(("images", "texts"),
+                                                  (f[:r] for f in served[BUNDLE_PLAIN_BATCH]), plain)}
+            cpu_plain_s = time.perf_counter() - t0
+            del on_cpu, plain
+
+            if fresh_all is None:
+                fresh_all = {t: collect(c, f"{t}: loading in a fresh process") for t, c in fresh_children.items()}
+            fresh = fresh_all[tag]
+            check(fresh["finite"], f"{tag}: fresh process features finite")
+            check(not fresh["model_code_in_sys_modules"],
+                  f"{tag}: loading imported the model code {fresh['model_code_in_sys_modules']}")
+
+            # ---- throughput at batch 64, bundle and live in turns (the
+            # script's time limit sets the iterations)
+            iters = 10 if mcfg.vision_layers <= 12 else 4
+            readings = {}
+            with torch.inference_mode():
+                ms = in_turns_many({
+                    "bundle_image": lambda: bundle.encode_image(x_img), "live_image": lambda: live_image(x_img),
+                    "bundle_text": lambda: bundle.encode_text(x_tok), "live_text": lambda: live_text(x_tok),
+                }, iters, warmup=3, readings=readings)
+            B = max(BUNDLE_BATCHES)
+            rates = {who: {"images_per_s": B / ms[f"{who}_image"] * 1e3, "texts_per_s": B / ms[f"{who}_text"] * 1e3,
+                           "image_batch_ms": ms[f"{who}_image"], "text_batch_ms": ms[f"{who}_text"]}
+                     for who in ("bundle", "live")}
+            emit({"phase": "serving_bundle", "bundle": tag, "model": model, "compute_dtype": dtype_name,
+                  "quantize": quantize, "seed": 0, "exported_on": export_device, "served_on": "cuda",
+                  "export": exports[tag], "load_s": load_s, "cpu_load_s": cpu_load_s, "fresh_process": fresh,
+                  "cpu_plain_s": cpu_plain_s, "cpu_plain_rows": r, "phase_s": time.perf_counter() - t_bundle,
+                  "bundle_bytes": sum(files.values()), "files": files, "batches": list(BUNDLE_BATCHES),
+                  "launches": launches, "per_batch": per_batch, "live_per_batch": live_launches,
+                  "vs_live": vs_live, "vs_cpu_plain": vs_plain, "throughput_b64": rates,
+                  "batch_ms_readings_in_turns": readings})
+            del bundle, live_params, served, live64
+            torch.cuda.empty_cache()
+    finally:
+        stop(fresh_children.values())
     return all_launches
 
 
@@ -4287,8 +4365,8 @@ def pp_train_step_check(mcfg, params, batch, dtype, timed=False) -> dict:
         turns["plain_ms"], turns["pp_ms"] = in_turns(plain_step, pp_step, iters=2, warmup=1)
         # where the difference goes: each one's device busy time, idle
         # share and launches (torch.profiler, one warm run)
-        turns["plain_profile"] = profile_one(plain_step, turns["plain_ms"], host=False)
-        turns["pp_profile"] = profile_one(pp_step, turns["pp_ms"], host=False)
+        turns["plain_profile"] = profile_one(plain_step, turns["plain_ms"])
+        turns["pp_profile"] = profile_one(pp_step, turns["pp_ms"])
     loss_gap = abs(total.item() - want_loss.item()) / max(abs(want_loss.item()), 1e-30)
     grads = _pp_gaps(got, want)
     tol = PP_TOL[name]
@@ -4860,25 +4938,237 @@ def phase_data_feed(out_root):
     return {k: cached["launches"][k] + live["launches"][k] for k in COUNTERS}
 
 
+# the preprocess phase: the description pipeline's corpus (docs, the
+# JPEGs' size, the docs without a readable image) and the 33 ACE event
+# types the CLIP type scorer ranks
+PP_DOCS, PP_HW, PP_MISSING, PP_CORRUPT = 64, (320, 480), 2, 1
+PP_ACE_TYPES = (
+    "Life.BeBorn", "Life.Marry", "Life.Divorce", "Life.Injure", "Life.Die", "Movement.Transport",
+    "Transaction.TransferOwnership", "Transaction.TransferMoney", "Business.StartOrg",
+    "Business.MergeOrg", "Business.DeclareBankruptcy", "Business.EndOrg", "Conflict.Attack",
+    "Conflict.Demonstrate", "Contact.Meet", "Contact.PhoneWrite", "Personnel.StartPosition",
+    "Personnel.EndPosition", "Personnel.Nominate", "Personnel.Elect", "Justice.ArrestJail",
+    "Justice.ReleaseParole", "Justice.TrialHearing", "Justice.ChargeIndict", "Justice.Sue",
+    "Justice.Convict", "Justice.Sentence", "Justice.Fine", "Justice.Execute", "Justice.Extradite",
+    "Justice.Acquit", "Justice.Appeal", "Justice.Pardon",
+)
+PP_ROLES = ("Agent", "Person", "Place")
+# the scorer's probs against the plain path: softmax(100 · cosine), and a
+# probability moves by at most half the largest change of a logit
+# (|dp_i| = p_i |dz_i − E_p dz| ≤ 2 p_i (1 − p_i) max|dz| ≤ max|dz| / 2), so
+# the fp32 serving gate on the features (1e-4, taken on the cosines) gives
+# 0.5 · 100 · 1e-4
+PP_LOGIT_SCALE, PP_COSINE_GATE = 100.0, 1e-4
+PP_PROB_GATE = 0.5 * PP_LOGIT_SCALE * PP_COSINE_GATE
+
+
+def write_pp_corpus(root: str, seed: int = 0) -> dict:
+    """The description pipeline's inputs, from `seed`: ColdStart entity and
+    event files (PP_DOCS docs, 1-4 events each of the ACE types, with
+    arguments), the caption mapping, the template file, the type
+    descriptions (one a type), and a JPEG a doc (PP_HW, the data feed's
+    smooth fields) but for PP_MISSING docs without a file and PP_CORRUPT
+    with a file that is no image. Returns the paths and the doc ids."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    docs = [f"VOA_EN_NW_2017_{d:04d}_0" for d in range(PP_DOCS)]
+    names = ("protesters", "police", "the minister", "a court", "soldiers", "the company", "the city",
+             "a journalist", "voters", "the bank", "a farmer", "the border")
+    ent, evt, mapping = [], [], {}
+    for d, doc in enumerate(docs):
+        ents = []
+        for e in range(3):
+            eid, name = f":Entity_{d}_{e}", names[int(rng.integers(len(names)))]
+            off = f"{doc}:{20 * e}-{20 * e + len(name) - 1}"
+            ent += [f"{eid}\ttype\thttps://tac.nist.gov/ontology#Person\t1.0",
+                    f'{eid}\tcanonical_mention.actual\t"{name}"\t{off}\t0.9',
+                    f'{eid}\tmention.actual\t"{name}"\t{off}\t0.9']
+            ents.append((eid, off))
+        for v in range(int(rng.integers(1, 5))):
+            vid, etype = f":Event_{d}_{v}", PP_ACE_TYPES[int(rng.integers(len(PP_ACE_TYPES)))]
+            off = f"{doc}:{100 + 10 * v}-{105 + 10 * v}"
+            evt += [f"{vid}\ttype\thttps://tac.nist.gov/ontology#{etype}",
+                    f'{vid}\tcanonical_mention.actual\t"event{v}"\t{off}\t0.8',
+                    f'{vid}\tmention.actual\t"event{v}"\t{off}\t0.8']
+            for r in range(int(rng.integers(0, 3))):
+                eid, eoff = ents[r]
+                evt.append(f"{vid}\thttps://tac.nist.gov/ontology#{etype}_{PP_ROLES[r]}.actual\t{eid}\t{eoff}\t0.8")
+        mapping[doc[:-2]] = {"0": {"url": "", "cap": f"FILE - event0 near {names[d % len(names)]} today."}}
+    paths = {k: os.path.join(root, f) for k, f in (
+        ("entity", "entity.cs"), ("event", "event.cs"), ("mapping", "image_caption_mapping.json"),
+        ("templates", "templates.json"), ("types", "type_descriptions.json"), ("image_dir", "jpg"))}
+    for key, lines in (("entity", ent), ("event", evt)):
+        with open(paths[key], "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    templates, types = {}, {}
+    for t in PP_ACE_TYPES:
+        words = " ".join(re.findall("[A-Z][^A-Z]*", t.split(".")[-1])).lower()
+        templates[t] = {"template": f"<arg1> {words} <arg2> at <arg3>", "roles": list(PP_ROLES)}
+        types[t] = {"desc_auto_name": f"An image of a {words} event ({t.split('.')[0].lower()})."}
+    for key, obj in (("mapping", mapping), ("templates", templates), ("types", types)):
+        with open(paths[key], "w") as fh:
+            json.dump(obj, fh)
+    os.makedirs(paths["image_dir"], exist_ok=True)
+    noise = _feed_noise(seed)
+    bad = PP_MISSING + PP_CORRUPT
+
+    def write(i):
+        path = os.path.join(paths["image_dir"], docs[i] + ".jpg")
+        if i >= PP_DOCS - PP_CORRUPT:
+            with open(path, "wb") as fh:
+                fh.write(b"this is no JPEG")
+        elif i < PP_DOCS - bad:
+            img = _feed_image(i, seed, noise)[: PP_HW[0], : PP_HW[1]]
+            Image.fromarray(img).save(path, quality=FEED_QUALITY)
+
+    with ThreadPoolExecutor(max_workers=len(os.sched_getaffinity(0))) as pool:
+        list(pool.map(write, range(PP_DOCS)))
+    return {**paths, "docs": docs, "good": docs[: PP_DOCS - bad], "bad": docs[PP_DOCS - bad:]}
+
+
+def phase_preprocess(out_root):
+    """The port's `preprocess_descriptions` CLI (`python -m
+    clip_event_tpu_torch.preprocess_descriptions`) at ViT-B/32 full width,
+    seeded weights, on the card, over `write_pp_corpus`'s files with
+    `add_clip_sim` and a cold `clip_cache_dir`: the CLIP type scorer
+    encodes the 33 type descriptions (one text batch) and the readable
+    images (one image batch), 12 K1-fwd launches a batch and no other
+    kernel; the docs without a readable image get pred_idx -1. The scores
+    against the plain path (the same images decoded again by threads, both
+    towers with the plain attention) within PP_PROB_GATE, pred_idx equal
+    where the plain top-two margin is above it; then the CLI again on the
+    warm cache: the text batch alone (12 launches), every output file byte
+    for byte the cold run's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from clip_event_tpu_torch import preprocess_descriptions
+    from clip_event_tpu_torch.data.common import load_image_file
+    from clip_event_tpu_torch.preprocess import selection
+    from clip_event_tpu_torch.tokenizer import tokenize
+
+    t_phase = time.perf_counter()
+    root = os.path.join(out_root, "preprocess")
+    os.makedirs(root, exist_ok=True)
+    corpus = write_pp_corpus(root)
+    t_corpus = time.perf_counter() - t_phase
+    cache_dir = os.path.join(root, "clip_cache")
+    scored, score_s = {}, []
+    real_score_all = selection.ClipTypeScorer.score_all
+
+    def spy(self, doc_ids, image_paths):
+        t0 = time.perf_counter()
+        out = real_score_all(self, doc_ids, image_paths)
+        score_s.append(time.perf_counter() - t0)
+        scored.clear()
+        scored.update(out)
+        return out
+
+    def run_cli(tag):
+        cfg = {
+            "output_dir": os.path.join(root, f"out_{tag}"),
+            "cs_inputs": [[corpus["entity"], ""], [corpus["event"], ""]],
+            "image_caption_json": [corpus["mapping"]], "template_file": corpus["templates"],
+            "positive_option": ["template", "short"], "negative_option": ["template", "caption"],
+            "add_clip_sim": True, "model": "ViT-B/32", "type_descriptions_json": corpus["types"],
+            "image_dirs": {"VOA_EN_NW_2017": corpus["image_dir"]}, "clip_cache_dir": cache_dir,
+        }
+        path = os.path.join(root, f"cfg_{tag}.json")
+        with open(path, "w") as fh:
+            json.dump(cfg, fh)
+        reset_launches()
+        t0 = time.perf_counter()
+        selection.ClipTypeScorer.score_all = spy
+        try:
+            preprocess_descriptions.main(["--cfg", path])
+        finally:
+            selection.ClipTypeScorer.score_all = real_score_all
+        torch.cuda.synchronize()
+        return cfg["output_dir"], time.perf_counter() - t0, read_launches(), dict(scored)
+
+    expected = {name: 0 for name in COUNTERS}
+    out_cold, cold_s, cold, preds = run_cli("cold")
+    check(cold == {**expected, KERNEL: 24}, f"preprocess cold launches {cold}: K1-fwd 12 + 12 alone")
+    check(sorted(preds) == sorted(corpus["docs"]), "preprocess: every doc scored")
+    check(all(preds[d]["pred_idx"] == -1 for d in corpus["bad"]), "preprocess: bad docs get pred_idx -1")
+    check(all(preds[d]["pred_idx"] >= 0 for d in corpus["good"]), "preprocess: readable docs scored")
+    check(sorted(os.listdir(cache_dir)) == sorted(d + ".json" for d in corpus["good"]),
+          "preprocess: one cache file a scored doc")
+
+    # the plain path: the same files decoded again, both towers plain
+    model, mcfg = load_model_from_cfg({"ckpt": None, "model": "ViT-B/32"}, "cuda")
+    files = [os.path.join(corpus["image_dir"], d + ".jpg") for d in corpus["good"]]
+    with ThreadPoolExecutor(max_workers=len(os.sched_getaffinity(0))) as pool:
+        images = np.stack(list(pool.map(lambda f: load_image_file(f, mcfg.image_resolution), files)))
+    with open(corpus["types"]) as fh:
+        type_desc = [v["desc_auto_name"] for v in json.load(fh).values()]
+    enc = Encoders(model, mcfg, batch_size=BATCH)
+    reset_launches()
+    with layers.attention_impl("plain"):
+        text_feats = enc.texts(tokenize(type_desc))
+        feats = enc.images(images)
+    check(read_launches() == expected, "preprocess: the plain path launches no kernel")
+    logits = PP_LOGIT_SCALE * feats @ text_feats.T
+    logits -= logits.max(axis=1, keepdims=True)
+    plain = np.exp(logits)
+    plain /= plain.sum(axis=1, keepdims=True)
+    gaps, qualifying, flipped = [], 0, []
+    for i, doc in enumerate(corpus["good"]):
+        with open(os.path.join(cache_dir, doc + ".json")) as fh:
+            rec = json.load(fh)
+        check(rec == preds[doc], f"preprocess: {doc}'s cache file is its score")
+        gaps.append(float(np.max(np.abs(np.asarray(rec["probs"], np.float32) - plain[i]))))
+        top2 = np.sort(plain[i])[-2:]
+        if top2[1] - top2[0] > PP_PROB_GATE:
+            qualifying += 1
+            if rec["pred_idx"] != int(plain[i].argmax()):
+                flipped.append(doc)
+    check(max(gaps) <= PP_PROB_GATE, f"preprocess: max |dprobs| {max(gaps)} > {PP_PROB_GATE}")
+    check(not flipped, f"preprocess: pred_idx differs from the plain path on {flipped}")
+
+    # warm: every score from the cache, the type descriptions encoded again
+    out_warm, warm_s, warm, warm_preds = run_cli("warm")
+    check(warm == {**expected, KERNEL: 12}, f"preprocess warm launches {warm}: K1-fwd 12 (text) alone")
+    check(warm_preds == preds, "preprocess: the warm run's scores are the cold run's")
+    names = sorted(os.listdir(out_cold))
+    check(len(names) == 7 and sorted(os.listdir(out_warm)) == names, f"preprocess outputs {names}")
+    for name in names:
+        with open(os.path.join(out_cold, name), "rb") as a, open(os.path.join(out_warm, name), "rb") as b:
+            check(a.read() == b.read(), f"preprocess: {name} differs between the cold and warm runs")
+    n_scored = len(corpus["good"])
+    emit({"phase": "preprocess", "model": "ViT-B/32", "dtype": "float32", "docs": PP_DOCS,
+          "image_hw": list(PP_HW), "scored": n_scored, "bad": len(corpus["bad"]), "types": len(type_desc),
+          "launches_cold": {KERNEL: cold[KERNEL]}, "launches_warm": {KERNEL: warm[KERNEL]},
+          "max_abs_dprobs": max(gaps), "mean_over_docs_max_abs_dprobs": float(np.mean(gaps)), "prob_gate": PP_PROB_GATE,
+          "pred_idx_checked_docs": qualifying, "pred_idx_differ": len(flipped),
+          "cold_cli_s": cold_s, "warm_cli_s": warm_s, "cold_score_all_s": score_s[0],
+          "cold_images_scored_per_s": n_scored / score_s[0], "corpus_s": t_corpus,
+          "phase_s": time.perf_counter() - t_phase})
+    return {k: cold[k] + warm[k] for k in COUNTERS}
+
+
 # the phases `--only` runs alone (after the device and build phases)
 PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn50,
                 "train_rn50": phase_train_rn50, "evals": phase_evals,
                 "serving_bundle": phase_serving_bundle, "train_dp": phase_train_dp,
-                "data_feed": phase_data_feed, "tp_heads": phase_tp_heads, "pp_stages": phase_pp_stages}
+                "data_feed": phase_data_feed, "tp_heads": phase_tp_heads, "pp_stages": phase_pp_stages,
+                "preprocess": phase_preprocess}
 
 
-def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),), host=True):
+def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):
     """Device time of one warm `run()` by kernel (torch.profiler): the busy
     time summed over the kernels themselves (not the aten ops that launch
     them), its share of `batch_ms` (the unprofiled time of one run), the
     time and busy share of each named kernel family (name substring), and
-    the kernels that took most. `host` False traces the device alone (the
-    same kernel rows; tens of thousands of host ops take the tracer tens
-    of seconds)."""
+    the kernels that took most. It traces the device alone: every number
+    here comes from the kernel rows, which a host trace would not change,
+    and the tens of thousands of host ops of a train step take the tracer
+    tens of seconds."""
     run()
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     rows = sorted(
@@ -4942,8 +5232,8 @@ def main(argv=None) -> int:
     says so; `b1` the wrappers' host cost (`--package-root DIR`: another
     tree's package), `graph` the graphed B/32 train step
     (`phase_train_graph`); `train_full`, `serving_rn50`, `train_rn50`,
-    `evals`, `serving_bundle`, `train_dp`, `data_feed`, `tp_heads` or
-    `pp_stages` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
+    `evals`, `serving_bundle`, `train_dp`, `data_feed`, `tp_heads`,
+    `pp_stages` or `preprocess` that phase alone. `--old-csrc DIR` builds K3 and K6 from an earlier tree's
     csrc/ and times them beside these in turns; `--k6-split` times K6
     without its core and without its projection (`k6_split`)."""
     import argparse
@@ -4967,6 +5257,19 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    # the bundles' exports run beside the kernels' build
+    exports = start_bundle_exports(work.name) if args.only is None or "serving_bundle" in args.only else {}
+    try:
+        return run_phases(args, smi, work.name, exports)
+    finally:
+        stop(exports.values())
+        work.cleanup()
+
+
+def run_phases(args, smi, work_dir, exports) -> int:
+    """Every phase after `device` (see `main`); the bundles' exports
+    (`start_bundle_exports` into `work_dir`) are read after the build."""
     t0 = time.perf_counter()
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
     check(set(SOURCES.values()) <= set(sources), f"kernel sources {sources}")
@@ -5007,6 +5310,11 @@ def main(argv=None) -> int:
     check(bool(k5_sass) and all(k5_sass.values()), f"{quant.KERNEL}: no IGMMA in the GEMM's SASS: {k5_sass}")
     check(bool(k6_sass) and all(k6_sass.values()), f"{MEGA_KERNEL}: no HMMA in a tensor-core kernel: {k6_sass}")
     check(all(n >= 1 for n in k5_blocks.values()), f"{quant.KERNEL}: the GEMM fits no SM: {k5_blocks}")
+    t0 = time.perf_counter()
+    exported = {tag: collect(child, f"{tag}: the bundle's export") for tag, child in exports.items()}
+    if exported:
+        emit({"phase": "bundle_exports", "beside": "build", "wait_after_build_s": time.perf_counter() - t0,
+              "exports": exported})
 
     if args.old_csrc:
         OLD_LIBS.update(build_old_kernels(os.path.abspath(args.old_csrc)))
@@ -5015,6 +5323,9 @@ def main(argv=None) -> int:
         errs = {name: {} for name in COUNTERS}
         gen = torch.Generator(device="cuda").manual_seed(0)
         for only in args.only:
+            if only == "serving_bundle":
+                phase_serving_bundle(work_dir, exported)
+                continue
             if only in PHASES_ALONE:
                 with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_root:
                     PHASES_ALONE[only](out_root)
@@ -5053,8 +5364,9 @@ def main(argv=None) -> int:
                                                        "serving_int8_l14", l14_rates)
         paths["serving_int8_b32"] = phase_serving_int8(out_root, "ViT-B/32", L14_SERVING_ITEMS,
                                                        "serving_int8_b32", float_rates, cos_gate=0.99)
-        paths["serving_bundle"] = phase_serving_bundle(out_root)
+        paths["serving_bundle"] = phase_serving_bundle(work_dir, exported)
         paths["evals"] = phase_evals(out_root)
+        paths["preprocess"] = phase_preprocess(out_root)
         paths["bench_tools"] = phase_bench_tools()
 
     def entry(name, source, replaces, tol, head):

@@ -128,7 +128,7 @@ _DEFAULTS: Dict[str, Any] = {
     "steps_per_epoch_schedule": True,
     "steps_per_dispatch": 1,
     "grad_accum_steps": 1,
-    # the port writes every checkpoint synchronously (the same file)
+    # write the checkpoints on a background thread (engine/checkpoint.py)
     "async_save": False,
     "save_steps": 0,
     "max_steps": 0,

@@ -31,6 +31,13 @@ class IEIndex:
     event_arguments: Dict[str, Dict[str, Set[str]]]  # eventid → role → arg ids
 
 
+def parse_offset(offset: str):
+    """'DOCID:start-end' → (docid, start, end)."""
+    docid, _, span = offset.rpartition(":")
+    start, _, end = span.partition("-")
+    return docid, int(start), int(end)
+
+
 def _strip_quotes(s: str) -> str:
     return s[1:-1] if len(s) >= 2 and s[0] == '"' and s[-1] == '"' else s
 

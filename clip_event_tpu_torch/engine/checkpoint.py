@@ -10,12 +10,19 @@ state_dict, perf, optimizer}, with the params as an OpenAI-named state dict
 `mid_epoch`. The same meta sits in a `<path>.meta.json` sidecar, readable
 without loading the tensors. A mid-epoch save (`save_steps`, `max_steps`,
 SIGTERM) overwrites the epoch's file: the latest state is what a resume
-wants. Every write is synchronous; the JAX package's orbax directories are
-not read (ROADMAP A9: not to do, orbax imports JAX). Under data
+wants. `async_save` snapshots the state to host memory synchronously (the
+graphed step updates the params in place, so the snapshot cannot wait),
+then writes and renames the file on a background thread; `wait_for_saves()`
+joins it, and a second save waits for the first. The JAX package's orbax
+directories are not read (orbax imports JAX). Under data
 parallelism the save is collective: every rank calls it, rank 0 (whose
 state every rank shares) writes the file and the meta, and every rank
-waits at a barrier until the write is done; a resume loads the file on
-every rank. A ZeRO-1, FSDP, tensor-parallel or pipeline state
+waits at a barrier until the write is done. Under `async_save` that
+barrier covers rank 0's host snapshot alone: the file is committed when
+rank 0's `wait_for_saves()` returns, so a caller that reads it on another
+rank calls `wait_for_saves()` on rank 0 and then a barrier first (the
+train loop's last save is joined before `train` returns). A resume loads
+the file on every rank. A ZeRO-1, FSDP, tensor-parallel or pipeline state
 (`parallel/sharding.py`, `parallel/pipeline.py`; the data level, then the
 model level below it) is gathered first, on every rank (a tp state with
 its head-group reorder inverted, a pp state's stages laid back in layer
@@ -30,6 +37,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -58,8 +66,25 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _to_cpu(tree):
-    return _map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t, tree)
+def _host_copy(tree):
+    """A host copy of every tensor leaf that shares no memory with it (a
+    CPU tensor's `.cpu()` is the tensor itself)."""
+    return _map(lambda t: t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor) else t, tree)
+
+
+# the background write of the last `async_save`, until `wait_for_saves`
+_PENDING: Optional[threading.Thread] = None
+
+
+def wait_for_saves() -> None:
+    """Block until the in-flight asynchronous checkpoint write (if any) has
+    committed: call it before reading back a checkpoint this process may
+    have just written, and before the process exits (the train loop does).
+    A no-op when no asynchronous save is in flight."""
+    global _PENDING
+    if _PENDING is not None:
+        _PENDING.join()
+        _PENDING = None
 
 
 def save_checkpoint(
@@ -73,6 +98,7 @@ def save_checkpoint(
     step: int = 0,
     mid_epoch: bool = False,
     sharding=None,
+    async_save: bool = False,
 ) -> Optional[str]:
     """Save the state; errors are logged, not raised (engine.py:215-218).
     Returns the path, or None if the write failed or on a rank other than
@@ -80,7 +106,13 @@ def save_checkpoint(
     mid-write never leaves a path that `latest_checkpoint` would pick up.
     Collective under data parallelism (module docstring); `sharding`: the
     state's layout (`TrainState.sharding`), whose shards every rank
-    gathers first."""
+    gathers first.
+
+    `async_save=True` returns once the state is copied to host memory and
+    hands the write to a background thread: the path it returns is
+    scheduled, and an error of the write is logged there.
+    `wait_for_saves()` commits it; a later save waits for it first."""
+    global _PENDING
     from clip_event_tpu_torch.parallel.collectives import comm
 
     if sharding is not None:
@@ -89,29 +121,44 @@ def save_checkpoint(
         params, opt_state = gather_trees(sharding, params, opt_state)
     out = None
     if comm.is_main_process:
-        out = _write(ckpt_dir, task, epoch, params, opt_state, cfg, perf, step, mid_epoch)
+        wait_for_saves()
+        path = _ckpt_path(ckpt_dir, task, epoch)
+        meta = {
+            "epoch": epoch, "model": task, "perf": float(perf), "step": int(step),
+            "mid_epoch": bool(mid_epoch),
+        }
+        try:
+            obj = _snapshot(params, opt_state, cfg, meta)
+        except (RuntimeError, ValueError):
+            log.exception("=> error when saving checkpoint!")
+            obj = None
+        if obj is not None and async_save:
+            _PENDING = threading.Thread(target=_write, args=(path, obj, meta),
+                                        name="checkpoint-write")
+            _PENDING.start()
+            log.info("=> scheduled async save of checkpoint to %s", path)
+            out = path
+        elif obj is not None:
+            out = _write(path, obj, meta)
     comm.synchronize()
     return out
 
 
-def _write(ckpt_dir, task, epoch, params, opt_state, cfg, perf, step, mid_epoch) -> Optional[str]:
-    path = _ckpt_path(ckpt_dir, task, epoch)
-    meta = {
-        "epoch": epoch, "model": task, "perf": float(perf), "step": int(step),
-        "mid_epoch": bool(mid_epoch),
+def _snapshot(params, opt_state, cfg, meta) -> dict:
+    """The file's object, every tensor a host copy of its own: the state
+    may change as soon as this returns."""
+    sd = state_dict_from_params(params, cfg)
+    return {
+        **meta,
+        # (np.array copies; keep a 0-d logit_scale 0-d)
+        "state_dict": {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()},
+        "optimizer": _host_copy(opt_state),
     }
+
+
+def _write(path, obj, meta) -> Optional[str]:
     try:
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        sd = state_dict_from_params(params, cfg)
-        obj = {
-            **meta,
-            # (ascontiguousarray makes 0-d arrays 1-d: keep logit_scale's shape)
-            "state_dict": {
-                k: torch.from_numpy(np.ascontiguousarray(v).reshape(np.shape(v)))
-                for k, v in sd.items()
-            },
-            "optimizer": _to_cpu(opt_state),
-        }
         torch.save(obj, path + ".tmp")
         os.replace(path + ".tmp", path)
         with open(path + ".meta.json", "w") as fh:
@@ -138,6 +185,7 @@ def restore_checkpoint(path: str, device="cpu") -> Tuple[dict, dict, dict, CLIPC
     port's layout and the optimizer state as saved, both on `device`."""
     from clip_event_tpu_torch.models.convert import params_from_jax
 
+    wait_for_saves()  # the path may be an async save this process issued
     obj = torch.load(path, map_location="cpu", weights_only=False)
     np_params, cfg = params_from_state_dict(obj["state_dict"])
     params = params_from_jax(np_params, cfg, device)

@@ -4,10 +4,12 @@ reference `SmoothedValue`/`MetricLogger`, `utils.py:18-295`).
 The step returns device tensors and the loop converts them to floats only
 when it drains a window of steps, so timing needs no per-step device sync.
 `ScalarWriter` appends `scalars.jsonl` ({"tag", "value", "step"} per line),
-the JAX CLI's plain-file scalar stream; the TensorBoard writers are not
-ported. Under data parallelism the step's losses are already global (the
-same on every rank); `synchronize_between_processes` makes the host-side
-meters' global averages global too (reference `utils.py:36-47`).
+the JAX CLI's plain-file scalar stream, and writes the same scalars to a
+TensorBoard event file through tensorboardX (or `torch.utils.tensorboard`)
+where one is installed. Under data parallelism the step's losses are
+already global (the same on every rank); `synchronize_between_processes`
+makes the host-side meters' global averages global too (reference
+`utils.py:36-47`).
 """
 
 from __future__ import annotations
@@ -140,15 +142,34 @@ def create_logger(task: str, log_dir: str, level: str = "info", phase: str = "tr
 
 
 class ScalarWriter:
-    """Appends {"tag", "value", "step"} lines to `<logdir>/scalars.jsonl`."""
+    """Minimal TensorBoard-compatible scalar writer (the JAX package's).
+
+    Prefers tensorboardX, then `torch.utils.tensorboard`, when one is
+    installed; always also appends {"tag", "value", "step"} lines to
+    `<logdir>/scalars.jsonl`, so runs are inspectable without TensorBoard
+    (with neither installed, the jsonl alone is written)."""
 
     def __init__(self, logdir: str):
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, "scalars.jsonl"), "a")
+        self._tb = None
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+        if SummaryWriter is not None:
+            self._tb = SummaryWriter(logdir)
 
     def add_scalar(self, tag: str, value: float, step: int):
         self._jsonl.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
 
     def close(self):
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()

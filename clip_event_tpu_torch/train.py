@@ -15,8 +15,15 @@ the step on the card), the remat policies, `max_steps`, `save_steps`,
 `use_pallas_ln`, the offline image cache (`image_cache`), the SIGTERM
 checkpoint, the NaN abort with its `nan_debug_step*.json` artifact and
 per-epoch zero-shot matching validation work as in the JAX CLI;
-`config.json` and `scalars.jsonl` are written beside the logs. The default
-device is the card; with no card and no `--device cpu` the CLI raises.
+`config.json`, `scalars.jsonl` and (with tensorboardX or
+`torch.utils.tensorboard` installed) a TensorBoard event file are written
+beside the logs. `async_save` writes the checkpoints on a background
+thread after a synchronous host snapshot (`engine/checkpoint.py`), but the
+SIGTERM one, and the loop waits for the last write before it returns.
+`--profile-dir DIR` writes a `torch.profiler` trace of the first epoch on
+rank 0 (CPU and, on the card, CUDA activities) to DIR, in TensorBoard's
+trace format. The default device is the card; with no card and no
+`--device cpu` the CLI raises.
 
 Data parallel: launched by `torchrun` (or `mpirun` / `srun`), one process
 per GPU joins an NCCL group (`parallel/mesh.py`; gloo with `--device cpu`)
@@ -83,7 +90,7 @@ import torch.distributed as dist
 from clip_event_tpu_torch.config import load_config, model_config
 from clip_event_tpu_torch.data.common import DataLoader
 from clip_event_tpu_torch.data.prefetch import device_prefetch
-from clip_event_tpu_torch.engine.checkpoint import save_checkpoint
+from clip_event_tpu_torch.engine.checkpoint import save_checkpoint, wait_for_saves
 from clip_event_tpu_torch.engine.metrics import MetricLogger, ScalarWriter, create_logger
 from clip_event_tpu_torch.engine.optim import build_optimizer, build_schedule
 from clip_event_tpu_torch.engine.train_step import (
@@ -129,6 +136,7 @@ def train(
     writer: Optional[ScalarWriter] = None,
     on_step: Optional[Callable[[int, dict], None]] = None,
     mesh: Optional[Mesh] = None,
+    profile_dir: Optional[str] = None,
 ) -> TrainState:
     """Run the epochs `begin_epoch .. max_epoch` of a validated config over
     `dataset`, from `params` (and a restored `opt_state` at `resume_step`).
@@ -140,7 +148,8 @@ def train(
     (built with its `dist_rank` / `dist_world`) on `mesh.device`, and
     `writer` only on rank 0. Under `zero` / `fsdp` the returned state is
     this rank's sharded one (`parallel.sharding.gather_state` gives the
-    full one)."""
+    full one). `profile_dir`: write a `torch.profiler` trace of the first
+    epoch there (rank 0)."""
     device = resolve_device(device)
     task, ckpt_dir = cfg["task"], cfg["ckpt_dir"]
     # the loader's place: the data rank (a tp group loads the same rows)
@@ -152,6 +161,9 @@ def train(
         rank=rank, world_size=world,
         bucket_widths=(list(cfg["length_buckets"]) if cfg["is_train"] else None) or None,
     )
+    if loader.bucket_widths and hasattr(dataset, "instance_widths"):
+        log_bucket_shares(dataset.instance_widths(num_workers=int(cfg["num_workers"])),
+                          loader.bucket_widths)
     grad_accum = max(int(cfg["grad_accum_steps"]), 1)
     if cfg["is_train"] and len(loader) < grad_accum:
         raise SystemExit(
@@ -257,6 +269,7 @@ def train(
     scoped = contextlib.ExitStack()
     if mesh is not None and mesh.pp > 1:
         scoped.enter_context(layers.pipeline(mesh, int(cfg["pp_microbatches"])))
+    prof = None
     try:
         for epoch in range(begin_epoch, cfg["max_epoch"]):
             log.info("=> Epoch[%d]: train start", epoch)
@@ -265,6 +278,8 @@ def train(
             )
             metric_logger = MetricLogger()
             start = time.time()
+            if profile_dir and epoch == begin_epoch and comm.rank == 0:
+                prof = start_profile(profile_dir, device)
             # metrics stay on the device between prints: reading them every
             # step would sync the host with the card every step
             pending = []
@@ -305,9 +320,12 @@ def train(
                 hit_term = any_rank(preempted["flag"])
                 if (next_save is not None and global_step >= next_save) or hit_max or hit_term:
                     drain()
+                    # a preempting scheduler may not honour the grace
+                    # window: the SIGTERM checkpoint is written synchronously
                     save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
                                     best_perf, step=global_step, mid_epoch=True,
-                                    sharding=state.sharding)
+                                    sharding=state.sharding,
+                                    async_save=cfg["async_save"] and not hit_term)
                     log.info("=> step checkpoint at global step %d", global_step)
                     if next_save is not None:
                         while next_save <= global_step:
@@ -354,6 +372,9 @@ def train(
                 if step_hooks():
                     break
             drain()
+            if prof is not None:
+                prof.stop()
+                prof = None
             # the host-side meters differ by rank: their global stats
             metric_logger.synchronize_between_processes()
             log.info("=> Epoch[%d]: train end, duration: %.2fs", epoch, time.time() - start)
@@ -397,14 +418,51 @@ def train(
                     writer.add_scalar("val_i2t_top1", val["i2t_top1"], epoch)
 
             save_checkpoint(ckpt_dir, task, epoch, state.params, state.opt_state, mcfg,
-                            best_perf, step=state.step, sharding=state.sharding)
+                            best_perf, step=state.step, sharding=state.sharding,
+                            async_save=cfg["async_save"])
     finally:
+        if prof is not None:
+            prof.stop()
+        # async_save: the last write commits before the loop returns
+        wait_for_saves()
         layers.set_ln_impl(old_ln)
         resnet.set_bn_mode(*old_bn)
         scoped.close()
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
     return state
+
+
+def log_bucket_shares(widths, caps) -> None:
+    """Log the share of instances each length bucket takes (the JAX CLI's
+    line, `train.py:188-204`): what the buckets buy on this corpus."""
+    import numpy as np
+
+    shares = [
+        float(np.mean((widths <= hi) & (widths > (caps[i - 1] if i else 0))))
+        for i, hi in enumerate(caps)
+    ]
+    log.info(
+        "length_buckets %s: instance shares %s (narrow batches run the "
+        "text tower at that width — lossless)",
+        caps, ["%.0f%%" % (100 * s) for s in shares],
+    )
+
+
+def start_profile(profile_dir: str, device: torch.device):
+    """A started `torch.profiler` session whose trace lands in
+    `profile_dir` when it stops (TensorBoard's trace format): CPU
+    activities, and CUDA ones on the card (the JAX CLI's
+    `jax.profiler.start_trace`)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    log.info("=> profiling the epoch into %s", profile_dir)
+    return prof
 
 
 def initial_state(cfg: dict, device="cuda"):
@@ -497,6 +555,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Train CLIP-Event (PyTorch port)")
     parser.add_argument("--cfg", type=str, required=True, help="config JSON path")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of epoch 0 here")
     args = parser.parse_args(argv)
     cfg = load_config(args.cfg)
     # the process group first (torchrun / mpirun / srun; a no-op alone)
@@ -513,7 +573,7 @@ def main(argv=None):
         mesh = None
     device = resolve_device(mesh.device if mesh is not None else args.device)
     try:
-        _main(cfg, device, mesh)
+        _main(cfg, device, mesh, args.profile_dir)
         # align the ranks before they exit
         comm.synchronize()
     finally:
@@ -521,7 +581,7 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
-def _main(cfg: dict, device: torch.device, mesh: Optional[Mesh]):
+def _main(cfg: dict, device: torch.device, mesh: Optional[Mesh], profile_dir: Optional[str] = None):
     task = cfg["task"]
     rank = comm.rank
     tb_log_dir = os.path.join(cfg["tb_log_dir"], task, "tensorboard")
@@ -573,7 +633,8 @@ def _main(cfg: dict, device: torch.device, mesh: Optional[Mesh]):
     dataset = build_dataset(cfg, mcfg, data_rank, data_world)
     writer = ScalarWriter(tb_log_dir) if rank == 0 else None
     try:
-        train(cfg, mcfg, dataset, params, device, writer=writer, mesh=mesh, **resume)
+        train(cfg, mcfg, dataset, params, device, writer=writer, mesh=mesh,
+              profile_dir=profile_dir, **resume)
     finally:
         if writer is not None:
             writer.close()

@@ -326,7 +326,14 @@ Phases, each printing JSON lines:
               `clip_event_tpu_torch.tools.bench_components` at their default
               shapes (256 images x 3 texts, 12 layers), through their `main`:
               the JSON lines parsed, metrics finite and positive, exact launch
-              counts (K6 runs here)
+              counts (K6 runs here); then its eleven encoder, kernel and
+              train-step sections (matmul, quantgemm, text, vision,
+              visionsplit, step, textsplit, textwidth, latency, quant, ot)
+              once each at their default shapes with `--steps 2`, and
+              `quant` once more at ViT-L/14 (`--batch 64`: K2 in its
+              vision tower): every row finite and positive, exact launches
+              of K1 / K2 (none in a plain-attention row), K3 and K5 (the
+              whole call, and the GEMM alone and the row pass apart)
 
 K4, the fused LayerNorm, is held in phase 3 at the LayerNorm shapes of the
 ViT-B/32 and ViT-L/14 train steps and of ViT-B/32 serving, and at edge
@@ -3371,7 +3378,93 @@ def phase_bench_tools():
           "lines": lines[:-1], **summary, "launches": launches})
     for k in COUNTERS:
         all_launches[k] += launches[k]
+
+    # the encoder, kernel and train-step sections, then quant at ViT-L/14
+    runs = [([section], VIT_B32) for section in BENCH_SECTIONS]
+    runs.append((["quant", "--model", "ViT-L/14", "--batch", str(L14_BATCH)], VIT_L14))
+    for argv, mcfg in runs:
+        t0 = time.perf_counter()
+        quant.quantize_rows.launches = quant.quantized_gemm.launches = 0
+        lines, launches = run_main(bench_components.main, argv + ["--steps", str(SECTION_STEPS)])
+        alone = {"quantize_rows": quant.quantize_rows.launches, "quantized_gemm": quant.quantized_gemm.launches}
+        summary = json.loads(lines[-1])
+        rows = summary["rows"]
+        check(rows and len(lines) == len(rows) + 1 and summary["device"]["nvidia_smi"],
+              f"bench_components {argv}: {len(rows)} rows, {len(lines)} lines")
+        check(all(r["ms_per_iter"] is not None and math.isfinite(r["ms_per_iter"]) and r["ms_per_iter"] > 0
+                  for r in rows), f"bench_components {argv} times {rows}")
+        expected, expected_alone = section_launches(argv[0], mcfg, SECTION_STEPS)
+        check(launches == expected and alone == expected_alone,
+              f"bench_components {argv} launches {launches} {alone} != {expected} {expected_alone}")
+        emit({"phase": "bench_tools", "tool": "clip_event_tpu_torch.tools.bench_components",
+              "argv": argv, "steps": SECTION_STEPS, "lines": lines[:-1], **summary, "launches": launches,
+              "launches_alone": alone, "seconds": time.perf_counter() - t0})
+        for k in COUNTERS:
+            all_launches[k] += launches[k]
     return all_launches
+
+
+# the component bench's encoder, kernel and train-step sections, and the
+# timed iterations a row they run here (the step section: steps a call)
+BENCH_SECTIONS = ("matmul", "quantgemm", "text", "vision", "visionsplit", "step", "textsplit",
+                  "textwidth", "latency", "quant", "ot")
+SECTION_STEPS = 2
+
+
+def section_launches(section, mcfg, steps):
+    """Launches per kernel of one component-bench section at its default
+    shapes (B = 256 for `mcfg`'s shapes, the preset's layers) with `steps`
+    timed iterations a row after one warm-up call, and the launches of K5's
+    GEMM alone and row pass (their own counters). A row with the plain
+    attention or the plain int8 composition launches nothing. text /
+    vision: the kernel under full remat (two forwards a block), "attn" and
+    no remat (one each), a backward each; the splits: the full block and
+    the attention half, each under full remat; step: `train_launches` over
+    (1 + CALLS) calls of `steps` steps; textwidth: one forward a block a
+    width; latency: 1 + LATENCY_CALLS + 1 + steps calls a batch size, K5 in
+    the int8 static vision tower; quant: 1 + steps calls of each variant,
+    K5 in the "int8 K5" one; ot: one K3 launch a call; quantgemm: K5's
+    whole call, the GEMM alone and the row pass (once more as each shape is
+    set up) at three shapes."""
+    runs = 1 + steps
+    out = dict.fromkeys(COUNTERS, 0)
+    alone = {"quantize_rows": 0, "quantized_gemm": 0}
+    Lt, Lv = mcfg.transformer_layers, mcfg.vision_layers
+    vis_f, vis_b = vision_kernels(mcfg)
+    text_bwd = k1_bwd_launches(mcfg.transformer_width, mcfg.transformer_heads)
+    vis_bwd = (HG_BWD_LAUNCHES_PER_CALL if vis_b == HG_BWD_KERNEL
+               else k1_bwd_launches(mcfg.vision_width, mcfg.vision_heads))
+
+    def add(counts, times=1):
+        for k, v in counts.items():
+            out[k] += v * times
+
+    if section == "quantgemm":
+        out[quant.KERNEL] = 3 * runs * quant.LAUNCHES_PER_CALL
+        alone = {"quantize_rows": 3 * (1 + runs), "quantized_gemm": 3 * runs}
+    elif section in ("text", "textsplit"):
+        out[KERNEL] += 4 * Lt * runs
+        out[BWD_KERNEL] += (3 if section == "text" else 2) * text_bwd * Lt * runs
+    elif section in ("vision", "visionsplit"):
+        out[vis_f] += 4 * Lv * runs
+        out[vis_b] += (3 if section == "vision" else 2) * vis_bwd * Lv * runs
+    elif section == "step":
+        add(train_launches(mcfg, (1 + bench_components.CALLS) * steps))
+    elif section == "textwidth":
+        widths = [w for w in bench_components.TEXT_WIDTHS if w <= mcfg.context_length]
+        out[KERNEL] += len(widths) * Lt * runs
+    elif section == "latency":
+        calls = len(bench_components.LATENCY_BATCHES) * (2 + bench_components.LATENCY_CALLS + steps)
+        add(serving_launches(mcfg, calls, 0))
+        add(int8_launches(mcfg, calls, 0, float_towers=("text",)))
+    elif section == "quant":
+        add(serving_launches(mcfg, 2 * runs, 2 * runs), len(bench_components.QUANT_VARIANTS) - 1)
+        add(int8_launches(mcfg, 2 * runs, 2 * runs))
+    elif section == "ot":
+        out[ot.KERNEL] = runs
+    else:
+        check(section == "matmul", f"section_launches: unknown section {section!r}")
+    return out, alone
 
 
 def phase_train_l14(out_root):
@@ -5154,7 +5247,7 @@ PHASES_ALONE = {"train_full": phase_train_full, "serving_rn50": phase_serving_rn
                 "train_rn50": phase_train_rn50, "evals": phase_evals,
                 "serving_bundle": phase_serving_bundle, "train_dp": phase_train_dp,
                 "data_feed": phase_data_feed, "tp_heads": phase_tp_heads, "pp_stages": phase_pp_stages,
-                "preprocess": phase_preprocess}
+                "preprocess": phase_preprocess, "bench_tools": lambda _root: phase_bench_tools()}
 
 
 def profile_one(run, batch_ms, kernels=(("attention", "attention_fwd_kernel"),)):

@@ -34,6 +34,7 @@ Inference only: nothing here has a gradient.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from typing import Any, Optional
@@ -124,6 +125,19 @@ def set_gemm_impl(impl: str) -> None:
     if impl not in GEMM_IMPLS:
         raise ValueError(f"unknown quant GEMM impl {impl!r}; options: {GEMM_IMPLS}")
     _GEMM_IMPL = impl
+
+
+@contextlib.contextmanager
+def gemm_impl(impl: str):
+    """`with gemm_impl("xla"):` selects the int8 GEMM of the
+    `quantized_linear` calls inside (`set_gemm_impl`) and puts the previous
+    choice back after."""
+    old = _GEMM_IMPL
+    set_gemm_impl(impl)
+    try:
+        yield
+    finally:
+        set_gemm_impl(old)
 
 
 # ---------------------------------------------------------------- plain

@@ -17,6 +17,9 @@ import jax.numpy as jnp  # noqa: E402
 from clip_event_tpu.ops.attention_pallas import fused_attention_qkv as jax_fused  # noqa: E402
 from clip_event_tpu_torch.models import layers as TL  # noqa: E402
 from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 SHAPES = [(3, 77, 128, 2, True), (2, 50, 192, 3, False), (5, 13, 64, 1, False)]
 ATOL = 1e-5

@@ -24,6 +24,9 @@ from clip_event_tpu_torch.models import clip as T  # noqa: E402
 from clip_event_tpu_torch.models import layers as TL  # noqa: E402
 from clip_event_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 SHAPES = [(2, 13, 128, 2), (2, 150, 256, 8), (1, 257, 128, 2)]  # B, S, W, H
 ATOL = 1e-5

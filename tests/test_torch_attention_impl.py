@@ -34,6 +34,9 @@ from clip_event_tpu_torch.models import clip as T
 from clip_event_tpu_torch.models import layers as TL
 from clip_event_tpu_torch.train import build_dataset, initial_state, train
 from tests import fixtures
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 MODEL = {
     "embed_dim": 64, "image_resolution": 32, "vision_layers": 2, "vision_width": 64,

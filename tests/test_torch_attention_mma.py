@@ -35,6 +35,9 @@ from clip_event_tpu.ops.attention_pallas import (  # noqa: E402
     fused_attention_qkv_headgrid as jax_headgrid,
 )
 from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 ATOL = 1e-5
 MMA_GATE = 1e-2  # of max|plain|

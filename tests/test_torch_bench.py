@@ -18,6 +18,9 @@ import torch
 from clip_event_tpu_torch import bench
 from clip_event_tpu_torch.models import layers as TL
 from clip_event_tpu_torch.tools import bench_components
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = json.dumps({
@@ -139,14 +142,21 @@ def test_component_bench_section(capsys, section, variants):
 
 
 def test_component_bench_default_runs_both_and_refuses_unknown(capsys):
+    """The default runs every section, in order (rows a section at this
+    size; tests/test_torch_bench_sections.py checks each one's rows)."""
     assert bench_components.main(COMPONENT_ARGS) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert [r["section"] for r in summary["rows"]] == ["ln"] * 6 + ["megakernel"] * 4
+    n_rows = {"ln": 6, "megakernel": 4, "matmul": 4, "quantgemm": 18, "text": 7, "vision": 7,
+              "visionsplit": 7, "step": 2, "textsplit": 4, "textwidth": 1, "latency": 6, "quant": 16,
+              "ot": 2}
+    assert [r["section"] for r in summary["rows"]] == [s for s in n_rows for _ in range(n_rows[s])]
     with pytest.raises(SystemExit):
         bench_components.main(["attention"] + COMPONENT_ARGS)
     # the JAX tool's shapes are the defaults
     assert (bench_components.B, bench_components.D, bench_components.STEPS) == (256, 3, 10)
-    assert bench_components.SECTIONS == ("ln", "megakernel")
+    assert bench_components.SECTIONS == ("ln", "megakernel", "matmul", "quantgemm", "text", "vision",
+                                         "visionsplit", "step", "textsplit", "textwidth", "latency",
+                                         "quant", "ot")
 
 
 def test_component_bench_reports_an_unsupported_megakernel_shape(capsys):

@@ -8,6 +8,9 @@ import os
 import pytest
 
 from clip_event_tpu_torch.ops import _build
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 
 @pytest.fixture

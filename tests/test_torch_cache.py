@@ -31,6 +31,9 @@ from clip_event_tpu_torch.data.transform import (
     preprocess_image_u8,
     resize_bicubic_uint8,
 )
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 FLOAT_ATOL = 1e-6  # the /255 stage's 1 ulp, through (v - mean) / std
 SHAPES = [(300, 500), (224, 224), (120, 90), (640, 480)]

@@ -59,6 +59,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)

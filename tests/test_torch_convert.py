@@ -12,6 +12,9 @@ from clip_event_tpu.models import clip as J  # noqa: E402
 from clip_event_tpu.models import convert as JC  # noqa: E402
 from clip_event_tpu_torch.models import clip as T  # noqa: E402
 from clip_event_tpu_torch.models import convert as TC  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 CFG_KW = dict(
     embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,

@@ -23,6 +23,9 @@ from clip_event_tpu.models import clip as J  # noqa: E402
 from clip_event_tpu_torch.models import clip as T  # noqa: E402
 from clip_event_tpu_torch.models.convert import params_from_jax, state_dict_from_params  # noqa: E402
 from tests import fixtures  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG_KW = dict(

@@ -42,6 +42,9 @@ from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
 from clip_event_tpu_torch.ops import library  # noqa: E402
 from clip_event_tpu_torch.ops import quant as TQ  # noqa: E402
 from tests.test_model_parity import TINY_RN, TINY_VIT  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_TOL, LIVE_TOL = 1e-4, 1e-6

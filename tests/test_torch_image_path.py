@@ -33,6 +33,9 @@ from clip_event_tpu_torch.data.device_pipeline import preprocess_on_device  # no
 from clip_event_tpu_torch.data.transform import preprocess_image, resize_matrix  # noqa: E402
 from clip_event_tpu_torch.train import build_dataset, initial_state, train  # noqa: E402
 from tests import fixtures  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 MODEL = {
     "embed_dim": 32, "image_resolution": 32, "vision_layers": 2, "vision_width": 64,

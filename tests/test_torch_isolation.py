@@ -11,6 +11,9 @@ import ast
 import os
 import subprocess
 import sys
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "clip_event_tpu_torch")

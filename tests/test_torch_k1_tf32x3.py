@@ -34,6 +34,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from clip_event_tpu.ops.attention_pallas import fused_attention_qkv as jax_fused  # noqa: E402
 from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 ATOL = 1e-5
 # the card's fp32 gates (PERF.md §2): forward max abs, backward relative to

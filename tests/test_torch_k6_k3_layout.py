@@ -40,6 +40,9 @@ from clip_event_tpu.ops import ot as JOT  # noqa: E402
 from clip_event_tpu.ops.attention_pallas import fused_ln_qkv_attention as jax_mega  # noqa: E402
 from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
 from clip_event_tpu_torch.ops import ot as TOT  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "clip_event_tpu_torch", "csrc")

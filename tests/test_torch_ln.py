@@ -42,6 +42,9 @@ from clip_event_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from clip_event_tpu_torch.ops import ln as TLN  # noqa: E402
 from clip_event_tpu_torch.ops import quant as TQ  # noqa: E402
 from tests.fixtures import make_voa_fixture  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = [(jnp.float32, torch.float32, 1e-6), (jnp.bfloat16, torch.bfloat16, 2e-2)]

@@ -22,6 +22,9 @@ import jax.numpy as jnp  # noqa: E402
 from clip_event_tpu.ops.attention_pallas import fused_ln_qkv_attention as jax_mega  # noqa: E402
 from clip_event_tpu_torch.models import layers as TL  # noqa: E402
 from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 SHAPES = [(3, 77, 128, 2, True), (2, 50, 192, 3, False)]
 IDS = ["text_causal", "vision"]

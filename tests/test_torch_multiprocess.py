@@ -66,6 +66,9 @@ from clip_event_tpu_torch.models import clip as T  # noqa: E402
 from clip_event_tpu_torch.models.convert import state_dict_from_params  # noqa: E402
 from tests import torch_multiprocess_worker as W  # noqa: E402
 from tests.fixtures import make_m2e2_fixture, make_voa_fixture  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, B_LOCAL = 2, 2

@@ -18,6 +18,9 @@ import jax.numpy as jnp  # noqa: E402
 from clip_event_tpu.ops import ot as JOT  # noqa: E402
 from clip_event_tpu.ops.ot_pallas import ipot_pallas  # noqa: E402
 from clip_event_tpu_torch.ops import ot as TOT  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 TOL = 1e-5
 

@@ -44,6 +44,9 @@ from clip_event_tpu_torch.models import clip as T  # noqa: E402
 from clip_event_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from clip_event_tpu_torch.ops import attention as TA  # noqa: E402
 from tests.fixtures import make_voa_fixture  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = {

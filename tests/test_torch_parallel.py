@@ -38,6 +38,9 @@ from clip_event_tpu_torch.parallel import cluster as TCL  # noqa: E402
 from clip_event_tpu_torch.parallel import collectives as TCO  # noqa: E402
 from clip_event_tpu_torch.parallel import mesh as TM  # noqa: E402
 from tests import torch_multiprocess_worker as W  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 LAUNCH_KEYS = (
     "JAX_COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS", "MASTER_ADDR", "MASTER_PORT",

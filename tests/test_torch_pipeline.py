@@ -26,6 +26,9 @@ from clip_event_tpu_torch.models import layers as TL  # noqa: E402
 from clip_event_tpu_torch.parallel import pipeline as TP  # noqa: E402
 from clip_event_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from tests.test_model_parity import TINY_VIT  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 LAYERS, W, H, S, B = 4, 64, 2, 16, 12
 PP = 2

@@ -34,6 +34,9 @@ from clip_event_tpu_torch.models import clip as T  # noqa: E402
 from clip_event_tpu_torch.models import layers as L  # noqa: E402
 from clip_event_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from clip_event_tpu_torch.ops import attention as A  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 CFG_KW = dict(
     embed_dim=64, image_resolution=32, vision_layers=2, vision_width=128,

@@ -53,6 +53,9 @@ from clip_event_tpu_torch.models import resnet as TR  # noqa: E402
 from clip_event_tpu_torch.ops import quant as TQ  # noqa: E402
 from tests.fixtures import make_voa_fixture  # noqa: E402
 from tests.test_torch_multi_step import _HostTraffic  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEXT = dict(context_length=77, vocab_size=49408, transformer_width=64, transformer_heads=1,

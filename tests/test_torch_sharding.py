@@ -31,6 +31,9 @@ from clip_event_tpu_torch.parallel import mesh as TM
 from clip_event_tpu_torch.parallel import sharding as TS
 from tests import torch_multiprocess_worker as W
 from tests.fixtures import make_voa_fixture
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 
 @pytest.fixture

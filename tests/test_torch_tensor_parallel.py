@@ -34,6 +34,9 @@ from clip_event_tpu_torch.parallel import collectives as TCO  # noqa: E402
 from clip_event_tpu_torch.parallel import mesh as TM  # noqa: E402
 from clip_event_tpu_torch.parallel import sharding as TS  # noqa: E402
 from tests.test_model_parity import TINY_VIT  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a tiny model whose stacks split over tp = 2 and 4 (vision: 256 / 64 = 4

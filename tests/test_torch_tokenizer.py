@@ -8,6 +8,9 @@ import pytest
 
 from clip_event_tpu import tokenizer as JT
 from clip_event_tpu_torch import tokenizer as TT
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 TEXTS = [
     "a photo of a dog",

@@ -41,6 +41,9 @@ jax = pytest.importorskip("jax")
 from clip_event_tpu_torch.config import validate_config  # noqa: E402
 from clip_event_tpu_torch.engine import checkpoint as TC  # noqa: E402
 from tests.fixtures import make_voa_fixture  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 MODEL = {
     "embed_dim": 64, "image_resolution": 32, "vision_layers": 2, "vision_width": 64,

@@ -31,6 +31,9 @@ from clip_event_tpu_torch.config import validate_config  # noqa: E402
 from clip_event_tpu_torch.engine import checkpoint as TC  # noqa: E402
 from clip_event_tpu_torch.train import build_dataset, initial_state, main, train  # noqa: E402
 from tests.fixtures import make_voa_fixture  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = {

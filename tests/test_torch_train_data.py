@@ -28,6 +28,9 @@ from clip_event_tpu_torch.engine.optim import build_optimizer, tree_leaves  # no
 from clip_event_tpu_torch.models import layers  # noqa: E402
 from clip_event_tpu_torch.models.clip import CLIPConfig, init_params  # noqa: E402
 from tests.fixtures import make_voa_fixture  # noqa: E402
+from tests.torch_multiprocess_worker import share_cores  # noqa: E402
+
+share_cores()
 
 
 @pytest.fixture(scope="module")

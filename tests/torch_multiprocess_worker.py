@@ -58,6 +58,22 @@ ADAM_LR = 1e-5
 ADAM_SEEDS = (10, 11, 12)
 
 
+def share_cores() -> None:
+    """Under pytest-xdist, give this worker its share of the host's cores:
+    cores // workers PyTorch threads (at least one), and the same
+    `OMP_NUM_THREADS` to the processes it starts (spawned ranks, CLI
+    subprocesses). PyTorch's OpenMP threads spin while they wait, so six
+    workers of one thread a core each oversubscribe the host many times
+    over (one train-step test ran ~50x slower beside five copies of itself
+    than alone). Each port test module calls this as it is imported; a run
+    without xdist keeps PyTorch's default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 1:
+        threads = max(1, (os.cpu_count() or 1) // workers)
+        torch.set_num_threads(threads)
+        os.environ["OMP_NUM_THREADS"] = str(threads)
+
+
 # the model-parallel cases' model: two heads in both towers (every stack
 # splits over tp = 2); two vision and four text layers, so both stacks
 # divide pp = 2 and at pp = 4 the text stack does and the vision stack

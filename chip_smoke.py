@@ -318,22 +318,35 @@ Phases, each printing JSON lines:
               features) and bf16 (cosine 0.999); K4a and K4b once a block,
               no K4c; batch ms with and without the kernels
  11. bench_tools  `clip_event_tpu_torch.bench` at full width (ViT-B/32,
-              384 x 3; its protocol, 10 steps a call through the graphed
-              step, one warm-up call and here one timed call) with the
+              384 x 3; its protocol through the graphed step, one warm-up
+              call, here with 2 steps a call and one timed call) with the
               plain LayerNorm and with `--ln pallas`, then
               with `--images uint8` and `--images float32`, once each, and
               the `ln` and `megakernel` sections of
               `clip_event_tpu_torch.tools.bench_components` at their default
-              shapes (256 images x 3 texts, 12 layers), through their `main`:
+              shapes (256 images x 3 texts, 12 layers; `--steps 1`),
+              through their `main`:
               the JSON lines parsed, metrics finite and positive, exact launch
               counts (K6 runs here); then its eleven encoder, kernel and
               train-step sections (matmul, quantgemm, text, vision,
               visionsplit, step, textsplit, textwidth, latency, quant, ot)
-              once each at their default shapes with `--steps 2`, and
+              once each at their default shapes with `--steps 1` (and
+              `--calls 1`: the step sections' timed calls), and
               `quant` once more at ViT-L/14 (`--batch 64`: K2 in its
               vision tower): every row finite and positive, exact launches
               of K1 / K2 (none in a plain-attention row), K3 and K5 (the
-              whole call, and the GEMM alone and the row pass apart)
+              whole call, and the GEMM alone and the row pass apart); then
+              its six branch and engine sections (alignment with 11 crops
+              and 16 entities an image and the plain OT loop,
+              multiattention in "desc" and "desc_type", dedupe's plain and
+              deduped layouts, accum at K = 2 and 4, ckpt sync and async,
+              moments fp32 and bf16) the same way, with `train_launches`'
+              counts; then `clip_event_tpu_torch.tools.bench_presets` on
+              ViT-B/16:96:attn (K2 forward and backward) and RN50:128:1 (a
+              ResNet tower, K1 in the text tower alone) at `--steps 2
+              --calls 1`: the rows finite and positive, exact launches.
+              The depths (`SECTION_STEPS`, `SECTION_CALLS`, `BENCH_STEPS`)
+              are the script's time limit's, not the tools' defaults
 
 K4, the fused LayerNorm, is held in phase 3 at the LayerNorm shapes of the
 ViT-B/32 and ViT-L/14 train steps and of ViT-B/32 serving, and at edge
@@ -458,7 +471,7 @@ from clip_event_tpu_torch.ops.attention import (
     mega_variant,
 )
 from clip_event_tpu_torch.parallel.sharding import TPSpec, full_params, gather_state, shard_state, tree_bytes
-from clip_event_tpu_torch.tools import bench_components
+from clip_event_tpu_torch.tools import bench_components, bench_presets
 from clip_event_tpu_torch.train import train
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2260,7 +2273,8 @@ def k1_bwd_launches(width, heads, dtype=torch.bfloat16):
 
 
 def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfloat16, remat="full",
-                   multiattention=None):
+                   multiattention=None, ot_nodes=(OT_OBJECTS, OT_ENTITIES), ot_chunks=OT_CHUNKS,
+                   ot_kernel=True):
     """Launches per kernel for `steps` train steps (bf16, or `dtype`) under
     full remat, or under the "attn" policy with `remat="attn"`.
     Each block's attention forward runs twice (forward, block recompute;
@@ -2277,8 +2291,11 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfl
     own checkpoint around the per-block ones: a block inside a chunk runs
     its forward three times (forward, chunk recompute, block recompute)
     when there is more than one chunk, twice when there is one (one fewer
-    under "attn"); and one IPOT solve per step (tests/test_torch_ot_train.py
-    pins the rule on the CPU). With `multiattention` the image batch is
+    under "attn"); and one IPOT solve per step through K3
+    (tests/test_torch_ot_train.py pins the rule on the CPU), none with
+    `ot_kernel=False` (the plain OT loop). `ot_nodes` are the (object,
+    entity) slots an image and `ot_chunks` the requested chunks
+    (finetune_ot.json's by default). With `multiattention` the image batch is
     encoded once more (its grid tokens) and the role texts once ("desc")
     or twice (descriptions and labels, "desc_type" and
     "desc_type_text"), each encode counted as the towers' own. A ResNet
@@ -2302,11 +2319,11 @@ def train_launches(mcfg, steps, alignment=False, fused_ln=False, dtype=torch.bfl
     out[BWD_KERNEL] += text_bwd_launches * Lt * text_encodes
     if alignment:
         for kf, kb, n, L, c in (
-                (vis_f, vis_b, vis_bwd_launches, Lv, _chunks(OT_OBJECTS, OT_CHUNKS)),
-                (KERNEL, BWD_KERNEL, text_bwd_launches, Lt, _chunks(OT_ENTITIES, OT_CHUNKS))):
+                (vis_f, vis_b, vis_bwd_launches, Lv, _chunks(ot_nodes[0], ot_chunks)),
+                (KERNEL, BWD_KERNEL, text_bwd_launches, Lt, _chunks(ot_nodes[1], ot_chunks))):
             out[kf] += (fwd_per_block + (c > 1)) * c * L
             out[kb] += n * c * L
-        out[ot.KERNEL] += 1
+        out[ot.KERNEL] += int(ot_kernel)
     if fused_ln:
         out[ln.KERNEL] = out[ADD_LN_KERNEL] = 2 * (Lv + Lt)
         out[ln.BWD_KERNEL] = 2 * ln.BWD_LAUNCHES_PER_CALL * (Lv + Lt)
@@ -3297,13 +3314,14 @@ def phase_serving_ln():
 
 def phase_bench_tools():
     """The port's bench entry point at full width (ViT-B/32, 384 x 3; its
-    protocol, 10 steps a call through the graphed step after one warm-up
-    call, here with one timed call), with
+    protocol, the graphed step after one warm-up call, here with
+    BENCH_STEPS steps a call and one timed call), with
     the plain LayerNorm and with `--ln pallas` (once each), and
     the `ln` and `megakernel`
     sections of the component bench at their default shapes (B = 256, D = 3,
-    12 layers), each through its `main`: the JSON lines parsed, the metric
-    finite and positive, exact launch counts."""
+    12 layers), then its other sections (`BENCH_SECTIONS`) and the preset
+    sweep on `PRESET_ENTRIES`, each through its `main`: the JSON lines
+    parsed, the metric finite and positive, exact launch counts."""
     import contextlib
     import io
 
@@ -3321,7 +3339,7 @@ def phase_bench_tools():
     # graphed step's host share is small)
     results = {"xla": [], "pallas": []}
     for impl in ("xla", "pallas"):
-        lines, launches = run_main(port_bench.main, ["--ln", impl, "--calls", "1"])
+        lines, launches = run_main(port_bench.main, ["--ln", impl, "--calls", "1", "--steps", str(BENCH_STEPS)])
         check(len(lines) == 1, f"bench --ln {impl}: one line, got {len(lines)}")
         result = json.loads(lines[0])
         check(result["metric"] == "contrastive_pairs_per_sec_per_chip"
@@ -3346,7 +3364,8 @@ def phase_bench_tools():
     # LayerNorm's run above read)
     by_images = {"uint8": list(step_ms["xla"]), "float32": []}
     for images in ("float32",):
-        lines, launches = run_main(port_bench.main, ["--images", images, "--calls", "1"])
+        lines, launches = run_main(port_bench.main, ["--images", images, "--calls", "1",
+                                                     "--steps", str(BENCH_STEPS)])
         result = json.loads(lines[0])
         check(len(lines) == 1 and result["images"] == images and math.isfinite(result["value"])
               and result["value"] > 0, f"bench --images {images}: {result}")
@@ -3359,13 +3378,13 @@ def phase_bench_tools():
     emit({"phase": "bench_tools", "tool": "clip_event_tpu_torch.bench --images", "step_ms": by_images,
           "step_ms_ratio_float32_to_uint8": float(np.mean(by_images["float32"]) / np.mean(by_images["uint8"]))})
 
-    lines, launches = run_main(bench_components.main, ["ln", "megakernel"])
+    lines, launches = run_main(bench_components.main, ["ln", "megakernel", "--steps", str(SECTION_STEPS)])
     summary = json.loads(lines[-1])
     check(len(summary["rows"]) == 10 and len(lines) == 11, f"bench_components rows {len(summary['rows'])}")
     check(all(r["ms_per_iter"] is not None and math.isfinite(r["ms_per_iter"]) and r["ms_per_iter"] > 0
               for r in summary["rows"]), f"bench_components times {summary['rows']}")
     L = VIT_B32.transformer_layers + VIT_B32.vision_layers
-    runs = 1 + bench_components.STEPS  # the warm-up call and the timed ones
+    runs = 1 + SECTION_STEPS  # the warm-up call and the timed ones
     # ln: three variants of the stack gradient under remat, K1 in each (its
     # bf16 backward too, at head_dim 64), K4 in one; megakernel: K1 in the
     # unfused forward, K6 in the fused one
@@ -3385,7 +3404,8 @@ def phase_bench_tools():
     for argv, mcfg in runs:
         t0 = time.perf_counter()
         quant.quantize_rows.launches = quant.quantized_gemm.launches = 0
-        lines, launches = run_main(bench_components.main, argv + ["--steps", str(SECTION_STEPS)])
+        lines, launches = run_main(bench_components.main,
+                                   argv + ["--steps", str(SECTION_STEPS), "--calls", str(SECTION_CALLS)])
         alone = {"quantize_rows": quant.quantize_rows.launches, "quantized_gemm": quant.quantized_gemm.launches}
         summary = json.loads(lines[-1])
         rows = summary["rows"]
@@ -3393,39 +3413,75 @@ def phase_bench_tools():
               f"bench_components {argv}: {len(rows)} rows, {len(lines)} lines")
         check(all(r["ms_per_iter"] is not None and math.isfinite(r["ms_per_iter"]) and r["ms_per_iter"] > 0
                   for r in rows), f"bench_components {argv} times {rows}")
-        expected, expected_alone = section_launches(argv[0], mcfg, SECTION_STEPS)
+        expected, expected_alone = section_launches(argv[0], mcfg, SECTION_STEPS, SECTION_CALLS)
         check(launches == expected and alone == expected_alone,
               f"bench_components {argv} launches {launches} {alone} != {expected} {expected_alone}")
         emit({"phase": "bench_tools", "tool": "clip_event_tpu_torch.tools.bench_components",
-              "argv": argv, "steps": SECTION_STEPS, "lines": lines[:-1], **summary, "launches": launches,
+              "argv": argv, "steps": SECTION_STEPS, "calls": SECTION_CALLS, "lines": lines[:-1], **summary,
+              "launches": launches,
               "launches_alone": alone, "seconds": time.perf_counter() - t0})
+        for k in COUNTERS:
+            all_launches[k] += launches[k]
+
+    # the preset sweep on two entries: K2 in ViT-B/16's vision tower under
+    # "attn", and a ResNet tower (K1 in the text tower alone)
+    for entry, mcfg, remat in PRESET_ENTRIES:
+        t0 = time.perf_counter()
+        lines, launches = run_main(bench_presets.main, [entry, "--steps", str(BENCH_STEPS), "--calls", "1"])
+        summary = json.loads(lines[-1])
+        rows = summary["rows"]
+        check(len(rows) == 1 and len(lines) == 2 and summary["device"]["nvidia_smi"],
+              f"bench_presets {entry}: {len(rows)} rows, {len(lines)} lines")
+        check("error" not in rows[0] and all(math.isfinite(rows[0][k]) and rows[0][k] > 0
+                                             for k in ("step_ms", "pairs_per_s")),
+              f"bench_presets {entry}: {rows[0]}")
+        expected = train_launches(mcfg, 2 * BENCH_STEPS, remat=remat)  # the warm-up call, one timed
+        check(launches == expected, f"bench_presets {entry} launches {launches} != {expected}")
+        emit({"phase": "bench_tools", "tool": "clip_event_tpu_torch.tools.bench_presets", "entry": entry,
+              "lines": lines[:-1], **summary, "launches": launches, "seconds": time.perf_counter() - t0})
         for k in COUNTERS:
             all_launches[k] += launches[k]
     return all_launches
 
 
-# the component bench's encoder, kernel and train-step sections, and the
-# timed iterations a row they run here (the step section: steps a call)
+# the component bench's encoder, kernel, train-step, branch and engine
+# sections, the timed iterations a row they run here (the step sections:
+# steps a call) and the step sections' timed calls; the bench entry point's
+# and the preset sweep's steps a call (one warm-up call, one timed); the
+# script's time limit sets these depths
 BENCH_SECTIONS = ("matmul", "quantgemm", "text", "vision", "visionsplit", "step", "textsplit",
-                  "textwidth", "latency", "quant", "ot")
-SECTION_STEPS = 2
+                  "textwidth", "latency", "quant", "ot", "alignment", "multiattention", "dedupe",
+                  "accum", "ckpt", "moments")
+SECTION_STEPS, SECTION_CALLS, BENCH_STEPS = 1, 1, 2
+# the preset sweep's entries here: (entry, model, remat policy)
+PRESET_ENTRIES = (("ViT-B/16:96:attn", VIT_B16, "attn"), ("RN50:128:1", RN50, "full"))
 
 
-def section_launches(section, mcfg, steps):
+def section_launches(section, mcfg, steps, calls):
     """Launches per kernel of one component-bench section at its default
     shapes (B = 256 for `mcfg`'s shapes, the preset's layers) with `steps`
-    timed iterations a row after one warm-up call, and the launches of K5's
+    timed iterations a row after one warm-up call (the step sections:
+    `calls` timed calls of `steps` steps), and the launches of K5's
     GEMM alone and row pass (their own counters). A row with the plain
     attention or the plain int8 composition launches nothing. text /
     vision: the kernel under full remat (two forwards a block), "attn" and
     no remat (one each), a backward each; the splits: the full block and
     the attention half, each under full remat; step: `train_launches` over
-    (1 + CALLS) calls of `steps` steps; textwidth: one forward a block a
+    (1 + calls) calls of `steps` steps; textwidth: one forward a block a
     width; latency: 1 + LATENCY_CALLS + 1 + steps calls a batch size, K5 in
     the int8 static vision tower; quant: 1 + steps calls of each variant,
     K5 in the "int8 K5" one; ot: one K3 launch a call; quantgemm: K5's
     whole call, the GEMM alone and the row pass (once more as each shape is
-    set up) at three shapes."""
+    set up) at three shapes. The branch and engine sections:
+    `train_launches` over their steps, each call of min(steps, 3) steps
+    (`branch_steps`) or `steps`, one warm-up call and `calls` timed ones
+    (accum's K-microbatch steps `accum_calls`);
+    alignment with its crops and entities (11 and 16 an image, 4 chunks
+    requested) and no K3 (the plain OT loop); multiattention in both modes;
+    dedupe's deduped layouts at the plain layout's count (an encode of the
+    unique rows launches what an encode of all of them does); accum's K
+    microbatches a call at K single steps' count; ckpt the warm call and
+    the two behind the saves; moments two variants."""
     runs = 1 + steps
     out = dict.fromkeys(COUNTERS, 0)
     alone = {"quantize_rows": 0, "quantized_gemm": 0}
@@ -3434,6 +3490,8 @@ def section_launches(section, mcfg, steps):
     text_bwd = k1_bwd_launches(mcfg.transformer_width, mcfg.transformer_heads)
     vis_bwd = (HG_BWD_LAUNCHES_PER_CALL if vis_b == HG_BWD_KERNEL
                else k1_bwd_launches(mcfg.vision_width, mcfg.vision_heads))
+
+    branch = (1 + calls) * bench_components.branch_steps(steps)  # a branch step's steps in all
 
     def add(counts, times=1):
         for k, v in counts.items():
@@ -3449,7 +3507,7 @@ def section_launches(section, mcfg, steps):
         out[vis_f] += 4 * Lv * runs
         out[vis_b] += (3 if section == "vision" else 2) * vis_bwd * Lv * runs
     elif section == "step":
-        add(train_launches(mcfg, (1 + bench_components.CALLS) * steps))
+        add(train_launches(mcfg, (1 + calls) * steps))
     elif section == "textwidth":
         widths = [w for w in bench_components.TEXT_WIDTHS if w <= mcfg.context_length]
         out[KERNEL] += len(widths) * Lt * runs
@@ -3462,6 +3520,25 @@ def section_launches(section, mcfg, steps):
         add(int8_launches(mcfg, 2 * runs, 2 * runs))
     elif section == "ot":
         out[ot.KERNEL] = runs
+    elif section == "alignment":
+        add(train_launches(mcfg, branch, alignment=True, ot_kernel=False,
+                           ot_nodes=(bench_components.ALIGN_OBJECTS, bench_components.ALIGN_ENTITIES),
+                           ot_chunks=bench_components.ALIGN_CHUNKS))
+    elif section == "multiattention":
+        for mode in bench_components.MULTIATTENTION_MODES:
+            add(train_launches(mcfg, branch, multiattention=mode))
+    elif section == "dedupe":
+        add(train_launches(mcfg, (1 + calls) * steps), 1 + len(bench_components.DEDUPE_UNIQUE))
+        for mode in bench_components.MULTIATTENTION_MODES:  # plain, sr-deduped, all-deduped
+            add(train_launches(mcfg, branch, multiattention=mode), 3)
+    elif section == "accum":
+        add(train_launches(mcfg, (1 + calls) * steps))
+        for k in bench_components.ACCUM_KS:
+            add(train_launches(mcfg, (1 + bench_components.accum_calls(k, steps, calls)) * k))
+    elif section == "ckpt":
+        add(train_launches(mcfg, 3 * steps))
+    elif section == "moments":
+        add(train_launches(mcfg, (1 + calls) * steps), len(bench_components.MOMENT_DTYPES))
     else:
         check(section == "matmul", f"section_launches: unknown section {section!r}")
     return out, alone

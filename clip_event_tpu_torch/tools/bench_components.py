@@ -64,11 +64,55 @@ texts an image, ViT-B/32 unless `--model` names another:
   ot           `ops.ot.optimal_transport_dist` at B × 16 text nodes × 10
                object nodes × 512, 30 % pads, safe=True, as the plain loop
                and through K3
+  alignment    the train step with the OT alignment branch on (the step
+               section's batch, plus 16 entity texts and `--objects` N(0, 1)
+               float32 crops an image, masks at < 0.4; the crops and
+               entities encoded in `--align-chunks` slices; the plain OT
+               loop, `use_pallas_ot=False`, as the JAX section runs it):
+               ms a step, pairs/s and peak memory. `--objects 51` probes the
+               JAX package's default object cap: an exception (out of
+               memory) becomes a row with no time and the error, never a
+               run of another path
+  multiattention  the train step with the local-attention branch on
+               (`--bboxes` R = 8 boxes an image, sorted corners, mask at <
+               0.6, role descriptions and labels [B, R, 77]), in the modes
+               "desc" and "desc_type"
+  dedupe       the step on B·D text rows drawn from 96 distinct rows in the
+               plain layout, against the deduped layout
+               (`data/dedupe.py::dedupe_rows`: `text_unique`,
+               `text_inverse`) at U of `--dedupe-unique` (96, 192, 384);
+               then the multiattention step in both modes plain,
+               "sr-deduped" (role and label rows from a 64-row vocabulary)
+               and "all-deduped" (the text rows too)
+  accum        the single step at B (ms a microbatch) against
+               `make_accum_step` at K = 2 and 4 on the batch stacked K
+               times, max(4, 3·steps // K) timed calls (3: `--calls`): ms
+               a microbatch and the change against the single step. The
+               accumulated step has no graph path (the train config
+               refuses `steps_per_dispatch` with `grad_accum_steps`): it
+               runs eager
+  ckpt         the state's size (fp32 params and Adam's moments), then a
+               warm step and a warm save, then `save_checkpoint` sync and
+               with `async_save`: the save's return time, and the total of
+               the save, `--steps` steps issued behind it and
+               `wait_for_saves()`, on the host's clock (the steps end in a
+               host fetch); the files go to a temporary directory that is
+               removed after
+  moments      Adam with fp32 and with bf16 first moments
+               (`build_optimizer(moment_dtype=...)`): the optimizer state's
+               MB and ms a step
 
 Every attention, int8 GEMM and OT variant named "kernel" / K5 / K3 reaches
 the kernel through the port's own switches (`layers.attention_impl`,
 `quant.gemm_impl`, `use_pallas`); a shape a kernel does not take is
-reported as unsupported, never run on another path under its label. JAX's
+reported as unsupported, never run on another path under its label. The
+six branch and engine sections (`alignment` to `moments`) run the train
+step with the attention kernel (`impl="kernel"`), bf16, full remat, Adam
+at lr 1e-6, as the step section does; the branch steps (alignment,
+multiattention, and dedupe's multiattention rows) run min(`--steps`, 3)
+steps a call over 2 timed calls (the JAX sections' 3 and 2); `--calls`
+sets the timed calls of every step section (step, the branch steps, the
+plain and deduped steps, accum's single step, moments). JAX's
 `unroll` section has no counterpart: it tunes `lax.scan`'s unroll factor,
 and the port's stacks are Python loops. Each section builds its timed
 callable in a small function (`*_call`) that takes `dtype` (bf16 unless
@@ -87,17 +131,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import sys
+import tempfile
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from clip_event_tpu_torch.config import model_config
+from clip_event_tpu_torch.data.dedupe import dedupe_rows
 from clip_event_tpu_torch.data.labels import build_label_layout
+from clip_event_tpu_torch.engine.checkpoint import save_checkpoint, wait_for_saves
 from clip_event_tpu_torch.engine.optim import build_optimizer, build_schedule, tree_leaves, tree_unflatten
-from clip_event_tpu_torch.engine.train_step import create_train_state, make_multi_step
+from clip_event_tpu_torch.engine.train_step import create_train_state, make_accum_step, make_multi_step
 from clip_event_tpu_torch.evals.common import Encoders
 from clip_event_tpu_torch.models import layers, vit
 from clip_event_tpu_torch.models.clip import encode_image, encode_text, init_params
@@ -108,14 +157,16 @@ from clip_event_tpu_torch.ops.attention import (
     fused_ln_qkv_attention,
     megakernel_supported,
 )
+from clip_event_tpu_torch.parallel.sharding import tree_bytes
 from clip_event_tpu_torch.platform import resolve_device
 
 B = 256
 D = 3
 STEPS = 10
-CALLS = 3  # the step section's timed calls (the JAX tool's CALLS)
+CALLS = 3  # the step sections' timed calls (the JAX tool's CALLS; `--calls`)
 SECTIONS = ("ln", "megakernel", "matmul", "quantgemm", "text", "vision", "visionsplit", "step",
-            "textsplit", "textwidth", "latency", "quant", "ot")
+            "textsplit", "textwidth", "latency", "quant", "ot", "alignment", "multiattention", "dedupe",
+            "accum", "ckpt", "moments")
 H100_BF16_TFLOPS = 989.0  # the H100 SXM's dense bf16 tensor-core peak
 PEAK_SIDE = 32  # the matmul section's square: 32·B a side (8192 at B = 256)
 TOWER_VARIANTS = (  # (label, remat, attention impl)
@@ -131,6 +182,19 @@ LATENCY_BATCHES, LATENCY_CALLS = (1, 8, 64), 20
 QUANT_VARIANTS = (("bf16", "xla"), ("int8 dynamic plain", "xla"), ("int8 static plain", "xla"),
                   ("int8 K5", "pallas"))  # (label, quant.gemm_impl)
 OT_NODES, OT_PAD = (16, 10, 512), 0.3  # text nodes, object nodes, width; pad share
+# the branch steps: at most 3 steps a call, 2 timed calls (the JAX sections';
+# `--calls`)
+BRANCH_STEPS, BRANCH_CALLS = 3, 2
+# alignment: entity texts an image (the max_entities cap), crops an image
+# (BENCH_OBJ), chunks (BENCH_ALIGN_CHUNKS); the masks' keep rates
+ALIGN_ENTITIES, ALIGN_OBJECTS, ALIGN_CHUNKS, ALIGN_KEEP = 16, 11, 4, 0.4
+BBOXES, BBOX_KEEP = 8, 0.6  # multiattention: boxes an image (BENCH_BBOXES)
+MULTIATTENTION_MODES = ("desc", "desc_type")
+# dedupe: the unique rows of the deduped layouts (BENCH_DEDUPE_UNIQUE), the
+# plain layout's text vocabulary, the role and label vocabulary
+DEDUPE_UNIQUE, DEDUPE_TEXT_VOCAB, DEDUPE_ROLE_VOCAB = (96, 192, 384), 96, 64
+ACCUM_KS = (2, 4)
+MOMENT_DTYPES = (None, "bfloat16")
 
 
 def tower_shapes(mcfg, batch: int, n_layers: Optional[int] = None):
@@ -560,40 +624,57 @@ def step_batch(mcfg, batch: int, device) -> Dict[str, torch.Tensor]:
 
 
 def step_call(mcfg, params: dict, batch: Dict[str, torch.Tensor], impl: str, steps: int,
-              dtype=torch.bfloat16) -> Callable:
+              dtype=torch.bfloat16, moment_dtype: Optional[str] = None, **step_kwargs) -> Callable:
     """`steps` train steps a call (`make_multi_step`'s `many_fixed` on one
     batch) from a fresh state of `params`: "ce", overbatch, full remat,
-    Adam at lr 1e-6; the callable returns the [steps] metrics."""
-    optimizer = build_optimizer("adam", build_schedule("none", 1e-6, 30))
+    Adam at lr 1e-6 (its first moment in `moment_dtype`), and
+    `step_kwargs` (the alignment and multiattention branches); the
+    callable returns the [steps] metrics, and its `state[0]` is the state
+    it has stepped to."""
+    optimizer = build_optimizer("adam", build_schedule("none", 1e-6, 30), moment_dtype=moment_dtype)
     state = [create_train_state(params, optimizer)]
     _, run_k = make_multi_step(mcfg, optimizer, steps, loss_type="ce", overbatch=True,
-                               compute_dtype=dtype, remat=True, impl=impl)
+                               compute_dtype=dtype, remat=True, impl=impl, **step_kwargs)
 
     def call():
         state[0], metrics = run_k(state[0], batch)
         return metrics
 
+    call.state = state
     return call
 
 
-def bench_step(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda") -> List[dict]:
-    device = resolve_device(device)
-    mcfg = _with_layers(mcfg, n_layers)
-    params, data, rows = _params(mcfg, device), step_batch(mcfg, batch, device), []
+def _step_shape_error(mcfg) -> Optional[str]:
+    """Why no attention kernel takes one of the train step's towers, or None."""
     why = _kernel_shape_error(mcfg.context_length, mcfg.transformer_width, mcfg.transformer_heads)
     if mcfg.is_vit:
         why = why or _kernel_shape_error(mcfg.grid_size ** 2 + 1, mcfg.vision_width, mcfg.vision_heads)
+    return why
+
+
+def _release(device) -> None:
+    """Wait for the card and return its cached blocks: a step's graph pool
+    goes with its graph."""
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def bench_step(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda", calls=None) -> List[dict]:
+    device = resolve_device(device)
+    calls = calls or CALLS
+    mcfg = _with_layers(mcfg, n_layers)
+    params, data, rows = _params(mcfg, device), step_batch(mcfg, batch, device), []
+    why = _step_shape_error(mcfg)
     for impl in ("plain", "kernel"):
         label = f"train step ({impl} attention)"
         if impl == "kernel" and why:
             rows.append(_unsupported("step", "step", label, why))
             continue
-        ms = _time_ms(step_call(mcfg, params, data, impl, steps), CALLS, device) / steps
-        rows.append(_row("step", "step", label, ms, batch=batch, steps_per_call=steps, calls=CALLS,
+        ms = _time_ms(step_call(mcfg, params, data, impl, steps), calls, device) / steps
+        rows.append(_row("step", "step", label, ms, batch=batch, steps_per_call=steps, calls=calls,
                          pairs_per_s=batch * D / ms * 1e3))
-        _sync(device)
-        if device.type == "cuda":
-            torch.cuda.empty_cache()  # the step's graph pool goes with its graph
+        _release(device)
     return rows
 
 
@@ -739,28 +820,338 @@ def bench_ot(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda") -> List[d
             for label, use_kernel in (("ipot dist, plain loop", False), ("ipot dist, K3", True))]
 
 
+# ------------------------------------------------- branches and engine
+
+
+def branch_steps(steps: int) -> int:
+    """Steps a call of a branch step: `steps`, at most BRANCH_STEPS."""
+    return min(steps, BRANCH_STEPS)
+
+
+def _peak_gib(device) -> Optional[float]:
+    return torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else None
+
+
+def _error(e: Exception) -> str:
+    """The error's type and first line (what the JAX sections print after
+    FAILED)."""
+    return f"{type(e).__name__}: {(str(e).splitlines() or [''])[0]}"
+
+
+def _time_step(section, case, variant, make, steps, calls, batch, device, extra) -> dict:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ms = _time_ms(make(), calls, device) / steps
+    return _row(section, case, variant, ms, batch=batch, steps_per_call=steps, calls=calls,
+                pairs_per_s=batch * D / ms * 1e3, peak_gib=_peak_gib(device), **extra)
+
+
+def _step_rows(section, mcfg, batch, device, cases, catch=False) -> List[dict]:
+    """A row for each case (case, variant, make() → a step callable, steps
+    a call, timed calls, extra fields): ms a step, pairs/s and the peak
+    memory of the call (None on the CPU). A model that no attention kernel
+    takes gives unsupported rows; with `catch`, a case that raises gives a
+    row with no time and the error (the JAX sections print FAILED), never a
+    run on another path."""
+    why, rows = _step_shape_error(mcfg), []
+    for case, variant, make, steps, calls, extra in cases:
+        if why:
+            rows.append(_unsupported(section, case, variant, why, **extra))
+            continue
+        try:
+            rows.append(_time_step(section, case, variant, make, steps, calls, batch, device, extra))
+        except Exception as e:  # noqa: BLE001 (any error, as the JAX sections catch)
+            if not catch:
+                raise
+            rows.append(_row(section, case, variant, None, error=_error(e), **extra))
+        _release(device)
+    return rows
+
+
+def alignment_batch(mcfg, batch: int, objects: int, device) -> Dict[str, torch.Tensor]:
+    """The step section's batch and the OT branch's inputs: `objects`
+    N(0, 1) float32 crops and ALIGN_ENTITIES entity token rows (random
+    ids, EOT last) an image, and their masks (kept with probability
+    ALIGN_KEEP)."""
+    out = step_batch(mcfg, batch, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    res, ctx, M = mcfg.image_resolution, mcfg.context_length, ALIGN_ENTITIES
+    out["object_image"] = torch.randn((batch, objects, res, res, 3), generator=gen, device=device)
+    out["entity_text"] = text_tokens(mcfg, batch * M, ctx, gen, device).reshape(batch, M, ctx)
+    out["entity_mask"] = torch.rand((batch, M), generator=gen, device=device) < ALIGN_KEEP
+    out["object_mask"] = torch.rand((batch, objects), generator=gen, device=device) < ALIGN_KEEP
+    return out
+
+
+def alignment_call(mcfg, params: dict, batch: Dict[str, torch.Tensor], steps: int,
+                   chunks: int = ALIGN_CHUNKS, dtype=torch.bfloat16) -> Callable:
+    """`step_call` with the OT branch on: the crops and entities encoded in
+    `chunks` slices, the plain OT loop (`use_pallas_ot=False`, the JAX
+    section's)."""
+    return step_call(mcfg, params, batch, "kernel", steps, dtype, alignment=True, use_pallas_ot=False,
+                     alignment_chunks=chunks)
+
+
+def bench_alignment(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda", objects=ALIGN_OBJECTS,
+                    align_chunks=ALIGN_CHUNKS, calls=None) -> List[dict]:
+    device = resolve_device(device)
+    mcfg = _with_layers(mcfg, n_layers)
+    params, n = _params(mcfg, device), branch_steps(steps)
+
+    def make():
+        return alignment_call(mcfg, params, alignment_batch(mcfg, batch, objects, device), n, align_chunks)
+
+    case = f"B={batch} N={objects} M={ALIGN_ENTITIES}"
+    extra = {"objects": objects, "entities": ALIGN_ENTITIES, "chunks": align_chunks}
+    return _step_rows("alignment", mcfg, batch, device,
+                      [(case, "align step (kernel attention)", make, n, calls or BRANCH_CALLS, extra)],
+                      catch=True)
+
+
+def multiattention_batch(mcfg, batch: int, bboxes: int, device) -> Dict[str, torch.Tensor]:
+    """The step section's batch and the local-attention branch's inputs:
+    `bboxes` boxes an image (corner pairs sorted per coordinate: x1 ≤ x2,
+    y1 ≤ y2), kept with probability BBOX_KEEP (an int32 mask), and the
+    role descriptions and labels [B, R, context] (random ids, EOT last)."""
+    out = step_batch(mcfg, batch, device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    ctx = mcfg.context_length
+    corners = torch.rand((batch, bboxes, 2, 2), generator=gen, device=device)
+    out["bbox"] = corners.sort(dim=2).values.reshape(batch, bboxes, 4)
+    out["bbox_mask"] = (torch.rand((batch, bboxes), generator=gen, device=device) < BBOX_KEEP).to(torch.int32)
+    for key in ("bbox_desc_text", "bbox_label_text"):
+        out[key] = text_tokens(mcfg, batch * bboxes, ctx, gen, device).reshape(batch, bboxes, ctx)
+    return out
+
+
+def multiattention_call(mcfg, params: dict, batch: Dict[str, torch.Tensor], steps: int, mode: str,
+                        dtype=torch.bfloat16) -> Callable:
+    """`step_call` with the local-attention branch on in `mode`."""
+    return step_call(mcfg, params, batch, "kernel", steps, dtype, multiattention=mode)
+
+
+def bench_multiattention(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda",
+                         bboxes=BBOXES, calls=None) -> List[dict]:
+    device = resolve_device(device)
+    mcfg = _with_layers(mcfg, n_layers)
+    params, n = _params(mcfg, device), branch_steps(steps)
+    data = multiattention_batch(mcfg, batch, bboxes, device)
+    cases = [(f"B={batch} R={bboxes}", f"multiattn step ({mode})",
+              lambda mode=mode: multiattention_call(mcfg, params, data, n, mode), n,
+              calls or BRANCH_CALLS, {"bboxes": bboxes})
+             for mode in MULTIATTENTION_MODES]
+    return _step_rows("multiattention", mcfg, batch, device, cases, catch=True)
+
+
+def texts_from_vocab(mcfg, n_rows: int, n_unique: int, seed: int = 1) -> np.ndarray:
+    """[n_rows, context] token rows drawn from `n_unique` distinct random
+    rows (EOT last), numpy's generator at `seed` (the JAX section's
+    `_texts_from_vocab`)."""
+    r = np.random.default_rng(seed)
+    vocab = r.integers(1, min(49000, mcfg.vocab_size - 1),
+                       size=(n_unique, mcfg.context_length)).astype(np.int32)
+    vocab[:, -1] = mcfg.vocab_size - 1
+    return vocab[r.integers(0, n_unique, size=n_rows)]
+
+
+def deduped(rows: np.ndarray, cap: int, prefix: str, device) -> Dict[str, torch.Tensor]:
+    """`{prefix}_unique` [cap, S] and `{prefix}_inverse` [N] of the token
+    rows (`dedupe_rows`, strict: more unique rows than `cap` raise)."""
+    unique, inverse = dedupe_rows(rows, cap=cap, strict=True, tag=prefix)
+    return {f"{prefix}_unique": torch.from_numpy(unique).to(device),
+            f"{prefix}_inverse": torch.from_numpy(inverse).to(device)}
+
+
+def dedupe_layouts(mcfg, batch: int, uniques, device) -> List[tuple]:
+    """(variant, batch) of the dedupe section's plain step: B·D text rows
+    from DEDUPE_TEXT_VOCAB rows (seed 1) in the plain layout, then rows
+    from U rows (seed U) in the deduped layout for each U of `uniques`."""
+    base = step_batch(mcfg, batch, device)
+    del base["text"]
+    text = texts_from_vocab(mcfg, batch * D, DEDUPE_TEXT_VOCAB)
+    out = [("step plain", dict(base, text=torch.from_numpy(text).to(device)))]
+    for u in uniques:
+        rows = texts_from_vocab(mcfg, batch * D, u, seed=u)
+        out.append((f"step deduped (U={u} of {batch * D})", dict(base, **deduped(rows, u, "text", device))))
+    return out
+
+
+def dedupe_multiattention_layouts(mcfg, batch: int, bboxes: int, device) -> List[tuple]:
+    """(variant, batch) of the dedupe section's multiattention step: text
+    rows as the plain layout's, role descriptions and labels from
+    DEDUPE_ROLE_VOCAB rows (seeds 7 and 8), plain; the role channels
+    deduped ("sr-deduped"); the text rows too ("all-deduped")."""
+    ma = multiattention_batch(mcfg, batch, bboxes, device)
+    ctx, rows = mcfg.context_length, batch * bboxes
+    text = texts_from_vocab(mcfg, batch * D, DEDUPE_TEXT_VOCAB)
+    role = texts_from_vocab(mcfg, rows, DEDUPE_ROLE_VOCAB, seed=7)
+    label = texts_from_vocab(mcfg, rows, DEDUPE_ROLE_VOCAB, seed=8)
+    ma["text"] = torch.from_numpy(text).to(device)
+    plain = dict(ma, bbox_desc_text=torch.from_numpy(role.reshape(batch, bboxes, ctx)).to(device),
+                 bbox_label_text=torch.from_numpy(label.reshape(batch, bboxes, ctx)).to(device))
+    sr = {k: v for k, v in ma.items() if k not in ("bbox_desc_text", "bbox_label_text")}
+    sr.update(deduped(role, DEDUPE_ROLE_VOCAB, "bbox_desc", device))
+    sr.update(deduped(label, DEDUPE_ROLE_VOCAB, "bbox_label", device))
+    every = {k: v for k, v in sr.items() if k != "text"}
+    every.update(deduped(text, DEDUPE_TEXT_VOCAB, "text", device))
+    return [("plain", plain), (f"sr-deduped (U={DEDUPE_ROLE_VOCAB})", sr), ("all-deduped", every)]
+
+
+def bench_dedupe(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda", bboxes=BBOXES,
+                 dedupe_unique=DEDUPE_UNIQUE, calls=None) -> List[dict]:
+    device = resolve_device(device)
+    calls = calls or BRANCH_CALLS
+    mcfg = _with_layers(mcfg, n_layers)
+    params, n = _params(mcfg, device), branch_steps(steps)
+    cases = [(f"B={batch} D={D}", variant, lambda data=data: step_call(mcfg, params, data, "kernel", steps),
+              steps, calls, {}) for variant, data in dedupe_layouts(mcfg, batch, dedupe_unique, device)]
+    layouts = dedupe_multiattention_layouts(mcfg, batch, bboxes, device)
+    for mode in MULTIATTENTION_MODES:
+        cases += [(f"multiattn {mode} R={bboxes}", variant,
+                   lambda data=data, mode=mode: multiattention_call(mcfg, params, data, n, mode), n,
+                   calls, {"bboxes": bboxes}) for variant, data in layouts]
+    return _step_rows("dedupe", mcfg, batch, device, cases)
+
+
+def accum_call(mcfg, params: dict, batch: Dict[str, torch.Tensor], k: int, dtype=torch.bfloat16) -> Callable:
+    """One `make_accum_step` optimizer step a call over `batch` stacked `k`
+    times (each field [k, ...]; "ce", overbatch, full remat, the kernel,
+    Adam at lr 1e-6) from a fresh state of `params`; the callable returns
+    the metrics, and its `state[0]` is the state it has stepped to."""
+    optimizer = build_optimizer("adam", build_schedule("none", 1e-6, 30))
+    state = [create_train_state(params, optimizer)]
+    stacked = {key: torch.stack([v] * k) for key, v in batch.items()}
+    step = make_accum_step(mcfg, optimizer, k, loss_type="ce", overbatch=True, compute_dtype=dtype,
+                           remat=True, impl="kernel")
+
+    def call():
+        state[0], metrics = step(state[0], stacked)
+        return metrics
+
+    call.state = state
+    return call
+
+
+def accum_calls(k: int, steps: int, calls: int = CALLS) -> int:
+    """Timed calls of the K-microbatch step: as many microbatches as the
+    single step's `calls` · steps, at least 4 calls (the JAX section's)."""
+    return max(4, calls * steps // k)
+
+
+def bench_accum(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda", calls=None) -> List[dict]:
+    device = resolve_device(device)
+    calls = calls or CALLS
+    mcfg = _with_layers(mcfg, n_layers)
+    case, why = f"B={batch}", _step_shape_error(mcfg)
+    variants = ["single step"] + [f"accum K={k} (eff {k * batch})" for k in ACCUM_KS]
+    if why:
+        return [_unsupported("accum", case, v, why) for v in variants]
+    params, data = _params(mcfg, device), step_batch(mcfg, batch, device)
+    single = _time_ms(step_call(mcfg, params, data, "kernel", steps), calls, device) / steps
+    _release(device)
+    rows = [_row("accum", case, variants[0], single, batch=batch, microbatches=1, calls=calls)]
+    for k, variant in zip(ACCUM_KS, variants[1:]):
+        n = accum_calls(k, steps, calls)
+        ms = _time_ms(accum_call(mcfg, params, data, k), n, device) / k
+        _release(device)
+        rows.append(_row("accum", case, variant, ms, batch=batch, microbatches=k, calls=n,
+                         pct_vs_single=ms / single * 100 - 100))
+    return rows
+
+
+def save_call(ckpt_dir: str, task: str, state, mcfg, async_save: bool) -> Callable[[], Optional[str]]:
+    """The ckpt section's save of `state` (a TrainState):
+    `save_checkpoint(ckpt_dir, task, 0, params, opt_state, mcfg,
+    async_save=...)`; the callable returns the path."""
+    return lambda: save_checkpoint(ckpt_dir, task, 0, state.params, state.opt_state, mcfg,
+                                   async_save=async_save)
+
+
+def bench_ckpt(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda") -> List[dict]:
+    device = resolve_device(device)
+    mcfg = _with_layers(mcfg, n_layers)
+    why = _step_shape_error(mcfg)
+    if why:
+        return [_unsupported("ckpt", "save", f"{mode} save", why) for mode in ("sync", "async")]
+    call = step_call(mcfg, _params(mcfg, device), step_batch(mcfg, batch, device), "kernel", steps)
+    state = call.state
+    size = tree_bytes(state[0].params, state[0].opt_state)
+    rows, tmp = [], tempfile.mkdtemp(prefix="bench_ckpt_")
+    try:
+        float(call()["loss"][-1])  # the warm step, then a warm save
+        if save_call(tmp, "warm", state[0], mcfg, False)() is None:
+            raise RuntimeError("the warm save failed (logged)")
+        for mode in ("sync", "async"):
+            t0 = time.perf_counter()
+            path = save_call(tmp, mode, state[0], mcfg, mode == "async")()
+            t_ret = time.perf_counter() - t0
+            float(call()["loss"][-1])  # `steps` steps issued behind the save
+            wait_for_saves()
+            t_total = time.perf_counter() - t0
+            if path is None:
+                raise RuntimeError(f"the {mode} save failed (logged)")
+            rows.append(_row("ckpt", "save", f"{mode} save", t_ret * 1e3, total_ms=t_total * 1e3,
+                             steps=steps, state_gb=size / 1e9))
+    finally:
+        wait_for_saves()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def bench_moments(mcfg, batch=B, n_layers=None, steps=STEPS, device="cuda", calls=None) -> List[dict]:
+    device = resolve_device(device)
+    calls = calls or CALLS
+    mcfg = _with_layers(mcfg, n_layers)
+    why, rows = _step_shape_error(mcfg), []
+    params, data = _params(mcfg, device), step_batch(mcfg, batch, device)
+    for mdtype in MOMENT_DTYPES:
+        variant = f"moments={mdtype}"
+        if why:
+            rows.append(_unsupported("moments", "adam", variant, why))
+            continue
+        call = step_call(mcfg, params, data, "kernel", steps, moment_dtype=mdtype)
+        mb = tree_bytes(call.state[0].opt_state) / 1e6
+        ms = _time_ms(call, calls, device) / steps
+        del call
+        _release(device)
+        rows.append(_row("moments", "adam", variant, ms, opt_state_mb=mb, steps_per_call=steps, calls=calls))
+    return rows
+
+
 # ---------------------------------------------------------------- main
 
 BENCHES = {"ln": bench_ln, "megakernel": bench_megakernel, "matmul": bench_matmul,
            "quantgemm": bench_quantgemm, "text": bench_text, "vision": bench_vision,
            "visionsplit": bench_visionsplit, "step": bench_step, "textsplit": bench_textsplit,
-           "textwidth": bench_textwidth, "latency": bench_latency, "quant": bench_quant, "ot": bench_ot}
+           "textwidth": bench_textwidth, "latency": bench_latency, "quant": bench_quant, "ot": bench_ot,
+           "alignment": bench_alignment, "multiattention": bench_multiattention, "dedupe": bench_dedupe,
+           "accum": bench_accum, "ckpt": bench_ckpt, "moments": bench_moments}
+# the flags a section takes beyond the shared ones
+OPTIONS = {"step": ("calls",), "alignment": ("objects", "align_chunks", "calls"),
+           "multiattention": ("bboxes", "calls"), "dedupe": ("bboxes", "dedupe_unique", "calls"),
+           "accum": ("calls",), "moments": ("calls",)}
 UNITS = {"ln": "ms/iter (stack grad)", "megakernel": "ms/iter ({layers}-layer fwd)", "step": "ms/step",
          "text": "ms/iter (tower grad)", "vision": "ms/iter (tower grad)",
-         "visionsplit": "ms/iter (grad)", "textsplit": "ms/iter (grad)"}
+         "visionsplit": "ms/iter (grad)", "textsplit": "ms/iter (grad)", "alignment": "ms/step",
+         "multiattention": "ms/step", "dedupe": "ms/step", "accum": "ms/microbatch",
+         "ckpt": "ms (return)", "moments": "ms/step"}
 EXTRAS = (("tflops", "{:.1f} TFLOP/s"), ("share_of_h100_bf16_peak", "{:.1%} of 989 TFLOP/s"),
           ("tera_ops_per_s", "{:.1f} TOP/s"), ("pairs_per_s", "{:,.0f} pairs/s"),
           ("host_p50_ms", "host p50 {:.3f} ms"), ("items_per_s", "{:,.1f} items/s"),
-          ("speedup_vs_bf16", "{:.2f}x bf16"))
+          ("speedup_vs_bf16", "{:.2f}x bf16"), ("peak_gib", "peak {:.2f} GiB"),
+          ("pct_vs_single", "{:+.1f}% vs single"), ("total_ms", "save+{steps} steps total {:.1f} ms"),
+          ("state_gb", "state {:.2f} GB"), ("opt_state_mb", "opt state {:.1f} MB"))
 
 
 def format_row(row: dict) -> str:
     prefix = row.get("tower") or row.get("case")
     label = f"{prefix}: {row['variant']}"
     if row["ms_per_iter"] is None:
+        if "error" in row:
+            return f"{label:<44s} FAILED: {row['error']}"
         return f"{label:<44s} skipped" + (f" ({row['unsupported']})" if "unsupported" in row else "")
     unit = UNITS.get(row["section"], "ms/call").format(**row)
-    extras = [fmt.format(row[k]) for k, fmt in EXTRAS if row.get(k) is not None]
+    extras = [fmt.format(row[k], **row) for k, fmt in EXTRAS if row.get(k) is not None]
     return "  ".join([f"{label:<44s} {row['ms_per_iter']:9.3f} {unit}"] + extras)
 
 
@@ -774,7 +1165,18 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=B, help="images (texts are 3 per image)")
     parser.add_argument("--layers", type=int, default=None, help="layers per stack (default: the model's)")
     parser.add_argument("--steps", type=int, default=STEPS,
-                        help="timed iterations a row (the step section: steps a call)")
+                        help="timed iterations a row (the step sections: steps a call)")
+    parser.add_argument("--calls", type=int, default=None,
+                        help="timed calls of the step sections (default: the JAX sections' 3, "
+                             "and 2 for the branch steps)")
+    parser.add_argument("--objects", type=int, default=ALIGN_OBJECTS,
+                        help="alignment: crops an image (51 probes the object cap)")
+    parser.add_argument("--align-chunks", type=int, default=ALIGN_CHUNKS,
+                        help="alignment: slices of the crop and entity encodes")
+    parser.add_argument("--bboxes", type=int, default=BBOXES, help="multiattention, dedupe: boxes an image")
+    parser.add_argument("--dedupe-unique", default=",".join(map(str, DEDUPE_UNIQUE)),
+                        type=lambda v: tuple(int(u) for u in v.split(",")),
+                        help="dedupe: the deduped layouts' unique rows, comma-separated")
     args = parser.parse_args(argv)
     unknown = [name for name in args.sections if name not in SECTIONS]
     if unknown:
@@ -784,7 +1186,8 @@ def main(argv=None) -> int:
     mcfg = model_config({"model": model})
     rows = []
     for section in args.sections or SECTIONS:
-        for row in BENCHES[section](mcfg, args.batch, args.layers, args.steps, device):
+        options = {k: getattr(args, k) for k in OPTIONS.get(section, ())}
+        for row in BENCHES[section](mcfg, args.batch, args.layers, args.steps, device, **options):
             print(format_row(row), flush=True)
             rows.append(row)
         if device.type == "cuda":

@@ -148,7 +148,8 @@ def test_component_bench_default_runs_both_and_refuses_unknown(capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     n_rows = {"ln": 6, "megakernel": 4, "matmul": 4, "quantgemm": 18, "text": 7, "vision": 7,
               "visionsplit": 7, "step": 2, "textsplit": 4, "textwidth": 1, "latency": 6, "quant": 16,
-              "ot": 2}
+              "ot": 2, "alignment": 1, "multiattention": 2, "dedupe": 10, "accum": 3, "ckpt": 2,
+              "moments": 2}
     assert [r["section"] for r in summary["rows"]] == [s for s in n_rows for _ in range(n_rows[s])]
     with pytest.raises(SystemExit):
         bench_components.main(["attention"] + COMPONENT_ARGS)
@@ -156,7 +157,8 @@ def test_component_bench_default_runs_both_and_refuses_unknown(capsys):
     assert (bench_components.B, bench_components.D, bench_components.STEPS) == (256, 3, 10)
     assert bench_components.SECTIONS == ("ln", "megakernel", "matmul", "quantgemm", "text", "vision",
                                          "visionsplit", "step", "textsplit", "textwidth", "latency",
-                                         "quant", "ot")
+                                         "quant", "ot", "alignment", "multiattention", "dedupe", "accum",
+                                         "ckpt", "moments")
 
 
 def test_component_bench_reports_an_unsupported_megakernel_shape(capsys):

@@ -28,7 +28,7 @@ INT8_AND_EVAL_MODULES = {
 }
 # the fused LayerNorm kernels, the bench entry point, the component bench
 LN_AND_BENCH_MODULES = {
-    f"clip_event_tpu_torch.{m}" for m in ("ops.ln", "bench", "tools", "tools.bench_components")
+    f"clip_event_tpu_torch.{m}" for m in ("ops.ln", "bench", "tools", "tools.bench_components", "tools.bench_presets")
 }
 # the serving bundle: the kernels as custom ops, the export, its CLI, and
 # the model config its loader reads without the model code

@@ -14,6 +14,7 @@ point and component bench.
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --only k1   # device, build and K1's kernel checks
     python3 chip_smoke.py --only k2   # device, build and K2's kernel checks
+    python3 chip_smoke.py --only k4   # device, build and K4's kernel checks
     python3 chip_smoke.py --only k5   # device, build and K5's kernel checks
     python3 chip_smoke.py --only k3 k6   # device, build, K3's and K6's checks
     # the same, with K3 and K6 of an earlier tree's csrc/ timed beside
@@ -67,8 +68,9 @@ Phases, each printing JSON lines:
               of that run, checks of the features against a plain-attention
               run of the same model, and images/s and texts/s at batch 64
   3b. b1     the host microseconds a call of each kernel wrapper takes
-              (K1, K2 forward and backward, K4a/b/c, K3, K5; the median of
-              7 runs of 100 enqueued calls)
+              (K1, K2 forward and backward, K4a/b/c, K3, K5, and K4a/b
+              through their public entry points without a gradient; the
+              median of 7 runs of 100 enqueued calls)
   5. train    full-width ViT-B/32 from seed 0 through the train loop
               (`clip_event_tpu_torch.train.train`: loader → prefetch → step →
               metrics) on the bench workload: 384 uint8 images × 3
@@ -355,7 +357,13 @@ a row of equal values, a 1e3 spike), fp32 and bf16: the forwards (K4a,
 K4b) at max|kernel - plain| <= 1e-6 (fp32) / 2e-2 (bf16) times max(1,
 max|plain|), K4b's sum exactly equal, the backward (K4c, alone and with
 the sum's cotangent) at dx, dgamma and dbeta each <= 1e-5 / 1e-2 of
-max|plain|. K6, the LayerNorm -> QKV -> attention megakernel, at the
+max|plain|, and equal bits from a second call and from two replays of a
+CUDA graph that captured it. Each row names its path (registers at the
+preset widths, generic at W = 100 and 3072); a view that starts one
+element into its buffer runs the generic kernels at W = 768. The timed
+rows carry the kernels' device ms (torch.profiler) and the wrapper's host
+µs beside the wall ms; K4c's its grid. The build phase prints every K4
+kernel's registers and spills (any spill fails). K6, the LayerNorm -> QKV -> attention megakernel, at the
 component bench's two shapes and at edge shapes (B = 1, S = 1, S = 128,
 head_dim 32, 16 and 20, a width that fills no k tile, bf16 widths whose
 rows do not stay resident): max abs error 1e-4 / 2e-2 against its plain
@@ -640,6 +648,10 @@ LN_EDGE_SHAPES = [
     ("ln_edge_n1", 1, 512), ("ln_edge_n1001_w640", 1001, 640), ("ln_edge_w1280", 333, 1280),
     ("ln_edge_w100", 37, 100), ("ln_edge_w3072", 9, 3072),
 ]
+# rows of the misaligned-view check (`check_ln_misaligned`), and the
+# profiled calls behind each K4 row's device ms
+LN_MISALIGNED_ROWS = 1001
+LN_DEVICE_ITERS = 10
 # K6: the component bench's shapes (B = 256 images x 3 texts), then edges:
 # B = 1, S = 1, S = 128, head_dim 32, and a width that fills no whole k tile
 MEGA_SHAPES = [  # (tag, B, S, W, H, causal)
@@ -663,7 +675,7 @@ BATCH = 64
 SOT, EOT = 49406, 49407
 # device kernels by family, for the profile's breakdown (first match wins)
 KERNEL_FAMILIES = (
-    ("layer norm (hand-written)", ("layer_norm_fwd_kernel", "layer_norm_bwd_")),
+    ("layer norm (hand-written)", ("layer_norm_fwd", "layer_norm_bwd")),
     ("megakernel (hand-written)", ("ln_qkv_attention_kernel",)),
     ("attention (hand-written)", ("attention_fwd_kernel", "attention_bwd_", "attention_hg_")),
     ("ipot (hand-written)", ("ipot_kernel",)),
@@ -703,12 +715,14 @@ GRAPH_TIMING_K = 3
 # eval's pairs
 DP_TIMING_STEPS, DP_EVAL_ITEMS = 2, 256
 # kernel names a profile counts for each counter (K4a and K4b run one
-# kernel, K4c two, K1's and K2's backwards one or two)
+# kernel, `layer_norm_fwd_reg_kernel` or the generic `layer_norm_fwd_kernel`;
+# K4c one, `layer_norm_bwd_reg_kernel` or `layer_norm_bwd_kernel`; K1's and
+# K2's backwards one or two)
 PROFILE_NEEDLES = {
     KERNEL: ("attention_fwd_kernel",), BWD_KERNEL: ("attention_bwd_",),
     HG_KERNEL: ("attention_hg_fwd_kernel",), HG_BWD_KERNEL: ("attention_hg_bwd_",),
-    "ipot": ("ipot_kernel",), "layer_norm+add_layer_norm": ("layer_norm_fwd_kernel",),
-    "layer_norm_bwd": ("layer_norm_bwd_",),
+    "ipot": ("ipot_kernel",), "layer_norm+add_layer_norm": ("layer_norm_fwd",),
+    "layer_norm_bwd": ("layer_norm_bwd",),
 }
 # ViT-L/14 (bench.py's L/14 workload) and ViT-B/16 (its bench batch)
 L14_BATCH, B16_BATCH = 64, 96
@@ -768,11 +782,13 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
 
 
 def device_ms(fn, needles, iters=20) -> dict:
-    """{needle: mean device time in ms a call of fn()} of the kernels whose
-    names hold each needle, by torch.profiler over `iters` warm calls: the
-    kernels' own time, without the host's time between launches that
-    `cuda_ms` reads where a call's device work is shorter than its host
-    work. None for a needle the trace shows no time for, twice."""
+    """{needle: mean device time in ms of the kernel whose name holds the
+    needle, one launch a call of fn()}, by torch.profiler over `iters` warm
+    calls: the kernel's own time, without the host's time between launches
+    that `cuda_ms` reads where a call's device work is shorter than its host
+    work. The mean is over the launches the trace kept; a trace that kept
+    fewer than `iters` is taken again, once. None for a needle the trace
+    shows no time for."""
     fn()
     torch.cuda.synchronize()
     for _ in range(2):  # once more if the trace lost a kernel's records
@@ -781,10 +797,11 @@ def device_ms(fn, needles, iters=20) -> dict:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        out = {n: sum(e.self_device_time_total for e in events if n in e.key) / iters / 1e3 for n in needles}
-        if all(out.values()):
+        kept = {n: [(e.self_device_time_total, e.count) for e in events if n in e.key] for n in needles}
+        out = {n: sum(t for t, _ in k) / sum(c for _, c in k) / 1e3 if k else None for n, k in kept.items()}
+        if all(sum(c for _, c in k) >= iters for k in kept.values()):
             return out
-    return {n: ms or None for n, ms in out.items()}
+    return out
 
 
 def _attention_bound(nbytes, flops, dtype_name):
@@ -1323,13 +1340,38 @@ def ln_bound_ms(N, W, dtype_name, streams, vectors, flops_per_elt):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ln_graph_replays(fn):
+    """fn()'s outputs from a CUDA graph that captured it, replayed twice:
+    (first replay's outputs cloned, second's). The capture runs on a side
+    stream after one warm-up call there, as `torch.cuda.graph` wants."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in outs]
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    return first, list(outs)
+
+
 def check_ln(rows, errs, gen, tag, N, W, dtype, timed, edge):
     """K4a, K4b and K4c (alone, and with the cotangent of K4b's sum added)
-    against their plain versions at one shape and dtype. Forward: max abs
-    error (LN_TOL), K4b's sum exactly equal. Backward: dx, dgamma and dbeta
-    each relative to max|plain| (LN_BWD_TOL). When `timed`: times, the bound
-    and the library yardsticks (`F.layer_norm`, the add then `F.layer_norm`,
-    their backward by `torch.autograd.grad` on a retained graph)."""
+    against their plain versions at one shape and dtype, each row naming
+    its path (`ln.register_path`). Forward: max abs error (LN_TOL), K4b's
+    sum exactly equal. Backward: dx, dgamma and dbeta each relative to
+    max|plain| (LN_BWD_TOL); a second call, and two replays of a CUDA graph
+    that captured the call, equal to the first call bit for bit. When
+    `timed`: times, device times (`device_ms`), the wrapper's host µs a call
+    (`wrapper_host_us`), the bound and the library yardsticks
+    (`F.layer_norm`, the add then `F.layer_norm`, their backward by
+    `torch.autograd.grad` on a retained graph)."""
     name = str(dtype).split(".")[-1]
     x = torch.randn((N, W), device="cuda", generator=gen).to(dtype)
     delta = torch.randn((N, W), device="cuda", generator=gen).to(dtype)
@@ -1342,7 +1384,8 @@ def check_ln(rows, errs, gen, tag, N, W, dtype, timed, edge):
         if N > 1:
             x[0] = 0.5
             delta[0] = 0.25
-    shape = {"shape": tag, "N": N, "W": W, "dtype": name}
+    path = "registers" if ln.register_path(W, x.data_ptr(), gamma.data_ptr(), beta.data_ptr()) else "generic"
+    shape = {"shape": tag, "N": N, "W": W, "dtype": name, "path": path}
     iters = 20 if N * W > 2e7 else 50
 
     def forward_row(kernel_name, y, ref, extra):
@@ -1368,6 +1411,9 @@ def check_ln(rows, errs, gen, tag, N, W, dtype, timed, edge):
     g_lib, b_lib = gamma.to(dtype), beta.to(dtype)  # F.layer_norm wants one dtype
     if timed:
         row["ms"] = cuda_ms(lambda: ln.fused_layer_norm(x, gamma, beta), iters)
+        row["device_ms"] = device_ms(lambda: ln.fused_layer_norm(x, gamma, beta), ("layer_norm_fwd",),
+                                     LN_DEVICE_ITERS)["layer_norm_fwd"]
+        row["host_us"] = wrapper_host_us(lambda: ln.fused_layer_norm(x, gamma, beta))
         row["plain_ms"] = cuda_ms(lambda: ln.layer_norm_plain(x, gamma, beta), iters)
         lib = F.layer_norm(x, (W,), g_lib, b_lib)
         check((lib.float() - ref.float()).abs().max().item() <= (1e-5 if name == "float32" else 1e-1),
@@ -1385,6 +1431,9 @@ def check_ln(rows, errs, gen, tag, N, W, dtype, timed, edge):
     row = forward_row(ADD_LN_KERNEL, y, ref, {"sum_exact": True})
     if timed:
         row["ms"] = cuda_ms(lambda: ln.fused_add_layer_norm(x, delta, gamma, beta), iters)
+        row["device_ms"] = device_ms(lambda: ln.fused_add_layer_norm(x, delta, gamma, beta),
+                                     ("layer_norm_fwd",), LN_DEVICE_ITERS)["layer_norm_fwd"]
+        row["host_us"] = wrapper_host_us(lambda: ln.fused_add_layer_norm(x, delta, gamma, beta))
         row["plain_ms"] = cuda_ms(lambda: ln.add_layer_norm_plain(x, delta, gamma, beta), iters)
         row["library_ms"] = cuda_ms(lambda: F.layer_norm(x + delta, (W,), g_lib, b_lib), iters)
         row["bound_ms"], row["bound_by"] = ln_bound_ms(N, W, name, 4, 2, 9)
@@ -1407,10 +1456,25 @@ def check_ln(rows, errs, gen, tag, N, W, dtype, timed, edge):
             check(rels[part] <= LN_BWD_TOL[name], f"{what}: {part} rel err {rels[part]} > {LN_BWD_TOL[name]}")
             err = max(err, e)
         errs[ln.BWD_KERNEL][name] = max(errs[ln.BWD_KERNEL].get(name, 0.0), err)
+        # the same bits from a second call and from a graph's replays (the
+        # grid's counters left at 0 by every launch)
+        again = ln.fused_layer_norm_bwd(x, gamma, dy, dxo)
+        replays = ln_graph_replays(lambda: ln.fused_layer_norm_bwd(x, gamma, dy, dxo))
+        for part, a, b, r1, r2 in zip(("dx", "dgamma", "dbeta"), got, again, *replays):
+            check(torch.equal(a, b), f"{what}: {part} differs between two calls")
+            check(torch.equal(a, r1) and torch.equal(a, r2), f"{what}: {part} of a graph replay differs")
+        del again, replays
         row = {**shape, "variant": variant, "max_abs_err": err, "max_rel_err": rels,
-               "tol_rel": LN_BWD_TOL[name]}
+               "tol_rel": LN_BWD_TOL[name], "equal_bits_two_calls": True, "equal_bits_graph_replays": 2}
         if timed:
             row["ms"] = cuda_ms(lambda: ln.fused_layer_norm_bwd(x, gamma, dy, dxo), iters)
+            row["device_ms"] = device_ms(lambda: ln.fused_layer_norm_bwd(x, gamma, dy, dxo),
+                                         ("layer_norm_bwd",), LN_DEVICE_ITERS)["layer_norm_bwd"]
+            row["host_us"] = wrapper_host_us(lambda: ln.fused_layer_norm_bwd(x, gamma, dy, dxo))
+            sm_count, per_sm, warps = ln._blocks_per_sm(x.get_device(), W, ln._DTYPES[dtype], dxo is not None,
+                                                        ln.REGISTERS if path == "registers" else ln.GENERIC)
+            row["blocks_per_sm"], row["warps_per_block"] = per_sm, warps
+            row["blocks"] = ln.bwd_blocks(N, sm_count, per_sm, warps)
             row["plain_ms"] = cuda_ms(lambda: ln.layer_norm_bwd_plain(x, gamma, dy, dxo), iters)
             # the library yardstick: F.layer_norm's backward alone (for the
             # add variant through the add, with both cotangents), on a graph
@@ -1432,6 +1496,72 @@ def check_ln(rows, errs, gen, tag, N, W, dtype, timed, edge):
             row["bound_ms"], row["bound_by"] = ln_bound_ms(N, W, name, 3 if dxo is None else 4, 3, 16)
         rows[ln.BWD_KERNEL].append(row)
         emit({"phase": "kernel_check", "kernel": ln.BWD_KERNEL, **row})
+
+
+def k4_step_bound_ms(mcfg, images, texts, dtype_name="bfloat16"):
+    """(forward, backward) least ms of K4 in one ViT train step with
+    `use_pallas_ln` under full remat, by `ln_bound_ms` with `check_ln`'s
+    streams: per block K4a and K4b twice (forward, recompute), K4c once
+    alone and once with the sum's cotangent."""
+    tokens = (mcfg.image_resolution // mcfg.vision_patch_size) ** 2 + 1
+    fwd = bwd = 0.0
+    for L, N, W in ((mcfg.vision_layers, images * tokens, mcfg.vision_width),
+                    (mcfg.transformer_layers, texts * mcfg.context_length, mcfg.transformer_width)):
+        fwd += 2 * L * (ln_bound_ms(N, W, dtype_name, 2, 2, 8)[0] + ln_bound_ms(N, W, dtype_name, 4, 2, 9)[0])
+        bwd += L * (ln_bound_ms(N, W, dtype_name, 3, 3, 16)[0] + ln_bound_ms(N, W, dtype_name, 4, 3, 16)[0])
+    return fwd, bwd
+
+
+def check_ln_misaligned(gen, dtype, N=LN_MISALIGNED_ROWS, W=768):
+    """K4a, K4b and K4c at a preset width on views that start one element
+    into their buffers (2 or 4 bytes off 16): the generic kernels run, by
+    `ln.register_path`, and are held to the kernel phase's gates."""
+    name = str(dtype).split(".")[-1]
+
+    def view():
+        buf = torch.randn((N * W + 1,), device="cuda", generator=gen).to(dtype)
+        return buf[1:].view(N, W)
+
+    x, delta, dy, dx_out = view(), view(), view(), view()
+    gamma = 1.0 + 0.1 * torch.randn((W,), device="cuda", generator=gen)
+    beta = 0.1 * torch.randn((W,), device="cuda", generator=gen)
+    check(x.is_contiguous() and not ln.register_path(W, x.data_ptr()), "a misaligned contiguous view")
+    before = read_launches()
+    y = ln.fused_layer_norm(x, gamma, beta)
+    xs, y2 = ln.fused_add_layer_norm(x, delta, gamma, beta)
+    got = ln.fused_layer_norm_bwd(x, gamma, dy, dx_out)
+    torch.cuda.synchronize()
+    after = read_launches()
+    check(after[ln.KERNEL] - before[ln.KERNEL] == 1 and after[ADD_LN_KERNEL] - before[ADD_LN_KERNEL] == 1
+          and after[ln.BWD_KERNEL] - before[ln.BWD_KERNEL] == ln.BWD_LAUNCHES_PER_CALL,
+          f"K4 misaligned {name}: launches {before} -> {after}")
+    ref_x, ref_y2 = ln.add_layer_norm_plain(x, delta, gamma, beta)
+    check(torch.equal(xs, ref_x), f"{ADD_LN_KERNEL} misaligned {name}: the sum differs")
+    out = {"shape": "ln_misaligned_w768", "N": N, "W": W, "dtype": name, "path": "generic"}
+    for what, a, b in ((ln.KERNEL, y, ln.layer_norm_plain(x, gamma, beta)), (ADD_LN_KERNEL, y2, ref_y2)):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = LN_TOL[name] * max(1.0, b.float().abs().max().item())
+        check(err <= tol, f"{what} misaligned {name}: max abs err {err} > {tol}")
+        out[f"{what}_max_abs_err"] = err
+    for part, a, b in zip(("dx", "dgamma", "dbeta"), got, ln.layer_norm_bwd_plain(x, gamma, dy, dx_out)):
+        rel = (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+        check(rel <= LN_BWD_TOL[name], f"{ln.BWD_KERNEL} misaligned {name}: {part} rel err {rel}")
+        out[f"{ln.BWD_KERNEL}_{part}_rel_err"] = rel
+    emit({"phase": "kernel_check", "kernel": "layer_norm_misaligned", **out})
+
+
+def check_k4(rows, errs, gen):
+    """K4a, K4b and K4c at the paths' and the edge shapes, fp32 and bf16,
+    then at a misaligned view of a preset width; the seconds it took."""
+    t0 = time.perf_counter()
+    for shapes, edge in ((LN_SHAPES, False), (LN_EDGE_SHAPES, True)):
+        for tag, N, W in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                check_ln(rows, errs, gen, tag, N, W, dtype, not edge, edge)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ln_misaligned(gen, dtype)
+    torch.cuda.synchronize()
+    emit({"phase": "k4_checks", "seconds": time.perf_counter() - t0})
 
 
 def mega_bound_ms(B, S, W, H, causal, dtype_name):
@@ -1654,10 +1784,7 @@ def phase_kernels():
     check_k2(rows, errs, gen)
     check_k3(rows, errs, gen)
     check_k5(rows, errs, gen)
-    for shapes, edge in ((LN_SHAPES, False), (LN_EDGE_SHAPES, True)):
-        for tag, N, W in shapes:
-            for dtype in (torch.float32, torch.bfloat16):
-                check_ln(rows, errs, gen, tag, N, W, dtype, not edge, edge)
+    check_k4(rows, errs, gen)
     check_k6(rows, errs, gen)
     torch.cuda.synchronize()
     return rows, errs
@@ -2515,8 +2642,8 @@ def profile_step(mcfg, params, batch, mean_ms, fused_ln=False, **step_kwargs):
 
     kernels = (("attention_fwd", "attention_fwd_kernel"), ("attention_bwd", "attention_bwd_"),
                ("attention_hg_fwd", "attention_hg_fwd_kernel"), ("attention_hg_bwd", "attention_hg_bwd_"),
-               ("ipot", "ipot_kernel"), ("layer_norm_fwd", "layer_norm_fwd_kernel"),
-               ("layer_norm_bwd", "layer_norm_bwd_"))
+               ("ipot", "ipot_kernel"), ("layer_norm_fwd", "layer_norm_fwd"),
+               ("layer_norm_bwd", "layer_norm_bwd"))
     # the same step with its batch already on the card and no loader
     # behind it (host clock around synchronised steps): what is left of the
     # loop's step time once the data feed is out of the way. Taken before
@@ -3140,7 +3267,8 @@ def phase_b1():
     lse) and backward (with the saved out and lse) at the B/32 text batch
     (64 x 77, W 512, 8 heads, causal); K2's at the L/14 image batch (64 x
     257, W 1024, 16 heads); K4a, K4b and K4c at the B/32 text rows (4928 x
-    512); K3 at finetune_ot's shape (64 x 16 x 7, fp32); K5 at the B/32 int8
+    512), and K4a and K4b through their public entry points with no input
+    that requires a gradient (`-public`); K3 at finetune_ot's shape (64 x 16 x 7, fp32); K5 at the B/32 int8
     image batch's qkv projection (3200 x 768 -> 2304, fp32, dynamic). With
     `--package-root` the wrappers are another tree's."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3167,6 +3295,10 @@ def phase_b1():
     us["K4a"] = wrapper_host_us(lambda: ln._ln_fwd(x, gamma, beta, 1e-5))
     us["K4b"] = wrapper_host_us(lambda: ln._add_ln_fwd(x, delta, gamma, beta, 1e-5))
     us["K4c"] = wrapper_host_us(lambda: ln.fused_layer_norm_bwd(x, gamma, dy))
+    # the public entry points as serving calls them (no input requires a
+    # gradient)
+    us["K4a-public"] = wrapper_host_us(lambda: ln.fused_layer_norm(x, gamma, beta))
+    us["K4b-public"] = wrapper_host_us(lambda: ln.fused_add_layer_norm(x, delta, gamma, beta))
     cost, x_len, x_pad, y_len, y_pad, _ = ot_inputs(gen, OT_BATCH, 16, 7, False)
     us["K3"] = wrapper_host_us(lambda: ot.ipot_kernel(cost, x_len, x_pad, y_len, y_pad))
     xq = torch.randn((64 * 50, 768), device="cuda", generator=gen)
@@ -3219,7 +3351,10 @@ def phase_train_ln(out_root, plain_ln_ms, plain_ln_prof):
                   step_ms_ratio_to_plain_ln=run["mean_ms"] / plain_ln_ms,
                   kernel_attention_step_ms=turns["kernel"], plain_attention_step_ms=turns["plain"],
                   elementwise_reduction_copy_share_of_busy=non_gemm_share(prof))
-    emit({"phase": "train_ln_profile", **prof})
+    bound_fwd, bound_bwd = k4_step_bound_ms(mcfg, TRAIN_BATCH, TRAIN_BATCH * D)
+    k4_ms = {k: prof.get(f"layer_norm_{k}_kernel_ms") for k in ("fwd", "bwd")}
+    emit({"phase": "train_ln_profile", **prof, "k4_device_ms": k4_ms,
+          "k4_bound_ms": {"fwd": bound_fwd, "bwd": bound_bwd}})
     del params, ds
     torch.cuda.empty_cache()
 
@@ -5396,7 +5531,7 @@ def ptxas_usage(log: str, needle: str) -> dict:
 
 
 def main(argv=None) -> int:
-    """No arguments: every phase. `--only k1` / `k2` / `k3` / `k5` / `k6`
+    """No arguments: every phase. `--only k1` / `k2` / `k3` / `k4` / `k5` / `k6`
     (one or more): the device and build phases and those kernels' checks
     alone (the quick look after an edit to them), with a last line that
     says so; `b1` the wrappers' host cost (`--package-root DIR`: another
@@ -5409,7 +5544,7 @@ def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", nargs="+", choices=("k1", "k2", "k3", "k5", "k6", "b1", "graph")
+    parser.add_argument("--only", nargs="+", choices=("k1", "k2", "k3", "k4", "k5", "k6", "b1", "graph")
                         + tuple(PHASES_ALONE), default=None)
     parser.add_argument("--package-root", default=None,
                         help="with --only b1: time the wrappers of the package under this directory")
@@ -5453,6 +5588,10 @@ def run_phases(args, smi, work_dir, exports) -> int:
                MEGA_KERNEL: ("_tc",), ot.KERNEL: ("_warp",)}
     usage = {name: {needle: ptxas_usage(_build.BUILD_LOGS.get(name, ""), needle) for needle in found}
              for name, found in needles.items()}
+    # K4: registers and spills of every forward and backward kernel (a
+    # spill in the register path would send the row to local memory)
+    k4_usage = {name: ptxas_usage(_build.BUILD_LOGS.get(name, ""), "layer_norm")
+                for name in (ln.KERNEL, ln.BWD_KERNEL)}
     # K5: registers, shared memory and spills of each kernel, and the
     # warpgroup int8 MMA in the GEMM's SASS
     k5_log = _build.BUILD_LOGS.get(quant.KERNEL, "")
@@ -5469,11 +5608,15 @@ def run_phases(args, smi, work_dir, exports) -> int:
                                  if "ptxas" in ln or "bytes" in ln] for name in (ot.KERNEL, MEGA_KERNEL)},
           "k5_ptxas": [ln.strip() for ln in k5_log.splitlines() if "ptxas" in ln or "bytes" in ln],
           "k5_registers_and_spill_bytes": k5_usage, "k5_gemm_sass_has_igmma": k5_sass,
+          "k4_registers_and_spill_bytes": k4_usage,
           "k5_gemm_blocks_per_sm": k5_blocks, "k5_gemm_dynamic_smem_bytes": k5_smem})
     for name, by_needle in usage.items():
         for needle, by_kernel in by_needle.items():
             check(seconds[name] == 0.0 or by_kernel, f"{name}: no {needle} kernel in the ptxas log")
             check(not any(spill for _, spill in by_kernel.values()), f"{name}: a {needle} kernel spills: {by_kernel}")
+    for name, by_kernel in k4_usage.items():
+        check(seconds[name] == 0.0 or by_kernel, f"{name}: no layer_norm kernel in the ptxas log")
+        check(not any(spill for _, spill in by_kernel.values()), f"{name}: a kernel spills: {by_kernel}")
     check(seconds[quant.KERNEL] == 0.0 or any("int8_gemm" in k for k in k5_usage),
           f"{quant.KERNEL}: no GEMM kernel in the ptxas log")
     check(not any(spill for _, spill in k5_usage.values()), f"{quant.KERNEL}: a kernel spills: {k5_usage}")
@@ -5500,7 +5643,7 @@ def run_phases(args, smi, work_dir, exports) -> int:
                 with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_root:
                     PHASES_ALONE[only](out_root)
                 continue
-            {"k1": check_k1, "k2": check_k2, "k3": check_k3, "k5": check_k5, "k6": check_k6,
+            {"k1": check_k1, "k2": check_k2, "k3": check_k3, "k4": check_k4, "k5": check_k5, "k6": check_k6,
              "b1": lambda *_: phase_b1(), "graph": lambda *_: only_graph()}[only](rows, errs, gen)
         if args.k6_split:
             k6_split(gen)

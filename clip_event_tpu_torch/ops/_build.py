@@ -120,13 +120,20 @@ def entry(name: str, symbol: str, argtypes):
     return found
 
 
-def on_device(device: torch.device):
-    """The context a launch on CUDA `device` needs: `torch.cuda.device` where
-    another device is current, else none (entering it costs host time on
-    every call)."""
-    if device.index is None or device.index == torch.cuda.current_device():
+def on_device(device):
+    """The context a launch on CUDA `device` (a `torch.device` or its index)
+    needs: `torch.cuda.device` where another device is current, else none
+    (entering it costs host time on every call)."""
+    index = device if isinstance(device, int) else device.index
+    if index is None or index == (_CURRENT_DEVICE or torch.cuda.current_device)():
         return _NO_CONTEXT
-    return torch.cuda.device(device)
+    return torch.cuda.device(index)
+
+
+# the current CUDA device's index without `torch.cuda.current_device`'s
+# initialisation check (a kernel wrapper has a CUDA tensor in hand, so
+# CUDA is initialised), where this build of PyTorch has it
+_CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

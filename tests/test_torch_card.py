@@ -23,9 +23,13 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
   int8): every metric finite and in [0, 1] where it is a rate;
 - K4 (`ops.ln`: the fused LayerNorm forward, the add + LayerNorm forward
   and their shared backward) and K6 (`ops.attention.fused_ln_qkv_attention`)
-  against their plain versions at a few shapes, fp32 and bf16 (K6 in its
+  against their plain versions at a few shapes, fp32 and bf16 (K4 on its
+  register path at every CLIP preset width and on its generic path at W =
+  100, with exact launch counts, one a backward call; K6 in its
   tensor-core variants at head_dim 64 and 32, S = 1 and 128, and in its
   simt variant at head_dim 20);
+- K4's backward captured in a CUDA graph and replayed twice: dx, dγ and dβ
+  equal to an eager call's bit for bit, on both paths;
 - K3 (`ops.ot.ipot_kernel`) against the plain solver in its warp variant
   (up to 32 entities and 32 objects) and its block variant, on both sides
   of that boundary, with a row without entities (its plan 0);
@@ -284,7 +288,7 @@ def test_eval_clis_vit_b32(fixtures_mod, tmp_path, module):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("n,w", [(64 * 77, 512), (1001, 640), (1, 1280), (37, 100)])
+@pytest.mark.parametrize("n,w", [(64 * 77, 512), (1001, 640), (1, 1280), (37, 100), (333, 768), (257, 1024)])
 def test_layer_norm_kernels_match_plain(fixtures_mod, n, w, dtype):
     from clip_event_tpu_torch.ops import ln
 
@@ -292,6 +296,8 @@ def test_layer_norm_kernels_match_plain(fixtures_mod, n, w, dtype):
     x, delta, dy, dxo = (torch.randn((n, w), device="cuda", generator=gen).to(dtype) for _ in range(4))
     gamma = 1.0 + 0.1 * torch.randn((w,), device="cuda", generator=gen)
     beta = 0.1 * torch.randn((w,), device="cuda", generator=gen)
+    # every CLIP preset width takes the register path, W = 100 the generic one
+    assert ln.register_path(w, x.data_ptr(), gamma.data_ptr()) == (w != 100)
     counts = (ln.fused_layer_norm.launches, ln.fused_add_layer_norm.launches, ln.fused_layer_norm_bwd.launches)
     y = ln.fused_layer_norm(x, gamma, beta)
     xs, y2 = ln.fused_add_layer_norm(x, delta, gamma, beta)
@@ -311,6 +317,34 @@ def test_layer_norm_kernels_match_plain(fixtures_mod, n, w, dtype):
     for a, b in zip(got, ln.layer_norm_bwd_plain(xs, gamma, dy, dxo)):
         rel = ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
         assert rel <= bwd_tol, rel
+
+
+@pytest.mark.parametrize("with_dx_out", [False, True], ids=["ln", "add_ln"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,w", [(19200, 768), (333, 1280), (37, 100)])
+def test_layer_norm_bwd_graph_replay_equal_bits(fixtures_mod, n, w, dtype, with_dx_out):
+    """K4c's grid counters are left at 0 by every launch, so a graph that
+    captured the call replays it with the eager call's bits."""
+    from clip_event_tpu_torch.ops import ln
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, dy, dxo = (torch.randn((n, w), device="cuda", generator=gen).to(dtype) for _ in range(3))
+    gamma = 1.0 + 0.1 * torch.randn((w,), device="cuda", generator=gen)
+    dxo = dxo if with_dx_out else None
+    eager = ln.fused_layer_norm_bwd(x, gamma, dy, dxo)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ln.fused_layer_norm_bwd(x, gamma, dy, dxo)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = ln.fused_layer_norm_bwd(x, gamma, dy, dxo)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager))
+    assert all(torch.equal(a, b) for a, b in zip(ln.fused_layer_norm_bwd(x, gamma, dy, dxo), eager))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

@@ -301,11 +301,17 @@ def test_launch_counters_stay_zero_on_the_cpu():
     (s.sum() + y.sum()).backward()
     assert before == (TLN.fused_layer_norm.launches, TLN.fused_add_layer_norm.launches,
                       TLN.fused_layer_norm_bwd.launches)
-    assert TLN.BWD_LAUNCHES_PER_CALL == 2
-    # the backward's grid: a few hundred row blocks at most, never more
-    # than the rows need
-    assert TLN.bwd_blocks(88704, 512, 132) == 528 and TLN.bwd_blocks(5, 512, 132) == 2
-    assert TLN.bwd_blocks(10**6, TLN.MAX_WIDTH, 132) == 132
+    assert TLN.BWD_LAUNCHES_PER_CALL == 1
+    # the backward's grid: the blocks the SMs hold at once (132 SMs; 5 or 1
+    # blocks an SM by the kernel's occupancy), never more than the rows
+    # need, nor than MAX_BWD_BLOCKS; and the groups of its reduction
+    assert TLN.bwd_blocks(88704, 132, 5) == 660 and TLN.bwd_blocks(5, 132, 5) == 2
+    assert TLN.bwd_blocks(10**6, 132, 1) == 132
+    assert TLN.bwd_blocks(10**7, 132, 64) == TLN.MAX_BWD_BLOCKS == 4096
+    # the register path: one block an SM of as many warps as fit (12 at
+    # W = 768 in bf16), a row a warp at a time
+    assert TLN.bwd_blocks(14784, 132, 1, 12) == 132 and TLN.bwd_blocks(100, 132, 1, 12) == 9
+    assert [TLN.bwd_groups(g) for g in (1, 2, 4, 5, 132, 660, 4096)] == [1, 1, 2, 2, 11, 26, 64]
 
 
 def test_calibration_pass_stays_plain(monkeypatch):

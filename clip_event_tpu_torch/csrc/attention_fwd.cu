@@ -29,40 +29,30 @@
 // wrapper's `k1_variant` is the same function as K2's `headgrid_variant`).
 // None gives way to another.
 //
-// "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores
-// (mma.sync.m16n8k16 bf16, fp32 accumulators, fragments by ldmatrix; the
-// helpers are in attention_mma.cuh, shared with K2). What the design does
-// about the bound, for K1's short sequences:
-//   * The whole head fits: one block per (batch item, head) stages its Q,
-//     K and V rows once, bf16, by cp.async into tiles padded by 16 bytes a
-//     row (conflict-free ldmatrix), 2 x 128 x 72 x 2 B = 36.9 KB of K and V
-//     at S = 128, D = 64. No ring, and qkv is read exactly once.
-//   * ceil(S/16) warps a block, each owning 16 query rows: 5 at S = 77, 4
-//     at S = 50. K2's 64-row query tiles would leave most of a second block
-//     idle at S = 77 and load K and V twice.
-//   * One pass, not an online walk: with every key present, a warp forms
-//     its 16 x S score tile in fp32 accumulators (16-key chunks past S are
-//     skipped), applies scale * log2 e and the bias there, sets keys >= S
-//     to -inf, takes the row max over the 4 lanes that share a row, and
-//     exponentiates with exp2f. A row whose max is -inf takes its exponent
-//     against 0, so -inf - (-inf) never forms. The copies of Q and K land
-//     before V's: the scores overlap V's copy.
-//   * P is rounded to bf16 in registers (two neighbouring accumulator
-//     tiles are one A fragment) and multiplied with V's fragments from
-//     ldmatrix.trans. The row sum l adds the unrounded fp32 p; O / l in
-//     fp32, rounded to bf16, staged in the warp's own (spent) Q rows and
-//     written with 16-byte stores; lse = m * ln 2 + log l.
-//   * Tile rows past S are zero-filled by cp.async (src-size 0), never
-//     stale: 0 x NaN would poison the products. Query rows past S are
-//     computed on zeros and neither stored nor given an lse.
+// "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores:
+// Hopper's warpgroup MMA (wgmma) fed by TMA, the device routine
+// `wg::attend_fwd` of attention_wgmma.cuh, which K2 wraps too (the design
+// and what it does about the bound are there). For K1's short sequences:
+//   * Every head is resident: S <= 128 is at most two 64-key chunks, loaded
+//     once by TMA, and the query tiles of a head (one at S <= 64, two at
+//     S = 77) are dealt to the block's three consumer warpgroups, rotated
+//     by the head, so the 13-row tile at S = 77 costs one warpgroup's
+//     masked math.
+//   * Persistent blocks, one an SM, walk the B * H heads; a producer
+//     thread keeps the ring's chunks (eleven slots at D = 64: five heads
+//     at S = 77) loading while the consumers compute, where the mma.sync
+//     kernel before it copied, then computed, then stored, one head a
+//     block.
+//   * P is rounded to bf16 before P.V; the row sum l adds the unrounded
+//     fp32 p; lse = m * ln 2 + log l. Rows and keys past S are zeros from
+//     the TMA's bounds, and masked.
 //
 // "tf32x3": fp32 with D in {16, 32, 64, 128}, on the tensor cores in split
 // TF32 (mma.sync.m16n8k8 tf32, three products a term, lo.hi' + hi.lo' +
 // hi.hi'; helpers and the error argument in attention_mma.cuh), held to
-// the same 1e-5 as the fp32 plain version. The mma variant's block (one per
-// (b, h), ceil(S/16) warps of 16 query rows, the whole head staged once by
-// cp.async, here in fp32 tiles of D + 4 floats a row: 65 KB at S = 77,
-// D = 64). Each warp's core is `mma::attend_rows_tf32x3` (attention_mma.cuh,
+// the same 1e-5 as the fp32 plain version. One block per (b, h), ceil(S/16)
+// warps of 16 query rows, the whole head staged once by cp.async in fp32
+// tiles of D + 4 floats a row: 65 KB at S = 77, D = 64. Each warp's core is `mma::attend_rows_tf32x3` (attention_mma.cuh,
 // shared with K6, csrc/ln_qkv_attention.cu). What differs:
 //   * A walk over 32-key chunks with K2's online softmax, not one pass:
 //     the loop body stays small, and a chunk's 4 score tiles (16
@@ -87,13 +77,15 @@
 // limited by shared-memory loads.
 //
 // Limits, checked by the Python wrapper too: S <= 128, D <= 128; the mma
-// and tf32x3 variants need 16-byte-aligned qkv and out.
+// and tf32x3 variants need 16-byte-aligned qkv and out, and the mma
+// variant's TMA a row pitch (6W bytes) that is a multiple of 16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -102,161 +94,23 @@ constexpr int kMaxD = 128;
 
 // ---------------------------------------------------------------- mma
 
-constexpr int kMmaWarps = kMaxS / 16;  // most warps a block takes: 16 query rows each
-constexpr int kKeyChunks = kMaxS / 16;  // 16-key chunks of the longest head
-
-template <int D>
-constexpr size_t fwd_mma_smem_bytes(int rows) {
-  // Q, K and V tiles of `rows` padded rows
-  return (size_t)3 * rows * (D + mma::kPad) * sizeof(__nv_bfloat16);
-}
+constexpr int kMmaWarps = kMaxS / 16;  // the tf32x3 variant's most warps a block: 16 query rows each
 
 template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-attention_fwd_kernel_mma(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
-                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H,
-                         float scale_log2e) {
-  using namespace mma;
-  constexpr int kStride = D + kPad;
-  constexpr int kSteps = D / 16;  // k-steps over the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int rows = blockDim.x / 2;  // 16 per warp: S rounded up to 16
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [rows][D+8]
-  __nv_bfloat16* sK = sQ + rows * kStride;                         // [rows][D+8]
-  __nv_bfloat16* sV = sK + rows * kStride;                         // [rows][D+8]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int W = H * D;
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const size_t row = 3 * (size_t)W;  // packed rows are 3W apart
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row + h * D;
-
-  load_warp_rows<D>(sQ, base, row, S, tid, blockDim.x);
-  load_warp_rows<D>(sK, base + W, row, S, tid, blockDim.x);
-  cp_async_commit();
-  load_warp_rows<D>(sV, base + 2 * W, row, S, tid, blockDim.x);
-  cp_async_commit();
-  cp_async_wait<1>();  // Q and K have landed; V is in flight
-  __syncthreads();
-
-  const int nkc = (S + 15) >> 4;  // 16-key chunks that hold a key below S
-  const int row_g = warp * 16 + g;  // this thread's rows: row_g, row_g + 8
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) load_a(qf[ks], sQ, kStride, warp * 16, ks * 16, lane);
-
-  // scores of 16 rows x every key, fp32, then in units of log2 with the
-  // scale, the bias and the key tail's mask
-  float s[2 * kKeyChunks][4];
-#pragma unroll
-  for (int n = 0; n < 2 * kKeyChunks; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < kKeyChunks; ++kc) {
-    if (kc < nkc) {
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        uint32_t kb[4];
-        load_b_nk(kb, sK, kStride, kc * 16, ks * 16, lane);
-        mma_bf16(s[2 * kc], qf[ks], kb[0], kb[1]);
-        mma_bf16(s[2 * kc + 1], qf[ks], kb[2], kb[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 2 * kKeyChunks; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = n * 8 + 2 * t4 + (e & 1);
-      float v = s[n][e] * scale_log2e;
-      if constexpr (HAS_BIAS) {
-        const int r = row_g + 8 * (e >> 1);
-        if (r < S && col < S) v += bias[(size_t)r * S + col] * kLog2e;
-      }
-      s[n][e] = col < S ? v : -INFINITY;
-    }
-  }
-
-  // one-pass softmax per row (rows row_g and row_g + 8): p = exp2(s - max)
-  // in place, the unrounded sum, lse
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 2 * kKeyChunks; ++n)
-      if (n < 2 * nkc) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-    mx = quad_max(mx);
-    const float m_safe = mx == -INFINITY ? 0.f : mx;
-    float psum = 0.f;
-#pragma unroll
-    for (int n = 0; n < 2 * kKeyChunks; ++n) {
-      if (n < 2 * nkc) {
-        const float p0 = exp2f(s[n][2 * r] - m_safe);
-        const float p1 = exp2f(s[n][2 * r + 1] - m_safe);
-        s[n][2 * r] = p0;
-        s[n][2 * r + 1] = p1;
-        psum += p0 + p1;
-      }
-    }
-    const float l = quad_sum(psum);
-    inv[r] = l > 0.f ? 1.f / l : 0.f;
-    const int ri = row_g + 8 * r;
-    if (lse != nullptr && t4 == 0 && ri < S)
-      lse[(size_t)bh * S + ri] = l > 0.f ? mx * kLn2 + logf(l) : 0.f;
-  }
-
-  cp_async_wait<0>();
-  __syncthreads();  // V has landed
-
-  // O = P . V, P rounded to bf16 in registers
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < kKeyChunks; ++kc) {
-    if (kc < nkc) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int dn = 0; dn < kSteps; ++dn) {
-        uint32_t vb[4];
-        load_b_kn(vb, sV, kStride, kc * 16, dn * 16, lane);
-        mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-  store_rows<D>(sQ + warp * 16 * kStride, o, inv[0], inv[1],
-                out + ((size_t)b * S + warp * 16) * W + h * D, (size_t)W, S - warp * 16, lane);
-}
-
-template <int D, bool HAS_BIAS>
-int launch_mma(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
-               float scale, cudaStream_t stream) {
-  static bool smem_allowed[mma::kMaxDevices] = {};
-  auto kernel = attention_fwd_kernel_mma<D, HAS_BIAS>;
-  const int e = mma::allow_smem_once(kernel, fwd_mma_smem_bytes<D>(16 * kMmaWarps), smem_allowed);
-  if (e) return e;
-  const long long blocks = (long long)B * H;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const int warps = (S + 15) / 16;
-  kernel<<<(unsigned)blocks, warps * 32, fwd_mma_smem_bytes<D>(16 * warps), stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), bias, static_cast<__nv_bfloat16*>(out), lse, S, H,
-      scale * mma::kLog2e);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(wg::Geo<D>::kThreads, 1)
+attention_fwd_kernel_wgmma(const __grid_constant__ wg::FwdParams p) {
+  wg::attend_fwd<D, HAS_BIAS>(p);
 }
 
 template <int D>
-int launch_mma_d(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
-                 float scale, cudaStream_t stream) {
-  if (bias != nullptr) return launch_mma<D, true>(qkv, bias, out, lse, B, S, H, scale, stream);
-  return launch_mma<D, false>(qkv, bias, out, lse, B, S, H, scale, stream);
+int launch_wgmma(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H, float scale,
+                 cudaStream_t stream) {
+  static bool smem_allowed[2][wg::kMaxDevices] = {};
+  if (bias != nullptr)
+    return wg::launch_fwd<D>(attention_fwd_kernel_wgmma<D, true>, smem_allowed[1], qkv, bias, out, lse, B, S, H,
+                             scale, stream);
+  return wg::launch_fwd<D>(attention_fwd_kernel_wgmma<D, false>, smem_allowed[0], qkv, bias, out, lse, B, S, H,
+                           scale, stream);
 }
 
 // ---------------------------------------------------------------- tf32x3
@@ -463,8 +317,8 @@ int launch(const void* qkv, const float* bias, void* out, int B, int S, int H, i
 }  // namespace
 
 // The variant that takes (dtype, D), K2's rule: 1 = "mma" (bf16 on the
-// tensor cores), 2 = "tf32x3" (fp32 on the tensor cores, split TF32), 0 =
-// "simt" (the CUDA cores). dtype: 0 = fp32, 1 = bf16.
+// tensor cores, wgmma), 2 = "tf32x3" (fp32 on the tensor cores, split
+// TF32), 0 = "simt" (the CUDA cores). dtype: 0 = fp32, 1 = bf16.
 extern "C" int clip_attention_variant(int dtype, int D) {
   if (D != 16 && D != 32 && D != 64 && D != 128) return 0;
   return dtype == 1 ? 1 : dtype == 0 ? 2 : 0;
@@ -482,10 +336,10 @@ extern "C" int clip_attention_fwd(const void* qkv, const void* bias, void* out, 
   switch (clip_attention_variant(dtype, D)) {
     case 1:
       switch (D) {
-        case 16: return launch_mma_d<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-        case 32: return launch_mma_d<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-        case 64: return launch_mma_d<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-        default: return launch_mma_d<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 16: return launch_wgmma<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 32: return launch_wgmma<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 64: return launch_wgmma<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        default: return launch_wgmma<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
       }
     case 2:
       switch (D) {

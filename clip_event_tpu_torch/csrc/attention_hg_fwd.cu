@@ -39,43 +39,33 @@
 // anything launches (`clip_attention_hg_variant`; the Python wrapper's
 // `headgrid_variant` mirrors it). None gives way to another.
 //
-// "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores
-// (mma.sync.m16n8k16 bf16, fp32 accumulators, fragments by ldmatrix; the
-// helpers are in attention_mma.cuh). What the design does about the bound:
-//   * 4 warps a block, each owning 16 query rows for the whole walk. Q
-//     fragments are loaded once; the output accumulator (16 x D fp32), the
-//     running max and the running sum live in registers.
-//   * K and V stay bf16 in shared memory, rows padded by 16 bytes so that
-//     ldmatrix is conflict-free. They walk through a two-stage cp.async
-//     ring of 64-key tiles, so tile j+1 loads while tile j multiplies. A
-//     ring rather than the whole head staged once: "any S" needs the walk
-//     anyway, and 46 KB a block at D = 64 lets four blocks share an SM
-//     where a staged head (66 KB at S = 257, more at D = 128) allows
-//     three or fewer.
-//   * S = Q.K^T per tile with K's row-major [key][d] rows as the "col"
-//     operand. Scores stay fp32 in the accumulator: scale (times log2 e)
-//     and bias are applied there, keys >= S get -inf before the row max,
-//     the online softmax reduces over the 4 lanes that share a row and
-//     uses exp2f. A row that has seen only -inf so far keeps m = -inf; the
-//     exponent is taken against 0 then, so -inf - (-inf) never forms.
-//   * P is rounded to bf16 in registers (two neighbouring accumulator
-//     tiles are one A fragment) and multiplied with V's fragments from
-//     ldmatrix.trans. The row sum l adds the unrounded fp32 p.
-//   * Tile rows past S are zero-filled by cp.async (src-size 0), never
-//     stale: 0 x NaN would poison the products. Query rows past S are
-//     computed on zeros and not stored; a warp whose 16 rows are all past
-//     S skips the math but reaches every barrier. 16-key chunks past S are
-//     skipped.
-//   * O / l in fp32, rounded to bf16, staged in the warp's own (spent) Q
-//     rows and written with 16-byte stores.
+// "mma": bf16 with D in {16, 32, 64, 128}, on the tensor cores:
+// Hopper's warpgroup MMA (wgmma) fed by TMA, the device routine
+// `wg::attend_fwd` of attention_wgmma.cuh, which K1 wraps too (the design
+// and what it does about the bound are there). Where the kernel it
+// replaced ran one block a 64-row query tile and re-read the head's K and
+// V for each (5 times at S = 257, for one row of work in the fifth), a
+// head's K and V now pass through shared memory once: persistent blocks,
+// one an SM, walk the B * H heads, a producer thread loads each head's
+// 64-key chunks by TMA into a ring of slots (eleven at D = 64: two heads at
+// S = 257) while three consumer warpgroups walk every query tile of the
+// head against them under an online softmax. A head longer than the ring
+// (S > 704 at D = 64, 320 at D = 128) is walked in passes of one tile a
+// warpgroup, its chunks loaded again each pass.
 //
 // "tf32x3": fp32 with D in {16, 32, 64, 128}, on the tensor cores in split
 // TF32 (mma.sync.m16n8k8 tf32, three products a term; helpers and the
 // error argument in attention_mma.cuh), held to the same 1e-5 as the fp32
-// plain version. The mma variant's design on fp32 tiles (rows padded to
-// D + 4 floats, 85 KB a block at D = 64, so two blocks share an SM; 165 KB
-// at D = 128, one block an SM: no path runs D = 128, and 64-key tiles keep
-// one code for every D). What differs:
+// plain version. One block of 4 warps per (batch item, head, 64-row query
+// tile), each warp owning 16 query rows for the whole walk, with the
+// output accumulator, running max and running sum in registers; K and V
+// pass through a two-stage cp.async ring of 64-key fp32 tiles (rows
+// padded to D + 4 floats, 85 KB a block at D = 64, so two blocks share an
+// SM; 165 KB at D = 128, one block an SM); scores stay fp32 in the
+// accumulators, where scale, bias and the -inf masks of keys past S are
+// applied, with the online softmax over the 4 lanes that share a row;
+// tile rows past S are zero-filled by cp.async (src-size 0), never stale.
+// In split TF32:
 //   * Q's hi and lo fragments are split once and held at D <= 64; at
 //     D = 128 they are reloaded and split per k-step of each key tile.
 //   * K's fragments come by ldmatrix and are split per use; scores stay
@@ -94,211 +84,35 @@
 // the dot product. It is limited by shared-memory loads.
 //
 // Limits, checked by the Python wrapper too: D <= 128; any S >= 1; the mma
-// and tf32x3 variants need 16-byte-aligned qkv and out.
+// and tf32x3 variants need 16-byte-aligned qkv and out, and the mma
+// variant's TMA a row pitch (6W bytes) that is a multiple of 16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- mma
 
-template <int D>
-constexpr size_t fwd_mma_smem_bytes() {
-  // Q tile + two stages of K and V tiles
-  return (size_t)5 * mma::kTile * (D + mma::kPad) * sizeof(__nv_bfloat16);
-}
-
 template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(mma::kThreads)
-attention_hg_fwd_kernel_mma(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
-                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H,
-                            float scale_log2e) {
-  using namespace mma;
-  constexpr int kStride = D + kPad;
-  constexpr int kSteps = D / 16;   // k-steps over the head dim
-  constexpr int kChunks = kTile / 16;  // 16-key chunks of a tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][D+8]
-  __nv_bfloat16* sK = sQ + kTile * kStride;                        // [2][64][D+8]
-  __nv_bfloat16* sV = sK + 2 * kTile * kStride;                    // [2][64][D+8]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int W = H * D;
-  const int q_tiles = (S + kTile - 1) / kTile;
-  const int bh = blockIdx.x / q_tiles;
-  const int i0 = (blockIdx.x - bh * q_tiles) * kTile;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const size_t row = 3 * (size_t)W;  // packed rows are 3W apart
-  const __nv_bfloat16* base = qkv + (size_t)b * S * row + h * D;
-  const int nq = min(kTile, S - i0);
-  const int k_tiles = q_tiles;
-
-  load_tile<D>(sQ, base + (size_t)i0 * row, row, nq, tid);
-  load_tile<D>(sK, base + W, row, min(kTile, S), tid);
-  load_tile<D>(sV, base + 2 * W, row, min(kTile, S), tid);
-  cp_async_commit();
-
-  const bool active = warp * 16 < nq;  // else all 16 rows are past S
-  const int row_g = i0 + warp * 16 + g;  // this thread's rows: row_g, row_g + 8
-  uint32_t qf[kSteps][4];
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    if (kt + 1 < k_tiles) {
-      const int stage = (kt + 1) & 1;
-      const int j1 = (kt + 1) * kTile;
-      load_tile<D>(sK + stage * kTile * kStride, base + (size_t)j1 * row + W, row,
-                   min(kTile, S - j1), tid);
-      load_tile<D>(sV + stage * kTile * kStride, base + (size_t)j1 * row + 2 * W, row,
-                   min(kTile, S - j1), tid);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile kt (and Q) has landed; tile kt + 1 is in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (active) {
-      if (kt == 0) {
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) load_a(qf[ks], sQ, kStride, warp * 16, ks * 16, lane);
-      }
-      const __nv_bfloat16* ks_tile = sK + (kt & 1) * kTile * kStride;
-      const __nv_bfloat16* vs_tile = sV + (kt & 1) * kTile * kStride;
-      const int j0 = kt * kTile;
-      const int nk = min(kTile, S - j0);
-
-      // scores of 16 rows x 64 keys, fp32
-      float s[2 * kChunks][4];
-#pragma unroll
-      for (int n = 0; n < 2 * kChunks; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kChunks; ++kc) {
-        if (kc * 16 < nk) {
-#pragma unroll
-          for (int ks = 0; ks < kSteps; ++ks) {
-            uint32_t kb[4];
-            load_b_nk(kb, ks_tile, kStride, kc * 16, ks * 16, lane);
-            mma_bf16(s[2 * kc], qf[ks], kb[0], kb[1]);
-            mma_bf16(s[2 * kc + 1], qf[ks], kb[2], kb[3]);
-          }
-        }
-      }
-
-      // scale, bias, the key tail's mask, in units of log2
-      const bool tail = j0 + kTile > S;
-#pragma unroll
-      for (int n = 0; n < 2 * kChunks; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j0 + n * 8 + 2 * t4 + (e & 1);
-          float v = s[n][e] * scale_log2e;
-          if constexpr (HAS_BIAS) {
-            const int r = row_g + 8 * (e >> 1);
-            if (r < S && col < S) v += bias[(size_t)r * S + col] * kLog2e;
-          }
-          if (tail && col >= S) v = -INFINITY;
-          s[n][e] = v;
-        }
-      }
-
-      // online softmax per row (rows row_g and row_g + 8)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < 2 * kChunks; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-        mx = quad_max(mx);
-        const float m_new = fmaxf(m_run[r], mx);
-        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-        const float corr = exp2f(m_run[r] - m_safe);  // 0 while m_run is -inf
-        m_run[r] = m_new;
-        float psum = 0.f;
-#pragma unroll
-        for (int n = 0; n < 2 * kChunks; ++n) {
-          const float p0 = exp2f(s[n][2 * r] - m_safe);
-          const float p1 = exp2f(s[n][2 * r + 1] - m_safe);
-          s[n][2 * r] = p0;
-          s[n][2 * r + 1] = p1;
-          psum += p0 + p1;
-        }
-        l_run[r] = l_run[r] * corr + psum;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          o[n][2 * r] *= corr;
-          o[n][2 * r + 1] *= corr;
-        }
-      }
-
-      // O += P . V, P rounded to bf16 in registers
-#pragma unroll
-      for (int kc = 0; kc < kChunks; ++kc) {
-        if (kc * 16 < nk) {
-          uint32_t pa[4];
-          pack_a(pa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-          for (int dn = 0; dn < kSteps; ++dn) {
-            uint32_t vb[4];
-            load_b_kn(vb, vs_tile, kStride, kc * 16, dn * 16, lane);
-            mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
-            mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the stage is free for the copy after next
-  }
-
-  if (active) {
-    float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float l = quad_sum(l_run[r]);
-      inv[r] = l > 0.f ? 1.f / l : 0.f;
-      const int ri = row_g + 8 * r;
-      if (lse != nullptr && t4 == 0 && ri < S)
-        lse[(size_t)bh * S + ri] = l > 0.f ? m_run[r] * kLn2 + logf(l) : 0.f;
-    }
-    store_rows<D>(sQ + warp * 16 * kStride, o, inv[0], inv[1],
-                  out + ((size_t)b * S + i0 + warp * 16) * W + h * D, (size_t)W,
-                  nq - warp * 16, lane);
-  }
-}
-
-template <int D, bool HAS_BIAS>
-int launch_mma(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
-               float scale, cudaStream_t stream) {
-  static bool smem_allowed[mma::kMaxDevices] = {};
-  auto kernel = attention_hg_fwd_kernel_mma<D, HAS_BIAS>;
-  constexpr size_t smem = fwd_mma_smem_bytes<D>();
-  const int e = mma::allow_smem_once(kernel, smem, smem_allowed);
-  if (e) return e;
-  const long long blocks = (long long)B * H * ((S + mma::kTile - 1) / mma::kTile);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, mma::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), bias, static_cast<__nv_bfloat16*>(out), lse, S, H,
-      scale * mma::kLog2e);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(wg::Geo<D>::kThreads, 1)
+attention_hg_fwd_kernel_wgmma(const __grid_constant__ wg::FwdParams p) {
+  wg::attend_fwd<D, HAS_BIAS>(p);
 }
 
 template <int D>
-int launch_mma_d(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H,
-                 float scale, cudaStream_t stream) {
-  if (bias != nullptr) return launch_mma<D, true>(qkv, bias, out, lse, B, S, H, scale, stream);
-  return launch_mma<D, false>(qkv, bias, out, lse, B, S, H, scale, stream);
+int launch_wgmma(const void* qkv, const float* bias, void* out, float* lse, int B, int S, int H, float scale,
+                 cudaStream_t stream) {
+  static bool smem_allowed[2][wg::kMaxDevices] = {};
+  if (bias != nullptr)
+    return wg::launch_fwd<D>(attention_hg_fwd_kernel_wgmma<D, true>, smem_allowed[1], qkv, bias, out, lse, B, S,
+                             H, scale, stream);
+  return wg::launch_fwd<D>(attention_hg_fwd_kernel_wgmma<D, false>, smem_allowed[0], qkv, bias, out, lse, B, S, H,
+                           scale, stream);
 }
 
 // ---------------------------------------------------------------- tf32x3
@@ -700,9 +514,9 @@ int launch(const void* qkv, const float* bias, void* out, int B, int S, int H, i
 
 }  // namespace
 
-// The variant that takes (dtype, D): 1 = "mma" (bf16 on the tensor cores),
-// 2 = "tf32x3" (fp32 on the tensor cores, split TF32), 0 = "simt" (the
-// CUDA cores). dtype: 0 = fp32, 1 = bf16.
+// The variant that takes (dtype, D): 1 = "mma" (bf16 on the tensor cores,
+// wgmma), 2 = "tf32x3" (fp32 on the tensor cores, split TF32), 0 = "simt"
+// (the CUDA cores). dtype: 0 = fp32, 1 = bf16.
 extern "C" int clip_attention_hg_variant(int dtype, int D) {
   if (D != 16 && D != 32 && D != 64 && D != 128) return 0;
   return dtype == 1 ? 1 : dtype == 0 ? 2 : 0;
@@ -720,10 +534,10 @@ extern "C" int clip_attention_hg_fwd(const void* qkv, const void* bias, void* ou
   switch (clip_attention_hg_variant(dtype, D)) {
     case 1:
       switch (D) {
-        case 16: return launch_mma_d<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-        case 32: return launch_mma_d<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-        case 64: return launch_mma_d<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
-        default: return launch_mma_d<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 16: return launch_wgmma<16>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 32: return launch_wgmma<32>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        case 64: return launch_wgmma<64>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
+        default: return launch_wgmma<128>(qkv, bias_f, out, lse_f, B, S, H, scale, s);
       }
     case 2:
       switch (D) {

@@ -68,14 +68,19 @@ def library_path(name: str) -> str:
 def build(names: Sequence[str]) -> Dict[str, float]:
     """Compile every named source whose library is missing, one `nvcc` per
     source, all started together. Returns the seconds each build took (0.0
-    for a library that was already there). Raises with the compiler's
-    output if one fails."""
+    for a library that was already there). The compiler's output is kept
+    beside each library (`<library>.log`) and read into BUILD_LOGS for a
+    library that was already there too. Raises with the compiler's output
+    if one fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     started = {}
     seconds = {name: 0.0 for name in names}
     for name in names:
         lib = library_path(name)
         if os.path.exists(lib):
+            if name not in BUILD_LOGS and os.path.exists(lib + ".log"):
+                with open(lib + ".log") as fh:
+                    BUILD_LOGS[name] = fh.read()
             continue
         # unique temporary name + atomic rename: concurrent builders never
         # load a half-written library
@@ -89,6 +94,9 @@ def build(names: Sequence[str]) -> Dict[str, float]:
         BUILD_LOGS[name] = log
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        with open(f"{tmp}.log", "w") as fh:
+            fh.write(log)
+        os.replace(f"{tmp}.log", lib + ".log")
         os.replace(tmp, lib)
     return seconds
 
@@ -134,6 +142,17 @@ def on_device(device):
 # initialisation check (a kernel wrapper has a CUDA tensor in hand, so
 # CUDA is initialised), where this build of PyTorch has it
 _CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def stream(index: int) -> int:
+    """The raw handle of the current stream on CUDA device `index`, without
+    building a `torch.cuda.Stream` where this build of PyTorch allows."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

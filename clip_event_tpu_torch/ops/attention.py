@@ -95,8 +95,10 @@ TF32X3_ONE_LAUNCH_MAX_HEAD_DIM = 64
 # `clip_attention_hg_variant` return 0, 1 or 2)
 _VARIANT_CODES = {0: "simt", 1: "mma", 2: "tf32x3"}
 _VARIANT_NUMBERS = {name: code for code, name in _VARIANT_CODES.items()}
-# the tensor-core variants read and write through cp.async and ldmatrix,
-# 16 bytes at a time
+# the tensor-core variants read and write 16 bytes at a time (cp.async and
+# ldmatrix; the mma forwards by TMA, whose tensor maps also need each row's
+# pitch, 6W bytes of qkv and 2W of out in bf16, a multiple of 16 bytes:
+# every head_dim the rule sends to "mma", 16 to 128, gives one)
 TENSOR_CORE_VARIANTS = ("mma", "tf32x3")
 MMA_ALIGN = 16
 # K2 takes heads in 128-lane groups, as the TPU kernel's lane blocks do
@@ -322,7 +324,9 @@ def _check_aligned(variant: str, **tensors) -> None:
 def _check_kernel_input(
     qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
     do: Optional[torch.Tensor] = None, head_grid: bool = False,
-):
+) -> str:
+    """Raise unless a kernel of K1 (K2 with `head_grid`) takes these CUDA
+    tensors; return the variant it takes them in."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, S, 3W], got {tuple(qkv.shape)}")
     B, S, W3 = qkv.shape
@@ -353,7 +357,7 @@ def _check_kernel_input(
     if bias is not None:
         if tuple(bias.shape) != (S, S):
             raise ValueError(f"bias must be [S, S] = [{S}, {S}], got {tuple(bias.shape)}")
-        if bias.device != qkv.device:
+        if bias.is_cuda != qkv.is_cuda or bias.get_device() != qkv.get_device():
             raise ValueError("bias must be on qkv's device")
     if do is not None and (
         tuple(do.shape) != (B, S, W) or do.dtype != qkv.dtype or do.device != qkv.device
@@ -362,8 +366,9 @@ def _check_kernel_input(
             f"do must be [B, S, W] = {(B, S, W)} in {qkv.dtype} on {qkv.device}, "
             f"got {tuple(do.shape)} in {do.dtype} on {do.device}"
         )
-    if qkv.device.type != "cuda":
+    if not qkv.is_cuda:
         raise ValueError(f"attention kernel needs a CUDA tensor, got {qkv.device}")
+    return variant
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -405,26 +410,26 @@ def _launch_fwd(qkv, bias, num_heads, scale, with_lse: bool, head_grid: bool):
     """Check and launch K1's (K2's with `head_grid`) forward kernel on a
     CUDA tensor. Returns (out, lse): lse is the [B, H, S] fp32 row
     log-sum-exp when `with_lse` and the input takes a tensor-core variant,
-    else None."""
-    _check_kernel_input(qkv, bias, num_heads, head_grid=head_grid)
+    else None. The mma variant encodes its TMA tensor maps on the host at
+    every launch (in the C entry point), which this call's host time
+    includes."""
+    variant = _check_kernel_input(qkv, bias, num_heads, head_grid=head_grid)
     B, S, W3 = qkv.shape
     W = W3 // 3
-    D = W // num_heads
     bias = _kernel_bias(bias)
     name, symbol = _FWD_ENTRY[head_grid]
     lib, fn = _build.entry(name, symbol, _FWD_ARGS)
-    out = torch.empty((B, S, W), dtype=qkv.dtype, device=qkv.device)
+    out = qkv.new_empty((B, S, W))
     lse = None
-    variant = headgrid_variant(qkv.dtype, D)
     if variant in TENSOR_CORE_VARIANTS:
         _check_aligned(variant, out=out)
         if with_lse:
-            lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=qkv.device)
-    with _build.on_device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+            lse = qkv.new_empty((B, num_heads, S), dtype=torch.float32)
+    index = qkv.get_device()
+    with _build.on_device(index):
         code = fn(
             qkv.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
-            B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], stream,
+            B, S, num_heads, W // num_heads, float(scale), _DTYPES[qkv.dtype], _build.stream(index),
         )
     _build.check(lib, code, f"{name} launch")
     return out, lse
@@ -464,11 +469,11 @@ def _launch_bwd(qkv, bias, do, out, lse, num_heads, scale, head_grid: bool) -> t
         _check_aligned(variant, out=out, dqkv=dqkv)
     else:
         out = lse = None
-    with _build.on_device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    index = qkv.get_device()
+    with _build.on_device(index):
         code = fn(
             qkv.data_ptr(), _ptr(bias), do.data_ptr(), _ptr(out), _ptr(lse), dqkv.data_ptr(),
-            _ptr(stats), B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], stream,
+            _ptr(stats), B, S, num_heads, D, float(scale), _DTYPES[qkv.dtype], _build.stream(index),
         )
     _build.check(lib, code, f"{name} launch")
     return dqkv
@@ -483,7 +488,7 @@ def fused_attention_qkv_fwd(
     `with_lse` asks the tensor-core variants ("mma", "tf32x3") for the
     [B, H, S] row log-sum-exp that `fused_attention_qkv_bwd` reads beside
     `out`."""
-    if qkv.device.type == "cpu":
+    if qkv.is_cpu:
         return fused_attention_qkv_plain(qkv, bias, num_heads, scale), None
     out, lse = _launch_fwd(qkv, bias, num_heads, scale, with_lse, head_grid=False)
     fused_attention_qkv.launches += 1
@@ -519,7 +524,7 @@ def fused_attention_qkv_headgrid_fwd(
     `with_lse` asks the tensor-core variants ("mma", "tf32x3") for the
     [B, H, S] row log-sum-exp that `fused_attention_qkv_headgrid_bwd` reads
     beside `out`."""
-    if qkv.device.type == "cpu":
+    if qkv.is_cpu:
         return fused_attention_qkv_plain(qkv, bias, num_heads, scale), None
     out, lse = _launch_fwd(qkv, bias, num_heads, scale, with_lse, head_grid=True)
     fused_attention_qkv_headgrid.launches += 1
@@ -617,8 +622,13 @@ def fused_attention_qkv(
     qkv: [B, S, 3W]; bias: additive [S, S] float mask or None. Returns
     [B, S, W] in qkv.dtype. CPU tensors take the plain versions; any other
     device must be a CUDA tensor the kernels take (fp32 or bf16, contiguous,
-    S <= 128, head_dim <= 128), else this raises."""
-    return _FusedAttention.apply(qkv, bias, num_heads, float(scale), "kernel")
+    S <= 128, head_dim <= 128), else this raises. Where no gradient is
+    wanted (grad mode off, or qkv not requiring one) the forward runs
+    without `autograd.Function` and saves nothing: the same launch, the
+    same bits."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FusedAttention.apply(qkv, bias, num_heads, float(scale), "kernel")
+    return fused_attention_qkv_fwd(qkv, bias, num_heads, scale)[0]
 
 
 def fused_attention_qkv_headgrid(
@@ -628,8 +638,12 @@ def fused_attention_qkv_headgrid(
     (K2, JAX `attention_pallas.py:490-496`): packed [B, S, 3W] in, [B, S, W]
     out, the gradient as packed dqkv, none for the bias. CPU tensors take
     the plain versions; any other device must be a CUDA tensor K2 takes
-    (fp32 or bf16, contiguous, `head_grid_supported`), else this raises."""
-    return _HeadGridAttention.apply(qkv, bias, num_heads, float(scale))
+    (fp32 or bf16, contiguous, `head_grid_supported`), else this raises.
+    Without a gradient wanted, as `fused_attention_qkv`: no
+    `autograd.Function`."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _HeadGridAttention.apply(qkv, bias, num_heads, float(scale))
+    return fused_attention_qkv_headgrid_fwd(qkv, bias, num_heads, scale)[0]
 
 
 def core_kernel(seq_len: int, width: int, num_heads: int) -> str:

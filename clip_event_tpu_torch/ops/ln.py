@@ -235,14 +235,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream(index: int) -> int:
-    """The current stream's handle on device `index`."""
-    if _RAW_STREAM is not None:
-        return _RAW_STREAM(index)
-    return torch.cuda.current_stream(index).cuda_stream
-
-
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 # device index → (SM count, {(W, dtype, add, path): (K4c blocks an SM
 # holds, warps a block)})
 _DEVICES: Dict[int, Tuple[int, Dict[tuple, Tuple[int, int]]]] = {}
@@ -295,7 +287,7 @@ def _launch_fwd(x, delta, scale, bias, eps):
     path = REGISTERS if register_path(w, *ptrs) else GENERIC
     with _build.on_device(index):
         code = fn(ptrs[0], _ptr(delta), ptrs[2], ptrs[3], _ptr(xsum), ptrs[1],
-                  x.numel() // w, w, float(eps), _DTYPES[x.dtype], path, _stream(index))
+                  x.numel() // w, w, float(eps), _DTYPES[x.dtype], path, _build.stream(index))
     _build.check(lib, code, f"{KERNEL} launch")
     return xsum, y
 
@@ -321,7 +313,7 @@ def _launch_bwd(x, scale, dy, dx_out, eps):
     scratch = x.new_empty(((1 + bwd_groups(blocks) + blocks) * 2, w), dtype=torch.float32)
     with _build.on_device(index):
         code = fn(ptrs[0], ptrs[3], ptrs[1], _ptr(dx_out), ptrs[2], scratch.data_ptr(), n, w, blocks,
-                  float(eps), dtype, path, _stream(index))
+                  float(eps), dtype, path, _build.stream(index))
     _build.check(lib, code, f"{BWD_KERNEL} launch")
     return dx, scratch[0], scratch[1]
 

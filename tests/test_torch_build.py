@@ -76,3 +76,32 @@ def test_the_repo_sources_name_their_headers():
             for inc in re.findall(r'#include\s+"([^"]+)"', fh.read()):
                 assert inc.endswith(_build.HEADER_SUFFIX) and inc in names, (name, inc)
     assert "-I" not in _build.NVCC_FLAGS  # the include path is the live CSRC_DIR, added per build
+
+
+def test_a_cached_library_keeps_its_compiler_output(csrc, tmp_path, monkeypatch):
+    """The compiler's output (ptxas's registers and notes) is kept beside a
+    library: a second build finds the library, takes 0 s, and still reads
+    the output into BUILD_LOGS, so checks on it run on a cached build too.
+    A stand-in for `nvcc` writes the library and prints one line."""
+    import stat
+    import sys
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('lib')\n"
+        "print('ptxas info    : Used 40 registers')\n"
+    )
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    first = _build.build(["b"])
+    assert first["b"] > 0.0 and "Used 40 registers" in _build.BUILD_LOGS["b"]
+    assert os.path.exists(_build.library_path("b") + ".log")
+    assert not [f for f in os.listdir(_build.BUILD_DIR) if ".tmp" in f]
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    again = _build.build(["b"])
+    assert again == {"b": 0.0}
+    assert "Used 40 registers" in _build.BUILD_LOGS["b"]

@@ -51,6 +51,11 @@ kernels with nvcc at first use). Run them on a machine with an H100 with
 - K1's fp32 tensor-core variant ("tf32x3") at the ViT-B/32 text and vision
   shapes and at head_dim 128 (two backward launches a call), within the
   fp32 gates, with the launch counts and bit checks;
+- K1's and K2's bf16 forwards on the warpgroup MMA: HGMMA in every wgmma
+  kernel's SASS, no serialized product, and at every head_dim the mma
+  variant takes, S = 1 and ragged S, the call without a gradient bit-equal
+  to the autograd call (one launch each), the rounded-plain gates and the
+  lse;
 - `.eval_retrieval` at ViT-B/32 with `"use_pallas_attention": false`: no
   attention kernel launches, and the process-wide choice is put back."""
 
@@ -608,6 +613,65 @@ def test_k1_tf32x3_variant_matches_the_plain_versions(fixtures_mod, tag, B, S, W
     assert (out - A.fused_attention_qkv_plain(qkv, bias, H, scale)).abs().max().item() <= 1e-5
     ref = A.fused_attention_qkv_bwd_plain(qkv, bias, do, H, scale)
     assert ((grad - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("head_grid", [False, True], ids=["k1", "k2"])
+def test_bf16_forwards_run_the_wgmma_kernel(fixtures_mod, head_grid):
+    """K1's and K2's bf16 forwards on Hopper's warpgroup MMA: HGMMA in every
+    wgmma kernel's SASS and, at the paths' head_dim 64, no product that ptxas
+    serialized; at each head_dim
+    the mma variant takes, S = 1, a ragged S and a path S (with and without
+    a bias), the call without a gradient (no `autograd.Function`) gives the
+    autograd call's bits and one launch each, within the rounded-plain
+    gates (PERF.md §2), with the lse the backward reads."""
+    import subprocess as sp
+
+    from clip_event_tpu_torch.models.layers import causal_mask
+    from clip_event_tpu_torch.ops import _build
+    from clip_event_tpu_torch.ops import attention as A
+
+    name = A.HG_KERNEL if head_grid else A.KERNEL
+    fn = A.fused_attention_qkv_headgrid if head_grid else A.fused_attention_qkv
+    fwd = A.fused_attention_qkv_headgrid_fwd if head_grid else A.fused_attention_qkv_fwd
+    _build.build([name])
+    assert not [ln for ln in _build.BUILD_LOGS.get(name, "").splitlines()
+                if "wgmma.mma_async instructions are serialized" in ln and "wgmmaILi64E" in ln]
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = sp.run([tool, "-sass", _build.library_path(name)], capture_output=True, text=True, check=True).stdout
+    kernels = sass.split("Function :")[1:]
+    wgmma = [k for k in kernels if "_wgmma" in k.split("\n", 1)[0]]
+    assert len(wgmma) == 8 and all("HGMMA" in k for k in wgmma)  # D 16-128, with and without a bias
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for d in A.MMA_HEAD_DIMS:
+        H = max(1, 128 // d) if head_grid else 2
+        W = H * d
+        for S in ((1, 200, 257) if head_grid else (1, 65, 77)):
+            for causal in (False, True):
+                qkv = torch.randn((3, S, 3 * W), device="cuda", generator=gen).to(torch.bfloat16)
+                bias = causal_mask(S, device="cuda") if causal else None
+                scale = d ** -0.5
+                A.fused_attention_qkv.launches = A.fused_attention_qkv_headgrid.launches = 0
+                lean = fn(qkv, bias, H, scale)
+                leaf = qkv.detach().requires_grad_(True)
+                graded = fn(leaf, bias, H, scale)
+                out, lse = fwd(qkv, bias, H, scale, with_lse=True)
+                torch.cuda.synchronize()
+                assert fn.launches == 3
+                assert lean.grad_fn is None and graded.grad_fn is not None
+                assert torch.equal(lean, graded.detach()) and torch.equal(lean, out)
+                ref = A.fused_attention_qkv_plain(qkv, bias, H, scale).float()
+                rounded = A.fused_attention_qkv_plain(qkv, bias, H, scale, mma_rounding=True).float()
+                top = ref.abs().max().item()
+                diff = (lean.float() - rounded).abs()
+                assert bool(torch.isfinite(lean).all())
+                assert (lean.float() - ref).abs().max().item() <= min(2e-2, 1e-2 * top)
+                assert diff.max().item() <= 8e-3 * top and diff.mean().item() <= 5e-4 * top
+                x = qkv.float().view(3, S, 3, H, d)
+                logits = torch.einsum("bqhd,bkhd->bhqk", x[:, :, 0], x[:, :, 1]) * scale
+                if bias is not None:
+                    logits = logits + bias
+                assert (lse - torch.logsumexp(logits, -1)).abs().max().item() <= 1e-3
 
 
 def test_eval_cli_with_plain_attention_launches_no_attention_kernel(fixtures_mod, tmp_path, monkeypatch, capsys):
